@@ -1,0 +1,16 @@
+"""repro_torch — PyTorch/CUDA port of the Spork reproduction (`repro`).
+
+The port mirrors the JAX package's module names so each counterpart is
+easy to find (`repro.sim.ratesim` -> `repro_torch.sim.ratesim`, ...). It
+imports torch, numpy and the standard library only: never `jax`, never
+`repro`. Where the JAX package vmaps over sweep cells, the port carries
+an explicit leading cell axis; where it scans over seconds, the port
+runs a Python loop; pytrees become NamedTuples of tensors.
+
+Every public entry point takes ``device=None``, which means the CUDA
+card (`repro_torch.device.resolve_device`); callers that want the CPU
+ask for it. The hand-written kernels live under `repro_torch.kernels`.
+
+What this slice covers (the rate-simulator main path behind Table 8)
+and what waits for later slices is tracked in ROADMAP.md.
+"""

@@ -1,0 +1,92 @@
+"""Carry the reference's parameters and simulator state across to the port.
+
+The reference (`repro`) keeps its per-cell parameters and state in JAX
+pytrees; the port keeps them in NamedTuples of tensors with a leading
+cell axis. These helpers take numpy arrays keyed by the reference's
+field names — a dict, or any NamedTuple such as the reference's own
+objects after ``np.asarray`` of each leaf — and build the port's
+objects, so both packages can start from the same mid-run state.
+`accum_to_numpy` goes the other way. Every array is batched: a leading
+cell axis, as the reference's vmapped sweep core lays it out.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.breakeven import ObjectiveCoeffs
+from repro_torch.device import resolve_device
+from repro_torch.policies import RateParams
+from repro_torch.sim.ratesim import Accum, FleetScalars, SimState
+
+_I32 = torch.int32
+_F32 = torch.float32
+_STATE_DTYPES = {
+    "up": _I32, "pending": _I32, "used_ring": _I32, "young_ring": _I32,
+    "dealloc_ring": _I32, "alloc_time": _F32, "H": _F32, "life_sum": _F32,
+    "life_cnt": _F32, "n_lag": _I32, "F_acc": _F32, "C_acc": _F32,
+    "cpu_prev": _I32, "queue": _F32, "lam_hist": _F32,
+}
+
+
+def _fields(src: Mapping[str, Any] | Any) -> Mapping[str, Any]:
+    return src._asdict() if hasattr(src, "_asdict") else src
+
+
+def _tensors(src, names, dtypes, dev) -> list[torch.Tensor]:
+    d = _fields(src)
+    return [torch.as_tensor(np.array(d[f]), dtype=dtypes[f], device=dev)
+            for f in names]
+
+
+def fleet_scalars(src, device: str | torch.device | None = None) -> FleetScalars:
+    """`FleetScalars` from ``(C,)`` arrays keyed S, B_f, ..., A_f_s."""
+    f = FleetScalars._fields
+    return FleetScalars(*_tensors(src, f, dict.fromkeys(f, _F32),
+                                  resolve_device(device)))
+
+
+def rate_params(src, device: str | torch.device | None = None) -> RateParams:
+    """`RateParams` from ``(C,)`` arrays keyed headroom, static_level, gain."""
+    return RateParams(*_tensors(
+        src, RateParams._fields,
+        {"headroom": _I32, "static_level": _I32, "gain": _F32},
+        resolve_device(device)))
+
+
+def objective_coeffs(src, device: str | torch.device | None = None
+                     ) -> ObjectiveCoeffs:
+    """`ObjectiveCoeffs` with ``(C,)`` float32 tensor leaves."""
+    f = ObjectiveCoeffs._fields
+    return ObjectiveCoeffs(*_tensors(src, f, dict.fromkeys(f, _F32),
+                                     resolve_device(device)))
+
+
+def accum(src, device: str | torch.device | None = None) -> Accum:
+    """`Accum` from ``(C,)`` arrays keyed by its field names."""
+    f = Accum._fields
+    return Accum(*_tensors(src, f, dict.fromkeys(f, _F32),
+                           resolve_device(device)))
+
+
+def sim_state(src, device: str | torch.device | None = None) -> SimState:
+    """`SimState` from batched arrays keyed by the reference's field
+    names (``accum`` a nested mapping or NamedTuple). The reference
+    keeps ``t`` per cell; the port shares one Python int across the
+    chunk, so every cell must be at the same second."""
+    d = _fields(src)
+    ts = np.unique(np.asarray(d["t"]))
+    if len(ts) != 1:
+        raise ValueError(f"cells must share the second t, got {ts.tolist()}")
+    dev = resolve_device(device)
+    names = tuple(_STATE_DTYPES)
+    return SimState(**dict(zip(names, _tensors(d, names, _STATE_DTYPES, dev))),
+                    t=int(ts[0]), accum=accum(d["accum"], dev))
+
+
+def accum_to_numpy(acc: Accum) -> dict[str, np.ndarray]:
+    """The port's `Accum` as numpy arrays keyed by field name."""
+    return {f: leaf.detach().cpu().numpy() for f, leaf in zip(Accum._fields, acc)}

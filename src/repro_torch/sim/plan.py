@@ -1,0 +1,221 @@
+"""Sweep planning: cell lists -> explicit, testable dispatch plans.
+
+Port of the rate half of `repro.sim.plan`. `plan_sweep(cells)` turns a
+list of `repro_torch.sim.sweep.SweepCell` into a `SweepPlan`: group keys,
+chunk shapes, padding and result scatter indices, all computed host-side
+with no device work. Each `ChunkDispatch` names the static arguments of
+one batched simulator call plus the padded host arrays (cell axis
+first) and the cell indices its rows scatter back to.
+
+Invariants (held by tests/test_torch_sweep.py):
+
+  * the ``cell_idx`` lists concatenate to a permutation of
+    ``range(len(cells))`` — each cell is dispatched exactly once;
+  * padding repeats row 0 of each chunk (padded rows are discarded by
+    the scatter);
+  * rate chunks are exactly CHUNK or CHUNK_BIG cells.
+
+Cells that name a workload scenario (``scenario=``) or carry a failure
+model (``failures=``) are not supported by this slice: `plan_sweep`
+raises NotImplementedError for them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Iterable, Sequence
+
+import numpy as np
+
+from repro_torch.core.metrics import Report, RunTotals, report
+from repro_torch.core.workers import FleetParams
+from repro_torch.policies import get_rate_policy
+from repro_torch.sim.ratesim import (Accum, accum_to_totals,
+                                     fleet_scalars_np, static_level_for)
+
+# Cells per dispatch. Every chunk is padded to one of exactly two shapes
+# (small grids -> CHUNK, expanded grids like headroom tuning -> rounds of
+# CHUNK_BIG), as in the reference; a padded-out cell costs little.
+CHUNK = 32
+CHUNK_BIG = 256
+
+_N_MAX_CAP = 512
+
+# Policies whose dynamics are independent of the scheduling interval and
+# FPGA spin-up latency (`latency_free`) are regrouped under one canonical
+# static key so every spin-up value shares a group.
+_CANON_INTERVAL = 10
+
+
+def check_cells(cells: Sequence) -> None:
+    """Reject cells this slice cannot run: scenario-bearing cells (the
+    workload library is not ported yet), failure-bearing cells (the
+    failure model is not ported yet) and cells without demand."""
+    for c in cells:
+        if c.scenario is not None:
+            raise NotImplementedError(
+                "SweepCell(scenario=...) needs the workload scenario "
+                "library, which repro_torch does not port yet")
+        if c.failures is not None:
+            raise NotImplementedError(
+                "SweepCell(failures=...) needs the failure model, which "
+                "repro_torch does not port yet")
+        if c.counts is None or c.size_s is None:
+            raise ValueError("SweepCell needs explicit counts and size_s")
+
+
+def _pad(arr: np.ndarray, n: int) -> np.ndarray:
+    """Pad the leading axis to n by repeating row 0 (results discarded)."""
+    if arr.shape[0] == n:
+        return arr
+    reps = np.repeat(arr[:1], n - arr.shape[0], axis=0)
+    return np.concatenate([arr, reps], axis=0)
+
+
+@dataclass(frozen=True)
+class ChunkDispatch:
+    """One batched simulator call of a plan: its static arguments
+    ``(policy, interval_s, spin_up_s, n_max, horizon)``, the padded host
+    arrays it consumes (every array carries the ``chunk``-long cell axis
+    first), and the scatter map from its real rows back to plan cell
+    indices."""
+
+    kind: str                       # "rate"
+    static: tuple                   # static args of ratesim._simulate_cells
+    arrays: dict[str, np.ndarray]   # padded inputs, leading axis == chunk
+    cell_idx: tuple[int, ...]       # row r (< n_real) -> cells[cell_idx[r]]
+    chunk: int                      # padded leading-axis length
+
+    @property
+    def n_real(self) -> int:
+        return len(self.cell_idx)
+
+
+@dataclass
+class SweepPlan:
+    """An explicit sweep execution plan: the cells (in caller order) plus
+    the dispatch list; ``work``/``requests`` are per-cell totals
+    precomputed during planning."""
+
+    kind: str                       # "rate"
+    cells: list
+    dispatches: list[ChunkDispatch]
+    n_max: int
+    work: np.ndarray | None = None          # (n_cells,) f64
+    requests: np.ndarray | None = None      # (n_cells,) i64
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def n_dispatches(self) -> int:
+        return len(self.dispatches)
+
+
+def plan_sweep(cells: Iterable, n_max: int | None = None) -> SweepPlan:
+    """Plan a rate-simulator sweep: one `ChunkDispatch` per (policy,
+    interval, spin-up, horizon) group chunk, arrays laid out exactly as
+    `ratesim._simulate_cells` consumes them."""
+    cells = list(cells)
+    check_cells(cells)
+    groups: dict[tuple, list[int]] = {}
+    for i, c in enumerate(cells):
+        # the policy OBJECT (frozen dataclass: hashable) is the group key
+        # and rides through `ChunkDispatch.static`
+        pol = get_rate_policy(c.policy)
+        interval_s = max(int(round(c.fleet.T_s)), 1)
+        spin_up_s = max(int(round(c.fleet.fpga.spin_up_s)), 1)
+        horizon = (len(c.counts) // interval_s) * interval_s
+        if pol.latency_free and horizon % _CANON_INTERVAL == 0:
+            interval_s = spin_up_s = _CANON_INTERVAL
+        groups.setdefault((pol, interval_s, spin_up_s, horizon,
+                           n_max or _N_MAX_CAP), []).append(i)
+
+    n = len(cells)
+    work = np.zeros((n,), np.float64)
+    requests = np.zeros((n,), np.int64)
+    dispatches: list[ChunkDispatch] = []
+
+    for (pol, interval_s, spin_up_s, horizon, nm), idxs in groups.items():
+        group = [cells[i] for i in idxs]
+        counts = np.stack([np.asarray(c.counts[:horizon], np.int32)
+                           for c in group])
+        sizes = np.array([c.size_s for c in group], np.float32)
+        ew = np.array([c.energy_weight for c in group], np.float32)
+        hr = np.array([c.headroom for c in group], np.int32)
+        gain = np.array([c.forecast_gain for c in group], np.float32)
+        scal = np.stack([fleet_scalars_np(c.fleet) for c in group])
+        if pol.name == "fpga_static":
+            levels = np.array(
+                [static_level_for(c.counts[:horizon], c.size_s, c.fleet, nm)
+                 for c in group], np.int32)
+        else:
+            levels = np.zeros((len(group),), np.int32)
+
+        work[idxs] = counts.sum(1, dtype=np.float64) * sizes
+        requests[idxs] = counts.sum(1, dtype=np.int64)
+
+        start = 0
+        while start < len(group):
+            left = len(group) - start
+            # Predictor policies carry O(n_max^2) histogram state per
+            # cell, so they always use the small shape; cheap policies
+            # jump to the big shape for expanded grids (headroom tuning).
+            chunk = CHUNK if pol.uses_predictor or left <= CHUNK else CHUNK_BIG
+            sl = slice(start, min(start + chunk, len(group)))
+            start += chunk
+            arrays = {
+                "counts": _pad(counts[sl], chunk),
+                "sizes": _pad(sizes[sl], chunk),
+                "scalars": _pad(scal[sl], chunk),
+                "energy_weight": _pad(ew[sl], chunk),
+                "headroom": _pad(hr[sl], chunk),
+                "levels": _pad(levels[sl], chunk),
+                "gain": _pad(gain[sl], chunk),
+            }
+            dispatches.append(ChunkDispatch(
+                kind="rate",
+                static=(pol, interval_s, spin_up_s, nm, horizon),
+                arrays=arrays, cell_idx=tuple(idxs[sl.start:sl.stop]),
+                chunk=chunk))
+
+    return SweepPlan("rate", cells, dispatches, n_max or _N_MAX_CAP,
+                     work=work, requests=requests)
+
+
+class SweepResult:
+    """Per-cell `Accum` (numpy leaves, cell order) + conversion to
+    paper-style totals/reports. ``n_dispatches`` counts the batched
+    simulator calls the sweep cost (one per plan chunk); ``backend`` and
+    ``device`` record where they ran."""
+
+    def __init__(self, cells: Sequence, accum: Accum,
+                 total_work: np.ndarray, total_requests: np.ndarray,
+                 n_dispatches: int = 0, backend: str = "local",
+                 device: str = "", meta: dict | None = None):
+        self.cells = list(cells)
+        self.accum = accum                      # leaves: (n_cells,) np arrays
+        self._work = total_work
+        self._requests = total_requests
+        self.n_dispatches = n_dispatches
+        self.backend = backend
+        self.device = device
+        self.meta = dict(meta or {})
+
+    def __len__(self) -> int:
+        return len(self.cells)
+
+    @property
+    def deadline_misses(self) -> np.ndarray:
+        return np.asarray(self.accum.missed_requests)
+
+    def totals(self, i: int) -> RunTotals:
+        one = Accum(*[leaf[i] for leaf in self.accum])
+        return accum_to_totals(one, float(self._work[i]),
+                               int(self._requests[i]))
+
+    def report(self, i: int,
+               reference_fleet: FleetParams | None = None) -> Report:
+        return report(self.totals(i), self.cells[i].fleet,
+                      reference_fleet=reference_fleet)
+
+    def reports(self, reference_fleet: FleetParams | None = None) -> list[Report]:
+        return [self.report(i, reference_fleet) for i in range(len(self))]

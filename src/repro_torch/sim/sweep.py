@@ -1,0 +1,134 @@
+"""Batched parameter sweeps: thin wrappers over plan + execute.
+
+Port of the rate half of `repro.sim.sweep`. The paper's headline
+results (Figs. 5-7, Table 8) are parameter-space sweeps: spin-up latency
+x burstiness x policy x trace x worker parameters. Instead of one
+`ratesim.simulate` call per grid cell, `sweep` plans the whole grid
+(`repro_torch.sim.plan`) and runs each chunk of up to 32 or 256 cells as
+one batched simulator call (`repro_torch.sim.exec`).
+
+Equivalence: per-cell totals match per-call `ratesim.simulate` at the
+same ``n_max`` to float32 tolerance.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.core.metrics import RunTotals
+from repro_torch.core.workers import DEFAULT_FLEET, FleetParams
+from repro_torch.sim.exec import Backend, execute, get_backend
+from repro_torch.sim.plan import (CHUNK, CHUNK_BIG, _N_MAX_CAP, SweepPlan,
+                                  SweepResult, check_cells, plan_sweep)
+from repro_torch.sim.ratesim import headroom_unit, tune_fpga_dynamic
+
+__all__ = [
+    "SweepCell", "SweepResult", "SweepPlan", "sweep",
+    "tune_fpga_dynamic_cells", "CHUNK", "CHUNK_BIG",
+]
+
+
+@dataclass(frozen=True)
+class SweepCell:
+    """One grid cell of a parameter sweep: explicit per-second ``counts``
+    plus a scalar ``size_s``. ``scenario``/``seed`` and ``failures`` keep
+    the reference's fields, but cells that set them are rejected by the
+    planner until the workload library and the failure model are ported."""
+
+    policy: str
+    counts: np.ndarray | None = None   # (T,) per-second arrival counts
+    size_s: float | None = None        # request service time on a CPU worker
+    fleet: FleetParams = DEFAULT_FLEET
+    energy_weight: float = 1.0
+    headroom: int = 0             # fpga_dynamic family only
+    forecast_gain: float = 1.0    # predictive only: trend-extrapolation gain
+    tag: Any = None               # caller's join key; carried through
+    scenario: Any = None          # not ported yet (plan_sweep rejects it)
+    seed: int = 0                 # scenario realization seed
+    failures: Any = None          # not ported yet (plan_sweep rejects it)
+
+    def __post_init__(self):
+        """Fail-fast construction-time validation: malformed cells raise
+        a clear ValueError here instead of a shape error in the planner."""
+        if self.counts is not None:
+            c = np.asarray(self.counts)
+            if c.ndim != 1:
+                raise ValueError(
+                    f"SweepCell.counts must be 1-D per-second counts, got "
+                    f"shape {c.shape}")
+            if c.size and (np.any(c < 0) or not np.all(np.isfinite(
+                    c.astype(np.float64)))):
+                raise ValueError(
+                    "SweepCell.counts must be non-negative finite arrival "
+                    "counts (negative rate injected?)")
+        if self.size_s is not None and not (
+                np.isfinite(self.size_s) and self.size_s > 0):
+            raise ValueError(
+                f"SweepCell.size_s must be a positive finite service "
+                f"time, got {self.size_s!r}")
+        if not np.isfinite(self.energy_weight):
+            raise ValueError(
+                f"SweepCell.energy_weight must be finite, got "
+                f"{self.energy_weight!r}")
+        if self.headroom < 0:
+            raise ValueError(
+                f"SweepCell.headroom must be >= 0, got {self.headroom!r}")
+        if not np.isfinite(self.forecast_gain):
+            raise ValueError(
+                f"SweepCell.forecast_gain must be finite, got "
+                f"{self.forecast_gain!r}")
+        if np.ndim(self.seed) != 0:
+            raise ValueError(
+                f"SweepCell.seed must be a scalar, got shape "
+                f"{np.shape(self.seed)}")
+
+
+def sweep(cells: Iterable[SweepCell], n_max: int | None = None,
+          backend: str | Backend | None = None,
+          device: str | torch.device | None = None) -> SweepResult:
+    """Simulate every cell, one batched call per (policy, interval,
+    spin-up, horizon) group chunk. Cell order is preserved in the result.
+    ``device=None`` runs on the card."""
+    return execute(plan_sweep(cells, n_max=n_max), backend, device=device)
+
+
+def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,
+                            n_max: int | None = None,
+                            backend: str | Backend | None = None,
+                            device: str | torch.device | None = None,
+                            ) -> list[tuple[int, RunTotals]]:
+    """Batched §5.1 headroom tuning: expand every cell into all
+    ``max_k + 1`` headroom levels, simulate them in one sweep, and pick
+    the least level with zero deadline misses.
+
+    The headroom unit is sized to the max consecutive-interval demand
+    delta, so real traces tune at k <= ~2; a cell still missing
+    deadlines at max_k falls back to the full serial-equivalent search
+    (`ratesim.tune_fpga_dynamic`, k <= 32)."""
+    cells = list(cells)
+    check_cells(cells)
+    backend = get_backend(backend, device)
+    K = max_k + 1
+    units, expanded = [], []
+    for c in cells:
+        unit = headroom_unit(c.counts, c.size_s, c.fleet)
+        units.append(unit)
+        expanded.extend(replace(c, policy="fpga_dynamic", headroom=k * unit)
+                        for k in range(K))
+    res = sweep(expanded, n_max=n_max, backend=backend)
+    misses = res.deadline_misses.reshape(len(cells), K)
+    out = []
+    for ci, c in enumerate(cells):
+        zero = np.nonzero(misses[ci] == 0)[0]
+        if len(zero):
+            k = int(zero[0])
+            out.append((k * units[ci], res.totals(ci * K + k)))
+        else:
+            out.append(tune_fpga_dynamic(c.counts, c.size_s, c.fleet,
+                                         n_max=n_max or _N_MAX_CAP,
+                                         device=backend.device))
+    return out
