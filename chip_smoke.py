@@ -6,8 +6,9 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, each printed as one JSON line; any failed check exits non-zero:
 
   device       card name, compute capability, nvidia-smi name/power limit
-  build        the main path's kernel built from the checkout's sources
-               with nvcc (seconds, ptxas report)
+  build        the three kernels (spork_predict, minplus, minplus_structured)
+               built from the checkout's sources with nvcc, one process
+               each, all started together (seconds, ptxas report)
   kernel       spork_predict against its plain PyTorch version at C in
                {1, 32} cells x N in {16, 200, 512, 4096} bins: against the
                plain version on the card, mask equal and finite entries
@@ -21,8 +22,40 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                over this run must equal the plan's allocator ticks
   main_vs_cpu  the Spork cells rerun with device="cpu" (plain version):
                counters identical, energies/costs within 1e-5 relative
+  minplus_kernel
+               the dense `minplus` and the `minplus_structured` kernels at
+               B in {1, 180} rows x N in {1, 8, 257, 1024, 2816} levels, on
+               integer-exact and on continuous instances (monotone integer
+               y_c): values bitwise equal and argmins equal to the plain
+               versions on the card (the dense one where its (B, N, N)
+               temporaries fit) and on the CPU (at B=180, N=2816 every 6th
+               row for the dense one: the CPU takes ~2 s per 16 rows); at
+               N >= 2 the structured kernel equals the dense kernel on the
+               exact instances; times of both kernels and both plain
+               versions at the main path's B=180, N=2816
+  fig2         the full Fig. 2 + Fig. 3 grid (biases 0.5-0.75, seeds 0-9,
+               7200 s; hybrid, cpu_only, fpga_only; energy and cost, plus
+               the 10 Pareto weights on seed 0) through `solve_dp_batch`
+               on the card, three times: transition="kernel" (exactly one
+               minplus_structured launch per interval per dispatch, 2157),
+               "dense" (minplus launches = intervals x level buckets) and
+               "structured" (plain PyTorch, no kernel); against the
+               kernel run, every row's exact (float64) weighted
+               evaluation within rtol 1e-6, its float32 DP objective
+               within 1e-6 (structured) or 1e-5 (dense: F + T rounds
+               otherwise than g + h over 720 intervals; see RTOL_DP_F32);
+               wall times and the Fig. 2/3 rows
+  fig2_vs_cpu  hybrid rows of seed 0 rerun with device="cpu" at full
+               horizon and N: the 12 energy/cost rows and the Pareto rows
+               of biases 0.5 and 0.75 (32 rows; all 72 seed-0 rows took
+               143 s on the CPU): identical paths, objectives within 1e-6
+               relative (exact equality reported)
   profile      device-idle share of one Spork chunk (32 cells, first
-               120 s) under torch.profiler, and the kernel's device time
+               120 s) under torch.profiler, and the kernel's device time;
+               then one hybrid transition="kernel" dispatch of Fig. 2 and
+               one dense dispatch (the hybrid rows of the largest level
+               bucket): idle share and each minplus kernel's device time
+               per launch
 
 Then the `{"kernels": [...]}` summary line, the raw nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
@@ -45,6 +78,21 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 RTOL_KERNEL = 2e-5
 RTOL_CPU = 1e-5
+MINPLUS_ROWS = (1, 180)           # Fig. 2's largest group has 180 rows
+MINPLUS_LEVELS = (1, 8, 257, 1024, 2816)    # 2816: Fig. 2's level bucket
+FIG2_BIASES = (0.5, 0.55, 0.6, 0.65, 0.7, 0.75)   # benchmarks/fig2_pareto.py
+FIG2_SEEDS = 10
+FIG2_HORIZON_S = 7200
+FIG2_PLATFORMS = (("hybrid", {}), ("cpu_only", {"allow_fpga": False}),
+                  ("fpga_only", {"allow_cpu": False}))
+FIG2_VS_CPU_PARETO = (0.5, 0.75)  # biases whose Pareto rows rerun on the CPU
+RTOL_DP = 1e-6                   # DP rows: exact (float64) evaluations
+# The DP's objective is a float32 sum over 720 intervals; the dense (F + T)
+# and structured (g + h) transitions round it differently, and the JAX
+# reference's own dense and structured objectives differ by up to 2.8e-6
+# on this grid. Dense objectives are held to the reference's tolerance for
+# a float32 DP objective against an independent optimum (tests/test_milp.py).
+RTOL_DP_F32 = 1e-5
 SCHEDULERS = [                   # benchmarks/table8_production.py
     ("CPU-dynamic", "cpu_dynamic", {}),
     ("FPGA-static", "fpga_static", {}),
@@ -124,13 +172,18 @@ def phase_device(torch) -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels.build import build_library
+    from repro_torch.kernels.build import build_libraries
+    from repro_torch.kernels.minplus import ops as minplus_ops
     from repro_torch.kernels.spork_predict import ops
-    b = build_library("spork_predict", ops.SOURCES)
-    emit({"phase": "build", "kernels": {"spork_predict": {
-        "seconds": b.seconds, "library": b.path.name,
-        "ptxas": [ln.strip() for ln in b.log.splitlines()
-                  if "ptxas info" in ln]}}})
+    t0 = time.perf_counter()
+    builds = build_libraries({"spork_predict": ops.SOURCES,
+                              **minplus_ops.SOURCES})
+    wall = time.perf_counter() - t0
+    emit({"phase": "build", "wall_s": wall, "kernels": {
+        name: {"seconds": b.seconds, "library": b.path.name,
+               "ptxas": [ln.strip() for ln in b.log.splitlines()
+                         if "ptxas info" in ln]}
+        for name, b in builds.items()}})
 
 
 def _predict_inputs(cells: int, n: int, seed: int, torch, dev="cuda"):
@@ -352,21 +405,343 @@ def phase_main_vs_cpu(main: dict) -> dict:
     return out
 
 
-def phase_profile(main: dict, torch) -> dict:
+def _minplus_inputs(kind: str, rows: int, n: int, seed: int):
+    """numpy (F, yc_prev, yc_cur, coeffs) for the min-plus kernels.
+    "exact": integer values, so float32 arithmetic is exact in every
+    formulation (tests/test_minplus_structured.py::_exact_instance);
+    "continuous": F ~ normal(0, 100) and coefficients ~ uniform(0, 10),
+    with monotone integer y_c as the DP's stage tables give them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def mono():
+        y = np.sort(rng.integers(0, 50, (rows, n)), axis=1)[:, ::-1]
+        return np.ascontiguousarray(y.astype(np.float32))
+
+    if kind == "exact":
+        F = rng.integers(-4096, 4096, (rows, n)).astype(np.float32)
+        coeffs = rng.integers(0, 32, (rows, 4)).astype(np.float32)
+    else:
+        F = rng.normal(0.0, 100.0, (rows, n)).astype(np.float32)
+        coeffs = rng.uniform(0.0, 10.0, (rows, 4)).astype(np.float32)
+    return F, mono(), mono(), coeffs
+
+
+def _minplus_bound(name: str, rows: int, n: int) -> dict:
+    """Least time for one transition: each input read once (F, y_c twice,
+    coefficients), each output written once (values, argmins); the dense
+    contraction's ~17 fp32 operations per (i, j) pair (4 sub, 4 relu, 4
+    mul, 4 add, 1 compare), the structured one's ~N*(16 + 4L + log2 N +
+    20) per row (g rows, two scans, L table levels, search, queries)."""
+    nbytes = 4 * (3 * rows * n + 4 * rows + 2 * rows * n)
+    levels = max(1, n.bit_length())
+    ops = (17 * rows * n * n if name == "minplus"
+           else rows * n * (16 + 4 * levels + levels + 20))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "operations": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_minplus_kernel(torch) -> dict:
+    from repro_torch.core.dp import minplus_step, minplus_step_structured
+    from repro_torch.kernels.minplus import ops
+    plains = {"minplus": minplus_step,
+              "minplus_structured": lambda *a: minplus_step_structured(
+                  *a, check=False)}
+    kernels = {"minplus": ops.minplus_step,
+               "minplus_structured": ops.minplus_step_structured}
+    cases, max_abs, main = [], dict.fromkeys(kernels, 0.0), None
+    for kind in ("exact", "continuous"):
+        for rows in MINPLUS_ROWS:
+            for n in MINPLUS_LEVELS:
+                seed = 1000 * rows + n + (0 if kind == "exact" else 7)
+                cpu = tuple(torch.from_numpy(x)
+                            for x in _minplus_inputs(kind, rows, n, seed))
+                dev = tuple(x.cuda() for x in cpu)
+                case = {"kind": kind, "B": rows, "N": n}
+                got = {}
+                for name, kernel in kernels.items():
+                    v, a = kernel(*dev)
+                    torch.cuda.synchronize()
+                    got[name] = (v.cpu(), a.cpu())
+                    free, _ = torch.cuda.mem_get_info()
+                    if name == "minplus" and 24 * rows * n * n > free:
+                        case[f"{name}_card_plain"] = "skipped: does not fit"
+                    else:
+                        pv, pa = (x.cpu() for x in plains[name](*dev))
+                        check(torch.equal(got[name][0], pv)
+                              and torch.equal(got[name][1], pa),
+                              f"{name} differs from its plain version on the "
+                              f"card ({kind}, B={rows}, N={n})")
+                        case[f"{name}_card_plain"] = "bitwise equal"
+                        max_abs[name] = max(max_abs[name], float(
+                            (got[name][0] - pv).abs().max()))
+                    # the dense plain version takes ~2 s per 16 rows of
+                    # N=2816 on the CPU: every 6th row at that size
+                    sel = (slice(None, None, 6)
+                           if name == "minplus" and rows * n * n > 1e8
+                           else slice(None))
+                    cv, ca = plains[name](*(x[sel] for x in cpu))
+                    check(torch.equal(got[name][0][sel], cv)
+                          and torch.equal(got[name][1][sel], ca),
+                          f"{name} differs from its plain version on the CPU "
+                          f"({kind}, B={rows}, N={n})")
+                    case[f"{name}_cpu_plain_rows"] = int(cv.shape[0])
+                if kind == "exact" and n >= 2:
+                    (sv, sa), (dv, da) = (got["minplus_structured"],
+                                          got["minplus"])
+                    check(torch.equal(sv, dv) and torch.equal(sa, da),
+                          f"minplus_structured differs from minplus on an "
+                          f"exact instance (B={rows}, N={n})")
+                    case["structured_equals_dense"] = True
+                cases.append(case)
+                if (kind, rows, n) == ("continuous", 180, 2816):
+                    main = dev
+    rows, n = main[0].shape
+    timing = {}
+    for name, kernel in kernels.items():
+        t = {"ms": graph_ms(lambda: kernel(*main), 20, torch),
+             **_minplus_bound(name, rows, n), "library_ms": None,
+             "max_abs_err": max_abs[name]}
+        if name == "minplus":           # (B, N, N) temporaries: eager calls
+            t["plain_ms"] = cuda_ms(lambda: plains[name](*main), 3, torch)
+        else:
+            t["plain_ms"] = graph_ms(lambda: plains[name](*main), 20, torch)
+        timing[name] = t
+        torch.cuda.empty_cache()
+    out = {"phase": "minplus_kernel", "cases": cases, "B": rows, "N": n,
+           "kernels": timing,
+           "timing": "kernels and the structured plain version: CUDA-graph "
+                     "replay of 20 calls (device time); the dense plain "
+                     "version: CUDA events over 3 eager calls",
+           "library": "none: no single PyTorch call computes a min-plus "
+                      "transition"}
+    emit(out)
+    return out
+
+
+def interval_work(seed: int, bias: float, horizon_s: int, size_s: float = 0.01,
+                  mean_rate: float = 10_000.0, interval_s: float = 10.0):
+    """Per-interval CPU-seconds of demand (paper §3: 10 ms requests at 10k
+    req/s mean): benchmarks/fig2_pareto.py::interval_work on the port's
+    b-model."""
+    import numpy as np
+    from repro_torch.core.bmodel import bmodel_rates_np
+    rates = bmodel_rates_np(seed, bias, horizon_s, mean_rate)
+    k = int(len(rates) // interval_s)
+    per_s = np.random.default_rng(seed).poisson(np.maximum(rates, 0))
+    return (per_s[:int(k * interval_s)].reshape(k, int(interval_s)).sum(1)
+            * size_s)
+
+
+def _fig2_grid():
+    """The fleet and, per platform group, the cells ``(tag, seed, work,
+    energy_weight)`` of benchmarks/fig2_pareto.py::run(pareto=True)."""
+    from repro_torch.core.dp import PARETO_WEIGHTS
+    from repro_torch.core.workers import DEFAULT_FLEET
+    fleet = DEFAULT_FLEET.replace(max_fpgas=2048, max_cpus=10 ** 6)
+    work = {(bias, seed): interval_work(seed, bias, FIG2_HORIZON_S)
+            for bias in FIG2_BIASES for seed in range(FIG2_SEEDS)}
+    groups: dict[str, list] = {name: [] for name, _ in FIG2_PLATFORMS}
+    for bias in FIG2_BIASES:
+        for seed in range(FIG2_SEEDS):
+            for platform, _ in FIG2_PLATFORMS:
+                for oname, ew in (("energy", 1.0), ("cost", 0.0)):
+                    groups[platform].append(((bias, platform, oname), seed,
+                                             work[(bias, seed)], ew))
+        for w in PARETO_WEIGHTS:
+            groups["hybrid"].append(((bias, "hybrid-pareto", f"w={w:.3f}"),
+                                     0, work[(bias, 0)], float(w)))
+    return fleet, groups
+
+
+def _group_arrays(cells):
+    import numpy as np
+    return (np.stack([w for _, _, w, _ in cells]),
+            [ew for _, _, _, ew in cells])
+
+
+def _weighted_eval(sol, energy_weight: float, fleet) -> float:
+    """The exact (float64) evaluation of a DP row's path under the row's
+    objective weights: the quantity the DP minimizes."""
+    from repro_torch.core.dp import _objective_weights
+    we, wc = _objective_weights(energy_weight, fleet)
+    return we * sol.energy_j + wc * sol.cost_usd
+
+
+def _fig2_rows(fleet, groups, sols) -> list[dict]:
+    """Fig. 2 rows (mean over seeds) and Fig. 3 Pareto rows, as
+    benchmarks/fig2_pareto.py prints them, unrounded."""
+    import numpy as np
+    from repro_torch.core.dp import PARETO_WEIGHTS
+    from repro_torch.core.metrics import report
+    results: dict[tuple, list] = {}
+    for platform, _ in FIG2_PLATFORMS:
+        for (tag, _, _, _), sol in zip(groups[platform], sols[platform]):
+            r = report(sol.totals, fleet)
+            results.setdefault(tag, []).append((r.energy_efficiency,
+                                                r.relative_cost))
+    rows = []
+    for bias in FIG2_BIASES:
+        for platform, _ in FIG2_PLATFORMS:
+            for oname in ("energy", "cost"):
+                vals = np.array(results[(bias, platform, oname)])
+                rows.append({"bias": bias, "platform": platform,
+                             "objective": oname,
+                             "energy_eff": float(vals[:, 0].mean()),
+                             "rel_cost": float(vals[:, 1].mean())})
+        for w in PARETO_WEIGHTS:
+            (e, c), = results[(bias, "hybrid-pareto", f"w={w:.3f}")]
+            rows.append({"bias": bias, "platform": "hybrid-pareto",
+                         "objective": f"w={w:.3f}", "energy_eff": e,
+                         "rel_cost": c})
+    return rows
+
+
+def phase_fig2(torch) -> dict:
+    import numpy as np
+    from repro_torch.core.dp import level_buckets, solve_dp_batch
+    from repro_torch.kernels.minplus import ops
+    fleet, groups = _fig2_grid()
+    n_intervals = int(FIG2_HORIZON_S // fleet.T_s)
+    runs = {}
+    for transition in ("kernel", "dense", "structured"):
+        sols, walls = {}, {}
+        ops.minplus_step.launches = 0
+        ops.minplus_step_structured.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for platform, kw in FIG2_PLATFORMS:
+            t1 = time.perf_counter()
+            W, ew = _group_arrays(groups[platform])
+            sols[platform] = solve_dp_batch(W, fleet, ew, transition=transition,
+                                            device="cuda", **kw)
+            walls[platform] = time.perf_counter() - t1
+        runs[transition] = {
+            "sols": sols, "wall_s": time.perf_counter() - t0,
+            "group_wall_s": walls,
+            "launches": {"minplus": ops.minplus_step.launches,
+                         "minplus_structured":
+                             ops.minplus_step_structured.launches}}
+    expected = {
+        "kernel": {"minplus": 0,
+                   "minplus_structured": len(FIG2_PLATFORMS)
+                   * (n_intervals - 1)},
+        "dense": {"minplus": sum(
+            len(np.unique(level_buckets(
+                _group_arrays(groups[p])[0], fleet, transition="dense",
+                allow_fpga=kw.get("allow_fpga", True))))
+            for p, kw in FIG2_PLATFORMS) * (n_intervals - 1),
+            "minplus_structured": 0},
+        "structured": {"minplus": 0, "minplus_structured": 0}}
+    agreement = {}
+    for transition in ("dense", "structured"):
+        max_obj, max_eval, same_path = 0.0, 0.0, 0
+        for platform, _ in FIG2_PLATFORMS:
+            for (tag, _, _, ew), got, ref in zip(
+                    groups[platform], runs[transition]["sols"][platform],
+                    runs["kernel"]["sols"][platform]):
+                max_obj = max(max_obj, abs(got.objective - ref.objective)
+                              / abs(ref.objective))
+                ev_g, ev_r = (_weighted_eval(x, ew, fleet) for x in (got, ref))
+                max_eval = max(max_eval, abs(ev_g - ev_r) / abs(ev_r))
+                same_path += bool(np.array_equal(got.y_fpga, ref.y_fpga))
+        agreement[transition] = {"max_rel_objective": max_obj,
+                                 "max_rel_weighted_eval": max_eval,
+                                 "rows_same_path": same_path}
+    # float32 DP objective against the float64 evaluation of its own path
+    f32_error = {t: max(abs(sol.objective - _weighted_eval(sol, ew, fleet))
+                        / abs(_weighted_eval(sol, ew, fleet))
+                        for p, _ in FIG2_PLATFORMS
+                        for (_, _, _, ew), sol in zip(groups[p],
+                                                      r["sols"][p]))
+                 for t, r in runs.items()}
+    kernel_sols = runs["kernel"]["sols"]
+    for platform, _ in FIG2_PLATFORMS:
+        for sol in kernel_sols[platform]:
+            check(math.isfinite(sol.objective) and sol.totals.is_finite()
+                  and sol.y_fpga.shape == (n_intervals,),
+                  f"fig2 {platform}: non-finite or malformed solution")
+    n_rows = {p: len(groups[p]) for p, _ in FIG2_PLATFORMS}
+    out = {"phase": "fig2", "horizon_s": FIG2_HORIZON_S,
+           "intervals": n_intervals, "rows_per_group": n_rows,
+           "level_buckets_kernel": {p: int(level_buckets(
+               _group_arrays(groups[p])[0], fleet,
+               allow_fpga=kw.get("allow_fpga", True)).max())
+               for p, kw in FIG2_PLATFORMS},
+           "runs": {t: {"wall_s": r["wall_s"],
+                        "group_wall_s": r["group_wall_s"],
+                        "launches": r["launches"],
+                        "expected_launches": expected[t]}
+                    for t, r in runs.items()},
+           "agreement_with_kernel_run": agreement,
+           "max_rel_objective_vs_own_path_eval": f32_error,
+           "rows": _fig2_rows(fleet, groups, kernel_sols)}
+    emit(out)
+    for t, r in runs.items():
+        check(r["launches"] == expected[t],
+              f"fig2 {t}: launches {r['launches']}, expected {expected[t]}")
+    check(expected["kernel"]["minplus_structured"] == 2157,
+          "fig2: expected 2157 structured launches")
+    for t, a in agreement.items():
+        rtol_obj = RTOL_DP_F32 if t == "dense" else RTOL_DP
+        check(a["max_rel_objective"] <= rtol_obj
+              and a["max_rel_weighted_eval"] <= RTOL_DP,
+              f"fig2 {t}: objectives differ from the kernel run: {a}")
+    return {"fleet": fleet, "groups": groups, "sols": kernel_sols,
+            "out": out}
+
+
+def phase_fig2_vs_cpu(fig2: dict) -> dict:
+    import numpy as np
+    from repro_torch.core.dp import level_buckets, solve_dp_batch
+    fleet, hybrid = fig2["fleet"], fig2["groups"]["hybrid"]
+    idx = [i for i, (tag, seed, _, _) in enumerate(hybrid) if seed == 0
+           and (tag[1] == "hybrid" or tag[0] in FIG2_VS_CPU_PARETO)]
+    W, ew = _group_arrays(hybrid)
+    n_levels = int(level_buckets(W, fleet, transition="kernel")[0])
+    t0 = time.perf_counter()
+    cpu = solve_dp_batch(W[idx], fleet, [ew[i] for i in idx],
+                         transition="kernel", n_levels=n_levels, device="cpu")
+    wall = time.perf_counter() - t0
+    bad, max_rel, exact = [], 0.0, 0
+    for k, i in enumerate(idx):
+        card = fig2["sols"]["hybrid"][i]
+        if not (np.array_equal(card.y_fpga, cpu[k].y_fpga)
+                and np.array_equal(card.y_cpu, cpu[k].y_cpu)):
+            bad.append(hybrid[i][0])
+        rel = abs(card.objective - cpu[k].objective) / abs(cpu[k].objective)
+        max_rel = max(max_rel, rel)
+        exact += card.objective == cpu[k].objective
+    out = {"phase": "fig2_vs_cpu", "rows": len(idx), "n_levels": n_levels,
+           "horizon_s": FIG2_HORIZON_S,
+           "cut": "hybrid rows of seed 0: the 12 energy/cost rows and the "
+                  "Pareto rows of biases 0.5 and 0.75 (20 of 60); all 72 "
+                  "seed-0 rows took 143 s on the CPU",
+           "cpu_wall_s": wall, "rows_same_path": len(idx) - len(bad),
+           "max_rel_objective": max_rel, "rows_objective_exactly_equal": exact,
+           "path_mismatches": [list(map(str, t)) for t in bad[:10]]}
+    emit(out)
+    check(len(idx) == 32, f"fig2_vs_cpu: {len(idx)} rows, expected 32")
+    check(not bad, f"fig2_vs_cpu: {len(bad)} paths differ, first {bad[:3]}")
+    check(max_rel <= RTOL_DP, f"fig2_vs_cpu: objectives differ ({max_rel})")
+    return out
+
+
+def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
+    """Run ``run`` once under torch.profiler; the wall time, the union of
+    device spans (busy time, idle share) and, per kernel name, its
+    launches and mean device time. The trace goes to build/profile/."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sim.sweep import sweep
-    window_s = 120
-    cells = [replace(c, counts=c.counts[:window_s])
-             for c in main["res"].cells if c.policy == "spork"][:32]
-    sweep(cells, device="cuda")                     # warm up allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep(cells, device="cuda")
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    trace = ROOT / "build" / "profile" / "spork_chunk.json"
+    trace = ROOT / "build" / "profile" / trace_name
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -378,16 +753,48 @@ def phase_profile(main: dict, torch) -> dict:
         if e > end:
             busy += e - max(s, end)
             end = e
-    kern = [e["dur"] for e in events if e.get("cat") == "kernel"
-            and "spork_predict" in e.get("name", "")]
     check(len(spans) > 0, "profiler recorded no device activity")
-    check(len(kern) > 0, "profiler saw no spork_predict kernel")
-    out = {"phase": "profile", "cells": len(cells), "window_s": window_s,
-           "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "device_idle_share": 1.0 - busy / wall_us,
-           "device_ops": len(spans), "spork_predict_launches": len(kern),
-           "spork_predict_device_us_mean": sum(kern) / len(kern),
-           "note": "wall time is under the profiler"}
+           "device_ops": len(spans)}
+    for name in kernel_names:
+        kern = [e["dur"] for e in events if e.get("cat") == "kernel"
+                and name in e.get("name", "")]
+        check(len(kern) > 0, f"profiler saw no {name} kernel")
+        out[f"{name}_launches"] = len(kern)
+        out[f"{name}_device_us_mean"] = sum(kern) / len(kern)
+    return out
+
+
+def phase_profile(main: dict, fig2: dict, torch) -> dict:
+    import numpy as np
+    from repro_torch.core.dp import level_buckets, solve_dp_batch
+    from repro_torch.sim.sweep import sweep
+    window_s = 120
+    cells = [replace(c, counts=c.counts[:window_s])
+             for c in main["res"].cells if c.policy == "spork"][:32]
+    sweep(cells, device="cuda")                     # warm up allocator
+    spork = _device_profile(lambda: sweep(cells, device="cuda"),
+                            "spork_chunk.json", ["spork_predict"], torch)
+    out = {"phase": "profile", "cells": len(cells), "window_s": window_s,
+           **spork}
+    fleet = fig2["fleet"]
+    W, ew = _group_arrays(fig2["groups"]["hybrid"])
+    out["fig2_kernel_dispatch"] = {"rows": len(ew), **_device_profile(
+        lambda: solve_dp_batch(W, fleet, ew, transition="kernel",
+                               device="cuda"),
+        "fig2_hybrid_kernel.json", ["minplus_structured_kernel"], torch)}
+    buckets = level_buckets(W, fleet, transition="dense")
+    rows = np.nonzero(buckets == buckets.max())[0]
+    out["fig2_dense_dispatch"] = {
+        "rows": len(rows), "n_levels": int(buckets.max()),
+        **_device_profile(
+            lambda: solve_dp_batch(W[rows], fleet, [ew[i] for i in rows],
+                                   transition="dense",
+                                   n_levels=int(buckets.max()),
+                                   device="cuda"),
+            "fig2_hybrid_dense.json", ["minplus_dense_kernel"], torch)}
+    out["note"] = "wall times are under the profiler"
     emit(out)
     return out
 
@@ -408,9 +815,19 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     kernel = phase_kernel(torch)
+    minplus = phase_minplus_kernel(torch)
     main_run = phase_main(torch)
     phase_main_vs_cpu(main_run)
-    phase_profile(main_run, torch)
+    fig2 = phase_fig2(torch)
+    phase_fig2_vs_cpu(fig2)
+    phase_profile(main_run, fig2, torch)
+    mp_launches = {
+        "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
+        "minplus_structured":
+            fig2["out"]["runs"]["kernel"]["launches"]["minplus_structured"]}
+    mp_replaces = {
+        "minplus": "src/repro/kernels/minplus/minplus.py:91",
+        "minplus_structured": "src/repro/kernels/minplus/structured.py:165"}
     emit({"kernels": [{
         "name": "spork_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/spork_predict/csrc/spork_predict.cu",
@@ -418,7 +835,13 @@ def main() -> int:
         "launches": main_run["out"]["spork_predict_launches"],
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"], "library_ms": None}]})
+        "bound_by": kernel["bound_by"], "library_ms": None}] + [{
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/minplus/csrc/{name}.cu",
+            "replaces": mp_replaces[name], "launches": mp_launches[name],
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}}
+        for name, t in minplus["kernels"].items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,1 +1,2 @@
-"""Framework-free foundations and the Alg. 2 predictor (port of `repro.core`)."""
+"""Framework-free foundations, the Alg. 2 predictor and the Table 3 min-plus
+DP with its MILP oracle (port of `repro.core`)."""

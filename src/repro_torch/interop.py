@@ -8,16 +8,20 @@ objects after ``np.asarray`` of each leaf — and build the port's
 objects, so both packages can start from the same mid-run state.
 `accum_to_numpy` goes the other way. Every array is batched: a leading
 cell axis, as the reference's vmapped sweep core lays it out.
+`fleet_params` copies a fleet, so both packages' DPs can run on the
+same non-default fleet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.breakeven import ObjectiveCoeffs
+from repro_torch.core.workers import FleetParams, WorkerSpec
 from repro_torch.device import resolve_device
 from repro_torch.policies import RateParams
 from repro_torch.sim.ratesim import Accum, FleetScalars, SimState
@@ -90,3 +94,13 @@ def sim_state(src, device: str | torch.device | None = None) -> SimState:
 def accum_to_numpy(acc: Accum) -> dict[str, np.ndarray]:
     """The port's `Accum` as numpy arrays keyed by field name."""
     return {f: leaf.detach().cpu().numpy() for f, leaf in zip(Accum._fields, acc)}
+
+
+def fleet_params(src) -> FleetParams:
+    """The port's `FleetParams` from the reference's (or any object with
+    the same fields), field by field, worker specs included."""
+    def spec(w) -> WorkerSpec:
+        return WorkerSpec(**{f.name: getattr(w, f.name)
+                             for f in dataclasses.fields(WorkerSpec)})
+    kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(FleetParams)}
+    return FleetParams(**{**kw, "cpu": spec(src.cpu), "fpga": spec(src.fpga)})

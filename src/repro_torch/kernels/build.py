@@ -6,10 +6,12 @@ headers), compiled for Hopper into a shared library:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so ...
 
-The build happens at first use, keyed by a hash of the sources and the
-flags, into ``build/kernels/`` at the repository root (listed in
-.gitignore); a library already built for the same sources is reused. The
-wrapper passes device pointers and the current stream as ``c_void_p``.
+The build happens at first use (or all at once through
+`build_libraries`, one `nvcc` process per library started together),
+keyed by a hash of the sources and the flags, into ``build/kernels/`` at
+the repository root (listed in .gitignore); a library already built for
+the same sources is reused. The wrapper passes device pointers and the
+current stream as ``c_void_p``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Sequence
+from typing import Mapping, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,27 +56,56 @@ def nvcc_path() -> str:
     return found
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Build:
-    """Compile ``sources`` into ``lib<name>-<hash>.so`` unless that file
-    exists. Raises RuntimeError with the compiler's output on failure."""
+def _library_path(name: str, sources: Sequence[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(Path(src).name.encode())
         h.update(Path(src).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return Build(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return Build(out, seconds, proc.stdout + proc.stderr)
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(libs: Mapping[str, Sequence[Path]]) -> dict[str, Build]:
+    """Compile each ``name -> sources`` into ``lib<name>-<hash>.so`` unless
+    that file exists, one `nvcc` process per library, all started
+    together. Raises RuntimeError with the compiler's output on failure."""
+    builds: dict[str, Build] = {}
+    running = []
+    try:
+        for name, sources in libs.items():
+            out = _library_path(name, sources)
+            if out.exists():
+                builds[name] = Build(out, 0.0, "")
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, sources)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            running.append((name, out, tmp, proc, time.perf_counter()))
+    except BaseException:                   # stop the compilers started
+        for _, _, _, proc, _ in running:
+            proc.kill()
+            proc.wait()
+        raise
+    failed = []
+    for name, out, tmp, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name} "
+                          f"(exit {proc.returncode}):\n{stderr}")
+            continue
+        os.replace(tmp, out)
+        builds[name] = Build(out, seconds, stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return builds
+
+
+def build_library(name: str, sources: Sequence[Path]) -> Build:
+    """`build_libraries` for one library."""
+    return build_libraries({name: sources})[name]
 
 
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
