@@ -6,16 +6,17 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, each printed as one JSON line; any failed check exits non-zero:
 
   device       card name, compute capability, nvidia-smi name/power limit
-  build        the three kernels (spork_predict, minplus, minplus_structured)
-               built from the checkout's sources with nvcc, one process
-               each, all started together (seconds, ptxas report)
+  build        the four kernels (spork_predict, minplus, minplus_structured,
+               arrival) built from the checkout's sources with nvcc, one
+               process each, all started together (seconds, ptxas report)
   kernel       spork_predict against its plain PyTorch version at C in
-               {1, 32} cells x N in {16, 200, 512, 4096} bins: against the
-               plain version on the card, mask equal and finite entries
-               within rtol 2e-5; against the plain version on the CPU (the
-               oracle of the allocator's choices), mask and argmin equal
-               on every shape and J bitwise equal at the main path's shape
-               C=32, N=512; times at that shape
+               {1, 32} cells x N in {16, 128, 200, 512, 4096} bins and at
+               C=16, N=128: against the plain version on the card, mask
+               equal and finite entries within rtol 2e-5; against the plain
+               version on the CPU (the oracle of the allocator's choices),
+               mask and argmin equal on every shape and J bitwise equal at
+               the main paths' shapes (Table 8: C=32, N=512; Table 9:
+               C in {16, 32}, N=128); times at C=32, N=512
   main         Table 8 for the Azure "short" stand-ins (13 apps, 7200 s,
                n_max 512) through `sweep` + `tune_fpga_dynamic_cells` on
                the card, all eight schedulers; the kernel's launch count
@@ -50,14 +51,47 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                of biases 0.5 and 0.75 (32 rows; all 72 seed-0 rows took
                143 s on the CPU): identical paths, objectives within 1e-6
                relative (exact equality reported)
+  arrival_kernel
+               the `arrival` kernel against its plain version on the card
+               and on the CPU, from carries taken 40 entries into a chunk
+               of 32 Table 9 cells (the short ones, first 120 s, W = 32 +
+               64, B = 128), chained over 8 blocks: C = 32 (all three
+               policy codes in the chunk) and C = 1 (one row per code),
+               pristine and under tests/test_arrival_kernel.py's FAIL_SPEC,
+               continuous and dyadic (1/8 s) times; every carry leaf
+               bitwise equal after every block (the largest float gap is
+               printed); kernel and plain-version times at (32, 96, 128)
+               beside the bound (bytes, and the function's fp32 and int32
+               operations each at its rate) and the chain of block-wide
+               barriers of the longest cell, which bounds it in fact
+  event_goldens
+               the 6 pinned event goldens (tests/goldens/policy_goldens.json
+               ["event"], the trace of tests/test_policy_equivalence.py)
+               through simulate_events_batched on the card: counters equal
+               to the pinned batched section, floats within rtol 1e-5 /
+               atol 1e-3, arrival launches equal to the plans' entries
+  table9       the full Table 9 grid of benchmarks/table9_dispatch.py at
+               BENCH_FAST=0 (3 cases x 3 dispatchers x 5 apps, 3600 s,
+               n_max 128, w_fpga 32, w_cpu 64) through sweep_events on the
+               card: no cell overflows a table, arrival launches equal the
+               plan's entries, spork_predict launches its tick entries;
+               wall time and the 9 Table 9 rows
+  table9_vs_cpu
+               the first 300 s of app 0 of azure-like(short) under all three
+               dispatchers rerun with device="cpu": counters identical,
+               floats within 1e-5 (bitwise-equal fields counted); the same
+               cells through the serial EventSim, gap reported
   profile      device-idle share of one Spork chunk (32 cells, first
                120 s) under torch.profiler, and the kernel's device time;
                then one hybrid transition="kernel" dispatch of Fig. 2 and
                one dense dispatch (the hybrid rows of the largest level
                bucket): idle share and each minplus kernel's device time
-               per launch
+               per launch; then the first Table 9 dispatch cut to 300
+               entries: idle share and the arrival kernel's device time
 
-Then the `{"kernels": [...]}` summary line, the raw nvidia-smi line, and
+Then the `{"kernels": [...]}` summary line (spork_predict's launches are
+the sum over its two paths, Table 8 and Table 9, each also given on its
+own), the raw nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
 a checkout (no src/repro_torch beside it), it exits 2 and prints no
 result.
@@ -76,7 +110,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+# One fp32 add, multiply, compare, max or select per lane per clock is half
+# FP32_FLOPS (which counts an FMA as two); a Hopper SM has half as many
+# int32 lanes as fp32 lanes, so int32 and logic ops run at half that again.
+FP32_OPS = FP32_FLOPS / 2
+INT32_OPS = FP32_OPS / 2
 RTOL_KERNEL = 2e-5
+PREDICT_BINS = (16, 128, 200, 512, 4096)     # spork_predict cases, C in {1, 32}
+# spork_predict's shapes on the main paths, where J must be bitwise the CPU
+# plain version's: Table 8 (32 cells, n_max 512) and Table 9 (chunks of 16
+# or 32 cells, n_max 128)
+PREDICT_BITWISE = ((32, 512), (16, 128), (32, 128))
 RTOL_CPU = 1e-5
 MINPLUS_ROWS = (1, 180)           # Fig. 2's largest group has 180 rows
 MINPLUS_LEVELS = (1, 8, 257, 1024, 2816)    # 2816: Fig. 2's level bucket
@@ -93,6 +137,34 @@ RTOL_DP = 1e-6                   # DP rows: exact (float64) evaluations
 # on this grid. Dense objectives are held to the reference's tolerance for
 # a float32 DP objective against an independent optimum (tests/test_milp.py).
 RTOL_DP_F32 = 1e-5
+# benchmarks/table9_dispatch.py at BENCH_FAST=0 (a copy: the benchmark
+# folder is not ported)
+TABLE9_CASES = (("azure-like(short)", 0.68, 0.05),
+                ("azure-like(medium)", 0.68, 0.3),
+                ("alibaba-like(short)", 0.58, 0.05))
+TABLE9_DISPATCHERS = ("round_robin", "index_packing", "spork")
+TABLE9_APPS = 5
+TABLE9_HORIZON_S = 3600
+TABLE9_N_MAX = 128
+TABLE9_W = (32, 64)              # w_fpga, w_cpu: the engine's default tables
+TABLE9_VS_CPU_S = 300            # table9_vs_cpu: first 300 s of app 0
+PROFILE_ENTRIES = 300            # profile: one Table 9 dispatch, cut
+ARRIVAL_MIDRUN_S = 120           # arrival_kernel: carry taken 40 entries in
+ARRIVAL_MIDRUN_ENTRIES = 40
+ARRIVAL_CHAIN = 8                # blocks chained per arrival_kernel case
+# tests/test_arrival_kernel.py::FAIL_SPEC
+ARRIVAL_FAIL_SPEC = dict(spinup_fail_p=0.25, crash_p=0.0625,
+                         straggler_frac=0.25, straggler_factor=2.0,
+                         max_retries=2, max_failover=2, retry_backoff_s=2.0,
+                         seed=7)
+# tests/test_policy_equivalence.py: the event goldens' failure spec,
+# horizon and table of the pinned runs
+GOLDEN_FSPEC = dict(spinup_fail_p=0.125, max_retries=1, retry_backoff_s=2.0,
+                    crash_p=0.0625, max_failover=2, straggler_frac=0.125,
+                    straggler_factor=2.0, evac_frac=0.25, evac_start_s=80.0,
+                    evac_end_s=140.0, seed=11)
+GOLDEN_HORIZON_S = 180
+GOLDEN_N_MAX = 64
 SCHEDULERS = [                   # benchmarks/table8_production.py
     ("CPU-dynamic", "cpu_dynamic", {}),
     ("FPGA-static", "fpga_static", {}),
@@ -172,12 +244,14 @@ def phase_device(torch) -> tuple[str, str]:
 
 
 def phase_build() -> None:
+    from repro_torch.kernels.arrival import ops as arrival_ops
     from repro_torch.kernels.build import build_libraries
     from repro_torch.kernels.minplus import ops as minplus_ops
     from repro_torch.kernels.spork_predict import ops
     t0 = time.perf_counter()
     builds = build_libraries({"spork_predict": ops.SOURCES,
-                              **minplus_ops.SOURCES})
+                              **minplus_ops.SOURCES,
+                              "arrival": arrival_ops.SOURCES})
     wall = time.perf_counter() - t0
     emit({"phase": "build", "wall_s": wall, "kernels": {
         name: {"seconds": b.seconds, "library": b.path.name,
@@ -225,50 +299,51 @@ def phase_kernel(torch) -> dict:
     from repro_torch.kernels.spork_predict import ops
     cases = []
     main = None
-    for cells in (1, 32):
-        for n in (16, 200, 512, 4096):
-            hist, coeffs, amort = _predict_inputs(cells, n, 1000 * cells + n,
-                                                  torch)
-            got = ops.expected_objective(hist, coeffs, amort)
-            want = plain(hist, coeffs, amort)
-            torch.cuda.synchronize()
-            fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
-            check(bool(torch.equal(fin_g, fin_w)),
-                  f"spork_predict mask differs at C={cells} N={n}")
-            diff = (got - want).abs()[fin_w]
-            rel = diff / want.abs()[fin_w].clamp(min=1e-30)
-            max_abs = float(diff.max()) if diff.numel() else 0.0
-            max_rel = float(rel.max()) if rel.numel() else 0.0
-            check(max_rel <= RTOL_KERNEL,
-                  f"spork_predict rel err {max_rel} at C={cells} N={n}")
-            # The plain version on the CPU is the oracle of the allocator's
-            # choices (tests and goldens run it); cuBLAS sums the card's
-            # plain version in another order, so its argmin may flip on a
-            # near-tie and is only counted.
-            cpu_plain = plain(hist.cpu(), coeffs_cpu(coeffs), amort.cpu())
-            got_cpu = got.cpu()
-            check(bool(torch.equal(torch.isfinite(got_cpu),
-                                   torch.isfinite(cpu_plain))),
-                  f"spork_predict mask differs from the CPU at C={cells} N={n}")
-            rows = torch.isfinite(cpu_plain).any(dim=1)
-            a_got = torch.argmin(got_cpu, 1)
-            check(bool(torch.equal(a_got[rows],
-                                   torch.argmin(cpu_plain, 1)[rows])),
-                  f"spork_predict argmin differs from the CPU plain version "
-                  f"at C={cells} N={n}")
-            flips = int((rows & (a_got != torch.argmin(want.cpu(), 1))).sum())
-            bitwise_cpu = bool(torch.equal(got_cpu, cpu_plain))
-            if (cells, n) == (32, 512):
-                check(bitwise_cpu, "spork_predict is not bitwise equal to the "
-                                   "CPU plain version at the main path's shape")
-            case = {"C": cells, "N": n, "max_abs_err": max_abs,
-                    "max_rel_err": max_rel, "argmin_equal_cpu_plain": True,
-                    "bitwise_equal_cpu_plain": bitwise_cpu,
-                    "bitwise_equal_card_plain": bool(torch.equal(got, want)),
-                    "argmin_flips_vs_card_plain": flips}
-            cases.append(case)
-            if (cells, n) == (32, 512):
-                main = (hist, coeffs, amort, case)
+    shapes = [(cells, n) for cells in (1, 32) for n in PREDICT_BINS]
+    for cells, n in shapes + [(16, TABLE9_N_MAX)]:
+        hist, coeffs, amort = _predict_inputs(cells, n, 1000 * cells + n,
+                                              torch)
+        got = ops.expected_objective(hist, coeffs, amort)
+        want = plain(hist, coeffs, amort)
+        torch.cuda.synchronize()
+        fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+        check(bool(torch.equal(fin_g, fin_w)),
+              f"spork_predict mask differs at C={cells} N={n}")
+        diff = (got - want).abs()[fin_w]
+        rel = diff / want.abs()[fin_w].clamp(min=1e-30)
+        max_abs = float(diff.max()) if diff.numel() else 0.0
+        max_rel = float(rel.max()) if rel.numel() else 0.0
+        check(max_rel <= RTOL_KERNEL,
+              f"spork_predict rel err {max_rel} at C={cells} N={n}")
+        # The plain version on the CPU is the oracle of the allocator's
+        # choices (tests and goldens run it); cuBLAS sums the card's
+        # plain version in another order, so its argmin may flip on a
+        # near-tie and is only counted.
+        cpu_plain = plain(hist.cpu(), coeffs_cpu(coeffs), amort.cpu())
+        got_cpu = got.cpu()
+        check(bool(torch.equal(torch.isfinite(got_cpu),
+                               torch.isfinite(cpu_plain))),
+              f"spork_predict mask differs from the CPU at C={cells} N={n}")
+        rows = torch.isfinite(cpu_plain).any(dim=1)
+        a_got = torch.argmin(got_cpu, 1)
+        check(bool(torch.equal(a_got[rows],
+                               torch.argmin(cpu_plain, 1)[rows])),
+              f"spork_predict argmin differs from the CPU plain version "
+              f"at C={cells} N={n}")
+        flips = int((rows & (a_got != torch.argmin(want.cpu(), 1))).sum())
+        bitwise_cpu = bool(torch.equal(got_cpu, cpu_plain))
+        if (cells, n) in PREDICT_BITWISE:
+            check(bitwise_cpu, f"spork_predict is not bitwise equal to the "
+                               f"CPU plain version at a main path's shape "
+                               f"C={cells} N={n}")
+        case = {"C": cells, "N": n, "max_abs_err": max_abs,
+                "max_rel_err": max_rel, "argmin_equal_cpu_plain": True,
+                "bitwise_equal_cpu_plain": bitwise_cpu,
+                "bitwise_equal_card_plain": bool(torch.equal(got, want)),
+                "argmin_flips_vs_card_plain": flips}
+        cases.append(case)
+        if (cells, n) == (32, 512):
+            main = (hist, coeffs, amort, case)
     hist, coeffs, amort, case = main
     cells, n = hist.shape
     kernel_ms = graph_ms(lambda: ops.expected_objective(hist, coeffs, amort),
@@ -729,6 +804,440 @@ def phase_fig2_vs_cpu(fig2: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- slice 3: the exact DES
+
+def _flat(tree, path=""):
+    """A nested dict of numpy arrays (`interop.to_numpy`) as (path, array)
+    pairs."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{path}{k}.")
+        else:
+            yield f"{path}{k}", v
+
+
+def _table9_cells():
+    """The 45 cells of benchmarks/table9_dispatch.py at BENCH_FAST=0 (case
+    x dispatcher x app, in its order), on the port's b-model traces."""
+    from repro_torch.core.traces import synthetic_trace
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.sim.sweep import EventCell
+    cells = []
+    for label, bias, size in TABLE9_CASES:
+        apps = []
+        for app in range(TABLE9_APPS):
+            tr = synthetic_trace(seed=100 + app, bias=bias,
+                                 horizon_s=TABLE9_HORIZON_S,
+                                 request_size_s=size, mean_demand_workers=8.0)
+            apps.append((tr.arrival_times(seed=7 + app), tr.request_size_s))
+        for disp in TABLE9_DISPATCHERS:
+            for app, (arr, size_s) in enumerate(apps):
+                cells.append(EventCell(disp, arr, size_s, DEFAULT_FLEET,
+                                       horizon_s=float(TABLE9_HORIZON_S),
+                                       tag=(label, disp, app)))
+    return cells
+
+
+def _cut(cell, seconds: int):
+    """A Table 9 cell cut to its first ``seconds``."""
+    arr = cell.arrival_times
+    return replace(cell, arrival_times=arr[arr < seconds],
+                   horizon_s=float(seconds))
+
+
+def _arrival_midrun(cells, failures, torch):
+    """Run the engine on the card (kernel and ticks) over the first
+    ARRIVAL_MIDRUN_ENTRIES entries of ``cells``, chunk by chunk, and gather
+    the cells' rows in order. Returns their scalars, codes, the failure
+    key, the next ARRIVAL_CHAIN blocks and the carry."""
+    from repro_torch.ft.failures import FailureSpec
+    from repro_torch.kernels.arrival.ops import arrival_block
+    from repro_torch.sim import events_batched as eb
+    from repro_torch.sim.exec import _event_args
+    from repro_torch.sim.plan import plan_events
+    spec = None if failures is None else FailureSpec(**failures)
+    plan = plan_events([replace(c, failures=spec) for c in cells],
+                       n_max=TABLE9_N_MAX, w_fpga=TABLE9_W[0],
+                       w_cpu=TABLE9_W[1])
+    dev = torch.device("cuda")
+    w_f, W = TABLE9_W[0], sum(TABLE9_W)
+    is_f = torch.arange(W, device=dev) < w_f
+    e0, e1 = ARRIVAL_MIDRUN_ENTRIES, ARRIVAL_MIDRUN_ENTRIES + ARRIVAL_CHAIN
+    parts, order = [], []
+    for d in plan.dispatches:
+        es, codes, times, tick_t, is_tick = _event_args(d, dev)
+        check(times.shape[1] >= e1, "arrival_kernel: a chunk is too short")
+        c = eb.init_carry(d.chunk, W, dev)
+        ts = eb.init_tick_state(d.chunk, TABLE9_N_MAX, dev)
+        for e in range(e0):
+            c = arrival_block(es, d.static[3], codes, w_f, c, times[:, e])
+            if bool(is_tick[:, e].any()):
+                c, ts = eb._tick_step(es, d.static[3], w_f, is_f, c, ts,
+                                      tick_t[:, e], is_tick[:, e])
+        real = slice(0, d.n_real)
+        parts.append((_rows(es, real), codes[real], times[real, e0:e1],
+                      _rows(c, real)))
+        order += d.cell_idx
+    perm = torch.tensor(sorted(range(len(order)), key=order.__getitem__),
+                        device=dev)
+
+    def cat(trees):
+        if hasattr(trees[0], "_fields"):
+            return type(trees[0])(*(cat(x) for x in zip(*trees)))
+        return torch.cat(trees)[perm]
+
+    es, codes, times, c = (cat(list(x)) for x in zip(*parts))
+    return es, codes, plan.dispatches[0].static[3], times, c
+
+
+def _rows(tree, idx):
+    """Rows ``idx`` of every leaf of a (nested) NamedTuple of tensors."""
+    return type(tree)(*(_rows(x, idx) if hasattr(x, "_fields") else x[idx]
+                        for x in tree))
+
+
+def _to(tree, dev):
+    """Every leaf of a (nested) NamedTuple of tensors on ``dev``."""
+    return type(tree)(*(_to(x, dev) if hasattr(x, "_fields") else x.to(dev)
+                        for x in tree))
+
+
+def _arrival_chain(es, codes, fstat, c0, blocks, torch) -> dict:
+    """Chain ``blocks`` through the kernel, the plain version on the card
+    and the plain version on the CPU from the same carry; every carry leaf
+    must be bitwise equal after every block."""
+    from repro_torch.interop import to_numpy
+    from repro_torch.kernels.arrival import ops
+    from repro_torch.kernels.arrival.ref import arrival_block_ref
+    import numpy as np
+    w_f = TABLE9_W[0]
+    es_c, codes_c, cc = _to(es, "cpu"), codes.cpu(), _to(c0, "cpu")
+    ck = cg = c0
+    arrivals, max_abs = 0, 0.0
+    for b, tb in enumerate(blocks):
+        ck = ops.arrival_block(es, fstat, codes, w_f, ck, tb)
+        cg = arrival_block_ref(es, fstat, codes, w_f, cg, tb)
+        cc = arrival_block_ref(es_c, fstat, codes_c, w_f, cc, tb.cpu())
+        torch.cuda.synchronize()
+        arrivals += int(torch.isfinite(tb).sum())
+        got = dict(_flat(to_numpy(ck)))
+        for name, other in (("card", cg), ("cpu", cc)):
+            for path, want in _flat(to_numpy(other)):
+                if want.dtype.kind == "f":       # equal infinities: no error
+                    a, w = got[path], want
+                    err = np.where(a == w, 0.0, np.abs(a.astype(np.float64)
+                                                       - w))
+                    max_abs = max(max_abs, float(err.max(initial=0.0)))
+                check(got[path].tobytes() == want.tobytes(),
+                      f"arrival kernel differs from the {name} plain version "
+                      f"at block {b}, leaf {path}")
+    return {"blocks": len(blocks), "arrivals": arrivals,
+            "max_abs_err": max_abs}
+
+
+def _real_per_cell(times) -> list[int]:
+    """Real (finite) arrivals of each cell of a ``(C, B)`` block."""
+    return [int(x) for x in times.isfinite().sum(dim=1).tolist()]
+
+
+# Operations of the pristine arrival function (events_batched._arrival_step
+# + _find_candidates) for one real arrival, counted from its expressions:
+#   fp32 per slot, 56: liveness 3 (max, add, compare), ready 1, wid to float
+#     1, slack 1, group tests 3, reduction 1 10 and reduction 2 12 (a select
+#     and a max per slot for each of the 11 maxima), ties 4, one-hots 5,
+#     the update 16
+#   fp32 per ring slot (the FPGA region), 3: feas_rr's max and compare, the
+#     key test
+#   int32 and logic per slot, 36: the boolean masks and one-hots
+#   int32 per ring slot, 3 (the cyclic key), and per pair of ring slots, 4
+#     (the rank matrix: two ands, a compare, an add)
+# The failure-aware function adds, per slot and failover round, 14 fp32
+# (straggler service, crash test, the wider update) and 70 int32 (two
+# counter hashes: the evacuation and the crash draw); one round per
+# arrival is counted, the fewest the function runs.
+ARRIVAL_OPS = {"f32_slot": 56, "f32_ring": 3, "i32_slot": 36, "i32_ring": 3,
+               "i32_ring_pair": 4, "fail_f32_slot": 14, "fail_i32_slot": 70}
+# block-wide barriers per arrival (per round): ranks, reductions 1 and 2,
+# and the failure path's OR of the round's outcome
+ARRIVAL_BARRIERS = {False: 3, True: 4}
+
+
+def _arrival_bound(times, W: int, w_f: int, failures: bool) -> dict:
+    """Least time for one launch on ``times`` ``(C, B)``: each cell's carry
+    read and written once (13 words per slot, 14 scalars), its B times and
+    31 scalars + seed + code read once; the function's operations for the
+    block's real arrivals (ARRIVAL_OPS), each kind at its rate. Beside it,
+    the chain that bounds the kernel in fact: the longest cell's real
+    arrivals, each a sequence of block-wide barriers."""
+    cells, B = times.shape
+    real = _real_per_cell(times)
+    arrivals, chain = sum(real), max(real)
+    k = ARRIVAL_OPS
+    f32 = k["f32_slot"] * W + k["f32_ring"] * w_f
+    i32 = k["i32_slot"] * W + k["i32_ring"] * w_f + k["i32_ring_pair"] * w_f ** 2
+    if failures:
+        f32 += k["fail_f32_slot"] * W
+        i32 += k["fail_i32_slot"] * W
+    nbytes = cells * (2 * 4 * (13 * W + 14) + 4 * B + 4 * 33)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32 / FP32_OPS + i32 / INT32_OPS) * arrivals * 1e3
+    return {"bytes": nbytes, "f32_ops": f32 * arrivals,
+            "i32_ops": i32 * arrivals, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "real_arrivals": arrivals, "chain_arrivals": chain,
+            "chain_barriers": chain * ARRIVAL_BARRIERS[failures]}
+
+
+def phase_arrival_kernel(torch) -> dict:
+    from repro_torch.kernels.arrival import ops
+    from repro_torch.kernels.arrival.ref import arrival_block_ref
+    short = [_cut(c, ARRIVAL_MIDRUN_S) for c in _table9_cells()
+             if "short" in c.tag[0]]
+    # 30 short cells + two SporkB-weighted ones: one chunk of 32 cells
+    cells = short + [replace(c, energy_weight=0.5) for c in short[-2:]]
+    cases, timing = [], {}
+    W, B = sum(TABLE9_W), 128
+    for fname, failures in (("pristine", None), ("failures", ARRIVAL_FAIL_SPEC)):
+        es, codes, fstat, times, c0 = _arrival_midrun(cells, failures, torch)
+        cont = [times[:, e].contiguous() for e in range(ARRIVAL_CHAIN)]
+        # dyadic: the same arrivals on a 1/8 s grid (+inf padding stays)
+        dyad = [torch.floor(t * 8.0) / 8.0 for t in cont]
+        by_code = {}
+        for r, code in enumerate(codes.tolist()):
+            by_code.setdefault(code, r)
+        for tname, blocks in (("continuous", cont), ("dyadic", dyad)):
+            res = _arrival_chain(es, codes, fstat, c0, blocks, torch)
+            cases.append({"C": len(cells), "W": W, "B": B,
+                          "failures": fname, "times": tname,
+                          "codes": sorted(by_code), **res,
+                          "bitwise_equal": True})
+            for code, r in sorted(by_code.items()):
+                idx = slice(r, r + 1)
+                res = _arrival_chain(_rows(es, idx), codes[idx], fstat,
+                                     _rows(c0, idx), [t[idx] for t in blocks],
+                                     torch)
+                cases.append({"C": 1, "W": W, "B": B, "failures": fname,
+                              "times": tname, "codes": [code], **res,
+                              "bitwise_equal": True})
+        # timing at (32, 96, 128) on a block of the chain with the most
+        # real arrivals: the raw launch on packed inputs, then the plain
+        # version on the card
+        tb = max(cont, key=lambda t: int(torch.isfinite(t).sum()))
+        ins = [*ops.pack_cells(es, codes), tb, *ops.pack_carry(c0)]
+        outs = [torch.empty_like(x) for x in ins[4:]]
+        launch = ops._launcher()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def raw():
+            rc = launch(*(x.data_ptr() for x in ins + outs), len(cells), W,
+                        TABLE9_W[0], B, int(fstat.enabled),
+                        int(fstat.max_retries), int(fstat.max_failover),
+                        stream)
+            check(rc == 0, f"arrival launch failed: CUDA error {rc}")
+
+        t = timing[fname] = {
+            "ms": cuda_ms(raw, 50, torch),
+            "plain_ms": cuda_ms(lambda: arrival_block_ref(
+                es, fstat, codes, TABLE9_W[0], c0, tb), 2, torch),
+            **_arrival_bound(tb, W, TABLE9_W[0], bool(fstat.enabled))}
+        t["us_per_barrier"] = t["ms"] * 1e3 / t["chain_barriers"]
+    out = {"phase": "arrival_kernel", "cases": cases,
+           "C": len(cells), "W": W, "B": B, "kernels": timing,
+           **timing["pristine"], "library_ms": None,
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "timing": "ms: CUDA events over 50 back-to-back raw launches on "
+                     "packed inputs (kernel only); plain_ms: CUDA events "
+                     "over 2 calls of the plain version on the card; "
+                     "us_per_barrier: ms over the longest cell's chain of "
+                     "barrier-separated phases (what bounds the kernel in "
+                     "fact, beside the operation bound)",
+           "library": "none: no PyTorch call computes an arrival block"}
+    emit(out)
+    return out
+
+
+def _golden_arrivals():
+    """tests/test_policy_equivalence.py::event_arrivals."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    rates = np.where((np.arange(GOLDEN_HORIZON_S) // 20) % 2 == 0, 8.0, 0.5)
+    return np.repeat(np.arange(GOLDEN_HORIZON_S, dtype=np.float64),
+                     rng.poisson(rates))
+
+
+def phase_event_goldens(torch) -> dict:
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.ft.failures import FailureSpec
+    from repro_torch.kernels.arrival import ops
+    from repro_torch.sim.events_batched import (EventCell,
+                                                simulate_events_batched)
+    from repro_torch.sim.plan import plan_events
+    goldens = json.loads((ROOT / "tests" / "goldens" / "policy_goldens.json")
+                         .read_text())["event"]
+    qfleet = DEFAULT_FLEET.replace(cpu=DEFAULT_FLEET.cpu.replace(spin_up_s=1.0))
+    arr = _golden_arrivals()
+    counters = ("requests", "deadline_misses", "fpga_spinups", "cpu_spinups",
+                "retries", "failed_spinups", "crashes", "recovered_requests",
+                "failure_misses")
+    floats = ("energy_j", "cost_usd", "work_on_fpga_cpu_s",
+              "work_on_cpu_cpu_s", "fpga_idle_j", "fpga_busy_j",
+              "cpu_busy_j", "spinup_j", "wasted_spinup_j")
+    ops.arrival_block.launches = 0
+    bad, max_rel, rows, entries = [], 0.0, {}, 0
+    t0 = time.perf_counter()
+    for key in sorted(goldens):
+        disp, _, fail_key = key.partition("@")
+        spec = FailureSpec(**GOLDEN_FSPEC) if fail_key == "combined" else None
+        plan = plan_events([EventCell(disp, arr, 1.0, qfleet,
+                                      horizon_s=float(GOLDEN_HORIZON_S),
+                                      failures=spec)], n_max=GOLDEN_N_MAX)
+        entries += sum(d.arrays["times"].shape[1] for d in plan.dispatches)
+        tot = simulate_events_batched(arr, 1.0, qfleet, dispatcher=disp,
+                                      horizon_s=float(GOLDEN_HORIZON_S),
+                                      n_max=GOLDEN_N_MAX, failures=spec,
+                                      device="cuda")
+        want = goldens[key]["batched"]
+        for f in counters:
+            if getattr(tot, f) != want[f]:
+                bad.append((key, f, getattr(tot, f), want[f]))
+        for f in floats:
+            a, b = getattr(tot, f), want[f]
+            max_rel = max(max_rel, abs(a - b) / max(abs(b), 1e-12))
+            if abs(a - b) > 1e-3 + 1e-5 * abs(b):
+                bad.append((key, f, a, b))
+        if tot.breakdown["slot_overflow"]:
+            bad.append((key, "slot_overflow", tot.breakdown["slot_overflow"], 0))
+        rows[key] = {f: getattr(tot, f) for f in counters + floats}
+    out = {"phase": "event_goldens", "cells": len(goldens),
+           "wall_s": time.perf_counter() - t0,
+           "arrival_launches": ops.arrival_block.launches,
+           "expected_arrival_launches": entries,
+           "max_rel_err_floats": max_rel, "mismatches": bad[:10],
+           "rows": rows}
+    emit(out)
+    check(not bad, f"event goldens differ on the card: {bad[:3]}")
+    check(ops.arrival_block.launches == entries,
+          f"event goldens: {ops.arrival_block.launches} arrival launches, "
+          f"their plans have {entries} entries")
+    return out
+
+
+def _table9_rows(cells, totals) -> list[dict]:
+    from repro_torch.core.metrics import RunTotals, report
+    from repro_torch.core.workers import DEFAULT_FLEET
+    merged: dict[tuple, RunTotals] = {}
+    for cell, tot in zip(cells, totals):
+        key = cell.tag[:2]
+        merged[key] = merged.get(key, RunTotals()).merge(tot)
+    rows = []
+    for label, _, _ in TABLE9_CASES:
+        for disp in TABLE9_DISPATCHERS:
+            r = report(merged[(label, disp)], DEFAULT_FLEET)
+            rows.append({"trace": label, "dispatch": disp,
+                         "energy_eff": r.energy_efficiency,
+                         "rel_cost": r.relative_cost,
+                         "miss_rate": r.deadline_miss_rate})
+    return rows
+
+
+def phase_table9(torch) -> dict:
+    from repro_torch.kernels.arrival import ops as arrival_ops
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.sim.plan import plan_events
+    from repro_torch.sim.sweep import sweep_events
+    t0 = time.perf_counter()
+    cells = _table9_cells()
+    t_traces = time.perf_counter() - t0
+    kw = dict(n_max=TABLE9_N_MAX, w_fpga=TABLE9_W[0], w_cpu=TABLE9_W[1])
+    plan = plan_events(cells, **kw)
+    entries = [d.arrays["times"].shape[1] for d in plan.dispatches]
+    tick_entries = [int(d.arrays["is_tick"].any(axis=0).sum())
+                    for d in plan.dispatches]
+    arrival_ops.arrival_block.launches = 0
+    predict_ops.expected_objective.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sweep_events(cells, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"arrival": arrival_ops.arrival_block.launches,
+                "spork_predict": predict_ops.expected_objective.launches}
+    overflow = [i for i, t in enumerate(res) if t.breakdown["slot_overflow"]]
+    for i, tot in enumerate(res):
+        check(tot.is_finite() and tot.requests == len(cells[i].arrival_times),
+              f"table9 cell {cells[i].tag}: malformed totals")
+    rows = _table9_rows(cells, res)
+    out = {"phase": "table9", "cells": len(cells),
+           "arrivals": int(sum(len(c.arrival_times) for c in cells)),
+           "horizon_s": TABLE9_HORIZON_S, "n_max": TABLE9_N_MAX,
+           "w_fpga": TABLE9_W[0], "w_cpu": TABLE9_W[1],
+           "dispatches": [{"chunk": d.chunk, "cells": d.n_real, "entries": e,
+                           "tick_entries": k, "failures": d.static[3].enabled}
+                          for d, e, k in zip(plan.dispatches, entries,
+                                             tick_entries)],
+           "trace_s": t_traces, "wall_s": wall, "launches": launches,
+           "expected_launches": {"arrival": sum(entries),
+                                 "spork_predict": sum(tick_entries)},
+           "slot_overflow_cells": [list(map(str, cells[i].tag))
+                                   for i in overflow],
+           "rows": rows}
+    emit(out)
+    check(not overflow, f"table9: {len(overflow)} cells overflowed a table")
+    check(launches["arrival"] == sum(entries),
+          f"table9: {launches['arrival']} arrival launches, plan has "
+          f"{sum(entries)} entries")
+    check(launches["spork_predict"] == sum(tick_entries),
+          f"table9: {launches['spork_predict']} spork_predict launches, plan "
+          f"has {sum(tick_entries)} tick entries")
+    return {"cells": cells, "res": res, "plan": plan, "out": out}
+
+
+def phase_table9_vs_cpu(t9: dict) -> dict:
+    from repro_torch.sim.events import simulate_events
+    from repro_torch.sim.sweep import sweep_events
+    cells = [_cut(c, TABLE9_VS_CPU_S) for c in t9["cells"]
+             if c.tag[0] == TABLE9_CASES[0][0] and c.tag[2] == 0]
+    kw = dict(n_max=TABLE9_N_MAX, w_fpga=TABLE9_W[0], w_cpu=TABLE9_W[1])
+    card = sweep_events(cells, device="cuda", **kw)
+    t0 = time.perf_counter()
+    cpu = sweep_events(cells, device="cpu", **kw)
+    cpu_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [simulate_events(c.arrival_times, c.size_s, c.fleet,
+                              dispatcher=c.dispatcher, horizon_s=c.horizon_s,
+                              n_max=TABLE9_N_MAX, device="cpu")
+              for c in cells]
+    serial_wall = time.perf_counter() - t0
+    from repro_torch.core.metrics import RunTotals
+    bad, max_rel, same, gaps = [], 0.0, 0, []
+    for c, g, p, o in zip(cells, card, cpu, serial):
+        for f in RunTotals.COUNT_FIELDS:
+            if getattr(g, f) != getattr(p, f):
+                bad.append((c.dispatcher, f, getattr(g, f), getattr(p, f)))
+        for f in RunTotals.FLOAT_FIELDS:
+            a, b = getattr(g, f), getattr(p, f)
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            max_rel = max(max_rel, rel)
+            same += a == b
+            if rel > RTOL_CPU and abs(a - b) > 1e-3:
+                bad.append((c.dispatcher, f, a, b))
+        gaps.append({"dispatch": c.dispatcher, **{
+            f: (getattr(g, f) - getattr(o, f)) / max(abs(getattr(o, f)), 1e-12)
+            for f in ("energy_j", "cost_usd", "deadline_misses",
+                      "fpga_spinups", "cpu_spinups", "work_on_fpga_cpu_s")}})
+    n_floats = len(cells) * len(RunTotals.FLOAT_FIELDS)
+    out = {"phase": "table9_vs_cpu", "cells": len(cells),
+           "horizon_s": TABLE9_VS_CPU_S,
+           "arrivals": int(sum(len(c.arrival_times) for c in cells)),
+           "cpu_wall_s": cpu_wall, "serial_wall_s": serial_wall,
+           "max_rel_err": max_rel, "float_fields_bitwise_equal": same,
+           "float_fields": n_floats, "mismatches": bad[:10],
+           "rel_gap_vs_serial_event_sim": gaps}
+    emit(out)
+    check(not bad, f"table9 card/CPU mismatches: {bad[:3]}")
+    return out
+
+
 def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
     """Run ``run`` once under torch.profiler; the wall time, the union of
     device spans (busy time, idle share) and, per kernel name, its
@@ -766,7 +1275,7 @@ def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
     return out
 
 
-def phase_profile(main: dict, fig2: dict, torch) -> dict:
+def phase_profile(main: dict, fig2: dict, t9: dict, torch) -> dict:
     import numpy as np
     from repro_torch.core.dp import level_buckets, solve_dp_batch
     from repro_torch.sim.sweep import sweep
@@ -794,6 +1303,22 @@ def phase_profile(main: dict, fig2: dict, torch) -> dict:
                                    n_levels=int(buckets.max()),
                                    device="cuda"),
             "fig2_hybrid_dense.json", ["minplus_dense_kernel"], torch)}
+    # one Table 9 dispatch (the first chunk), cut to its first entries
+    from repro_torch.sim.exec import LocalBackend
+    d = t9["plan"].dispatches[0]
+
+    def first(n):
+        return replace(d, arrays={k: (v[:, :n] if k in ("times", "tick_t",
+                                                        "is_tick") else v)
+                                  for k, v in d.arrays.items()})
+
+    backend = LocalBackend("cuda")
+    backend.run(first(20))                          # warm up the allocator
+    cut = first(PROFILE_ENTRIES)
+    out["table9_dispatch"] = {
+        "cells": d.n_real, "chunk": d.chunk, "entries": PROFILE_ENTRIES,
+        **_device_profile(lambda: backend.run(cut), "table9_dispatch.json",
+                          ["arrival_kernel", "spork_predict"], torch)}
     out["note"] = "wall times are under the profiler"
     emit(out)
     return out
@@ -820,7 +1345,15 @@ def main() -> int:
     phase_main_vs_cpu(main_run)
     fig2 = phase_fig2(torch)
     phase_fig2_vs_cpu(fig2)
-    phase_profile(main_run, fig2, torch)
+    arrival = phase_arrival_kernel(torch)
+    phase_event_goldens(torch)
+    t9 = phase_table9(torch)
+    phase_table9_vs_cpu(t9)
+    phase_profile(main_run, fig2, t9, torch)
+    # each path's count was zeroed just before it ran and read just after
+    predict_paths = {
+        "table8": main_run["out"]["spork_predict_launches"],
+        "table9": t9["out"]["launches"]["spork_predict"]}
     mp_launches = {
         "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
         "minplus_structured":
@@ -832,7 +1365,8 @@ def main() -> int:
         "name": "spork_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/spork_predict/csrc/spork_predict.cu",
         "replaces": "src/repro/kernels/spork_predict/spork_predict.py:84",
-        "launches": main_run["out"]["spork_predict_launches"],
+        "launches": sum(predict_paths.values()),
+        "launches_by_path": predict_paths,
         "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"], "library_ms": None}] + [{
@@ -841,7 +1375,14 @@ def main() -> int:
             "replaces": mp_replaces[name], "launches": mp_launches[name],
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}}
-        for name, t in minplus["kernels"].items()]})
+        for name, t in minplus["kernels"].items()] + [{
+            "name": "arrival", "route": "cuda",
+            "source": "src/repro_torch/kernels/arrival/csrc/arrival.cu",
+            "replaces": "src/repro/kernels/arrival/arrival.py:139",
+            "launches": t9["out"]["launches"]["arrival"],
+            **{k: arrival[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}}
+        ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -11,7 +11,7 @@ Every public entry point takes ``device=None``, which means the CUDA
 card (`repro_torch.device.resolve_device`); callers that want the CPU
 ask for it. The hand-written kernels live under `repro_torch.kernels`.
 
-What is ported (the rate-simulator main path behind Table 8, and the
-min-plus DP behind Figs. 2-3) and what waits for later slices is tracked
-in ROADMAP.md.
+What is ported (the rate-simulator main path behind Table 8, the
+min-plus DP behind Figs. 2-3 and the exact discrete-event simulation
+behind Table 9) and what waits for later slices is tracked in ROADMAP.md.
 """

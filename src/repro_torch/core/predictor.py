@@ -9,9 +9,9 @@ carries a leading cell axis (the reference vmaps over cells): ``H`` is
 plain PyTorch version of J (a transliteration of
 ``expected_objective_jnp``); `predict` evaluates J through the
 `spork_predict` wrapper, which launches the hand-written CUDA kernel on
-the card and uses the plain version for CPU tensors. The stateful NumPy
-`Predictor` serves only the discrete-event simulator and is not ported
-yet.
+the card and uses the plain version for CPU tensors. The stateful
+`Predictor` (NumPy state, `predict` on a device) serves the serial
+discrete-event simulator.
 
 The expected objective of allocating n_hat given the conditional histogram
 p(n) is (see core.breakeven for the coefficient mapping):
@@ -28,8 +28,10 @@ dominated and are masked out (+inf), matching Alg. 2's candidate set.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.spork_predict import ops as spork_predict_ops
 
 from .breakeven import ObjectiveCoeffs
@@ -74,9 +76,12 @@ def amortization_vector(life_sum: torch.Tensor, life_cnt: torch.Tensor,
 
     life_sum/life_cnt: ``(C, N)`` per-level lifetime statistics. Levels
     with no data default to one interval (full spin-up charged,
-    conservative). n_curr: ``(C,)``; amort_unit: float or ``(C,)``.
+    conservative). n_curr: ``(C,)``; amort_unit and interval_s: floats or
+    ``(C,)`` tensors.
     """
     n = life_sum.shape[-1]
+    if torch.is_tensor(interval_s):             # one interval per cell
+        interval_s = interval_s.reshape(-1, 1)
     avg_life = torch.where(life_cnt > 0,
                            life_sum / torch.clamp(life_cnt, min=1.0),
                            interval_s)
@@ -149,7 +154,7 @@ def predict(H: torch.Tensor, life_sum: torch.Tensor, life_cnt: torch.Tensor,
 def allocator_tick(H: torch.Tensor, life_sum: torch.Tensor,
                    life_cnt: torch.Tensor, n_lag: torch.Tensor,
                    lam: torch.Tensor, n_curr: torch.Tensor,
-                   coeffs: ObjectiveCoeffs, interval_s: float, tb
+                   coeffs: ObjectiveCoeffs, interval_s, tb, gate=True
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One complete Alg. 1+2 allocator tick for every cell.
 
@@ -157,7 +162,15 @@ def allocator_tick(H: torch.Tensor, life_sum: torch.Tensor,
     load ``lam``, in FPGA-seconds), the histogram observation
     ``H[n_lag2, n_needed] += 1``, the lag shift, and `predict`.
     ``n_lag`` is ``(C, 2)`` = [lag1, lag2]. ``H`` is updated in place
-    (the simulator owns it) and returned.
+    (the simulator owns it) and returned. ``interval_s`` and ``tb`` are
+    floats or ``(C,)`` tensors.
+
+    ``gate`` (``(C,)`` bool, or True for every cell) makes the tick a
+    no-op on an inactive cell's H and n_lag, bit for bit, while still
+    computing a (discarded) target: the discrete-event engine runs one
+    gated tick per entry of its flat stream. As in the reference, the
+    gate scales the histogram increment rather than selecting between
+    two histograms.
 
     Returns ``(H, n_lag, target)``.
     """
@@ -167,9 +180,11 @@ def allocator_tick(H: torch.Tensor, life_sum: torch.Tensor,
     n_needed = torch.clamp((n + (frac > tb)).to(torch.int32), max=n_max - 1)
     rows = torch.arange(H.shape[0], device=H.device)
     lag2 = torch.clamp(n_lag[:, 1], max=n_max - 1)
-    H.index_put_((rows, lag2.long(), n_needed.long()),
-                 torch.ones_like(lam), accumulate=True)
-    n_lag = torch.stack([n_needed, n_lag[:, 0]], dim=1)
+    inc = torch.ones_like(lam) if gate is True else gate.to(lam.dtype)
+    H.index_put_((rows, lag2.long(), n_needed.long()), inc, accumulate=True)
+    shifted = torch.stack([n_needed, n_lag[:, 0]], dim=1)
+    n_lag = shifted if gate is True else torch.where(gate[:, None], shifted,
+                                                     n_lag)
     target = predict(H, life_sum, life_cnt, n_needed, n_curr, coeffs,
                      interval_s)
     return H, n_lag, target
@@ -221,3 +236,42 @@ def lifetime_update_from_rings(alloc_time: torch.Tensor,
     life_sum = life_sum + torch.where(popped, t_s - eff, 0.0).sum(dim=1)
     life_cnt = life_cnt + popped.sum(dim=1).to(torch.float32)
     return eff[:, -1], life_sum, life_cnt
+
+
+class Predictor:
+    """Stateful Alg. 2 predictor of the serial event-driven simulator.
+
+    Histogram and lifetime statistics are float64 NumPy arrays, as in the
+    reference; `predict` hands them to `predict` (as float32, like the
+    reference's jitted call) on ``device`` (None: the card), so on the
+    card every tick goes through the `spork_predict` kernel."""
+
+    def __init__(self, n_max: int, coeffs: ObjectiveCoeffs, interval_s: float,
+                 device: torch.device | str | None = None):
+        self.n_max = n_max
+        self.coeffs = coeffs
+        self.interval_s = interval_s
+        self.device = resolve_device(device)
+        self.H = np.zeros((n_max, n_max), dtype=np.float64)
+        self.life_sum = np.zeros(n_max)
+        self.life_cnt = np.zeros(n_max)
+
+    def observe(self, n_lag2: int, n_needed: int) -> None:
+        self.H[min(n_lag2, self.n_max - 1), min(n_needed, self.n_max - 1)] += 1
+
+    def record_lifetime(self, level: int, lifetime_s: float) -> None:
+        level = min(level, self.n_max - 1)
+        self.life_sum[level] += lifetime_s
+        self.life_cnt[level] += 1
+
+    def predict(self, n_prev: int, n_curr: int) -> int:
+        n_prev = min(n_prev, self.n_max - 1)
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x)[None], dtype=dtype,
+                                   device=self.device)
+
+        out = predict(t(self.H), t(self.life_sum), t(self.life_cnt),
+                      t(n_prev, torch.int32), t(n_curr, torch.int32),
+                      self.coeffs, self.interval_s)
+        return int(out[0])

@@ -9,7 +9,11 @@ objects, so both packages can start from the same mid-run state.
 `accum_to_numpy` goes the other way. Every array is batched: a leading
 cell axis, as the reference's vmapped sweep core lays it out.
 `fleet_params` copies a fleet, so both packages' DPs can run on the
-same non-default fleet.
+same non-default fleet. `event_scalars`, `ev_carry` and `tick_state`
+carry the discrete-event engine's parameters and mid-run state across
+(nested tuples such as ``EvCarry.ws`` as nested mappings or NamedTuples),
+and `to_numpy` brings any of the port's NamedTuples back as nested dicts
+of numpy arrays.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from repro_torch.core.breakeven import ObjectiveCoeffs
 from repro_torch.core.workers import FleetParams, WorkerSpec
 from repro_torch.device import resolve_device
 from repro_torch.policies import RateParams
+from repro_torch.sim.events_batched import (EvCarry, EventScalars, FailAcc,
+                                            TickState, WorkerTable)
 from repro_torch.sim.ratesim import Accum, FleetScalars, SimState
 
 _I32 = torch.int32
@@ -104,3 +110,52 @@ def fleet_params(src) -> FleetParams:
                              for f in dataclasses.fields(WorkerSpec)})
     kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(FleetParams)}
     return FleetParams(**{**kw, "cpu": spec(src.cpu), "fpga": spec(src.fpga)})
+
+
+_EVENT_INTS = {"f_seed": torch.int64, "max_fpgas": _I32,
+               "allocate": torch.bool}
+_TABLE_DTYPES = {f: _F32 for f in WorkerTable._fields} | {
+    "wid": _I32, "alive": torch.bool, "level": _I32, "n_assign": _I32,
+    "nfail": _I32}
+_FAIL_DTYPES = {f: (_I32 if i < 7 else _F32)
+                for i, f in enumerate(FailAcc._fields)}
+_TICK_DTYPES = {f: _F32 for f in TickState._fields} | {"n_lag": _I32}
+
+
+def event_scalars(src, device: str | torch.device | None = None
+                  ) -> EventScalars:
+    """`EventScalars` from ``(C,)`` arrays keyed by its field names (the
+    uint32 hash seed becomes int64)."""
+    f = EventScalars._fields
+    d = dict(_fields(src))
+    d["f_seed"] = np.asarray(d["f_seed"]).astype(np.int64)
+    return EventScalars(*_tensors(d, f, {k: _EVENT_INTS.get(k, _F32)
+                                         for k in f},
+                                  resolve_device(device)))
+
+
+def ev_carry(src, device: str | torch.device | None = None) -> EvCarry:
+    """`EvCarry` from batched arrays keyed by the reference's field names
+    (``ws`` and ``fail`` nested)."""
+    d, dev = _fields(src), resolve_device(device)
+    ws = WorkerTable(*_tensors(d["ws"], WorkerTable._fields, _TABLE_DTYPES,
+                               dev))
+    fl = FailAcc(*_tensors(d["fail"], FailAcc._fields, _FAIL_DTYPES, dev))
+    names = ("serv_slot", "miss_slot", "next_wid", "rr_pos", "overflow")
+    dtypes = {"serv_slot": _F32, "miss_slot": _F32, "next_wid": _I32,
+              "rr_pos": _I32, "overflow": _I32}
+    return EvCarry(ws, *_tensors(d, names, dtypes, dev), fail=fl)
+
+
+def tick_state(src, device: str | torch.device | None = None) -> TickState:
+    """`TickState` from batched arrays keyed by its field names."""
+    return TickState(*_tensors(src, TickState._fields, _TICK_DTYPES,
+                               resolve_device(device)))
+
+
+def to_numpy(tup) -> dict:
+    """A NamedTuple of tensors (nested ones included) as nested dicts of
+    numpy arrays (copies), keyed by field name."""
+    return {f: (to_numpy(v) if hasattr(v, "_fields")
+                else np.array(v.detach().cpu()))
+            for f, v in zip(tup._fields, tup)}

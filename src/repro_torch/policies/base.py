@@ -1,5 +1,5 @@
-"""Policy-as-plugin base layer for the rate simulator (port of the rate
-half of `repro.policies.base`).
+"""Policy-as-plugin base layer (port of `repro.policies.base`; the
+admission family waits for the fleet slice).
 
 A policy is a **frozen dataclass** (its static structure: hashable, so
 it can key a sweep plan's groups) + a `RateParams` tuple of per-cell
@@ -7,8 +7,9 @@ tensors (tunable without touching the policy object) + **pure step
 functions** on batched state. Where the reference traces one cell under
 ``vmap``, every tensor here carries a leading cell axis ``(C, ...)``.
 
-The dispatch family (`DispatchPolicy`, `Candidates`) belongs to the
-discrete-event simulators and is not ported yet.
+Two families, matching the two simulator levels: `RatePolicy` for the
+rate simulator, and `DispatchPolicy`, the per-request rule (paper Alg. 3,
+Table 9) of both discrete-event engines.
 """
 
 from __future__ import annotations
@@ -111,6 +112,53 @@ class RatePolicy:
         raise NotImplementedError(self.name)
 
 
+class Candidates(NamedTuple):
+    """Per-arrival candidate summary the batched DES hands to
+    `DispatchPolicy.combine`, computed once and shared by every policy
+    (`events_batched._find_candidates`). Flags and availabilities are
+    ``(C,)``, one-hots ``(C, W)``."""
+
+    f_found: torch.Tensor     # any feasible FPGA (ready or pending)
+    c_found: torch.Tensor     # any feasible CPU
+    av_f: torch.Tensor        # winning FPGA availability (busiest-first key)
+    av_c: torch.Tensor        # winning CPU availability
+    oh_f: torch.Tensor        # (C, W) one-hot: winning FPGA slot
+    oh_c: torch.Tensor        # (C, W) one-hot: winning CPU slot
+    rr_found: torch.Tensor    # any feasible ring worker
+    oh_rr: torch.Tensor       # (C, W) one-hot: winning ring slot
+
+
+@dataclass(frozen=True)
+class DispatchPolicy:
+    """Per-request dispatch rule (paper Alg. 3 variants, Table 9).
+
+    One object drives both DES engines: the serial oracle calls
+    `find_worker` / `find_worker_f` (which may use the sim's candidate
+    helpers and cursor state); the batched engine evaluates every
+    registered policy's `combine` on the shared `Candidates` and selects
+    per cell by the integer ``code`` (`repro_torch.policies.des.
+    dispatch_select`), so one chunk may mix policies."""
+
+    name: str = "base"
+    code: int = -1           # select code (stable, registry-unique)
+
+    # ---- serial oracle (repro_torch.sim.events.EventSim) ----
+    def find_worker(self, sim):
+        """Pick a worker on the pristine path (no failure model)."""
+        raise NotImplementedError(self.name)
+
+    def find_worker_f(self, sim):
+        """Failure-aware twin: straggler-scaled feasibility, evacuated
+        workers skipped."""
+        raise NotImplementedError(self.name)
+
+    # ---- batched engine (repro_torch.sim.events_batched) ----
+    def combine(self, cand: Candidates):
+        """Combine the shared candidate groups into this policy's pick.
+        Returns (found ``(C,)``, oh_winner ``(C, W)``)."""
+        raise NotImplementedError(self.name)
+
+
 class PolicyRegistry:
     """Name -> singleton policy objects for one policy family."""
 
@@ -148,3 +196,4 @@ class PolicyRegistry:
 
 
 RATE_REGISTRY = PolicyRegistry("rate", RatePolicy)
+DISPATCH_REGISTRY = PolicyRegistry("dispatch", DispatchPolicy)

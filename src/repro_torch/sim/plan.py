@@ -1,35 +1,44 @@
 """Sweep planning: cell lists -> explicit, testable dispatch plans.
 
-Port of the rate half of `repro.sim.plan`. `plan_sweep(cells)` turns a
-list of `repro_torch.sim.sweep.SweepCell` into a `SweepPlan`: group keys,
-chunk shapes, padding and result scatter indices, all computed host-side
-with no device work. Each `ChunkDispatch` names the static arguments of
-one batched simulator call plus the padded host arrays (cell axis
-first) and the cell indices its rows scatter back to.
+Port of `repro.sim.plan` for rate and event cells. `plan_sweep(cells)`
+turns a list of `repro_torch.sim.sweep.SweepCell` into a `SweepPlan`, and
+`plan_events(cells)` a list of `repro_torch.sim.events_batched.EventCell`:
+group keys, chunk shapes, padding and result scatter indices, all
+computed host-side with no device work. Each `ChunkDispatch` names the
+static arguments of one batched simulator call plus the padded host
+arrays (cell axis first) and the cell indices its rows scatter back to.
 
-Invariants (held by tests/test_torch_sweep.py):
+Invariants (held by tests/test_torch_sweep.py and
+tests/test_torch_events_batched.py):
 
   * the ``cell_idx`` lists concatenate to a permutation of
     ``range(len(cells))`` — each cell is dispatched exactly once;
   * padding repeats row 0 of each chunk (padded rows are discarded by
     the scatter);
-  * rate chunks are exactly CHUNK or CHUNK_BIG cells.
+  * rate chunks are exactly CHUNK or CHUNK_BIG cells; event chunks are
+    powers of two in [4, EV_CHUNK_MAX].
 
-Cells that name a workload scenario (``scenario=``) or carry a failure
-model (``failures=``) are not supported by this slice: `plan_sweep`
-raises NotImplementedError for them.
+Cells that name a workload scenario (``scenario=``) without explicit
+demand need the workload library, which is not ported yet: the planners
+raise NotImplementedError for them. Failure-bearing rate cells run as
+their degraded-fleet equivalent (`FailureSpec.degrade_fleet`), as in the
+reference.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import math
+from dataclasses import dataclass, field, replace
 from typing import Iterable, Sequence
 
 import numpy as np
 
 from repro_torch.core.metrics import Report, RunTotals, report
 from repro_torch.core.workers import FleetParams
-from repro_torch.policies import get_rate_policy
+from repro_torch.ft.failures import fail_static
+from repro_torch.policies import get_dispatch_policy, get_rate_policy
+from repro_torch.sim.events_batched import (BLOCK, EV_CHUNK_MAX, _entries,
+                                            _pad_pow2, _scalars)
 from repro_torch.sim.ratesim import (Accum, accum_to_totals,
                                      fleet_scalars_np, static_level_for)
 
@@ -48,18 +57,13 @@ _CANON_INTERVAL = 10
 
 
 def check_cells(cells: Sequence) -> None:
-    """Reject cells this slice cannot run: scenario-bearing cells (the
-    workload library is not ported yet), failure-bearing cells (the
-    failure model is not ported yet) and cells without demand."""
+    """Reject rate cells this port cannot run: scenario-bearing cells
+    (the workload library is not ported yet) and cells without demand."""
     for c in cells:
         if c.scenario is not None:
             raise NotImplementedError(
                 "SweepCell(scenario=...) needs the workload scenario "
                 "library, which repro_torch does not port yet")
-        if c.failures is not None:
-            raise NotImplementedError(
-                "SweepCell(failures=...) needs the failure model, which "
-                "repro_torch does not port yet")
         if c.counts is None or c.size_s is None:
             raise ValueError("SweepCell needs explicit counts and size_s")
 
@@ -80,8 +84,8 @@ class ChunkDispatch:
     first), and the scatter map from its real rows back to plan cell
     indices."""
 
-    kind: str                       # "rate"
-    static: tuple                   # static args of ratesim._simulate_cells
+    kind: str                       # "rate" | "event"
+    static: tuple                   # static args of the batched core
     arrays: dict[str, np.ndarray]   # padded inputs, leading axis == chunk
     cell_idx: tuple[int, ...]       # row r (< n_real) -> cells[cell_idx[r]]
     chunk: int                      # padded leading-axis length
@@ -97,12 +101,12 @@ class SweepPlan:
     the dispatch list; ``work``/``requests`` are per-cell totals
     precomputed during planning."""
 
-    kind: str                       # "rate"
+    kind: str                       # "rate" | "event"
     cells: list
     dispatches: list[ChunkDispatch]
     n_max: int
-    work: np.ndarray | None = None          # (n_cells,) f64
-    requests: np.ndarray | None = None      # (n_cells,) i64
+    work: np.ndarray | None = None          # (n_cells,) f64, rate only
+    requests: np.ndarray | None = None      # (n_cells,) i64, rate only
     meta: dict = field(default_factory=dict)
 
     @property
@@ -113,9 +117,19 @@ class SweepPlan:
 def plan_sweep(cells: Iterable, n_max: int | None = None) -> SweepPlan:
     """Plan a rate-simulator sweep: one `ChunkDispatch` per (policy,
     interval, spin-up, horizon) group chunk, arrays laid out exactly as
-    `ratesim._simulate_cells` consumes them."""
+    `ratesim._simulate_cells` consumes them.
+
+    The rate simulator has no per-worker identity, so failure-bearing
+    cells are *fluidized* here: `FailureSpec.degrade_fleet` folds the
+    expected failure overheads into the fleet parameters and the cell's
+    ``failures`` is cleared (the plan's cells record what was simulated).
+    The DES engines are the exact path."""
     cells = list(cells)
     check_cells(cells)
+    cells = [c if c.failures is None or c.failures.normalized() is None
+             else replace(c, fleet=c.failures.degrade_fleet(c.fleet),
+                          failures=None)
+             for c in cells]
     groups: dict[tuple, list[int]] = {}
     for i, c in enumerate(cells):
         # the policy OBJECT (frozen dataclass: hashable) is the group key
@@ -181,6 +195,79 @@ def plan_sweep(cells: Iterable, n_max: int | None = None) -> SweepPlan:
                      work=work, requests=requests)
 
 
+def plan_events(cells: Iterable, n_max: int = 512, w_fpga: int = 32,
+                w_cpu: int = 64) -> SweepPlan:
+    """Plan a DES sweep: cells grouped by (padded entry-stream length,
+    static failure key), one `ChunkDispatch` per group chunk, arrays laid
+    out exactly as `events_batched._simulate_cells` consumes them. Every
+    cell must carry explicit demand (``arrival_times`` + ``size_s``).
+
+    Every chunk's padded entry-stream arrays (``chunk x E x BLOCK``
+    float32) are materialized up front, so host memory is proportional
+    to the whole sweep (~0.15 GB for the full Table 9 grid)."""
+    cells = list(cells)
+    codes = {}
+    for i, cl in enumerate(cells):
+        codes[i] = get_dispatch_policy(cl.dispatcher).code
+        if cl.arrival_times is None and cl.scenario is not None:
+            raise NotImplementedError(
+                "EventCell(scenario=...) needs the workload scenario "
+                "library, which repro_torch does not port yet")
+        if cl.arrival_times is None or cl.size_s is None:
+            raise ValueError("EventCell needs explicit arrival_times and "
+                             "size_s")
+    entries: dict[int, list] = {}
+    groups: dict[tuple, list[int]] = {}
+    for i, cl in enumerate(cells):
+        arr = np.asarray(cl.arrival_times, np.float64)
+        horizon = float(cl.horizon_s if cl.horizon_s is not None
+                        else (arr[-1] + 1.0 if len(arr) else 1.0))
+        entries[i] = _entries(arr, cl.fleet.T_s, horizon)
+        n_e = len(entries[i])
+        # pow2 up to 256 entries, then multiples of 256: every padded
+        # entry costs a full BLOCK of inert arrival slots
+        E = (_pad_pow2(n_e, lo=4) if n_e <= 256
+             else 256 * int(math.ceil(n_e / 256)))
+        groups.setdefault((E, fail_static(cl.failures)), []).append(i)
+
+    dispatches: list[ChunkDispatch] = []
+    for (E, fstat), idxs in groups.items():
+        chunk = _pad_pow2(len(idxs), lo=4, hi=EV_CHUNK_MAX)
+        start = 0
+        while start < len(idxs):
+            sl = idxs[start:start + chunk]
+            start += chunk
+            pad = sl + [sl[0]] * (chunk - len(sl))
+            times = np.full((len(pad), E, BLOCK), np.inf, np.float32)
+            tick_t = np.zeros((len(pad), E), np.float32)
+            is_tick = np.zeros((len(pad), E), bool)
+            for r, i in enumerate(pad):
+                for e, (row, tick) in enumerate(entries[i]):
+                    times[r, e, :len(row)] = row
+                    if tick is not None:
+                        tick_t[r, e] = tick
+                        is_tick[r, e] = True
+            arrays = {
+                "scalars": np.array([_scalars(cells[i])[:-2] for i in pad],
+                                    np.float32),
+                "fail_seed": np.array(
+                    [(cells[i].failures.seed
+                      if cells[i].failures is not None else 0)
+                     for i in pad], np.uint32),
+                "max_fpgas": np.array([cells[i].fleet.max_fpgas
+                                       for i in pad], np.int32),
+                "allocate": np.array([cells[i].allocate_fpgas
+                                      for i in pad], bool),
+                "codes": np.array([codes[i] for i in pad], np.int32),
+                "times": times, "tick_t": tick_t, "is_tick": is_tick,
+            }
+            dispatches.append(ChunkDispatch(
+                kind="event", static=(n_max, w_fpga, w_cpu, fstat),
+                arrays=arrays, cell_idx=tuple(sl), chunk=chunk))
+
+    return SweepPlan("event", cells, dispatches, n_max)
+
+
 class SweepResult:
     """Per-cell `Accum` (numpy leaves, cell order) + conversion to
     paper-style totals/reports. ``n_dispatches`` counts the batched
@@ -219,3 +306,39 @@ class SweepResult:
 
     def reports(self, reference_fleet: FleetParams | None = None) -> list[Report]:
         return [self.report(i, reference_fleet) for i in range(len(self))]
+
+
+class EventSweepResult:
+    """DES counterpart of `SweepResult`: per-cell `RunTotals` in cell
+    order plus the batching metadata (``n_dispatches``, ``backend``,
+    ``device``). Sequence-compatible with a bare ``list[RunTotals]``:
+    iteration, ``len`` and indexing all see the totals, and ``totals()``
+    / ``totals(i)`` mirror `SweepResult.totals`."""
+
+    def __init__(self, cells: Sequence, totals: Sequence[RunTotals],
+                 n_dispatches: int = 0, backend: str = "local",
+                 device: str = "", meta: dict | None = None):
+        self.cells = list(cells)
+        self._totals = list(totals)
+        self.n_dispatches = n_dispatches
+        self.backend = backend
+        self.device = device
+        self.meta = dict(meta or {})
+
+    def __len__(self) -> int:
+        return len(self._totals)
+
+    def __iter__(self):
+        return iter(self._totals)
+
+    def __getitem__(self, i):
+        return self._totals[i]
+
+    def totals(self, i: int | None = None):
+        """All totals (cell order) or one cell's totals."""
+        return list(self._totals) if i is None else self._totals[i]
+
+    def report(self, i: int,
+               reference_fleet: FleetParams | None = None) -> Report:
+        return report(self._totals[i], self.cells[i].fleet,
+                      reference_fleet=reference_fleet)

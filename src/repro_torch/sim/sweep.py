@@ -1,11 +1,15 @@
 """Batched parameter sweeps: thin wrappers over plan + execute.
 
-Port of the rate half of `repro.sim.sweep`. The paper's headline
+Port of `repro.sim.sweep` (rate and event cells). The paper's headline
 results (Figs. 5-7, Table 8) are parameter-space sweeps: spin-up latency
 x burstiness x policy x trace x worker parameters. Instead of one
 `ratesim.simulate` call per grid cell, `sweep` plans the whole grid
 (`repro_torch.sim.plan`) and runs each chunk of up to 32 or 256 cells as
 one batched simulator call (`repro_torch.sim.exec`).
+
+`sweep_events` does the same for discrete-event cells (`EventCell`,
+Table 9): the batched `events_batched` engine, chunks of up to 32 cells
+grouped by entry-stream length.
 
 Equivalence: per-cell totals match per-call `ratesim.simulate` at the
 same ``n_max`` to float32 tolerance.
@@ -21,23 +25,27 @@ import torch
 
 from repro_torch.core.metrics import RunTotals
 from repro_torch.core.workers import DEFAULT_FLEET, FleetParams
+from repro_torch.sim.events_batched import EventCell
 from repro_torch.sim.exec import Backend, execute, get_backend
-from repro_torch.sim.plan import (CHUNK, CHUNK_BIG, _N_MAX_CAP, SweepPlan,
-                                  SweepResult, check_cells, plan_sweep)
+from repro_torch.sim.plan import (CHUNK, CHUNK_BIG, _N_MAX_CAP,
+                                  EventSweepResult, SweepPlan, SweepResult,
+                                  check_cells, plan_events, plan_sweep)
 from repro_torch.sim.ratesim import headroom_unit, tune_fpga_dynamic
 
 __all__ = [
-    "SweepCell", "SweepResult", "SweepPlan", "sweep",
-    "tune_fpga_dynamic_cells", "CHUNK", "CHUNK_BIG",
+    "EventCell", "EventSweepResult", "SweepCell", "SweepResult",
+    "SweepPlan", "sweep", "sweep_events", "tune_fpga_dynamic_cells",
+    "CHUNK", "CHUNK_BIG",
 ]
 
 
 @dataclass(frozen=True)
 class SweepCell:
     """One grid cell of a parameter sweep: explicit per-second ``counts``
-    plus a scalar ``size_s``. ``scenario``/``seed`` and ``failures`` keep
-    the reference's fields, but cells that set them are rejected by the
-    planner until the workload library and the failure model are ported."""
+    plus a scalar ``size_s``. ``scenario``/``seed`` keep the reference's
+    fields, but the planner rejects scenario cells until the workload
+    library is ported. A cell with ``failures`` runs on its degraded fleet
+    (`FailureSpec.degrade_fleet`)."""
 
     policy: str
     counts: np.ndarray | None = None   # (T,) per-second arrival counts
@@ -49,7 +57,7 @@ class SweepCell:
     tag: Any = None               # caller's join key; carried through
     scenario: Any = None          # not ported yet (plan_sweep rejects it)
     seed: int = 0                 # scenario realization seed
-    failures: Any = None          # not ported yet (plan_sweep rejects it)
+    failures: Any = None          # FailureSpec, fluidized by plan_sweep
 
     def __post_init__(self):
         """Fail-fast construction-time validation: malformed cells raise
@@ -94,6 +102,30 @@ def sweep(cells: Iterable[SweepCell], n_max: int | None = None,
     spin-up, horizon) group chunk. Cell order is preserved in the result.
     ``device=None`` runs on the card."""
     return execute(plan_sweep(cells, n_max=n_max), backend, device=device)
+
+
+def sweep_events(cells: Iterable[EventCell], n_max: int = 512,
+                 w_fpga: int = 32, w_cpu: int = 64,
+                 backend: str | Backend | None = None,
+                 device: str | torch.device | None = None,
+                 checkpoint_dir=None, retry=None) -> EventSweepResult:
+    """Event-level (DES) cells in sweep grids: every `EventCell`
+    (dispatcher x arrival trace x fleet x objective) runs on the batched
+    `events_batched` engine, grouped by entry-stream shape, so a whole
+    Table 9 grid is a handful of dispatches. ``device=None`` runs on the
+    card, where every arrival block goes through the `arrival` kernel.
+
+    Returns an `EventSweepResult` (cell-ordered totals, each with
+    ``breakdown['slot_overflow']``, 0 when the table regions are large
+    enough). ``checkpoint_dir`` and ``retry`` belong to the operability
+    layer, which is not ported yet: passing either raises
+    NotImplementedError."""
+    if checkpoint_dir is not None or retry is not None:
+        raise NotImplementedError(
+            "sweep_events(checkpoint_dir=..., retry=...) needs the "
+            "operability layer, which repro_torch does not port yet")
+    plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu)
+    return execute(plan, backend, device=device)
 
 
 def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,

@@ -127,8 +127,14 @@ def test_unported_cells_and_backends_are_rejected():
     tr = _traces(1)[0]
     with pytest.raises(NotImplementedError, match="scenario"):
         plan_sweep([SweepCell("spork", scenario="steady")])
-    with pytest.raises(NotImplementedError, match="failure"):
-        plan_sweep([SweepCell("spork", tr.counts, 0.05, failures=object())])
+    # failure-bearing cells are no longer rejected: they run on the
+    # degraded fleet (tests/test_torch_failures.py holds the numbers)
+    from repro_torch.ft.failures import FailureSpec
+    spec = FailureSpec(crash_p=0.1)
+    planned = plan_sweep([SweepCell("spork", tr.counts, 0.05,
+                                    failures=spec)]).cells[0]
+    assert planned.failures is None
+    assert planned.fleet == spec.degrade_fleet(DEFAULT_FLEET)
     with pytest.raises(ValueError, match="explicit counts"):
         plan_sweep([SweepCell("spork")])
     with pytest.raises(ValueError, match="unknown policy"):
