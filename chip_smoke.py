@@ -6,9 +6,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, each printed as one JSON line; any failed check exits non-zero:
 
   device       card name, compute capability, nvidia-smi name/power limit
-  build        the four kernels (spork_predict, minplus, minplus_structured,
-               arrival) built from the checkout's sources with nvcc, one
-               process each, all started together (seconds, ptxas report)
+  build        the five kernels (spork_predict, minplus, minplus_structured,
+               arrival, decode_attn) built from the checkout's sources with
+               nvcc, one process each, all started together (seconds,
+               ptxas report)
   kernel       spork_predict against its plain PyTorch version at C in
                {1, 32} cells x N in {16, 128, 200, 512, 4096} bins and at
                C=16, N=128: against the plain version on the card, mask
@@ -81,17 +82,44 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                dispatchers rerun with device="cpu": counters identical,
                floats within 1e-5 (bitwise-equal fields counted); the same
                cells through the serial EventSim, gap reported
+  decode_attn_kernel
+               the `decode_attn` kernel against its plain version on the
+               card at (B, Hq, Hkv, D, S) = tests/test_kernels.py's four
+               shapes, the CLI's smoke shape (4, 4, 2, 16, 128), the serve
+               shape (8, 16, 8, 128, 1024) and S = 32768, float32 within
+               2e-5 and bf16 within 2e-2 (+ the same relative part), with
+               ragged lengths (0, 1, S, above S, random) and full rows; rows
+               of length 0 exactly 0; kernel, plain-version and SDPA
+               (enable_gqa, boolean length mask) times beside the byte
+               bound at the serve shape (length 160) and at S = 32768
+  serve        SporkRouter("qwen3-0.6b") on the card with launch/serve.py's
+               defaults (10 minutes, rate 40, burstiness 0.65, energy):
+               report, and one spork_predict launch per allocator tick;
+               then ServeEngine over qwen3-0.6b at full width in bf16 (8
+               slots, max_len 1024, 8 requests of 128 prompt tokens and 64
+               new tokens): 512 tokens, decode_attn launches = 28 x
+               (prefilled tokens + steps), the plain version never called,
+               prefill/decode wall, tokens/s, peak memory; the interleaving
+               regression of tests/test_serve.py at full width (streams
+               alone = interleaved, bitwise); launch/serve.py's main once
+               with short arguments
+  serve_vs_cpu the same model in float32 on the card and (weights carried
+               across) on the CPU: 2 requests of 16 + 8 tokens; every
+               step's logits within 1e-3 x that step's max |logit|, tokens
+               equal except at CPU top-2 gaps below that (counted)
   profile      device-idle share of one Spork chunk (32 cells, first
                120 s) under torch.profiler, and the kernel's device time;
                then one hybrid transition="kernel" dispatch of Fig. 2 and
                one dense dispatch (the hybrid rows of the largest level
                bucket): idle share and each minplus kernel's device time
                per launch; then the first Table 9 dispatch cut to 300
-               entries: idle share and the arrival kernel's device time
+               entries: idle share and the arrival kernel's device time;
+               then one decode step at the serve shape: idle share and
+               decode_attn's device time per launch and share of busy time
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
-the sum over its two paths, Table 8 and Table 9, each also given on its
-own), the raw nvidia-smi line, and
+the sum over its three paths, Table 8, Table 9 and the serve router, each
+also given on its own), the raw nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
 a checkout (no src/repro_torch beside it), it exits 2 and prints no
 result.
@@ -165,6 +193,41 @@ GOLDEN_FSPEC = dict(spinup_fail_p=0.125, max_retries=1, retry_backoff_s=2.0,
                     evac_end_s=140.0, seed=11)
 GOLDEN_HORIZON_S = 180
 GOLDEN_N_MAX = 64
+# decode_attn: tests/test_kernels.py's four shapes, the CLI's and the serve
+# phase's shapes and a long cache like SHAPES["decode_32k"], as
+# (B, Hq, Hkv, D, S)
+DECODE_MAIN = (8, 16, 8, 128, 1024)
+DECODE_LONG = (8, 16, 8, 128, 32768)
+DECODE_SMOKE = (4, 4, 2, 16, 128)    # the CLI's smoke engine (d_head 16)
+DECODE_SHAPES = ((2, 8, 8, 64, 256), (2, 16, 8, 64, 300), (1, 10, 1, 128, 512),
+                 (4, 6, 2, 128, 1024), DECODE_SMOKE, DECODE_MAIN, DECODE_LONG)
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+DECODE_BF16_STEPS = 4            # bf16 also within 4 x 2^-8 x max|want|
+# serve: qwen3-0.6b at full width in bf16, 8 requests of 128 prompt tokens
+# and 64 new tokens each, in 8 slots of 1024 positions
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_DTYPE = "bfloat16"
+SERVE_SLOTS = 8
+SERVE_MAX_LEN = 1024
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 128
+SERVE_NEW = 64
+SERVE_SEED = 0
+SERVE_MEAN_LENGTH = SERVE_PROMPT + SERVE_NEW // 2   # over the decode steps
+INTERLEAVE_PROMPT = 32           # the interleaving regression at full width
+INTERLEAVE_NEW = 8
+# launch/serve.py's router defaults
+ROUTER_MINUTES = 10.0
+ROUTER_RATE = 40.0
+ROUTER_BURSTINESS = 0.65
+CLI_ARGS = ["--minutes", "1", "--rate", "10", "--engine-requests", "4",
+            "--new-tokens", "8"]
+# serve_vs_cpu: full width in float32 on the card and on the CPU
+VS_CPU_SLOTS = 2
+VS_CPU_MAX_LEN = 64
+VS_CPU_PROMPT = 16
+VS_CPU_NEW = 8
+VS_CPU_RTOL = 1e-3               # x the step's max |logit|
 SCHEDULERS = [                   # benchmarks/table8_production.py
     ("CPU-dynamic", "cpu_dynamic", {}),
     ("FPGA-static", "fpga_static", {}),
@@ -246,12 +309,14 @@ def phase_device(torch) -> tuple[str, str]:
 def phase_build() -> None:
     from repro_torch.kernels.arrival import ops as arrival_ops
     from repro_torch.kernels.build import build_libraries
+    from repro_torch.kernels.decode_attn import ops as decode_ops
     from repro_torch.kernels.minplus import ops as minplus_ops
     from repro_torch.kernels.spork_predict import ops
     t0 = time.perf_counter()
     builds = build_libraries({"spork_predict": ops.SOURCES,
                               **minplus_ops.SOURCES,
-                              "arrival": arrival_ops.SOURCES})
+                              "arrival": arrival_ops.SOURCES,
+                              "decode_attn": decode_ops.SOURCES})
     wall = time.perf_counter() - t0
     emit({"phase": "build", "wall_s": wall, "kernels": {
         name: {"seconds": b.seconds, "library": b.path.name,
@@ -1238,6 +1303,428 @@ def phase_table9_vs_cpu(t9: dict) -> dict:
     return out
 
 
+def _decode_lengths(b: int, s: int, seed: int) -> dict:
+    """Length cases for the decode_attn checks: ragged (0, 1, S and one
+    above S first, then random) and full."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ragged = rng.integers(1, s + 1, b)
+    specials = [0, 1, s, s + 7]        # zeros; one position; S; counts as S
+    ragged[:min(b, 4)] = specials[:min(b, 4)]
+    return {"ragged": ragged, "full": np.full(b, s)}
+
+
+def _decode_inputs(shape, seed: int, torch):
+    """float32 q (B, Hq, D), k, v (B, S, Hkv, D) drawn on the card from a
+    seeded generator."""
+    b, hq, hkv, d, s = shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return [torch.randn(shp, generator=g, device="cuda")
+            for shp in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+def _decode_bound(shape, lengths, itemsize: int) -> dict:
+    """Least time for one call: q and out once, the valid K/V prefix of
+    each row once (bytes); the dot products and the weighted sum, a
+    multiply-add per element and query head each, in float32 (ops)."""
+    b, hq, hkv, d, s = shape
+    valid = int(sum(min(max(int(n), 0), s) for n in lengths))
+    nbytes = 2 * b * hq * d * itemsize + 4 * b + 2 * valid * hkv * d * itemsize
+    flops = 4 * valid * hq * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_decode_attn_kernel(torch) -> dict:
+    import numpy as np
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    F = torch.nn.functional
+    cases, max_err = [], {}
+    for shape in DECODE_SHAPES:
+        b, hq, hkv, d, s = shape
+        data = _decode_inputs(shape, sum(shape), torch)
+        for name, tol in DECODE_TOL.items():
+            q, k, v = (x.to(getattr(torch, name)) for x in data)
+            for lcase, lens in _decode_lengths(b, s, s + b).items():
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                got = ops.decode_attention(q, k, v, lengths)
+                want = decode_attention_ref(q, k, v, lengths)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                over = float((err - tol * want.float().abs()).max())
+                zero = torch.tensor(lens == 0, device="cuda")
+                zeros_exact = bool((got[zero] == 0).all())
+                worst = float(err.max())
+                top = float(want.float().abs().max())
+                cases.append({"shape": list(shape), "dtype": name,
+                              "lengths": lcase, "max_abs_err": worst,
+                              "max_abs_want": top,
+                              "err_over_max_want": (worst / top if top
+                                                    else worst and math.inf),
+                              "zero_rows": int(zero.sum()),
+                              "zero_rows_exact": zeros_exact})
+                max_err[name] = max(max_err.get(name, 0.0), worst)
+                check(over <= tol, f"decode_attn {shape} {name} {lcase}: "
+                                   f"error {worst} over {tol} + {tol}|want|")
+                if name == "bfloat16":
+                    # at S = 32768 the outputs are ~0.01, below the
+                    # absolute 2e-2: hold bf16 also to two output steps
+                    # (2 x 2^-7) of the largest output
+                    lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
+                    check(worst <= lim, f"decode_attn {shape} {name} "
+                                        f"{lcase}: error {worst} over "
+                                        f"{lim} (scaled to max|want| {top})")
+                check(zeros_exact, f"decode_attn {shape} {name}: a row of "
+                                   f"length 0 is not exactly 0")
+            del q, k, v
+        del data
+    timed = {}
+    for label, shape, lens in (
+            ("main", DECODE_MAIN, np.full(DECODE_MAIN[0], SERVE_MEAN_LENGTH)),
+            ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1]))):
+        b, hq, hkv, d, s = shape
+        q, k, v = (x.to(getattr(torch, SERVE_DTYPE))
+                   for x in _decode_inputs(shape, 7, torch))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < lengths[:, None])[:, None, None, :]
+        timed[label] = {
+            "shape": list(shape), "dtype": SERVE_DTYPE,
+            "lengths": int(lens[0]),
+            "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths), 50,
+                           torch),
+            "plain_ms": graph_ms(lambda: decode_attention_ref(q, k, v,
+                                                              lengths),
+                                 5, torch),
+            # one library call on the same inputs: GQA, boolean length mask
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
+            "eager_ms": cuda_ms(lambda: ops.decode_attention(q, k, v,
+                                                             lengths),
+                                50, torch),
+            **_decode_bound(shape, lens, q.element_size())}
+        del q, k, v, qs, ks, vs
+    out = {"phase": "decode_attn_kernel", "cases": cases,
+           "max_abs_err": max(max_err.values()),
+           "max_abs_err_by_dtype": max_err, "tolerance": DECODE_TOL,
+           "bf16_scaled_tolerance": f"{DECODE_BF16_STEPS} x 2^-8 x max|want| "
+                                    f"+ 1e-6",
+           "timed": timed, **{key: timed["main"][key] for key in
+                              ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")},
+           "timing": "ms, plain_ms, library_ms: CUDA-graph replay (device "
+                     "time per call); eager_ms: CUDA events over 50 eager "
+                     "calls; main: the serve phase's shape at its mean "
+                     "decode length; long: S = 32768, every row full"}
+    emit(out)
+    return out
+
+
+def _serve_router(torch) -> dict:
+    """launch/serve.py's router with its defaults, on the card."""
+    from repro_torch.core.traces import synthetic_trace
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.serve.router import SporkRouter
+    horizon = int(ROUTER_MINUTES * 60)
+    predict_ops.expected_objective.launches = 0
+    t0 = time.perf_counter()
+    router = SporkRouter(SERVE_ARCH, energy_weight=1.0, horizon_s=horizon,
+                         device="cuda")
+    size = router.size_s
+    tr = synthetic_trace(seed=1, bias=ROUTER_BURSTINESS, horizon_s=horizon,
+                         request_size_s=size,
+                         mean_demand_workers=ROUTER_RATE * size)
+    arrivals = tr.arrival_times(seed=2)
+    for t in arrivals:
+        router.submit(float(t))
+    rep = router.finish()
+    wall = time.perf_counter() - t0
+    launches = predict_ops.expected_objective.launches
+    ticks = math.ceil(horizon / router.fleet.T_s)
+    check(rep.totals.is_finite() and rep.totals.requests == len(arrivals),
+          "serve router: malformed totals")
+    check(launches == ticks, f"serve router: {launches} spork_predict "
+                             f"launches for {ticks} allocator ticks")
+    return {"arch": SERVE_ARCH, "minutes": ROUTER_MINUTES,
+            "rate": ROUTER_RATE, "burstiness": ROUTER_BURSTINESS,
+            "objective": "energy", "request_size_s": size,
+            "requests": len(arrivals), "wall_s": wall,
+            "spork_predict_launches": launches, "ticks": ticks,
+            "report": {"energy_efficiency": rep.energy_efficiency,
+                       "relative_cost": rep.relative_cost,
+                       "deadline_miss_rate": rep.deadline_miss_rate,
+                       "cpu_request_fraction": rep.cpu_request_fraction,
+                       "fpga_spinups": rep.totals.fpga_spinups,
+                       "cpu_spinups": rep.totals.cpu_spinups}}
+
+
+def _recorded(eng) -> dict:
+    """Wrap ``eng._decode`` to keep, per request id, its slot and its
+    lane's logits at every step that advanced it (prefill and decode)."""
+    import numpy as np
+    log = {}
+    decode = eng._decode
+
+    def recorded(tokens, lanes):
+        logits = decode(tokens, lanes)
+        for slot in np.flatnonzero(lanes):
+            rec = log.setdefault(eng.active[slot].rid,
+                                 {"slot": int(slot), "logits": []})
+            rec["logits"].append(logits[slot].clone())
+        return logits
+    eng._decode = recorded
+    return log
+
+
+def _lanes(eng, log: dict) -> dict:
+    """Per request: its logits, its cache length and its lane of every
+    cache leaf up to that length, read once the engine is idle (a slot's
+    lanes are reset only at the next admission)."""
+    import torch
+    out = {}
+    for rid, rec in log.items():
+        slot = rec["slot"]
+        n = int(eng.cache["length"][slot])
+        out[rid] = {"length": n, "logits": torch.stack(rec["logits"]),
+                    **{name: eng.cache["kv"][name][:, slot, :n].clone()
+                       for name in ("k", "v")}}
+    return out
+
+
+def _alone(model, prompt, n_new: int) -> tuple[list[int], dict]:
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    log = _recorded(eng)
+    eng.add_request(Request(rid=0, prompt=prompt, max_new_tokens=n_new))
+    toks = []
+    while eng.n_active:
+        toks.extend(t for _, t in eng.step())
+    return toks, _lanes(eng, log)[0]
+
+
+def _interleaved(model, pa, pb, n_new: int) -> tuple[dict, dict]:
+    """tests/test_serve.py's schedule: admit A, decode 2 tokens, admit B
+    while A is active, decode both to the end. Returns the token streams
+    and each request's logits and cache lanes."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    log = _recorded(eng)
+    eng.add_request(Request(rid=0, prompt=pa, max_new_tokens=n_new))
+    got = {0: [], 1: []}
+    for _ in range(2):
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    check(eng.add_request(Request(rid=1, prompt=pb, max_new_tokens=n_new)),
+          "serve: B not admitted")
+    while eng.n_active:
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    return got, _lanes(eng, log)
+
+
+def _same_lanes(inter: dict, alone: dict) -> dict:
+    """Bitwise comparison of one request's logits at every step and its
+    cache lanes, interleaved against alone; the largest difference of
+    each is returned for the record."""
+    diff = {"length": [inter["length"], alone["length"]]}
+    for key in ("logits", "k", "v"):
+        a, b = inter[key], alone[key]
+        same = a.shape == b.shape
+        diff[key] = (float((a.float() - b.float()).abs().max())
+                     if same else f"shapes {tuple(a.shape)} {tuple(b.shape)}")
+    diff["equal"] = (inter["length"] == alone["length"]
+                     and all(inter[key].shape == alone[key].shape
+                             and bool((inter[key] == alone[key]).all())
+                             for key in ("logits", "k", "v")))
+    return diff
+
+
+def phase_serve(torch) -> dict:
+    """SporkRouter on the card, then ServeEngine over qwen3-0.6b at full
+    width in bf16: every decode attention goes through the kernel."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    router = _serve_router(torch)
+    cfg = get_config(SERVE_ARCH, "full")
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"serve: the full config is not {SERVE_DTYPE}")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    plain_calls = []                # the plain version must not be reached
+    ref_fn = ops.decode_attention_ref
+    ops.decode_attention_ref = lambda *a: plain_calls.append(1) or ref_fn(*a)
+    try:
+        ops.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for rid, prompt in enumerate(prompts):
+            check(eng.add_request(Request(rid=rid, prompt=prompt,
+                                          max_new_tokens=SERVE_NEW)),
+                  f"serve: request {rid} not admitted")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tokens, steps = {}, 0
+        while eng.n_active:
+            for rid, tok in eng.step():
+                tokens.setdefault(rid, []).append(tok)
+            steps += 1
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = ops.decode_attention.launches
+    finally:
+        ops.decode_attention_ref = ref_fn
+    peak = torch.cuda.max_memory_allocated()
+    emitted = sum(len(t) for t in tokens.values())
+    prefilled = SERVE_REQUESTS * SERVE_PROMPT
+    expected = cfg.n_layers * (prefilled + steps)
+    check(emitted == SERVE_REQUESTS * SERVE_NEW,
+          f"serve: {emitted} tokens emitted")
+    check(all(0 <= t < cfg.vocab_size for ts in tokens.values() for t in ts),
+          "serve: a token outside the vocabulary")
+    check(launches == expected, f"serve: {launches} decode_attn launches, "
+                                f"expected {cfg.n_layers} x ({prefilled} + "
+                                f"{steps}) = {expected}")
+    check(not plain_calls, f"serve: the plain decode attention ran "
+                           f"{len(plain_calls)} times")
+    # the interleaving regression at full width: a request's tokens, its
+    # logits at every step and its cache lanes are bitwise the same alone
+    # (slot 0) and with another admission while it is active (A in slot
+    # 0, B in slot 1). The random model echoes its input token, so the
+    # tokens alone cannot see a K/V row written into another lane.
+    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
+    t4 = time.perf_counter()
+    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW)
+    alone, lanes_diff = {}, {}
+    for rid, prompt in enumerate((pa, pb)):
+        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW)
+        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
+    del inter_lanes, alone_lanes
+    t_inter = time.perf_counter() - t4
+    check(inter == alone, f"serve: interleaved streams {inter} differ from "
+                          f"the run-alone streams {alone}")
+    check(all(d["equal"] for d in lanes_diff.values()),
+          f"serve: interleaved logits or cache lanes differ from the "
+          f"run-alone ones: {lanes_diff}")
+    cli = serve_main(CLI_ARGS)
+    check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
+                                             + 1]),
+          "serve: the CLI's engine emitted the wrong number of tokens")
+    out = {"phase": "serve", "router": router,
+           "engine": {"arch": SERVE_ARCH, "variant": "full",
+                      "dtype": SERVE_DTYPE, "params": cfg.param_count(),
+                      "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                      "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
+                      "new_tokens": SERVE_NEW, "build_s": t_build,
+                      "prefill_wall_s": t2 - t1, "prefill_steps": prefilled,
+                      "decode_wall_s": t3 - t2, "decode_steps": steps,
+                      "emitted": emitted,
+                      "decode_tokens_per_s": emitted / (t3 - t2),
+                      "tokens_per_s": emitted / (t3 - t1),
+                      "ms_per_step": 1e3 * (t3 - t1) / (prefilled + steps),
+                      "decode_attn_launches": launches,
+                      "expected_launches": expected,
+                      "plain_decode_attention_calls": len(plain_calls),
+                      "peak_memory_bytes": peak,
+                      "first_tokens": {r: t[:8] for r, t in tokens.items()}},
+           "interleaved": {"prompt": INTERLEAVE_PROMPT,
+                           "new_tokens": INTERLEAVE_NEW, "equal": True,
+                           "streams": inter, "lanes": lanes_diff,
+                           "wall_s": t_inter},
+           "cli": {"args": CLI_ARGS, "requests": cli["requests"],
+                   "emitted": cli["emitted"],
+                   "energy_efficiency": cli["report"].energy_efficiency}}
+    emit(out)
+    return {"out": out, "model": model, "engine": eng}
+
+
+def phase_serve_vs_cpu(torch) -> dict:
+    """Full width, float32 on both sides (the card's weights carried to
+    the CPU): every step's logits of the advanced lanes within 1e-3 x
+    that step's max |logit|; the token streams identical except at steps
+    where the CPU's top-2 gap is below that tolerance (counted; the CPU
+    then follows the card's token so later steps stay comparable)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(SERVE_ARCH, "full").replace(dtype=torch.float32)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    engines = [ServeEngine(m, VS_CPU_SLOTS, VS_CPU_MAX_LEN)
+               for m in (card, cpu)]
+    logs = ([], [])
+    for eng, log in zip(engines, logs):
+        decode = eng._decode
+
+        def recorded(tokens, lanes, decode=decode, log=log):
+            logits = decode(tokens, lanes)
+            log.append((lanes.copy(), logits[:, :cfg.vocab_size].cpu()))
+            return logits
+        eng._decode = recorded
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    prompts = rng.integers(0, cfg.vocab_size, (VS_CPU_SLOTS, VS_CPU_PROMPT))
+    t0 = time.perf_counter()
+    reqs = [[Request(rid=i, prompt=p, max_new_tokens=VS_CPU_NEW)
+             for i, p in enumerate(prompts)] for _ in engines]
+    for eng, rs in zip(engines, reqs):
+        for r in rs:
+            eng.add_request(r)
+    near_ties, flips, steps = 0, 0, 0
+    while engines[0].n_active:
+        outs = [dict(eng.step()) for eng in engines]
+        steps += 1
+        lanes, lc = logs[1][-1]
+        tol = VS_CPU_RTOL * float(lc[lanes].abs().max())
+        top2 = torch.topk(lc, 2, dim=-1).values
+        for i, r in enumerate(reqs[1]):
+            if i not in outs[1]:
+                continue
+            gap = float(top2[i, 0] - top2[i, 1])
+            near_ties += gap < tol
+            if outs[0][i] != outs[1][i]:
+                check(gap < tol, f"serve_vs_cpu: token {outs[0][i]} on the "
+                                 f"card, {outs[1][i]} on the CPU at a top-2 "
+                                 f"gap {gap} >= {tol}")
+                flips += 1
+                r.generated[-1] = outs[0][i]      # the CPU follows the card
+    wall = time.perf_counter() - t0
+    check(len(logs[0]) == len(logs[1]), "serve_vs_cpu: step counts differ")
+    worst = 0.0
+    for (lanes, a), (_, b) in zip(*logs):
+        scale = float(b[lanes].abs().max())
+        err = float((a[lanes] - b[lanes]).abs().max())
+        worst = max(worst, err / scale)
+    check(worst <= VS_CPU_RTOL, f"serve_vs_cpu: logits differ by {worst} of "
+                                f"the step's max |logit|")
+    card_tokens = [r.generated for r in reqs[0]]
+    check(all(len(t) == VS_CPU_NEW for t in card_tokens),
+          "serve_vs_cpu: a request did not finish")
+    out = {"phase": "serve_vs_cpu", "dtype": "float32",
+           "slots": VS_CPU_SLOTS, "max_len": VS_CPU_MAX_LEN,
+           "prompt": VS_CPU_PROMPT, "new_tokens": VS_CPU_NEW,
+           "steps": len(logs[0]), "decode_steps": steps,
+           "max_logit_err_rel": worst, "tolerance": VS_CPU_RTOL,
+           "near_tie_steps": near_ties, "token_flips": flips,
+           "card_tokens": card_tokens, "wall_s": wall}
+    emit(out)
+    return out
+
+
 def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
     """Run ``run`` once under torch.profiler; the wall time, the union of
     device spans (busy time, idle share) and, per kernel name, its
@@ -1275,7 +1762,30 @@ def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
     return out
 
 
-def phase_profile(main: dict, fig2: dict, t9: dict, torch) -> dict:
+def _serve_profile(serve: dict, torch) -> dict:
+    """One decode step at the serve shape under the profiler: every lane
+    of the serve engine's cache, after one warm-up step (each step
+    appends at each row's next position; the run is over)."""
+    model, eng = serve["model"], serve["engine"]
+    tokens = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
+    lanes = torch.ones(SERVE_SLOTS, dtype=torch.bool, device="cuda")
+
+    def decode_step():
+        model.decode_step(tokens, eng.cache, lanes=lanes)
+
+    decode_step()
+    lengths = eng.cache["length"].tolist()      # those of the profiled step
+    prof = _device_profile(decode_step, "serve_decode_step.json",
+                           ["decode_attn_kernel"], torch)
+    prof["decode_attn_share_of_busy"] = (
+        prof["decode_attn_kernel_launches"]
+        * prof["decode_attn_kernel_device_us_mean"] / 1e3
+        / prof["device_busy_ms"])
+    return {"slots": SERVE_SLOTS, "lengths": lengths, **prof}
+
+
+def phase_profile(main: dict, fig2: dict, t9: dict, serve: dict,
+                  torch) -> dict:
     import numpy as np
     from repro_torch.core.dp import level_buckets, solve_dp_batch
     from repro_torch.sim.sweep import sweep
@@ -1319,6 +1829,7 @@ def phase_profile(main: dict, fig2: dict, t9: dict, torch) -> dict:
         "cells": d.n_real, "chunk": d.chunk, "entries": PROFILE_ENTRIES,
         **_device_profile(lambda: backend.run(cut), "table9_dispatch.json",
                           ["arrival_kernel", "spork_predict"], torch)}
+    out["serve_decode_step"] = _serve_profile(serve, torch)
     out["note"] = "wall times are under the profiler"
     emit(out)
     return out
@@ -1349,11 +1860,15 @@ def main() -> int:
     phase_event_goldens(torch)
     t9 = phase_table9(torch)
     phase_table9_vs_cpu(t9)
-    phase_profile(main_run, fig2, t9, torch)
+    decode = phase_decode_attn_kernel(torch)
+    serve = phase_serve(torch)
+    phase_serve_vs_cpu(torch)
+    phase_profile(main_run, fig2, t9, serve, torch)
     # each path's count was zeroed just before it ran and read just after
     predict_paths = {
         "table8": main_run["out"]["spork_predict_launches"],
-        "table9": t9["out"]["launches"]["spork_predict"]}
+        "table9": t9["out"]["launches"]["spork_predict"],
+        "serve_router": serve["out"]["router"]["spork_predict_launches"]}
     mp_launches = {
         "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
         "minplus_structured":
@@ -1381,7 +1896,13 @@ def main() -> int:
             "replaces": "src/repro/kernels/arrival/arrival.py:139",
             "launches": t9["out"]["launches"]["arrival"],
             **{k: arrival[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}
+                                       "bound_ms", "bound_by", "library_ms")}},
+        {"name": "decode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn/decode_attn.py:92",
+         "launches": serve["out"]["engine"]["decode_attn_launches"],
+         **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}
         ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

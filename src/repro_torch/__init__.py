@@ -12,6 +12,8 @@ card (`repro_torch.device.resolve_device`); callers that want the CPU
 ask for it. The hand-written kernels live under `repro_torch.kernels`.
 
 What is ported (the rate-simulator main path behind Table 8, the
-min-plus DP behind Figs. 2-3 and the exact discrete-event simulation
-behind Table 9) and what waits for later slices is tracked in ROADMAP.md.
+min-plus DP behind Figs. 2-3, the exact discrete-event simulation
+behind Table 9 and the LM serving path: configs, the dense-family model,
+`ServeEngine` and `SporkRouter`) and what waits for later slices is
+tracked in ROADMAP.md.
 """

@@ -13,7 +13,8 @@ same non-default fleet. `event_scalars`, `ev_carry` and `tick_state`
 carry the discrete-event engine's parameters and mid-run state across
 (nested tuples such as ``EvCarry.ws`` as nested mappings or NamedTuples),
 and `to_numpy` brings any of the port's NamedTuples back as nested dicts
-of numpy arrays.
+of numpy arrays. `model_params` and `model_cache` carry a dense model's
+weights (the reference's stacked parameter pytree) and its decode cache.
 """
 
 from __future__ import annotations
@@ -159,3 +160,49 @@ def to_numpy(tup) -> dict:
     return {f: (to_numpy(v) if hasattr(v, "_fields")
                 else np.array(v.detach().cpu()))
             for f, v in zip(tup._fields, tup)}
+
+
+def _array_tensor(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor of the same type; bfloat16 arrays (numpy's
+    extension type, as the reference's arrays come out) go through float32,
+    which holds every bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def model_params(params, cfg, device: str | torch.device | None = None
+                 ) -> dict[str, torch.Tensor]:
+    """The state dict of `repro_torch.models.Model` (dense family) from the
+    reference's parameter pytree (nested mappings of numpy arrays):
+    ``embed``, ``final_norm`` and ``layers`` with a leading layer axis,
+    unstacked into ``layers.<i>.<name>``. Tensors take ``cfg.dtype``."""
+    dev = resolve_device(device)
+
+    def t(a) -> torch.Tensor:
+        return _array_tensor(a, dev).to(cfg.dtype)
+
+    out = {"embed": t(params["embed"]), "final_norm": t(params["final_norm"])}
+
+    def walk(prefix: str, tree) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                walk(f"{prefix}{name}.", leaf)
+            else:
+                stacked = np.asarray(leaf)
+                for i in range(cfg.n_layers):
+                    out[f"layers.{i}.{prefix}{name}"] = t(stacked[i])
+
+    walk("", params["layers"])
+    return out
+
+
+def model_cache(cache, device: str | torch.device | None = None) -> dict:
+    """A decode cache (``length`` (B,) and ``kv`` with ``k``/``v`` leaves
+    (L, B, S, Hkv, D)) from the reference's, keeping each leaf's type
+    (lengths int32)."""
+    dev = resolve_device(device)
+    return {"length": _array_tensor(cache["length"], dev).to(_I32),
+            "kv": {name: _array_tensor(cache["kv"][name], dev)
+                   for name in ("k", "v")}}

@@ -1,0 +1,3 @@
+"""GQA flash-decode attention kernel (CUDA); see ``csrc/decode_attn.cu``."""
+
+from .ops import decode_attention  # noqa: F401

@@ -1,0 +1,89 @@
+"""Wrapper of the hand-written CUDA `decode_attn` kernel.
+
+`decode_attention(q, k, v, lengths)` computes the reference's
+``decode_attention_ref``: q (B, Hq, D), k/v (B, S, Hkv, D) in float32 or
+bfloat16, lengths (B,) -> (B, Hq, D) in q's type. Unlike the reference
+wrapper it has no length threshold and no switch: the tensor's device
+decides the route. A CPU tensor goes to the plain PyTorch version
+(`ref.decode_attention_ref`); a CUDA tensor launches the kernel, or this
+raises. ``decode_attention.launches`` counts the kernel launches and
+nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_library
+
+from .ref import decode_attention_ref
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "decode_attn.cu",)
+#: Head dimensions the kernel is compiled for (D/32 elements a lane; one
+#: below 32): the full-width configs' 64 and 128 and the smoke configs' 16.
+HEAD_DIMS = (16, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _launcher():
+    fn = load_library("decode_attn", SOURCES).decode_attn_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid cache
+    length (0 gives zeros, above S counts as S). Returns (B, Hq, D) in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attn: unsupported device {q.device}")
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"decode_attn: need q (B, Hq, D) and k, v (B, S, Hkv, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv != 0:
+        raise ValueError(f"decode_attn: q {tuple(q.shape)} does not fit k "
+                         f"{tuple(k.shape)} (Hq must be a multiple of Hkv)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attn: head dimension {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode_attn: q, k, v must all be float32 or "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if lengths.shape != (b,):
+        raise ValueError(f"decode_attn: lengths {tuple(lengths.shape)} is not "
+                         f"({b},)")
+    if not (k.device == v.device == lengths.device == q.device):
+        raise ValueError("decode_attn: q, k, v, lengths on different devices")
+    q = q.contiguous()
+    k = k.contiguous()
+    v = v.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("decode_attn: q, k, v must be 16-byte aligned")
+    with torch.cuda.device(q.device):
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         lens.data_ptr(), out.data_ptr(), b, s, hkv,
+                         hq // hkv, d, _DTYPES[q.dtype], d ** -0.5,
+                         torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attn launch failed: CUDA error {rc}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,160 @@
+"""GQA attention: chunked (FlashAttention-style) training/prefill path and
+single-token decode against a KV cache.
+
+The prefill path tiles the query axis in a Python loop, so the scores of
+one block, not of the whole sequence, exist at a time. The decode path
+sends every step's attention through `repro_torch.kernels.decode_attn`:
+the hand-written CUDA kernel for a cache on the card, its plain PyTorch
+version for a cache on the CPU.
+
+Supports grouped/multi-query heads, qk RMSNorm (qwen3) and non-causal
+masks. Sliding windows wait for the families that use them. Cross-attention against an encoder memory waits
+for the encoder-decoder family.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attn import decode_attention
+from repro_torch.models.layers import dense_init, rms_norm, rope
+
+NEG = -1.0e30
+
+
+class Attention(torch.nn.Module):
+    """Projection weights under the reference's names: ``wq`` (d, Hq*D),
+    ``wk``/``wv`` (d, Hkv*D), ``wo`` (Hq*D, d), and with qk-norm the
+    per-head scales ``q_norm``/``k_norm`` (D,)."""
+
+    def __init__(self, d: int, n_heads: int, n_kv_heads: int, d_head: int,
+                 dtype: torch.dtype, qk_norm: bool = False, device=None):
+        super().__init__()
+        shapes = {"wq": (d, n_heads * d_head), "wk": (d, n_kv_heads * d_head),
+                  "wv": (d, n_kv_heads * d_head), "wo": (n_heads * d_head, d)}
+        if qk_norm:
+            shapes.update(q_norm=(d_head,), k_norm=(d_head,))
+        for name, shape in shapes.items():
+            self.register_parameter(name, torch.nn.Parameter(
+                torch.zeros(shape, dtype=dtype, device=device),
+                requires_grad=False))
+
+    def init(self, generator: torch.Generator) -> None:
+        """Fan-in scaled projections; norm scales zero (gain 1)."""
+        for name in ("wq", "wk", "wv", "wo"):
+            w = getattr(self, name)
+            w.copy_(dense_init(generator, w.shape[0], w.shape[1], w.dtype))
+        for name in ("q_norm", "k_norm"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+
+
+def init_attention(generator: torch.Generator, d: int, n_heads: int,
+                   n_kv_heads: int, d_head: int, dtype: torch.dtype,
+                   qk_norm: bool = False) -> Attention:
+    att = Attention(d, n_heads, n_kv_heads, d_head, dtype, qk_norm,
+                    device=generator.device)
+    att.init(generator)
+    return att
+
+
+def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
+                 qk_norm):
+    """Returns q (B,S,Hq,D), k,v (B,S,Hkv,D); qk-norm before rope, and no
+    rope when ``positions`` is None."""
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, n_heads, d_head)
+    k = (x @ p.wk).reshape(b, s, n_kv_heads, d_head)
+    v = (x @ p.wv).reshape(b, s, n_kv_heads, d_head)
+    if qk_norm:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    if positions is not None:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def sdpa_chunked(q, k, v, *, causal=True, q_block=512):
+    """Scaled dot-product attention, tiled over query blocks.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). Hq % Hkv == 0.
+    Mask: causal (q_pos >= kv_pos) when ``causal``. Scores, softmax and the product with v in
+    float32; the output in q's type.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = d ** -0.5
+    kt = k.float().permute(0, 2, 3, 1)                    # (B, Hkv, D, Skv)
+    vt = v.float().permute(0, 2, 1, 3)                    # (B, Hkv, Skv, Dv)
+    kp = torch.arange(skv, device=q.device)
+    outs = []
+    for s0 in range(0, sq, q_block):
+        s1 = min(s0 + q_block, sq)
+        qblk = q[:, s0:s1].reshape(b, s1 - s0, hkv, g, d).permute(
+            0, 2, 3, 1, 4)                                # (B, Hkv, G, q, D)
+        scores = (qblk.float() * scale) @ kt[:, :, None]
+        if causal:
+            qp = torch.arange(s0, s1, device=q.device)[:, None]
+            scores = torch.where(qp >= kp, scores, NEG)
+        w = torch.softmax(scores, dim=-1)
+        out = (w @ vt[:, :, None]).to(q.dtype)            # (B, Hkv, G, q, Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, s1 - s0, hq, -1))
+    return torch.cat(outs, dim=1)
+
+
+def attention_block(p, x, cfg):
+    """Full attention sub-block for prefill/forward (projections + sdpa +
+    output)."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                           pos, cfg.rope_theta, cfg.qk_norm)
+    out = sdpa_chunked(q, k, v, causal=cfg.causal, q_block=cfg.q_block)
+    return out.reshape(b, s, -1) @ p.wo
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor, write: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """cache[b, slot[b]] = new[b] where write[b], in place. A row whose
+    slot lies at or past the cache's end is left as it was, like the
+    reference's one-hot write, which matches no position there."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = slot.clamp(max=cache.shape[1] - 1)
+    keep = cache[rows, at]
+    cache[rows, at] = torch.where(write[:, None, None], new.to(cache.dtype),
+                                  keep)
+
+
+def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
+                          ring: bool = False, lanes=None):
+    """One-token decode. x: (B, 1, d); cache_k/v: (B, S, Hkv, D) holding
+    `length` previously written tokens (scalar or (B,)).
+
+    ring=True treats the cache as a sliding-window ring buffer (cache size
+    = window): the new token is written at position length % S, rope uses
+    the absolute position, and validity is clipped at S.
+
+    The new key and value are written into ``cache_k``/``cache_v`` in
+    place (the reference returns new arrays; at full width a copy of the
+    cache per layer is waste), only on the rows where ``lanes`` (B,) bool
+    is true when it is given. Returns the attention output (B, 1, d)."""
+    b = x.shape[0]
+    lengths = torch.as_tensor(length, device=x.device).expand(b)
+    pos = lengths[:, None]                                  # absolute (B, 1)
+    q, k_new, v_new = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.d_head, None, cfg.rope_theta,
+                                   cfg.qk_norm)
+    q = rope(q, pos, cfg.rope_theta)
+    k_new = rope(k_new, pos, cfg.rope_theta)
+    s = cache_k.shape[1]
+    slot = lengths % s if ring else lengths
+    write = slot < s
+    if lanes is not None:
+        write = write & lanes
+    _write_slot(cache_k, slot, write, k_new[:, 0])
+    _write_slot(cache_v, slot, write, v_new[:, 0])
+    new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
+    out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
+    return out.reshape(b, 1, -1) @ p.wo

@@ -1,0 +1,206 @@
+"""Port serving layer (`repro_torch.serve`, `repro_torch.launch.serve`) vs
+the reference (`repro.serve`) on the CPU.
+
+The engines run `qwen3-0.6b` at smoke width in float32 with the
+reference's weights carried across (`repro_torch.interop.model_params`);
+token streams must be identical and the caches equal to 1e-5 (float32
+sums in another order). The router's request size divides by the card's
+memory rate (`repro_torch.launch.mesh.HBM_BW`), so the reference module's
+``HBM_BW`` is set to the same value for the comparison (an attribute
+patched at run time, no reference file edited); the routers then run the
+same arrival times: counters identical, floats within 1e-5.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.serve.router as ref_router
+from repro.configs import get_config as ref_config
+from repro.core.traces import synthetic_trace
+from repro.models import build_model as ref_build
+from repro.serve.engine import Request as RefRequest
+from repro.serve.engine import ServeEngine as RefEngine
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh
+from repro_torch.launch.serve import main
+from repro_torch.models import Model
+from repro_torch.serve import router
+from repro_torch.serve.engine import Request, ServeEngine
+
+KEY = jax.random.PRNGKey(3)
+ARCH = "qwen3-0.6b"
+PA = np.array([5, 11, 7, 2], np.int32)
+PB = np.array([13, 3, 9], np.int32)
+
+
+@pytest.fixture(scope="module")
+def models():
+    rm = ref_build(ref_config(ARCH, "smoke").replace(dtype=jnp.float32))
+    params = rm.init(KEY)
+    cfg = get_config(ARCH, "smoke").replace(dtype=torch.float32)
+    m = Model(cfg, "cpu")
+    m.load_state_dict(interop.model_params(jax.tree.map(np.asarray, params),
+                                           cfg, "cpu"))
+    return rm, params, m
+
+
+def _interleaved(eng, request):
+    """tests/test_serve.py's schedule: admit A, decode 2 tokens, admit B
+    while A is active, decode both to the end."""
+    assert eng.add_request(request(rid=0, prompt=PA, max_new_tokens=6))
+    got = {0: [], 1: []}
+    for _ in range(2):
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    assert eng.add_request(request(rid=1, prompt=PB, max_new_tokens=4))
+    while eng.n_active:
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    return got
+
+
+def _alone(eng, prompt, n_new):
+    assert eng.add_request(Request(rid=0, prompt=prompt,
+                                   max_new_tokens=n_new))
+    toks = []
+    while eng.n_active:
+        toks.extend(t for _, t in eng.step())
+    return toks
+
+
+def test_engine_streams_and_cache_match_reference(models):
+    rm, params, m = models
+    ref = RefEngine(rm, params, batch_slots=3, max_len=32)
+    want = _interleaved(ref, RefRequest)
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    got = _interleaved(eng, Request)
+    assert got == want
+    # the cache after every request finished: lanes written only while
+    # their slot was active, in both engines
+    np.testing.assert_array_equal(eng.cache["length"].numpy(),
+                                  np.asarray(ref.cache["length"]))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(eng.cache["kv"][name].numpy(),
+                                   np.asarray(ref.cache["kv"][name]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_interleaved_prefill_does_not_corrupt_active_slots(models):
+    """A's and B's streams equal their run-alone streams."""
+    m = models[2]
+    got = _interleaved(ServeEngine(m, batch_slots=3, max_len=32), Request)
+    assert got[0] == _alone(ServeEngine(m, 3, 32), PA, 6)
+    assert got[1] == _alone(ServeEngine(m, 3, 32), PB, 4)
+
+
+def test_slot_reuse_after_completion(models):
+    m = models[2]
+    ref = _alone(ServeEngine(m, 1, 32), PB, 3)
+    eng = ServeEngine(m, batch_slots=1, max_len=32)
+    assert eng.add_request(Request(rid=0, prompt=PA, max_new_tokens=2))
+    while eng.n_active:
+        eng.step()
+    assert eng.free_slots() == 1
+    assert _alone(eng, PB, 3) == ref
+
+
+def test_admission_free_and_deadline_bookkeeping(models):
+    eng = ServeEngine(models[2], batch_slots=2, max_len=32)
+    p = np.array([1, 2], np.int32)
+    r0 = Request(rid=10, prompt=p, max_new_tokens=50, deadline_s=5.0)
+    r1 = Request(rid=11, prompt=p, max_new_tokens=2, deadline_s=100.0)
+    assert eng.add_request(r0) and eng.add_request(r1)
+    assert eng.free_slots() == 0
+    assert not eng.add_request(Request(rid=12, prompt=p, max_new_tokens=1))
+    eng.step()
+    eng.step()
+    assert r1.done and eng.free_slots() == 1
+    assert eng.expire(now_s=6.0) == [10]
+    assert not r0.done
+    assert eng.free_slots() == 2
+    assert eng.expire(now_s=6.0) == []
+
+
+def test_batch_axes_are_found_structurally(models):
+    eng = ServeEngine(models[2], batch_slots=2, max_len=8)
+    assert eng._axes == {"length": 0, "kv": {"k": 1, "v": 1}}
+
+
+@pytest.fixture
+def card_bw(monkeypatch):
+    monkeypatch.setattr(ref_router, "HBM_BW", mesh.HBM_BW)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-32b",
+                                  "deepseek-v3-671b"])
+def test_service_model_matches_reference_at_the_card_rate(card_bw, arch):
+    assert router.analytic_token_latency(arch) == \
+        ref_router.analytic_token_latency(arch)
+    fleet, size = router.fleet_for_arch(arch, avg_new_tokens=64,
+                                        dryrun_dir="/nonexistent")
+    rfleet, rsize = ref_router.fleet_for_arch(arch, avg_new_tokens=64,
+                                              dryrun_dir="/nonexistent")
+    assert size == rsize
+    assert dataclasses.asdict(fleet) == dataclasses.asdict(rfleet)
+
+
+def test_roofline_record_overrides_the_analytic_latency(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setattr(ref_router, "HBM_BW", mesh.HBM_BW)
+    monkeypatch.setattr(ref_router, "PEAK_FLOPS_BF16", mesh.PEAK_FLOPS_BF16)
+    rec = tmp_path / f"{ARCH}__decode_32k__single.json"
+    rec.write_text('{"ok": true, "hlo_flops": 3.0e15, "hlo_bytes": 2.0e12}')
+    got = router.roofline_token_latency(ARCH, tmp_path)
+    assert got == ref_router.roofline_token_latency(ARCH, tmp_path)
+    assert got == max(3.0e15 / mesh.PEAK_FLOPS_BF16, 2.0e12 / mesh.HBM_BW) \
+        / 128
+    assert router.service_model(ARCH, dryrun_dir=tmp_path).token_s_accel \
+        == got
+    assert router.roofline_token_latency(ARCH, tmp_path / "none") is None
+
+
+def test_analytic_latency_ordering():
+    small = router.analytic_token_latency("qwen3-0.6b")
+    big = router.analytic_token_latency("qwen3-32b")
+    moe = router.analytic_token_latency("deepseek-v3-671b")
+    assert small < moe < 100 * big and small < big
+
+
+def test_spork_router_matches_reference(card_bw):
+    """The same arrival times through both routers, 120 s."""
+    horizon = 120
+    ref = ref_router.SporkRouter(ARCH, horizon_s=horizon,
+                                 dryrun_dir="/nonexistent")
+    port = router.SporkRouter(ARCH, horizon_s=horizon,
+                              dryrun_dir="/nonexistent", device="cpu")
+    assert port.size_s == ref.size_s
+    tr = synthetic_trace(seed=2, bias=0.6, horizon_s=horizon,
+                         request_size_s=ref.size_s, mean_demand_workers=3.0)
+    for t in tr.arrival_times(seed=3):
+        ref.submit(float(t))
+        port.submit(float(t))
+    want, got = ref.finish(), port.finish()
+    assert got.totals.requests == want.totals.requests > 1000
+    for f in dataclasses.fields(want.totals):
+        a, b = getattr(got.totals, f.name), getattr(want.totals, f.name)
+        if isinstance(b, int):
+            assert a == b, f.name
+        else:
+            assert a == pytest.approx(b, rel=1e-5, abs=1e-9), f.name
+    assert got.energy_efficiency == pytest.approx(want.energy_efficiency,
+                                                  rel=1e-5)
+    assert got.deadline_miss_rate == want.deadline_miss_rate
+
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    out = main(["--minutes", "0.5", "--rate", "5", "--engine-requests", "2",
+                "--new-tokens", "3", "--device", "cpu"])
+    assert out["emitted"] == 6 and out["requests"] > 0
+    assert 0.0 < out["report"].energy_efficiency <= 1.0
+    assert "[engine] decoded 6 tokens" in capsys.readouterr().out
