@@ -34,13 +34,16 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                row for the dense one: the CPU takes ~2 s per 16 rows); at
                N >= 2 the structured kernel equals the dense kernel on the
                exact instances; times of both kernels and both plain
-               versions at the main path's B=180, N=2816
+               versions at the main path's B=180, N=2816; the dense kernel
+               timed at every (B, N) of the Fig. 2 + 3 dense run's launch
+               histogram, with its launches x (time - bound) summed
   fig2         the full Fig. 2 + Fig. 3 grid (biases 0.5-0.75, seeds 0-9,
                7200 s; hybrid, cpu_only, fpga_only; energy and cost, plus
                the 10 Pareto weights on seed 0) through `solve_dp_batch`
                on the card, three times: transition="kernel" (exactly one
                minplus_structured launch per interval per dispatch, 2157),
-               "dense" (minplus launches = intervals x level buckets) and
+               "dense" (minplus launches = intervals x level buckets, and
+               their histogram by (B, N)) and
                "structured" (plain PyTorch, no kernel); against the
                kernel run, every row's exact (float64) weighted
                evaluation within rtol 1e-6, its float32 DP objective
@@ -63,8 +66,9 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                bitwise equal after every block (the largest float gap is
                printed); kernel and plain-version times at (32, 96, 128)
                beside the bound (bytes, and the function's fp32 and int32
-               operations each at its rate) and the chain of block-wide
-               barriers of the longest cell, which bounds it in fact
+               operations each at its rate), pristine and failure-aware,
+               and the time per arrival (over B, and over the longest
+               cell's chain of real arrivals, which bounds it in fact)
   event_goldens
                the 6 pinned event goldens (tests/goldens/policy_goldens.json
                ["event"], the trace of tests/test_policy_equivalence.py)
@@ -86,12 +90,17 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                the `decode_attn` kernel against its plain version on the
                card at (B, Hq, Hkv, D, S) = tests/test_kernels.py's four
                shapes, the CLI's smoke shape (4, 4, 2, 16, 128), the serve
-               shape (8, 16, 8, 128, 1024) and S = 32768, float32 within
-               2e-5 and bf16 within 2e-2 (+ the same relative part), with
-               ragged lengths (0, 1, S, above S, random) and full rows; rows
-               of length 0 exactly 0; kernel, plain-version and SDPA
-               (enable_gqa, boolean length mask) times beside the byte
-               bound at the serve shape (length 160) and at S = 32768
+               shape (8, 16, 8, 128, 1024), S = 4096 and 32768,
+               recurrentgemma-2b's D = 256 (10 query heads on one KV head)
+               at S = 2048 and 5000, and D = 56, float32 within 2e-5 and
+               bf16 within 2e-2 (+ the same relative part) and 4 x 2^-8 x
+               max|want|, with ragged lengths (0, 1, S, above S, and the
+               kernel's chunk and one past it where S spans several
+               chunks, then random) and full rows; rows of length 0 exactly
+               0; kernel, plain-version and SDPA (enable_gqa, boolean
+               length mask) times beside the byte bound and its share at
+               the serve shape (length 160), S = 4096, S = 32768 and D =
+               256 at S = 2048
   serve        SporkRouter("qwen3-0.6b") on the card with launch/serve.py's
                defaults (10 minutes, rate 40, burstiness 0.65, energy):
                report, and one spork_predict launch per allocator tick;
@@ -194,13 +203,19 @@ GOLDEN_FSPEC = dict(spinup_fail_p=0.125, max_retries=1, retry_backoff_s=2.0,
 GOLDEN_HORIZON_S = 180
 GOLDEN_N_MAX = 64
 # decode_attn: tests/test_kernels.py's four shapes, the CLI's and the serve
-# phase's shapes and a long cache like SHAPES["decode_32k"], as
-# (B, Hq, Hkv, D, S)
+# phase's shapes, caches of 4096 and 32768 positions (SHAPES["decode_32k"]),
+# recurrentgemma-2b's attention (10 query heads on 1 KV head of 256; its
+# 2048-position window and a longer ragged cache) and deepseek-v3's dense
+# layers' 56, as (B, Hq, Hkv, D, S)
 DECODE_MAIN = (8, 16, 8, 128, 1024)
+DECODE_MID = (8, 16, 8, 128, 4096)
 DECODE_LONG = (8, 16, 8, 128, 32768)
+DECODE_D256 = (8, 10, 1, 256, 2048)
 DECODE_SMOKE = (4, 4, 2, 16, 128)    # the CLI's smoke engine (d_head 16)
 DECODE_SHAPES = ((2, 8, 8, 64, 256), (2, 16, 8, 64, 300), (1, 10, 1, 128, 512),
-                 (4, 6, 2, 128, 1024), DECODE_SMOKE, DECODE_MAIN, DECODE_LONG)
+                 (4, 6, 2, 128, 1024), DECODE_SMOKE, DECODE_MAIN, DECODE_MID,
+                 DECODE_LONG, DECODE_D256, (6, 10, 1, 256, 5000),
+                 (6, 8, 8, 56, 1500))
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 DECODE_BF16_STEPS = 4            # bf16 also within 4 x 2^-8 x max|want|
 # serve: qwen3-0.6b at full width in bf16, 8 requests of 128 prompt tokens
@@ -638,6 +653,17 @@ def phase_minplus_kernel(torch) -> dict:
                 cases.append(case)
                 if (kind, rows, n) == ("continuous", 180, 2816):
                     main = dev
+    buckets = []
+    fleet, groups = _fig2_grid()
+    for (rows, n), launches in sorted(_dense_histogram(fleet, groups).items()):
+        x = tuple(torch.from_numpy(a).cuda() for a in _minplus_inputs(
+            "continuous", rows, n, rows + n))
+        ms = graph_ms(lambda: kernels["minplus"](*x), 20, torch)
+        bound = _minplus_bound("minplus", rows, n)
+        buckets.append({"B": rows, "N": n, "launches": launches, "ms": ms,
+                        "bound_ms": bound["bound_ms"],
+                        "bound_by": bound["bound_by"],
+                        "loss_s": launches * (ms - bound["bound_ms"]) / 1e3})
     rows, n = main[0].shape
     timing = {}
     for name, kernel in kernels.items():
@@ -651,10 +677,17 @@ def phase_minplus_kernel(torch) -> dict:
         timing[name] = t
         torch.cuda.empty_cache()
     out = {"phase": "minplus_kernel", "cases": cases, "B": rows, "N": n,
-           "kernels": timing,
+           "kernels": timing, "dense_buckets": buckets,
+           "dense_launches": sum(x["launches"] for x in buckets),
+           "dense_device_s": sum(x["launches"] * x["ms"] for x in buckets)
+           / 1e3,
+           "dense_loss_s": sum(x["loss_s"] for x in buckets),
            "timing": "kernels and the structured plain version: CUDA-graph "
                      "replay of 20 calls (device time); the dense plain "
-                     "version: CUDA events over 3 eager calls",
+                     "version: CUDA events over 3 eager calls; "
+                     "dense_buckets: the dense kernel at each (B, N) that "
+                     "the Fig. 2 + 3 dense run launches (fig2's histogram), "
+                     "loss_s = launches x (ms - bound_ms)",
            "library": "none: no single PyTorch call computes a min-plus "
                       "transition"}
     emit(out)
@@ -739,12 +772,32 @@ def _fig2_rows(fleet, groups, sols) -> list[dict]:
     return rows
 
 
+def _dense_histogram(fleet, groups) -> dict:
+    """Dense `minplus` launches of the Fig. 2 + 3 grid by (B, N): each
+    level bucket of each platform group (`level_buckets`: the rows solved
+    at one level count N) is one dispatch of (intervals - 1) launches on B
+    rows."""
+    import numpy as np
+    from repro_torch.core.dp import level_buckets
+    n_intervals = int(FIG2_HORIZON_S // fleet.T_s)
+    hist: dict[tuple[int, int], int] = {}
+    for p, kw in FIG2_PLATFORMS:
+        buckets = level_buckets(_group_arrays(groups[p])[0], fleet,
+                                transition="dense",
+                                allow_fpga=kw.get("allow_fpga", True))
+        for n, rows in zip(*np.unique(buckets, return_counts=True)):
+            key = (int(rows), int(n))
+            hist[key] = hist.get(key, 0) + n_intervals - 1
+    return hist
+
+
 def phase_fig2(torch) -> dict:
     import numpy as np
     from repro_torch.core.dp import level_buckets, solve_dp_batch
     from repro_torch.kernels.minplus import ops
     fleet, groups = _fig2_grid()
     n_intervals = int(FIG2_HORIZON_S // fleet.T_s)
+    dense_hist = _dense_histogram(fleet, groups)
     runs = {}
     for transition in ("kernel", "dense", "structured"):
         sols, walls = {}, {}
@@ -768,12 +821,8 @@ def phase_fig2(torch) -> dict:
         "kernel": {"minplus": 0,
                    "minplus_structured": len(FIG2_PLATFORMS)
                    * (n_intervals - 1)},
-        "dense": {"minplus": sum(
-            len(np.unique(level_buckets(
-                _group_arrays(groups[p])[0], fleet, transition="dense",
-                allow_fpga=kw.get("allow_fpga", True))))
-            for p, kw in FIG2_PLATFORMS) * (n_intervals - 1),
-            "minplus_structured": 0},
+        "dense": {"minplus": sum(dense_hist.values()),
+                  "minplus_structured": 0},
         "structured": {"minplus": 0, "minplus_structured": 0}}
     agreement = {}
     for transition in ("dense", "structured"):
@@ -815,6 +864,9 @@ def phase_fig2(torch) -> dict:
                         "launches": r["launches"],
                         "expected_launches": expected[t]}
                     for t, r in runs.items()},
+           "dense_launch_histogram": [
+               {"B": rows, "N": n, "launches": k}
+               for (rows, n), k in sorted(dense_hist.items())],
            "agreement_with_kernel_run": agreement,
            "max_rel_objective_vs_own_path_eval": f32_error,
            "rows": _fig2_rows(fleet, groups, kernel_sols)}
@@ -1022,9 +1074,6 @@ def _real_per_cell(times) -> list[int]:
 # arrival is counted, the fewest the function runs.
 ARRIVAL_OPS = {"f32_slot": 56, "f32_ring": 3, "i32_slot": 36, "i32_ring": 3,
                "i32_ring_pair": 4, "fail_f32_slot": 14, "fail_i32_slot": 70}
-# block-wide barriers per arrival (per round): ranks, reductions 1 and 2,
-# and the failure path's OR of the round's outcome
-ARRIVAL_BARRIERS = {False: 3, True: 4}
 
 
 def _arrival_bound(times, W: int, w_f: int, failures: bool) -> dict:
@@ -1033,7 +1082,7 @@ def _arrival_bound(times, W: int, w_f: int, failures: bool) -> dict:
     31 scalars + seed + code read once; the function's operations for the
     block's real arrivals (ARRIVAL_OPS), each kind at its rate. Beside it,
     the chain that bounds the kernel in fact: the longest cell's real
-    arrivals, each a sequence of block-wide barriers."""
+    arrivals, one after another on one warp."""
     cells, B = times.shape
     real = _real_per_cell(times)
     arrivals, chain = sum(real), max(real)
@@ -1049,8 +1098,7 @@ def _arrival_bound(times, W: int, w_f: int, failures: bool) -> dict:
     return {"bytes": nbytes, "f32_ops": f32 * arrivals,
             "i32_ops": i32 * arrivals, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "real_arrivals": arrivals, "chain_arrivals": chain,
-            "chain_barriers": chain * ARRIVAL_BARRIERS[failures]}
+            "real_arrivals": arrivals, "chain_arrivals": chain}
 
 
 def phase_arrival_kernel(torch) -> dict:
@@ -1105,7 +1153,8 @@ def phase_arrival_kernel(torch) -> dict:
             "plain_ms": cuda_ms(lambda: arrival_block_ref(
                 es, fstat, codes, TABLE9_W[0], c0, tb), 2, torch),
             **_arrival_bound(tb, W, TABLE9_W[0], bool(fstat.enabled))}
-        t["us_per_barrier"] = t["ms"] * 1e3 / t["chain_barriers"]
+        t["us_per_arrival"] = t["ms"] * 1e3 / B
+        t["us_per_chain_arrival"] = t["ms"] * 1e3 / t["chain_arrivals"]
     out = {"phase": "arrival_kernel", "cases": cases,
            "C": len(cells), "W": W, "B": B, "kernels": timing,
            **timing["pristine"], "library_ms": None,
@@ -1113,9 +1162,11 @@ def phase_arrival_kernel(torch) -> dict:
            "timing": "ms: CUDA events over 50 back-to-back raw launches on "
                      "packed inputs (kernel only); plain_ms: CUDA events "
                      "over 2 calls of the plain version on the card; "
-                     "us_per_barrier: ms over the longest cell's chain of "
-                     "barrier-separated phases (what bounds the kernel in "
-                     "fact, beside the operation bound)",
+                     "us_per_arrival: ms over the block's B arrivals; "
+                     "us_per_chain_arrival: ms over the longest cell's real "
+                     "arrivals (the chain of dependent arrivals on one warp "
+                     "bounds the kernel in fact, beside the operation "
+                     "bound)",
            "library": "none: no PyTorch call computes an arrival block"}
     emit(out)
     return out
@@ -1303,14 +1354,17 @@ def phase_table9_vs_cpu(t9: dict) -> dict:
     return out
 
 
-def _decode_lengths(b: int, s: int, seed: int) -> dict:
+def _decode_lengths(b: int, s: int, seed: int, chunk: int) -> dict:
     """Length cases for the decode_attn checks: ragged (0, 1, S and one
-    above S first, then random) and full."""
+    above S first, then, where S spans several of the kernel's chunks, the
+    chunk and one past it, then random) and full."""
     import numpy as np
     rng = np.random.default_rng(seed)
     ragged = rng.integers(1, s + 1, b)
     specials = [0, 1, s, s + 7]        # zeros; one position; S; counts as S
-    ragged[:min(b, 4)] = specials[:min(b, 4)]
+    if s > chunk:
+        specials += [chunk, chunk + 1]  # a chunk's last and next position
+    ragged[:min(b, len(specials))] = specials[:b]
     return {"ragged": ragged, "full": np.full(b, s)}
 
 
@@ -1343,12 +1397,13 @@ def phase_decode_attn_kernel(torch) -> dict:
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     F = torch.nn.functional
     cases, max_err = [], {}
+    chunk = ops.chunk_positions()
     for shape in DECODE_SHAPES:
         b, hq, hkv, d, s = shape
         data = _decode_inputs(shape, sum(shape), torch)
         for name, tol in DECODE_TOL.items():
             q, k, v = (x.to(getattr(torch, name)) for x in data)
-            for lcase, lens in _decode_lengths(b, s, s + b).items():
+            for lcase, lens in _decode_lengths(b, s, s + b, chunk).items():
                 lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
                 got = ops.decode_attention(q, k, v, lengths)
                 want = decode_attention_ref(q, k, v, lengths)
@@ -1360,7 +1415,8 @@ def phase_decode_attn_kernel(torch) -> dict:
                 worst = float(err.max())
                 top = float(want.float().abs().max())
                 cases.append({"shape": list(shape), "dtype": name,
-                              "lengths": lcase, "max_abs_err": worst,
+                              "lengths": lcase, "chunks": -(-s // chunk),
+                              "max_abs_err": worst,
                               "max_abs_want": top,
                               "err_over_max_want": (worst / top if top
                                                     else worst and math.inf),
@@ -1384,7 +1440,9 @@ def phase_decode_attn_kernel(torch) -> dict:
     timed = {}
     for label, shape, lens in (
             ("main", DECODE_MAIN, np.full(DECODE_MAIN[0], SERVE_MEAN_LENGTH)),
-            ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1]))):
+            ("s4096", DECODE_MID, np.full(DECODE_MID[0], DECODE_MID[-1])),
+            ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1])),
+            ("d256", DECODE_D256, np.full(DECODE_D256[0], DECODE_D256[-1]))):
         b, hq, hkv, d, s = shape
         q, k, v = (x.to(getattr(torch, SERVE_DTYPE))
                    for x in _decode_inputs(shape, 7, torch))
@@ -1407,6 +1465,9 @@ def phase_decode_attn_kernel(torch) -> dict:
                                                              lengths),
                                 50, torch),
             **_decode_bound(shape, lens, q.element_size())}
+        t = timed[label]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["vs_library"] = t["library_ms"] / t["ms"]
         del q, k, v, qs, ks, vs
     out = {"phase": "decode_attn_kernel", "cases": cases,
            "max_abs_err": max(max_err.values()),
@@ -1416,10 +1477,14 @@ def phase_decode_attn_kernel(torch) -> dict:
            "timed": timed, **{key: timed["main"][key] for key in
                               ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bound_by")},
+           "chunk_positions": chunk,
            "timing": "ms, plain_ms, library_ms: CUDA-graph replay (device "
                      "time per call); eager_ms: CUDA events over 50 eager "
-                     "calls; main: the serve phase's shape at its mean "
-                     "decode length; long: S = 32768, every row full"}
+                     "calls; bound_share: bound_ms / ms; vs_library: "
+                     "library_ms / ms; main: the serve phase's shape at its "
+                     "mean decode length; s4096, long: S = 4096, 32768, "
+                     "every row full; d256: recurrentgemma-2b's attention "
+                     "at its full 2048-position window"}
     emit(out)
     return out
 

@@ -9,26 +9,37 @@
 // retries, crashes, stragglers and evacuation) when the failure axis is on.
 //
 // Design. The TPU kernel keeps one cell's table in VMEM and runs the
-// engine's own step function in a fori_loop. Here one thread block owns one
-// cell and one thread owns one worker slot (W = 96 by default: three
-// warps), so a slot's eleven columns and two accumulators live in that
-// thread's registers for the whole block. The B arrival times sit in
-// shared memory; the cell's scalar counters are kept, identically, by
-// every thread (each update is computed from block-wide reductions, so all
-// threads agree) and thread 0 writes them back. Each arrival is a few
-// barrier-separated phases: elementwise masks; ring ranks over the FPGA
-// region (thread i < w_f counts the ready wids below its own, from a
-// shared array; integer counting is exact); reduction 1 (five maxima:
-// the four candidate groups' availabilities and the ring size); reduction
-// 2 (six maxima: wid tie-breaks, the cyclic ring key, the first free CPU
-// slot); the winner one-hots and the update. Both reductions are max over
-// -inf-masked values (warp shuffles, then one step across warps): max is
-// exact, so any order gives the plain version's answer. The failure path
-// adds one OR-reduction per failover round (served / crashed / served on
-// an FPGA / missed) and stops once the request is placed (later rounds are
-// no-ops in the plain version). Its hash is the uint32 finalizer of
-// repro_torch.ft.failures, converted to float with round-to-nearest and
-// scaled by 2^-32 exactly.
+// engine's own step function in a fori_loop. Here one warp owns one cell,
+// and a block packs kCellsPerBlock cells that share nothing but the block
+// (one warp to each of the SM's four schedulers). Lane l holds slots l,
+// l + 32, l + 64, ... (K = ceil(W / 32) slots a lane, 3 at the default W =
+// 96), with each slot's eleven columns and two accumulators in registers
+// for the whole block of arrivals. The cell's scalar counters are kept,
+// identically, by every lane (each update is computed from warp-wide
+// reductions, so all lanes agree) and lane 0 writes them back. An arrival
+// is: elementwise masks; the ring ranks over the FPGA region (round robin
+// only, and counted again only when the ring's membership, one ballot per
+// slot row, changed: the ring's wids go to a shared array of the warp's
+// own and, after a __syncwarp, each lane counts those below its slots'
+// wids with 16-byte broadcast reads; the ring size comes with them);
+// reduction 1, four maxima (the candidate groups' availabilities);
+// reduction 2, of only what the cell's policy reads (the lowest cyclic
+// ring key for round robin, else the winning group's wid tie-break; the
+// first free CPU slot only where no worker was found), usually one
+// reduction; the winner one-hots and the update. A reduction is a max or
+// min over the lane's slots, then one __reduce_max_sync or
+// __reduce_min_sync (a float on its bits mapped to an int of the same
+// order): maxima, minima and integer counts are exact, so any order gives
+// the plain version's answer. The failure path adds one __reduce_or_sync
+// per failover round (served / crashed / served on an FPGA / missed) and
+// stops once the request is placed (later rounds are no-ops in the plain
+// version). Its hash is the uint32 finalizer of repro_torch.ft.failures,
+// converted to float with round-to-nearest and scaled by 2^-32 exactly. A
+// slot's evacuation draw (keyed by its wid) and the crash draw of its next
+// assignment (wid and assignment count) are drawn again only when those
+// change, off the arrival's dependent chain, and the spin-up draws only
+// when a spin-up happens. No block-wide barrier is left in the loop over
+// the arrivals.
 //
 // Rounding. Every float product, sum and quotient is one IEEE-rounded op
 // (__fadd_rn and friends, never contracted into an FMA) in the plain
@@ -39,11 +50,11 @@
 // Bound. Per cell it moves its table in and out (13 words per slot each
 // way plus 14 scalars) and reads B times: ~0.34 MB for a chunk of 32 cells
 // at W = 96, 0.1 us at 3.35 TB/s. Its arithmetic, ~200 operations per slot
-// per arrival with the shuffle steps, is 79 M operations for a full block,
-// 1.2 us at the fp32 rate: operations bound it. What limits it in fact is
-// the chain of B dependent arrivals, each with three or four block
-// barriers, which one block per cell cannot hide (32 of 132 SMs busy).
-// The design keeps that chain inside one launch per block of arrivals.
+// per arrival, is 79 M operations for a full block, 2.5 us at the card's
+// fp32 and int32 rates: operations bound it. What limits it in fact is the
+// chain of B dependent arrivals of one cell on one warp, each a few
+// hundred dependent instructions and two or three warp reductions: a chunk
+// of 32 cells is 32 warps, one to a warp scheduler, on 8 of the 132 SMs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,8 +62,11 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;    // largest table W (one thread per slot)
-constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxSlotsPerLane = 8;           // W <= 256
+constexpr int kMaxW = 32 * kMaxSlotsPerLane;
+constexpr int kCellsPerBlock = 4;             // one warp per cell
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIntMax = 0x7fffffff, kIntMin = -kIntMax - 1;
 // EventScalars float fields (repro_torch.sim.events_batched.FLOAT_FIELDS)
 constexpr int kNumScalars = 31;
 enum Scalar {
@@ -103,132 +117,213 @@ __device__ __forceinline__ int spin_fails(uint32_t seed, int wid, int R,
   return nf;
 }
 
-// v[k] <- max over the block; scratch holds N * kMaxWarps floats.
-template <int N>
-__device__ __forceinline__ void block_max(float (&v)[N], float* scratch,
-                                          int nwarps) {
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    for (int o = 16; o > 0; o >>= 1)
-      v[k] = fmaxf(v[k], __shfl_xor_sync(0xffffffffu, v[k], o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) scratch[k * kMaxWarps + warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float m = scratch[k * kMaxWarps];
-    for (int w = 1; w < nwarps; ++w) m = fmaxf(m, scratch[k * kMaxWarps + w]);
-    v[k] = m;
-  }
+// A float's bits as an int of the same order (-0 just below +0), and
+// back: the map is its own inverse.
+__device__ __forceinline__ int ordered(float x) {
+  const int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
 }
 
-__device__ __forceinline__ unsigned block_or(unsigned v, unsigned* scratch,
-                                             int nwarps) {
-  v = __reduce_or_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned m = 0;
-  for (int w = 0; w < nwarps; ++w) m |= scratch[w];
-  return m;
+// Maxima and minima over the warp, one redux.sync each; the float one on
+// the order-preserving ints, so its result is one of the inputs, exactly.
+__device__ __forceinline__ float warp_max(float x) {
+  return unordered(__reduce_max_sync(kFull, ordered(x)));
+}
+__device__ __forceinline__ int warp_max(int x) {
+  return __reduce_max_sync(kFull, x);
+}
+__device__ __forceinline__ int warp_min(int x) {
+  return __reduce_min_sync(kFull, x);
 }
 
-struct Shared {
-  int rwid[kMaxThreads];            // ring member wids (-1: not in the ring)
-  float r1[5 * kMaxWarps];
-  float r2[6 * kMaxWarps];
-  unsigned flags[kMaxWarps];
+// The slots one lane holds: slot k * 32 + lane.
+template <int K>
+struct Table {
+  float alloc_t[K], ready_at[K], avail[K], busy[K], crash_t[K], slow[K];
+  float serv[K], miss[K];
+  int wid[K], level[K], n_assign[K], nfail[K];
+  bool alive[K];
 };
 
-// One slot's view of the candidate search of one arrival.
+// The ring ranks of the FPGA slot rows (ranks of slots outside the ring are
+// unused) and the ring size, kept from one candidate search to the next
+// while the ring's membership (one ballot per row) is unchanged: an FPGA
+// slot's wid never changes inside the kernel (spin-ups fill CPU slots).
+template <int K>
+struct RingRanks {
+  bool valid = false;
+  unsigned mask[K] = {};
+  int rank[K] = {};
+  int n_ring = 1;
+};
+
+// What the candidate search of one arrival decided, the same on every lane;
+// the winner's one-hot comes back per slot.
 struct Pick {
   bool found;        // the cell's policy found a feasible worker
-  bool oh;           // ... and it is this slot
   bool rr_found;
   int n_ring;
   int rank_win;      // meaningful only where rr_found
   bool any_free;
-  float slot_idx;    // first free CPU slot (+inf: none)
+  int slot_idx;      // first free CPU slot (kIntMax: none)
 };
 
+// The plain version's float maxima of wids, -wids, -keys and -slot indices
+// are taken here as int maxima and minima of the same integers: exact,
+// since wids, keys and indices stay far below 2^24.
+template <int K>
 __device__ __forceinline__ Pick find_candidates(
-    Shared& sh, int nwarps, int code, int w_f, bool slot, bool is_f,
-    float idx_f, int wid, bool alive, float avail, float ready_at,
-    float svc_w, bool live, bool ok, float t, float dl, int rr_pos) {
-  const int i = threadIdx.x;
-  const bool ready = live && (ready_at < t);
-  const bool pend = live && !ready;
-  const float widf = static_cast<float>(wid);
-  const bool ringf = is_f && ready;
-  if (i < w_f) sh.rwid[i] = ringf ? wid : -1;
-  __syncthreads();
-  int rank = 0;
-  if (ringf)
-    for (int j = 0; j < w_f; ++j) {
-      const int wj = sh.rwid[j];
-      rank += (wj >= 0 && wj < wid) ? 1 : 0;
-    }
-  const float slack = sub(dl, svc_w);
-  const bool feas_rr = ringf && ok && (fmaxf(avail, t) <= slack);
-
-  // reduction 1: candidate availabilities (4 groups) + ring size
-  const bool g_fr = ready && is_f && ok && (avail <= slack);
-  const bool g_cr = ready && !is_f && ok && (avail <= slack);
-  const bool arrive_ok = add(avail, svc_w) <= dl;
-  const bool g_fp = pend && is_f && ok && arrive_ok;
-  const bool g_cp = pend && !is_f && ok && arrive_ok;
+    int code, int w_f, const bool (&slot)[K], const bool (&is_f)[K],
+    const int (&idx)[K], const Table<K>& tb, const float (&svc_w)[K],
+    const bool (&live)[K], const bool (&ok)[K], float t, float dl,
+    int rr_pos, int* ring, RingRanks<K>& rk, bool (&oh)[K]) {
   const float neg = -CUDART_INF_F;
-  float r1[5] = {g_fr ? avail : neg, g_cr ? avail : neg, g_fp ? avail : neg,
-                 g_cp ? avail : neg,
-                 ringf ? static_cast<float>(rank + 1) : neg};
-  block_max(r1, sh.r1, nwarps);
-  const bool any_fr = r1[0] > neg, any_cr = r1[1] > neg;
+  bool ready[K], pend[K], ringf[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ready[k] = live[k] && (tb.ready_at[k] < t);
+    pend[k] = live[k] && !ready[k];
+    ringf[k] = is_f[k] && ready[k];
+  }
+  // ring ranks (the ready FPGA wids below one's own), read by the
+  // round-robin policy only, and counted again only when the ring's
+  // membership changed: the ring's wids go to this warp's shared array
+  // (kIntMax for a slot outside the ring), then each lane counts
+  const bool rr = code != 0 && code != 1;
+  const int kf = (w_f + 31) / 32;           // slot rows that hold FPGAs
+  if (rr) {
+    bool same = rk.valid;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (k >= kf) break;
+      const unsigned m = __ballot_sync(kFull, ringf[k]);
+      same = same && m == rk.mask[k];
+      rk.mask[k] = m;
+    }
+    if (!same) {
+      __syncwarp();                         // the last count's reads
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k < kf) ring[k * 32 + (threadIdx.x & 31)] =
+            ringf[k] ? tb.wid[k] : kIntMax;
+      __syncwarp();
+      const int4* ring4 = reinterpret_cast<const int4*>(ring);
+      int n_ring = 1;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        rk.rank[k] = 0;
+        if (k >= kf) continue;
+#pragma unroll
+        for (int q = 0; q < 8 * K; ++q) {
+          if (q >= 8 * kf) break;
+          const int4 w = ring4[q];
+          rk.rank[k] += (w.x < tb.wid[k]) + (w.y < tb.wid[k])
+                        + (w.z < tb.wid[k]) + (w.w < tb.wid[k]);
+        }
+        if (ringf[k]) n_ring = max(n_ring, rk.rank[k] + 1);
+      }
+      rk.n_ring = warp_max(n_ring);
+      rk.valid = true;
+    }
+  }
+
+  // reduction 1: candidate availabilities (4 groups)
+  bool g_fr[K], g_cr[K], g_fp[K], g_cp[K], feas_rr[K];
+  float r1[4] = {neg, neg, neg, neg};
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float avail = tb.avail[k];
+    const float slack = sub(dl, svc_w[k]);
+    feas_rr[k] = ringf[k] && ok[k] && (fmaxf(avail, t) <= slack);
+    g_fr[k] = ready[k] && is_f[k] && ok[k] && (avail <= slack);
+    g_cr[k] = ready[k] && !is_f[k] && ok[k] && (avail <= slack);
+    const bool arrive_ok = add(avail, svc_w[k]) <= dl;
+    g_fp[k] = pend[k] && is_f[k] && ok[k] && arrive_ok;
+    g_cp[k] = pend[k] && !is_f[k] && ok[k] && arrive_ok;
+    r1[0] = fmaxf(r1[0], g_fr[k] ? avail : neg);
+    r1[1] = fmaxf(r1[1], g_cr[k] ? avail : neg);
+    r1[2] = fmaxf(r1[2], g_fp[k] ? avail : neg);
+    r1[3] = fmaxf(r1[3], g_cp[k] ? avail : neg);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r1[j] = warp_max(r1[j]);
   Pick pk;
-  pk.n_ring = static_cast<int>(fmaxf(r1[4], 1.0f));
+  pk.n_ring = rr ? rk.n_ring : 1;
+  const bool any_fr = r1[0] > neg, any_cr = r1[1] > neg;
 
-  // reduction 2: wid tie-breaks, cyclic ring priority, first free slot
-  const int s = rr_pos % pk.n_ring;
-  const int key = rank < s ? rank + w_f : rank;
-  const bool t_fr = g_fr && avail == r1[0], t_cr = g_cr && avail == r1[1];
-  const bool t_fp = g_fp && avail == r1[2], t_cp = g_cp && avail == r1[3];
-  float r2[6] = {t_fr ? widf : neg, t_cr ? widf : neg, t_fp ? -widf : neg,
-                 t_cp ? -widf : neg,
-                 feas_rr ? -static_cast<float>(key) : neg,
-                 (slot && !alive && !is_f) ? -idx_f : neg};
-  block_max(r2, sh.r2, nwarps);
-  const float kmin = -r2[4];
-  pk.rr_found = r2[4] > neg;
-  pk.slot_idx = -r2[5];
-  pk.any_free = r2[5] > neg;
-  pk.rank_win = pk.rr_found ? static_cast<int>(kmin) % w_f : 0;
-
-  // winner one-hots and the policy select (codes: 0 spork, 1
-  // index_packing, any other round_robin, as dispatch_select folds them)
-  const bool oh_f = any_fr ? (t_fr && widf == r2[0]) : (t_fp && widf == -r2[2]);
-  const bool oh_c = any_cr ? (t_cr && widf == r2[1]) : (t_cp && widf == -r2[3]);
-  const bool oh_rr = feas_rr && static_cast<float>(key) == kmin;
+  // reduction 2, only what the cell's policy reads: the lowest cyclic ring
+  // key (round robin); else the winning group's wid tie-break (the highest
+  // wid of the busiest ready candidates, or the lowest of the most loaded
+  // pending ones: a max over -wid); the first free CPU slot only where no
+  // worker was found
   const bool f_found = any_fr || r1[2] > neg;
   const bool c_found = any_cr || r1[3] > neg;
-  if (code == 0) {
-    pk.found = f_found || c_found;
-    pk.oh = f_found ? oh_f : oh_c;
-  } else if (code == 1) {
+  int kmin = kIntMax;
+  if (rr) {
+    // rr_pos % n_ring (rr_pos is below the ring size unless it shrank)
+    const int s = rr_pos < pk.n_ring ? rr_pos : rr_pos % pk.n_ring;
+    int key[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      key[k] = rk.rank[k] < s ? rk.rank[k] + w_f : rk.rank[k];
+      if (feas_rr[k]) kmin = min(kmin, key[k]);
+    }
+    kmin = warp_min(kmin);
+#pragma unroll
+    for (int k = 0; k < K; ++k) oh[k] = feas_rr[k] && key[k] == kmin;
+  }
+  pk.rr_found = kmin != kIntMax;
+  // key < 2 * w_f (a rank is below w_f), so key % w_f is one subtraction
+  pk.rank_win = !pk.rr_found ? 0 : kmin >= w_f ? kmin - w_f : kmin;
+  bool pick_f = f_found;                    // spork: FPGAs first
+  if (code == 1) {
     const float av_f = any_fr ? r1[0] : r1[2];
     const float av_c = any_cr ? r1[1] : r1[3];
-    const bool pick_f = (f_found && c_found) ? (av_f >= av_c) : f_found;
-    pk.found = f_found || c_found;
-    pk.oh = pick_f ? oh_f : oh_c;
-  } else {
-    pk.found = pk.rr_found || c_found;
-    pk.oh = pk.rr_found ? oh_rr : oh_c;
+    pick_f = (f_found && c_found) ? (av_f >= av_c) : f_found;
   }
+  pk.found = rr ? (pk.rr_found || c_found) : (f_found || c_found);
+  if (!(rr && pk.rr_found)) {
+    const bool grp_f = !rr && pick_f;
+    const bool grp_ready = grp_f ? any_fr : any_cr;
+    const float best = grp_f ? (any_fr ? r1[0] : r1[2])
+                             : (any_cr ? r1[1] : r1[3]);
+    bool tie[K];
+    int top = kIntMin;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool cand = grp_f ? (any_fr ? g_fr[k] : g_fp[k])
+                              : (any_cr ? g_cr[k] : g_cp[k]);
+      tie[k] = cand && tb.avail[k] == best;
+      if (tie[k]) top = max(top, grp_ready ? tb.wid[k] : -tb.wid[k]);
+    }
+    top = warp_max(top);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      oh[k] = tie[k] && (grp_ready ? tb.wid[k] : -tb.wid[k]) == top;
+  }
+  int free_idx = kIntMax;
+  if (!pk.found) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (slot[k] && !tb.alive[k] && !is_f[k]) free_idx = min(free_idx, idx[k]);
+    free_idx = warp_min(free_idx);
+  }
+  pk.slot_idx = free_idx;
+  pk.any_free = free_idx != kIntMax;
   return pk;
 }
 
-template <bool kFail>
-__global__ void __launch_bounds__(kMaxThreads)
+// (rank_win + 1) % n_ring: the winner is in the ring, so rank_win + 1 <=
+// n_ring and the remainder is one comparison.
+__device__ __forceinline__ int next_ring_pos(const Pick& pk) {
+  return pk.rank_win + 1 < pk.n_ring ? pk.rank_win + 1 : 0;
+}
+
+template <int K, bool kFail>
+__global__ void __launch_bounds__(kCellsPerBlock * 32)
 arrival_kernel(const float* __restrict__ esf, const int* __restrict__ seeds,
                const int* __restrict__ codes,
                const float* __restrict__ times,
@@ -236,37 +331,47 @@ arrival_kernel(const float* __restrict__ esf, const int* __restrict__ seeds,
                const int* __restrict__ si_in, const float* __restrict__ sf_in,
                float* __restrict__ wf_out, int* __restrict__ wi_out,
                int* __restrict__ si_out, float* __restrict__ sf_out,
-               int W, int w_f, int B, int R, int F) {
-  extern __shared__ float s_times[];
-  __shared__ Shared sh;
-  const int cell = blockIdx.x, i = threadIdx.x;
-  const int nwarps = blockDim.x >> 5;
-  const bool slot = i < W;
-  const bool is_f = i < w_f;
-  const float idx_f = static_cast<float>(i);
+               int cells, int W, int w_f, int B, int R, int F) {
+  __shared__ __align__(16) int s_ring[kCellsPerBlock][kMaxW];
+  const int lane = threadIdx.x & 31;
+  const int cell = blockIdx.x * kCellsPerBlock + (threadIdx.x >> 5);
+  if (cell >= cells) return;          // the warps share no barrier
+  int* ring = s_ring[threadIdx.x >> 5];
 
   const float* es = esf + static_cast<size_t>(cell) * kNumScalars;
   const float size = es[kSize], deadline = es[kDeadline];
   const float A_c_s = es[kAcs];
   const uint32_t seed = static_cast<uint32_t>(seeds[cell]);
   const int code = codes[cell];
-  for (int k = i; k < B; k += blockDim.x)
-    s_times[k] = times[static_cast<size_t>(cell) * B + k];
 
+  bool slot[K], is_f[K];
+  int idx[K];
+  float base_svc[K], timeout[K];
+  Table<K> tb;
   const float* wf = wf_in + static_cast<size_t>(cell) * kNumF * W;
   const int* wi = wi_in + static_cast<size_t>(cell) * kNumI * W;
-  float alloc_t = 0.f, ready_at = 0.f, avail = 0.f, busy = 0.f;
-  float crash_t = CUDART_INF_F, slow = 1.f, serv = 0.f, miss = 0.f;
-  int wid = 0, level = 0, n_assign = 0, nfail = 0;
-  bool alive = false;
-  if (slot) {
-    alloc_t = wf[kAllocT * W + i]; ready_at = wf[kReadyAt * W + i];
-    avail = wf[kAvail * W + i]; busy = wf[kBusy * W + i];
-    crash_t = wf[kCrashT * W + i]; slow = wf[kSlow * W + i];
-    serv = wf[kServ * W + i]; miss = wf[kMiss * W + i];
-    wid = wi[kWid * W + i]; level = wi[kLevel * W + i];
-    n_assign = wi[kNAssign * W + i]; nfail = wi[kNFail * W + i];
-    alive = wi[kAlive * W + i] != 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = k * 32 + lane;
+    slot[k] = i < W;
+    is_f[k] = i < w_f;
+    idx[k] = i;
+    base_svc[k] = is_f[k] ? __fdiv_rn(size, es[kS]) : size;
+    timeout[k] = is_f[k] ? es[kToF] : es[kToC];
+    tb.alloc_t[k] = 0.f; tb.ready_at[k] = 0.f; tb.avail[k] = 0.f;
+    tb.busy[k] = 0.f; tb.crash_t[k] = CUDART_INF_F; tb.slow[k] = 1.f;
+    tb.serv[k] = 0.f; tb.miss[k] = 0.f;
+    tb.wid[k] = 0; tb.level[k] = 0; tb.n_assign[k] = 0; tb.nfail[k] = 0;
+    tb.alive[k] = false;
+    if (slot[k]) {
+      tb.alloc_t[k] = wf[kAllocT * W + i]; tb.ready_at[k] = wf[kReadyAt * W + i];
+      tb.avail[k] = wf[kAvail * W + i]; tb.busy[k] = wf[kBusy * W + i];
+      tb.crash_t[k] = wf[kCrashT * W + i]; tb.slow[k] = wf[kSlow * W + i];
+      tb.serv[k] = wf[kServ * W + i]; tb.miss[k] = wf[kMiss * W + i];
+      tb.wid[k] = wi[kWid * W + i]; tb.level[k] = wi[kLevel * W + i];
+      tb.n_assign[k] = wi[kNAssign * W + i]; tb.nfail[k] = wi[kNFail * W + i];
+      tb.alive[k] = wi[kAlive * W + i] != 0;
+    }
   }
   const int* si = si_in + static_cast<size_t>(cell) * kNumSI;
   const float* sf = sf_in + static_cast<size_t>(cell) * kNumSF;
@@ -277,120 +382,163 @@ arrival_kernel(const float* __restrict__ esf, const int* __restrict__ seeds,
   int cpu_spins = si[kCpuSpins];
   float wasted_j = sf[kWastedJ], extra_cost = sf[kExtraCost];
   float work_f = sf[kWorkF], work_c = sf[kWorkC];
-  __syncthreads();
 
-  const float base_svc = is_f ? __fdiv_rn(size, es[kS]) : size;
-  const float timeout = is_f ? es[kToF] : es[kToC];
+  // failure-aware constants; each slot's evacuation membership (a draw
+  // keyed by its wid) and the crash draw of its next assignment (keyed by
+  // wid and n_assign), drawn again only when those change
+  float spin_p = 0.f, backoff = 0.f, crash_p = 0.f, s_frac = 0.f;
+  float s_factor = 1.f, evac0 = 0.f, evac1 = 0.f, e_frac = 0.f;
+  float B_c = 0.f, C_c = 0.f;
+  bool member[K], crash_next[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) member[k] = crash_next[k] = false;
+  if constexpr (kFail) {
+    spin_p = es[kSpinP]; backoff = es[kBackoff]; crash_p = es[kCrashP];
+    s_frac = es[kSfrac]; s_factor = es[kSfactor];
+    evac0 = es[kEvac0]; evac1 = es[kEvac1]; e_frac = es[kEfrac];
+    B_c = es[kBc]; C_c = es[kCc];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      member[k] = u01(seed, tb.wid[k], 0, kDrawEvac) < e_frac;
+      crash_next[k] = u01(seed, tb.wid[k], tb.n_assign[k], kDrawCrash)
+                      < crash_p;
+    }
+  }
+  RingRanks<K> rk;
+
+  const float* tc = times + static_cast<size_t>(cell) * B;
+  float t_next = B > 0 ? tc[0] : 0.f;
   for (int a = 0; a < B; ++a) {
-    const float t = s_times[a];
-    if (!isfinite(t)) continue;                 // padding: a no-op
+    const float t = t_next;
+    if (a + 1 < B) t_next = tc[a + 1];        // in flight during this one
+    if (!isfinite(t)) continue;               // padding: a no-op
     const float dl = add(t, deadline);
     const float dl_miss = add(dl, 1e-9f);
     if constexpr (!kFail) {
-      const float svc_w = base_svc;
-      const bool live = slot && alive
-          && (add(fmaxf(ready_at, avail), timeout) >= t);
-      const Pick pk = find_candidates(sh, nwarps, code, w_f, slot, is_f,
-                                      idx_f, wid, alive, avail, ready_at,
-                                      svc_w, live, true, t, dl, rr_pos);
-      if (code == 2 && pk.rr_found) rr_pos = (pk.rank_win + 1) % pk.n_ring;
-      const bool spin = !pk.found && pk.any_free;
-      const bool oh_spin = slot && idx_f == pk.slot_idx && spin;
-      const bool oh_do = pk.found ? pk.oh : oh_spin;
-      const float t_ready = add(t, A_c_s);
-      const float new_av = add(fmaxf(oh_spin ? t_ready : avail, t), svc_w);
-      if (oh_spin) {
-        wid = next_wid + 1;
-        alive = true;
-        alloc_t = t;
-        ready_at = t_ready;
+      bool live[K], ok[K], oh[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        live[k] = slot[k] && tb.alive[k]
+            && (add(fmaxf(tb.ready_at[k], tb.avail[k]), timeout[k]) >= t);
+        ok[k] = true;
       }
-      if (oh_do) {
-        if (new_av > dl_miss) miss = add(miss, 1.0f);
-        avail = new_av;
-        busy = add(oh_spin ? 0.0f : busy, svc_w);
-        serv = add(serv, svc_w);
+      const Pick pk = find_candidates(code, w_f, slot, is_f, idx, tb,
+                                      base_svc, live, ok, t, dl, rr_pos, ring,
+                                      rk, oh);
+      if (code == 2 && pk.rr_found) rr_pos = next_ring_pos(pk);
+      const bool spin = !pk.found && pk.any_free;
+      const float t_ready = add(t, A_c_s);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float svc_w = base_svc[k];
+        const bool oh_spin = slot[k] && idx[k] == pk.slot_idx && spin;
+        const bool oh_do = pk.found ? oh[k] : oh_spin;
+        const float new_av =
+            add(fmaxf(oh_spin ? t_ready : tb.avail[k], t), svc_w);
+        if (oh_spin) {
+          tb.wid[k] = next_wid + 1;
+          tb.alive[k] = true;
+          tb.alloc_t[k] = t;
+          tb.ready_at[k] = t_ready;
+        }
+        if (oh_do) {
+          if (new_av > dl_miss) tb.miss[k] = add(tb.miss[k], 1.0f);
+          tb.avail[k] = new_av;
+          tb.busy[k] = add(oh_spin ? 0.0f : tb.busy[k], svc_w);
+          tb.serv[k] = add(tb.serv[k], svc_w);
+        }
       }
       next_wid += spin ? 1 : 0;
       overflow += (!pk.found && !pk.any_free) ? 1 : 0;
     } else {
-      const float spin_p = es[kSpinP], backoff = es[kBackoff];
       bool act = true, crashed_any = false;
       for (int r = 0; r <= F && act; ++r) {
-        const float svc_w = mul(base_svc, slow);
-        const bool live = slot && alive
-            && (add(fmaxf(ready_at, avail), timeout) >= t)
-            && crash_t == CUDART_INF_F;
-        const bool member = u01(seed, wid, 0, kDrawEvac) < es[kEfrac];
-        const bool ok = !(member && es[kEvac0] <= t && t < es[kEvac1]);
-        const Pick pk = find_candidates(sh, nwarps, code, w_f, slot, is_f,
-                                        idx_f, wid, alive, avail, ready_at,
-                                        svc_w, live, ok, t, dl, rr_pos);
-        if (code == 2 && pk.rr_found) rr_pos = (pk.rank_win + 1) % pk.n_ring;
+        bool live[K], ok[K], oh[K];
+        float svc_w[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          svc_w[k] = mul(base_svc[k], tb.slow[k]);
+          live[k] = slot[k] && tb.alive[k]
+              && (add(fmaxf(tb.ready_at[k], tb.avail[k]), timeout[k]) >= t)
+              && tb.crash_t[k] == CUDART_INF_F;
+          ok[k] = !(member[k] && evac0 <= t && t < evac1);
+        }
+        const Pick pk = find_candidates(code, w_f, slot, is_f, idx, tb,
+                                        svc_w, live, ok, t, dl, rr_pos, ring,
+                                        rk, oh);
+        if (code == 2 && pk.rr_found) rr_pos = next_ring_pos(pk);
 
-        // burst CPU spin-up with bounded retries
+        // burst CPU spin-up with bounded retries (the draws only matter
+        // where a spin-up happens)
         const bool spin = !pk.found && pk.any_free;
-        const bool oh_spin = slot && idx_f == pk.slot_idx && spin;
         const int new_wid = next_wid + 1;
-        const int nf_new = spin_fails(seed, new_wid, R, spin_p);
+        int nf_new = 0;
+        float slow_new = 1.0f;
+        bool crash_new = false;             // the new worker's first draw
+        if (spin) {
+          nf_new = spin_fails(seed, new_wid, R, spin_p);
+          slow_new = u01(seed, new_wid, 0, kDrawStraggle) < s_frac ? s_factor
+                                                                   : 1.0f;
+          crash_new = u01(seed, new_wid, 0, kDrawCrash) < crash_p;
+        }
         const bool still = nf_new > R;
         const bool spin_ok = spin && !still, spin_still = spin && still;
-        const bool oh_occ = oh_spin && spin_ok;
         const float nf_f = static_cast<float>(nf_new);
         const float a_c_eff = add(mul(A_c_s, add(1.0f, nf_f)),
                                   mul(backoff, nf_f));
-        const float slow_new =
-            u01(seed, new_wid, 0, kDrawStraggle) < es[kSfrac] ? es[kSfactor]
-                                                              : 1.0f;
         if (spin) {
           failed_spins += nf_new;
           retries += nf_new < R ? nf_new : R;
-          wasted_j = add(wasted_j, mul(nf_f, mul(A_c_s, es[kBc])));
+          wasted_j = add(wasted_j, mul(nf_f, mul(A_c_s, B_c)));
         }
         if (spin_still)
           extra_cost = add(extra_cost,
                            mul(add(mul(static_cast<float>(R + 1), A_c_s),
                                    mul(static_cast<float>(R), backoff)),
-                               es[kCc]));
+                               C_c));
         cpu_spins += spin_ok ? 1 : 0;
 
         // crash draw per assignment, keyed (wid, n_assigned)
-        const bool oh_do = pk.found ? pk.oh : (oh_spin && spin_ok);
-        bool crashed = false;
-        if (oh_do)
-          crashed = u01(seed, oh_spin ? new_wid : wid,
-                        oh_spin ? 0 : n_assign, kDrawCrash) < es[kCrashP];
-        const float svc_used = oh_spin ? mul(size, slow_new) : svc_w;
         const float t_occ = add(t, a_c_eff);
-        const float start = fmaxf(oh_spin ? t_occ : avail, t);
-        const float new_av = add(start, svc_used);
-        const float half = mul(svc_used, 0.5f);
-        const bool served = oh_do && !crashed;
-        const bool missed = served && new_av > dl_miss;
-        const float used = crashed ? half : svc_used;
-        if (oh_occ) {
-          wid = new_wid;
-          alive = true;
-          alloc_t = t;
-          ready_at = t_occ;
-          slow = slow_new;
-          nfail = nf_new;
-        }
-        if (served) avail = new_av;
-        else if (oh_occ) avail = t_occ;
-        if (oh_do) {
-          busy = add(oh_occ ? 0.0f : busy, used);
-          n_assign = (oh_occ ? 0 : n_assign) + 1;
-          serv = add(serv, used);
-        }
-        if (crashed) crash_t = add(start, half);
-        else if (oh_occ) crash_t = CUDART_INF_F;
-        if (missed) miss = add(miss, 1.0f);
-
-        const unsigned bits = block_or(
-            (served ? 1u : 0u) | (crashed ? 2u : 0u)
-                | ((served && is_f) ? 4u : 0u) | (missed ? 8u : 0u),
-            sh.flags, nwarps);
+        unsigned bits = 0;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const bool oh_spin = slot[k] && idx[k] == pk.slot_idx && spin;
+          const bool oh_occ = oh_spin && spin_ok;
+          const bool oh_do = pk.found ? oh[k] : oh_occ;
+          const bool crashed = oh_do && (oh_spin ? crash_new : crash_next[k]);
+          const float svc_used = oh_spin ? mul(size, slow_new) : svc_w[k];
+          const float start = fmaxf(oh_spin ? t_occ : tb.avail[k], t);
+          const float new_av = add(start, svc_used);
+          const float half = mul(svc_used, 0.5f);
+          const bool served = oh_do && !crashed;
+          const bool missed = served && new_av > dl_miss;
+          const float used = crashed ? half : svc_used;
+          if (oh_occ) {
+            tb.wid[k] = new_wid;
+            tb.alive[k] = true;
+            tb.alloc_t[k] = t;
+            tb.ready_at[k] = t_occ;
+            tb.slow[k] = slow_new;
+            tb.nfail[k] = nf_new;
+            member[k] = u01(seed, new_wid, 0, kDrawEvac) < e_frac;
+          }
+          if (served) tb.avail[k] = new_av;
+          else if (oh_occ) tb.avail[k] = t_occ;
+          if (oh_do) {
+            tb.busy[k] = add(oh_occ ? 0.0f : tb.busy[k], used);
+            tb.n_assign[k] = (oh_occ ? 0 : tb.n_assign[k]) + 1;
+            tb.serv[k] = add(tb.serv[k], used);
+            crash_next[k] = u01(seed, tb.wid[k], tb.n_assign[k],
+                                kDrawCrash) < crash_p;
+          }
+          if (crashed) tb.crash_t[k] = add(start, half);
+          else if (oh_occ) tb.crash_t[k] = CUDART_INF_F;
+          if (missed) tb.miss[k] = add(tb.miss[k], 1.0f);
+          bits |= (served ? 1u : 0u) | (crashed ? 2u : 0u)
+                  | ((served && is_f[k]) ? 4u : 0u) | (missed ? 8u : 0u);
+      }
+        bits = __reduce_or_sync(kFull, bits);
         const bool served_s = bits & 1u, crash_s = bits & 2u;
         const bool win_f = bits & 4u;
         crashes += crash_s ? 1 : 0;
@@ -410,18 +558,21 @@ arrival_kernel(const float* __restrict__ esf, const int* __restrict__ seeds,
     }
   }
 
-  if (slot) {
-    float* wo = wf_out + static_cast<size_t>(cell) * kNumF * W;
-    int* io = wi_out + static_cast<size_t>(cell) * kNumI * W;
-    wo[kAllocT * W + i] = alloc_t; wo[kReadyAt * W + i] = ready_at;
-    wo[kAvail * W + i] = avail; wo[kBusy * W + i] = busy;
-    wo[kCrashT * W + i] = crash_t; wo[kSlow * W + i] = slow;
-    wo[kServ * W + i] = serv; wo[kMiss * W + i] = miss;
-    io[kWid * W + i] = wid; io[kLevel * W + i] = level;
-    io[kNAssign * W + i] = n_assign; io[kNFail * W + i] = nfail;
-    io[kAlive * W + i] = alive ? 1 : 0;
+  float* wo = wf_out + static_cast<size_t>(cell) * kNumF * W;
+  int* io = wi_out + static_cast<size_t>(cell) * kNumI * W;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (!slot[k]) continue;
+    const int i = k * 32 + lane;
+    wo[kAllocT * W + i] = tb.alloc_t[k]; wo[kReadyAt * W + i] = tb.ready_at[k];
+    wo[kAvail * W + i] = tb.avail[k]; wo[kBusy * W + i] = tb.busy[k];
+    wo[kCrashT * W + i] = tb.crash_t[k]; wo[kSlow * W + i] = tb.slow[k];
+    wo[kServ * W + i] = tb.serv[k]; wo[kMiss * W + i] = tb.miss[k];
+    io[kWid * W + i] = tb.wid[k]; io[kLevel * W + i] = tb.level[k];
+    io[kNAssign * W + i] = tb.n_assign[k]; io[kNFail * W + i] = tb.nfail[k];
+    io[kAlive * W + i] = tb.alive[k] ? 1 : 0;
   }
-  if (i == 0) {
+  if (lane == 0) {
     int* so = si_out + static_cast<size_t>(cell) * kNumSI;
     float* fo = sf_out + static_cast<size_t>(cell) * kNumSF;
     so[kNextWid] = next_wid; so[kRrPos] = rr_pos; so[kOverflow] = overflow;
@@ -432,6 +583,26 @@ arrival_kernel(const float* __restrict__ esf, const int* __restrict__ seeds,
     fo[kWastedJ] = wasted_j; fo[kExtraCost] = extra_cost;
     fo[kWorkF] = work_f; fo[kWorkC] = work_c;
   }
+}
+
+template <int K>
+cudaError_t launch_k(const float* esf, const int* seeds, const int* codes,
+                     const float* times, const float* wf_in, const int* wi_in,
+                     const int* si_in, const float* sf_in, float* wf_out,
+                     int* wi_out, int* si_out, float* sf_out, int cells,
+                     int W, int w_f, int B, int fail, int R, int F,
+                     cudaStream_t s) {
+  const int blocks = (cells + kCellsPerBlock - 1) / kCellsPerBlock;
+  const int threads = kCellsPerBlock * 32;
+  if (fail)
+    arrival_kernel<K, true><<<blocks, threads, 0, s>>>(
+        esf, seeds, codes, times, wf_in, wi_in, si_in, sf_in, wf_out, wi_out,
+        si_out, sf_out, cells, W, w_f, B, R, F);
+  else
+    arrival_kernel<K, false><<<blocks, threads, 0, s>>>(
+        esf, seeds, codes, times, wf_in, wi_in, si_in, sf_in, wf_out, wi_out,
+        si_out, sf_out, cells, W, w_f, B, R, F);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -452,19 +623,23 @@ extern "C" int arrival_launch(const float* esf, const int* seeds,
                               float* sf_out, int cells, int W, int w_f, int B,
                               int fail, int max_retries, int max_failover,
                               void* stream) {
-  if (cells <= 0 || W <= 0 || W > kMaxThreads || w_f < 1 || w_f > W
-      || B < 0 || max_retries < 0 || max_failover < 0)
+  if (cells <= 0 || W <= 0 || W > kMaxW || w_f < 1 || w_f > W || B < 0
+      || max_retries < 0 || max_failover < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (W + 31) / 32 * 32;
-  const size_t smem = static_cast<size_t>(B > 0 ? B : 1) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fail)
-    arrival_kernel<true><<<cells, threads, smem, s>>>(
-        esf, seeds, codes, times, wf_in, wi_in, si_in, sf_in, wf_out, wi_out,
-        si_out, sf_out, W, w_f, B, max_retries, max_failover);
-  else
-    arrival_kernel<false><<<cells, threads, smem, s>>>(
-        esf, seeds, codes, times, wf_in, wi_in, si_in, sf_in, wf_out, wi_out,
-        si_out, sf_out, W, w_f, B, max_retries, max_failover);
-  return static_cast<int>(cudaGetLastError());
+#define ARRIVAL_LAUNCH(K)                                                    \
+  return static_cast<int>(launch_k<K>(                                       \
+      esf, seeds, codes, times, wf_in, wi_in, si_in, sf_in, wf_out, wi_out,  \
+      si_out, sf_out, cells, W, w_f, B, fail, max_retries, max_failover, s))
+  switch ((W + 31) / 32) {
+    case 1: ARRIVAL_LAUNCH(1);
+    case 2: ARRIVAL_LAUNCH(2);
+    case 3: ARRIVAL_LAUNCH(3);
+    case 4: ARRIVAL_LAUNCH(4);
+    case 5: ARRIVAL_LAUNCH(5);
+    case 6: ARRIVAL_LAUNCH(6);
+    case 7: ARRIVAL_LAUNCH(7);
+    default: ARRIVAL_LAUNCH(8);
+  }
+#undef ARRIVAL_LAUNCH
 }

@@ -35,7 +35,7 @@ from repro_torch.sim.events_batched import (FLOAT_FIELDS, EvCarry,
                                             WorkerTable)
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "arrival.cu",)
-#: Widest worker table: the kernel runs one thread per slot.
+#: Widest worker table: the kernel runs one warp per cell, 8 slots a lane.
 MAX_W = 256
 
 _WF = ("alloc_t", "ready_at", "avail", "busy", "crash_t", "slow")

@@ -6,8 +6,10 @@ bfloat16, lengths (B,) -> (B, Hq, D) in q's type. Unlike the reference
 wrapper it has no length threshold and no switch: the tensor's device
 decides the route. A CPU tensor goes to the plain PyTorch version
 (`ref.decode_attention_ref`); a CUDA tensor launches the kernel, or this
-raises. ``decode_attention.launches`` counts the kernel launches and
-nothing else.
+raises. ``decode_attention.launches`` counts the calls that launched and
+nothing else. A call whose cache is longer than one block's chunk of
+positions (`chunk_positions`, 1024) issues two CUDA kernels, the
+split-sequence pass and the combine, and counts once.
 """
 
 from __future__ import annotations
@@ -23,19 +25,31 @@ from repro_torch.kernels.build import load_library
 from .ref import decode_attention_ref
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "decode_attn.cu",)
-#: Head dimensions the kernel is compiled for (D/32 elements a lane; one
-#: below 32): the full-width configs' 64 and 128 and the smoke configs' 16.
-HEAD_DIMS = (16, 64, 128)
+#: Head dimensions the kernel is compiled for: those of every config that
+#: decodes through it (smoke widths' 16, deepseek-v3's dense layers' 56,
+#: 64, 128 and recurrentgemma-2b's 256).
+HEAD_DIMS = (16, 56, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
 def _launcher():
     fn = load_library("decode_attn", SOURCES).decode_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def chunk_positions() -> int:
+    """Positions of a row that one block of the kernel takes (its
+    compile-time chunk): a cache longer than this is split across blocks
+    and combined by a second kernel."""
+    fn = load_library("decode_attn", SOURCES).decode_attn_chunk
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,9 +90,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("decode_attn: q, k, v must be 16-byte aligned")
     with torch.cuda.device(q.device):
+        # each chunk's partial (accumulator; max, normalizer), only where
+        # the cache spans more than one chunk
+        chunks = -(-s // chunk_positions())
+        ws = ((None, None) if chunks == 1 else
+              tuple(torch.empty((b, hq, chunks, n), dtype=torch.float32,
+                                device=q.device) for n in (d, 2)))
         rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         lens.data_ptr(), out.data_ptr(), b, s, hkv,
-                         hq // hkv, d, _DTYPES[q.dtype], d ** -0.5,
+                         lens.data_ptr(), out.data_ptr(),
+                         *(w if w is None else w.data_ptr() for w in ws),
+                         b, s, hkv, hq // hkv, d, _DTYPES[q.dtype], d ** -0.5,
                          torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attn launch failed: CUDA error {rc}")

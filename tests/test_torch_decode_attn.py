@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels.decode_attn.decode_attn import decode_attention_pallas
 from repro.kernels.decode_attn.ref import decode_attention_ref as jax_ref
+from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.kernels.decode_attn import ops
 from repro_torch.kernels.decode_attn.ref import decode_attention_ref
 
@@ -98,6 +99,83 @@ def test_ragged_lengths_property(seed):
                                rtol=1e-4, atol=1e-4)
 
 
+def _chunked_attention(q, k, v, lengths, chunk):
+    """The kernel's split-sequence arithmetic in plain float32 torch: every
+    chunk of ``chunk`` positions of a row gives its partial (max,
+    normalizer, accumulator) over its valid positions; the chunks that
+    start below the row's length are combined in chunk order (a row of
+    length 0 has none and gives 0)."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    qf = q.float().reshape(b, hkv, hq // hkv, d) * d ** -0.5
+    n = lengths.long().clamp(0, s)
+    parts = []
+    for c0 in range(0, s, chunk):
+        kc = k[:, c0:c0 + chunk].float().transpose(1, 2)    # (B, Hkv, P, D)
+        vc = v[:, c0:c0 + chunk].float().transpose(1, 2)
+        valid = (c0 + torch.arange(kc.shape[2]))[None, :] < n[:, None]
+        mask = valid[:, None, None, :]
+        sc = (qf @ kc.transpose(-1, -2)).masked_fill(~mask, -torch.inf)
+        m = sc.amax(dim=-1)
+        e = torch.where(mask, torch.exp(sc - m[..., None]), 0.0)
+        parts.append((c0 < n, m, e.sum(dim=-1), e @ vc))
+    mx = torch.full(qf.shape[:-1], -torch.inf)
+    for ok, m, _, _ in parts:
+        mx = torch.where(ok[:, None, None], torch.maximum(mx, m), mx)
+    den = torch.zeros(qf.shape[:-1])
+    num = torch.zeros(qf.shape)
+    for ok, m, l, acc in parts:                             # chunk order
+        f = torch.where(ok[:, None, None], torch.exp(m - mx), 0.0)
+        den = den + l * f
+        num = num + acc * f[..., None]
+    return (num / den.clamp(min=1e-30)[..., None]).reshape(b, hq, d)
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 8), (32, 8), (8, 8), (41, 5)])
+def test_split_sequence_combine_matches_reference(s, chunk):
+    """The split-sequence arithmetic the CUDA kernel implements (per-chunk
+    partial softmaxes, combined in chunk order), at a small chunk so that
+    a row spans several: against the plain version and the JAX
+    reference's, f32 within 2e-5, at lengths 0, k*P and k*P +- 1, S and
+    above S."""
+    shape = (10, 6, 2, 16, s)
+    q, k, v, _ = _inputs(shape, s + chunk)
+    lengths = np.array([0, chunk, 2 * chunk, 2 * chunk - 1, 2 * chunk + 1,
+                        chunk - 1, chunk + 1, 1, s, s + 9], np.int32)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both((q, k, v, lengths), "float32")
+    got = _chunked_attention(tq, tk, tv, tl, chunk)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    for want in (decode_attention_ref(tq, tk, tv, tl).numpy(),
+                 np.asarray(jax_ref(jq, jk, jv, jl))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def _decode_head_dims(cfg) -> set[int]:
+    """Head dimensions a config's decode step sends through
+    `decode_attention` (the reference's `Model.decode_step`): the
+    self-attention of dense, vlm, hybrid and encdec layers, of moe layers
+    without MLA and of the dense layers in front of MLA ones; none for
+    ssm."""
+    if cfg.family in ("dense", "vlm", "hybrid", "encdec"):
+        return {cfg.d_head}
+    if cfg.family == "moe" and (not cfg.use_mla or cfg.n_dense_layers):
+        return {cfg.d_head}
+    return set()
+
+
+@pytest.mark.parametrize("variant", ["full", "smoke"])
+def test_head_dims_cover_every_decoding_config(variant):
+    """The kernel is compiled for the head dimension of every registry
+    config that decodes through it, at full and smoke width."""
+    need = {arch: _decode_head_dims(get_config(arch, variant))
+            for arch in list_archs()}
+    missing = {a: dims for a, dims in need.items()
+               if not dims <= set(ops.HEAD_DIMS)}
+    assert not missing, f"head dimensions not compiled: {missing}"
+    if variant == "full":
+        assert need["recurrentgemma-2b"] == {256}
+
+
 def test_cuda_wrapper_rejects_other_devices():
     q = torch.zeros(1, 2, 64, device="meta")
     k = torch.zeros(1, 8, 2, 64, device="meta")
@@ -108,14 +186,20 @@ def test_cuda_wrapper_rejects_other_devices():
 
 def test_cuda_kernel_matches_plain_version():
     """On the card: the kernel against its plain version at every shape,
-    the smoke configs' head dimension 16 too, both types, ragged
-    lengths including 0, 1 and S."""
+    the smoke configs' head dimension 16, deepseek-v3's 56 and
+    recurrentgemma-2b's 256 too, caches longer than one chunk (the
+    split-sequence pass and the combine), both types, ragged lengths
+    including 0, 1, a multiple of the chunk and S."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU build)")
-    for shape in SHAPES + [(4, 4, 2, 16, 128), (8, 16, 8, 128, 1024)]:
+    extra = [(4, 4, 2, 16, 128), (8, 16, 8, 128, 1024), (3, 4, 4, 56, 1500),
+             (4, 10, 1, 256, 2048), (4, 10, 1, 256, 3000),
+             (4, 16, 8, 128, 4096)]
+    for shape in SHAPES + extra:
         q, k, v, lengths = _inputs(shape, 1)
         lengths[-1] = shape[-1]
-        lengths[:-1][:2] = (0, 1)[:shape[0] - 1]
+        lengths[:-1][:3] = (0, 1, 1024)[:shape[0] - 1]
+        lengths = np.minimum(lengths, shape[-1])
         for dtype in DTYPES:
             _, args = _both((q, k, v, lengths), dtype)
             args = [a.cuda() for a in args]
