@@ -28,15 +28,22 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                the dense `minplus` and the `minplus_structured` kernels at
                B in {1, 180} rows x N in {1, 8, 257, 1024, 2816} levels, on
                integer-exact and on continuous instances (monotone integer
-               y_c): values bitwise equal and argmins equal to the plain
-               versions on the card (the dense one where its (B, N, N)
-               temporaries fit) and on the CPU (at B=180, N=2816 every 6th
-               row for the dense one: the CPU takes ~2 s per 16 rows); at
-               N >= 2 the structured kernel equals the dense kernel on the
-               exact instances; times of both kernels and both plain
-               versions at the main path's B=180, N=2816; the dense kernel
-               timed at every (B, N) of the Fig. 2 + 3 dense run's launch
-               histogram, with its launches x (time - bound) summed
+               y_c): values and argmins bitwise equal to the plain versions
+               on the card (the dense one where its (B, N, N) temporaries
+               fit) and on the CPU (at B=180, N=2816 every 6th row for the
+               dense one: the CPU takes ~2 s per 16 rows); at N >= 2 the
+               structured kernel equals the dense kernel on the exact
+               instances; the dense kernel's own cases (`_dense_case`: all
+               values tied, ties across a slice boundary, non-monotone y_c,
+               rows with negative coefficients) at three splits; the
+               structured variants on each side of the on-chip limit
+               (`ops.MAX_N_SHARED`, checked against the library); times of
+               both kernels and both plain versions at the main path's
+               B=180, N=2816 (and the structured global-table variant on
+               the same inputs); the dense kernel checked bitwise and timed
+               at every (B, N) of the Fig. 2 + 3 dense run's launch
+               histogram beside its bound, with its launches x (time -
+               bound) summed
   fig2         the full Fig. 2 + Fig. 3 grid (biases 0.5-0.75, seeds 0-9,
                7200 s; hybrid, cpu_only, fpga_only; energy and cost, plus
                the 10 Pareto weights on seed 0) through `solve_dp_batch`
@@ -161,6 +168,12 @@ PREDICT_BITWISE = ((32, 512), (16, 128), (32, 128))
 RTOL_CPU = 1e-5
 MINPLUS_ROWS = (1, 180)           # Fig. 2's largest group has 180 rows
 MINPLUS_LEVELS = (1, 8, 257, 1024, 2816)    # 2816: Fig. 2's level bucket
+# the dense kernel's own cases (_dense_case) at three splits of the dense
+# run: 24 slices in clusters of 3, one lane a destination in 64 slices, and
+# 5 slices in one block
+DENSE_CASE_SHAPES = ((2, 2816), (2, 512), (14, 2176))
+DENSE_CASE_KINDS = ("all_tie", "chunk_tie", "non_monotone", "negative")
+STRUCTURED_EDGE_ROWS = 4         # rows on each side of the on-chip limit
 FIG2_BIASES = (0.5, 0.55, 0.6, 0.65, 0.7, 0.75)   # benchmarks/fig2_pareto.py
 FIG2_SEEDS = 10
 FIG2_HORIZON_S = 7200
@@ -582,20 +595,109 @@ def _minplus_inputs(kind: str, rows: int, n: int, seed: int):
     return F, mono(), mono(), coeffs
 
 
-def _minplus_bound(name: str, rows: int, n: int) -> dict:
-    """Least time for one transition: each input read once (F, y_c twice,
-    coefficients), each output written once (values, argmins); the dense
-    contraction's ~17 fp32 operations per (i, j) pair (4 sub, 4 relu, 4
-    mul, 4 add, 1 compare), the structured one's ~N*(16 + 4L + log2 N +
-    20) per row (g rows, two scans, L table levels, search, queries)."""
+def _dense_operations(ycp, ycc, coeffs) -> int:
+    """fp32 operations of the dense transition on these inputs, per (i, j)
+    pair, in the cheapest exact formulation, which the kernel runs. A row
+    whose coefficients have the sign bit clear and are finite takes T =
+    c_I*|j-i| + c_Y*|v-u|: 5 operations (v - u, a product, two sums, a
+    minimum) where the sign of v - u is known for the pair's lane (its
+    `dense_split` destinations) and group (its 8 sources), 7 where a
+    compare and a select pick c_Y; the index part depends on j - i alone
+    (2N - 1 products a row). Any other row: the four-term form's 10 (two
+    differences, two relus, two products, three sums, a minimum)."""
+    import numpy as np
+    from repro_torch.kernels.minplus.ops import dense_split
+    rows, n = ycp.shape
+    d = dense_split(rows, n).dests
+    c = np.ascontiguousarray(np.asarray(coeffs, np.float32))
+    two_term = (c.view(np.uint32) < 0x7F800000).all(axis=1)
+    total = 0
+    for r in range(rows):
+        if not two_term[r]:
+            total += 10 * n * n
+            continue
+        lanes = np.arange(0, n, d)
+        groups = np.arange(0, n, 8)
+        vmin = np.minimum.reduceat(ycc[r], lanes)
+        vmax = np.maximum.reduceat(ycc[r], lanes)
+        umin = np.minimum.reduceat(ycp[r], groups)
+        umax = np.maximum.reduceat(ycp[r], groups)
+        n_lane = np.diff(np.append(lanes, n))
+        n_group = np.diff(np.append(groups, n))
+        fixed = ((vmin[:, None] >= umax[None, :])
+                 | (vmax[:, None] <= umin[None, :]))
+        fixed_pairs = int(n_lane @ fixed.astype(np.int64) @ n_group)
+        total += 5 * fixed_pairs + 7 * (n * n - fixed_pairs)
+    return total
+
+
+def _minplus_bound(name: str, ycp, ycc, coeffs) -> dict:
+    """Least time for one transition on these inputs (numpy): each input
+    read once (F, y_c twice, coefficients), each output written once
+    (values, argmins), and the operations (`_dense_operations`; the
+    structured one's ~N*(16 + 4L + log2 N + 20) a row: g rows, two scans,
+    table levels, search, queries) at FP32_OPS, one fp32 operation a lane
+    a clock: the kernels forbid FMA."""
+    rows, n = ycp.shape
     nbytes = 4 * (3 * rows * n + 4 * rows + 2 * rows * n)
     levels = max(1, n.bit_length())
-    ops = (17 * rows * n * n if name == "minplus"
+    ops = (_dense_operations(ycp, ycc, coeffs) if name == "minplus"
            else rows * n * (16 + 4 * levels + levels + 20))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS * 1e3
     return {"bytes": nbytes, "operations": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _dense_case(kind: str, rows: int, n: int, seed: int):
+    """numpy (F, yc_prev, yc_cur, coeffs) for the dense kernel's own cases.
+    "all_tie": constant F, zero coefficients: every value equal, every
+    argmin 0. "chunk_tie": T = |j - i| and F = 1e6 but 1 and 0 on the two
+    sides of every slice boundary b of `dense_split`: destinations j < b
+    tie between b - 1 and b, across the boundary. "non_monotone": y_c in
+    any order (the dense contract). "negative": row 0 (-1.5, 2, -0, 3) and
+    the last row a negative ac: the four-term form beside the two-term
+    one in one launch."""
+    import numpy as np
+    from repro_torch.kernels.minplus.ops import dense_split
+    rng = np.random.default_rng(seed)
+    F = rng.normal(0.0, 100.0, (rows, n)).astype(np.float32)
+    ycp = rng.normal(0.0, 20.0, (rows, n)).astype(np.float32)
+    ycc = rng.normal(0.0, 20.0, (rows, n)).astype(np.float32)
+    coeffs = rng.uniform(0.0, 10.0, (rows, 4)).astype(np.float32)
+    if kind == "all_tie":
+        F[:] = 5.0
+        coeffs[:] = 0.0
+    elif kind == "chunk_tie":
+        F[:] = 1e6
+        for _, b in dense_split(rows, n).slices(n)[:-1]:
+            if 0 < b < n:
+                F[:, b - 1], F[:, b] = 1.0, 0.0
+        ycp[:], ycc[:], coeffs[:] = 0.0, 0.0, 1.0
+    elif kind == "negative":
+        coeffs[0] = (-1.5, 2.0, -0.0, 3.0)
+        coeffs[-1, 2] = -4.0
+    elif kind != "non_monotone":
+        raise ValueError(kind)
+    return F, ycp, ycc, coeffs
+
+
+def _structured_global(F, ycp, ycc, co, torch):
+    """The structured kernel's global-table variant at any N (the wrapper
+    runs it above MAX_N_SHARED only): for timing it beside the on-chip one
+    on the same inputs. Counts no launch."""
+    from repro_torch.kernels.minplus import ops
+    batch, n = F.shape
+    levels = max(1, n.bit_length())
+    out, arg = torch.empty_like(F), torch.empty_like(F, dtype=torch.int32)
+    tab_v = torch.empty((batch, levels, 2, n), dtype=torch.float32,
+                        device=F.device)
+    tab_i = torch.empty_like(tab_v, dtype=torch.int32)
+    ops._check("minplus_structured_global", ops._launcher("global")(
+        F.data_ptr(), ycp.data_ptr(), ycc.data_ptr(), co.data_ptr(),
+        out.data_ptr(), arg.data_ptr(), tab_v.data_ptr(), tab_i.data_ptr(),
+        batch, n, levels, torch.cuda.current_stream().cuda_stream))
+    return out, arg
 
 
 def phase_minplus_kernel(torch) -> dict:
@@ -606,6 +708,12 @@ def phase_minplus_kernel(torch) -> dict:
                   *a, check=False)}
     kernels = {"minplus": ops.minplus_step,
                "minplus_structured": ops.minplus_step_structured}
+
+    def bitwise(got, want) -> bool:
+        return torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)) and torch.equal(
+                               got[1], want[1])
+
     cases, max_abs, main = [], dict.fromkeys(kernels, 0.0), None
     for kind in ("exact", "continuous"):
         for rows in MINPLUS_ROWS:
@@ -625,8 +733,7 @@ def phase_minplus_kernel(torch) -> dict:
                         case[f"{name}_card_plain"] = "skipped: does not fit"
                     else:
                         pv, pa = (x.cpu() for x in plains[name](*dev))
-                        check(torch.equal(got[name][0], pv)
-                              and torch.equal(got[name][1], pa),
+                        check(bitwise(got[name], (pv, pa)),
                               f"{name} differs from its plain version on the "
                               f"card ({kind}, B={rows}, N={n})")
                         case[f"{name}_card_plain"] = "bitwise equal"
@@ -638,8 +745,8 @@ def phase_minplus_kernel(torch) -> dict:
                            if name == "minplus" and rows * n * n > 1e8
                            else slice(None))
                     cv, ca = plains[name](*(x[sel] for x in cpu))
-                    check(torch.equal(got[name][0][sel], cv)
-                          and torch.equal(got[name][1][sel], ca),
+                    check(bitwise((got[name][0][sel], got[name][1][sel]),
+                                  (cv, ca)),
                           f"{name} differs from its plain version on the CPU "
                           f"({kind}, B={rows}, N={n})")
                     case[f"{name}_cpu_plain_rows"] = int(cv.shape[0])
@@ -650,44 +757,111 @@ def phase_minplus_kernel(torch) -> dict:
                           f"minplus_structured differs from minplus on an "
                           f"exact instance (B={rows}, N={n})")
                     case["structured_equals_dense"] = True
+                case["structured_variant"] = ops.structured_variant(n)
                 cases.append(case)
                 if (kind, rows, n) == ("continuous", 180, 2816):
                     main = dev
+    # the dense kernel's own cases, at three splits of the dense run
+    dense_cases = []
+    for rows, n in DENSE_CASE_SHAPES:
+        for kind in DENSE_CASE_KINDS:
+            x = tuple(torch.from_numpy(a).cuda() for a in _dense_case(
+                kind, rows, n, rows * n + len(kind)))
+            got = ops.minplus_step(*x)
+            check(bitwise(got, minplus_step(*x)),
+                  f"minplus differs from its plain version ({kind}, "
+                  f"B={rows}, N={n})")
+            if kind == "all_tie":
+                check(bool((got[1] == 0).all()), "minplus: all-tie argmin "
+                      "is not 0")
+            if kind == "chunk_tie":
+                first = ops.dense_split(rows, n).slices(n)[0][1]
+                check(int(got[1][0, 0]) == first - 1, "minplus: a tie across "
+                      "a slice boundary did not go to the earlier source")
+            sp = ops.dense_split(rows, n)
+            dense_cases.append({"kind": kind, "B": rows, "N": n,
+                                "chunks": sp.chunks, "cluster": sp.cluster,
+                                "card_plain": "bitwise equal"})
+    # the structured variants on each side of the on-chip limit, which
+    # the wrapper and the library must agree on
+    import ctypes
+    from repro_torch.kernels.build import load_library
+    limit = load_library("minplus_structured",
+                         ops.SOURCES["minplus_structured"]
+                         ).minplus_structured_max_n_shared
+    limit.restype = ctypes.c_int
+    check(limit() == ops.MAX_N_SHARED,
+          f"minplus_structured: the library's on-chip limit {limit()} is "
+          f"not ops.MAX_N_SHARED = {ops.MAX_N_SHARED}")
+    structured_edges = []
+    for n in (ops.MAX_N_SHARED, ops.MAX_N_SHARED + 1):
+        x = tuple(torch.from_numpy(a).cuda() for a in _minplus_inputs(
+            "exact", STRUCTURED_EDGE_ROWS, n, n))
+        got = ops.minplus_step_structured(*x)
+        check(bitwise(got, plains["minplus_structured"](*x)),
+              f"minplus_structured differs from its plain version (N={n})")
+        check(bitwise(got, ops.minplus_step(*x)),
+              f"minplus_structured differs from minplus (exact, N={n})")
+        structured_edges.append({
+            "B": STRUCTURED_EDGE_ROWS, "N": n,
+            "variant": ops.structured_variant(n),
+            "card_plain": "bitwise equal", "equals_dense": True,
+            "ms": graph_ms(lambda: ops.minplus_step_structured(*x), 20,
+                           torch)})
+        torch.cuda.empty_cache()
+    # the dense kernel at every (B, N) of the Fig. 2 + 3 dense run
     buckets = []
     fleet, groups = _fig2_grid()
     for (rows, n), launches in sorted(_dense_histogram(fleet, groups).items()):
-        x = tuple(torch.from_numpy(a).cuda() for a in _minplus_inputs(
-            "continuous", rows, n, rows + n))
+        arrays = _minplus_inputs("continuous", rows, n, rows + n)
+        x = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        check(bitwise(ops.minplus_step(*x), minplus_step(*x)),
+              f"minplus differs from its plain version (bucket B={rows}, "
+              f"N={n})")
         ms = graph_ms(lambda: kernels["minplus"](*x), 20, torch)
-        bound = _minplus_bound("minplus", rows, n)
+        bound = _minplus_bound("minplus", *arrays[1:])
+        sp = ops.dense_split(rows, n)
         buckets.append({"B": rows, "N": n, "launches": launches, "ms": ms,
                         "bound_ms": bound["bound_ms"],
                         "bound_by": bound["bound_by"],
-                        "loss_s": launches * (ms - bound["bound_ms"]) / 1e3})
+                        "loss_s": launches * (ms - bound["bound_ms"]) / 1e3,
+                        "split": [sp.dests, sp.warps, sp.cluster,
+                                  sp.slice_len],
+                        "warps": rows * -(-n // (32 * sp.dests)) * sp.chunks,
+                        "card_plain": "bitwise equal"})
+        torch.cuda.empty_cache()
     rows, n = main[0].shape
+    main_np = [x.cpu().numpy() for x in main[1:]]
     timing = {}
     for name, kernel in kernels.items():
         t = {"ms": graph_ms(lambda: kernel(*main), 20, torch),
-             **_minplus_bound(name, rows, n), "library_ms": None,
+             **_minplus_bound(name, *main_np), "library_ms": None,
              "max_abs_err": max_abs[name]}
         if name == "minplus":           # (B, N, N) temporaries: eager calls
             t["plain_ms"] = cuda_ms(lambda: plains[name](*main), 3, torch)
         else:
             t["plain_ms"] = graph_ms(lambda: plains[name](*main), 20, torch)
+            t["global_variant_ms"] = graph_ms(
+                lambda: _structured_global(*main, torch), 20, torch)
         timing[name] = t
         torch.cuda.empty_cache()
-    out = {"phase": "minplus_kernel", "cases": cases, "B": rows, "N": n,
-           "kernels": timing, "dense_buckets": buckets,
+    out = {"phase": "minplus_kernel", "cases": cases,
+           "dense_cases": dense_cases, "structured_edges": structured_edges,
+           "B": rows, "N": n, "kernels": timing, "dense_buckets": buckets,
            "dense_launches": sum(x["launches"] for x in buckets),
            "dense_device_s": sum(x["launches"] * x["ms"] for x in buckets)
            / 1e3,
+           "dense_bound_s": sum(x["launches"] * x["bound_ms"]
+                                for x in buckets) / 1e3,
            "dense_loss_s": sum(x["loss_s"] for x in buckets),
            "timing": "kernels and the structured plain version: CUDA-graph "
                      "replay of 20 calls (device time); the dense plain "
                      "version: CUDA events over 3 eager calls; "
                      "dense_buckets: the dense kernel at each (B, N) that "
                      "the Fig. 2 + 3 dense run launches (fig2's histogram), "
-                     "loss_s = launches x (ms - bound_ms)",
+                     "loss_s = launches x (ms - bound_ms); global_variant_ms:"
+                     " the structured kernel's large-N variant on the same "
+                     "inputs",
            "library": "none: no single PyTorch call computes a min-plus "
                       "transition"}
     emit(out)

@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
-"""Time source variants of the port's `decode_attn` kernel, and the
-`arrival` kernel by dispatch code, on one CUDA card.
+"""Time source variants of the port's `decode_attn` kernel, the
+`arrival` kernel by dispatch code, and the min-plus kernels' variants and
+splits, on one CUDA card.
 
-Usage, from the root of a checkout:  python3 tools/kernel_variants.py
+Usage, from the root of a checkout:
+    python3 tools/kernel_variants.py [decode_attn] [arrival] [minplus]
+        [split_sweep]
+(no argument: the first three).
 
-Each decode_attn variant is `decode_attn.cu` with a few constants
-replaced (VARIANTS), built with the port's nvcc flags into build/kernels/
-and timed through the wrapper at chip_smoke.py's timed shapes (bf16,
-CUDA-graph replay), beside SDPA on the same inputs; the variants run in
-two alternating rounds (each built at its first call). The arrival
-kernel is timed (CUDA events over raw launches) on chip_smoke.py's
-arrival_kernel chunk of 32 Table 9 cells and on one cell of each dispatch
-code, pristine and failure-aware. One JSON line per measurement. No JAX:
-only the port and chip_smoke.py's helpers.
+Each variant is a kernel source with a few strings replaced, built with
+the port's nvcc flags into build/kernels/ (sources under build/variants/)
+and timed through the wrapper, in two alternating rounds (each built at
+its first call). decode_attn (VARIANTS): at chip_smoke.py's timed shapes
+(bf16, CUDA-graph replay), beside SDPA on the same inputs. arrival: CUDA
+events over raw launches on chip_smoke.py's arrival_kernel chunk of 32
+Table 9 cells and on one cell of each dispatch code, pristine and
+failure-aware. minplus: the card's clock under an fp32 product; the
+dense kernel (DENSE_VARIANTS) at launch-bound and large buckets of the
+Fig. 2 dense run; the structured kernel (STRUCTURED_VARIANTS: run length,
+block size, and cut-down copies that stop after a phase or skip a part of
+the queries, for a breakdown) at (180, 2816) and one row, then at 1 to
+265 rows against the waves of two blocks a SM; the SASS of both libraries
+to build/sass/ when `cuobjdump` is there. split_sweep: every candidate
+split of the dense kernel at every bucket of the dense run, each checked
+bitwise, then the fit of `ops.DENSE_COST`. Kernels that must be bitwise
+are checked against their plain versions. One JSON line per measurement.
+No JAX: only the port and chip_smoke.py's helpers.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 from dataclasses import replace
 from pathlib import Path
@@ -39,26 +53,10 @@ VARIANTS = {
 }
 
 
-def _variant_sources(src: Path) -> dict[str, tuple[Path]]:
-    out = {}
-    text = src.read_text()
-    for name, reps in VARIANTS.items():
-        body = text
-        for old, new in reps.items():
-            if old not in body:
-                raise RuntimeError(f"variant {name}: {old!r} not in {src}")
-            body = body.replace(old, new)
-        path = ROOT / "build" / "variants" / name / src.name
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(body)
-        out[name] = (path,)
-    return out
-
-
 def decode_variants(torch, cs) -> None:
     from repro_torch.kernels.decode_attn import ops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
-    sources = _variant_sources(ops.SOURCES[0])      # built at first use
+    sources = _sources(ops.SOURCES[0], VARIANTS, "decode_attn")
     F = torch.nn.functional
     data = {}
     for label, shape, length in (
@@ -137,6 +135,216 @@ def arrival_by_code(torch, cs) -> None:
                  "B": tb.shape[1], "ms": row})
 
 
+# source changes of minplus.cu per variant ("chosen": as committed),
+# timed at DENSE_FLOOR_SHAPES with the chosen split
+DENSE_VARIANTS = {
+    "chosen": {},
+    "no_group_ranges": {
+        "    if (q < padded && lane % kGroup == 0) meta[q / kGroup] = "
+        "make_float2(lo, hi);": "    if (q < padded && lane % kGroup == 0) "
+        "meta[q / kGroup] = make_float2(-CUDART_INF_F, CUDART_INF_F);",
+        "#pragma unroll\n    for (int o = 1; o < kGroup; o <<= 1) {\n      lo ="
+        " fminf(lo, __shfl_xor_sync(kFull, lo, o));\n      hi = fmaxf(hi, "
+        "__shfl_xor_sync(kFull, hi, o));\n    }\n": ""},
+}
+DENSE_FLOOR_SHAPES = ((120, 1), (2, 512), (8, 256), (38, 128), (18, 256),
+                      (2, 2816), (14, 2176))
+# source changes of minplus_structured.cu per variant; "upto_<phase>"
+# returns after that phase and "no_<part>" skips a part of the queries
+# (both for timing only, their outputs are not the function's)
+_RUN = "constexpr int kRun = 16;"
+_QUERIES = "for (int j0 = tid; j0 < n; j0 += 2 * kThreads) {"
+STRUCTURED_ROWS = (1, 66, 132, 133, 180, 264, 265)
+STRUCTURED_VARIANTS = {
+    "chosen": {},
+    "run32": {_RUN: "constexpr int kRun = 32;"},
+    "threads1024": {"constexpr int kThreads = 512;":
+                    "constexpr int kThreads = 1024;"},
+    "no_middle": {"      middle_min(g23, tv, ti, n, runs, levels, j, kk[h], "
+                  "mv, mi);": "      mv = CUDART_INF_F;\n      mi = 0;"},
+    "no_crossing": {"    crossing2(u, n, va, vb, kk[0], kk[1]);":
+                    "    kk[0] = j0;\n    kk[1] = j0 + kThreads;"},
+    "upto_start": {"  const int runs = runs_of(n), levels = bit_length(runs);":
+                   "  if (n > 0) return;\n  const int runs = runs_of(n), "
+                   "levels = bit_length(runs);"},
+    "upto_g_rows": {"  // 2) table level 0": "  if (n > 0) return;\n  // 2)"},
+    "upto_level0": {"  // 3) running (min": "  __syncthreads();\n  if (n > 0) "
+                    "return;\n  // 3) running (min"},
+    "upto_scans": {"  // 4) the sparse table": "  if (n > 0) return;\n  // 4)"},
+    "no_queries": {_QUERIES: _QUERIES.replace("j0 < n;", "j0 < 0;")},
+}
+
+
+def _sources(src: Path, variants: dict, tag: str) -> dict:
+    """``src`` with each variant's replacements, under build/variants/."""
+    out = {}
+    for name, reps in variants.items():
+        body = src.read_text()
+        for old, new in reps.items():
+            if old not in body:
+                raise RuntimeError(f"variant {name}: {old!r} not in {src}")
+            body = body.replace(old, new)
+        path = ROOT / "build" / "variants" / f"{tag}_{name}" / src.name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(body)
+        out[name] = (path,)
+    return out
+
+
+def _card_check(torch, cs) -> None:
+    """The card's clocks under a float32 matrix product (cuBLAS, no TF32)
+    as a check of the rate the timings ran at."""
+    import subprocess
+    a = torch.randn(8192, 8192, device="cuda")
+    ms = cs.cuda_ms(lambda: a @ a, 10, torch)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    cs.emit({"card_check": "fp32 mm 8192", "ms": ms,
+             "tflops": 2 * 8192 ** 3 / ms / 1e9, "nvidia_smi_after": smi})
+
+
+def _dense_raw(x, sp, torch):
+    """One dense launch of ``x`` = (F, ycp, ycc, coeffs) at split ``sp``,
+    bypassing `dense_split` (and the launch count)."""
+    from repro_torch.kernels.minplus import ops
+    F = x[0]
+    out, arg = torch.empty_like(F), torch.empty_like(F, dtype=torch.int32)
+    ops._check("minplus", ops._launcher("minplus")(
+        *(t.data_ptr() for t in x), out.data_ptr(), arg.data_ptr(),
+        F.shape[0], F.shape[1], sp.dests, sp.warps, sp.cluster,
+        sp.slice_len, torch.cuda.current_stream().cuda_stream))
+    return out, arg
+
+
+def split_sweep(torch, cs) -> None:
+    """Every candidate split (`ops.dense_candidates`) at every bucket of
+    the dense run, timed and checked bitwise; then the least-squares fit,
+    weighted by 1/time, of ``ms = c0 + c . ops.dense_cost_terms`` over all
+    of them (the coefficients `ops.DENSE_COST` holds), and the sum over
+    the run of the time of the split each rule picks."""
+    import numpy as np
+    from repro_torch.core.dp import minplus_step
+    from repro_torch.kernels.minplus import ops
+    fleet, groups = cs._fig2_grid()
+    rows_x, rows_y, table = [], [], {}
+    for (rows, n), launches in sorted(
+            cs._dense_histogram(fleet, groups).items()):
+        arrays = cs._minplus_inputs("continuous", rows, n, rows + n)
+        x = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        want = minplus_step(*x)
+        out = []
+        for sp in ops.dense_candidates(rows, n):
+            got = _dense_raw(x, sp, torch)
+            cs.check(torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32))
+                     and torch.equal(got[1], want[1]),
+                     f"split {sp} differs at ({rows}, {n})")
+            ms = cs.graph_ms(lambda: _dense_raw(x, sp, torch), 20, torch)
+            out.append([sp.dests, sp.warps, sp.cluster, sp.slice_len, ms])
+            rows_x.append([1.0, *ops.dense_cost_terms(rows, n, sp)])
+            rows_y.append(ms)
+            table[(rows, n, sp)] = ms
+        cs.emit({"split_sweep": [rows, n], "launches": launches,
+                 "splits": out})
+    X, y = np.array(rows_x), np.array(rows_y)
+    coef = np.linalg.lstsq(X / y[:, None], np.ones_like(y), rcond=None)[0]
+    picks = {}
+    for (rows, n), launches in cs._dense_histogram(fleet, groups).items():
+        ok = [sp for (r, m, sp) in table if (r, m) == (rows, n)]
+        best = min(ok, key=lambda sp: table[(rows, n, sp)])
+        chosen = ops.dense_split(rows, n)
+        picks[f"{rows}x{n}"] = {"launches": launches,
+                                "chosen": [*vars(chosen).values()],
+                                "chosen_ms": table.get((rows, n, chosen)),
+                                "fastest": [*vars(best).values()],
+                                "fastest_ms": table[(rows, n, best)]}
+    cs.emit({"split_fit": {"c0_ms": coef[0], "c_ms": coef[1:].tolist()},
+             "picks": picks,
+             "sum_launches_ms_s": {
+                 k: sum(p["launches"] * (p[f"{k}_ms"] or math.nan)
+                        for p in picks.values()) / 1e3
+                 for k in ("chosen", "fastest")}})
+
+
+def minplus_variants(torch, cs) -> None:
+    import shutil
+    import subprocess
+    from repro_torch.core.dp import minplus_step_structured
+    from repro_torch.kernels.build import build_library
+    from repro_torch.kernels.minplus import ops
+
+    def same(a, b):
+        return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
+            and torch.equal(a[1], b[1])
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("minplus", "minplus_structured"):
+        lib = build_library(name, ops.SOURCES[name]).path
+        if Path(cuobjdump).exists():
+            out = ROOT / "build" / "sass" / f"{name}.txt"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(subprocess.run(
+                [cuobjdump, "-sass", str(lib)], capture_output=True,
+                text=True).stdout)
+    _card_check(torch, cs)
+    from repro_torch.core.dp import minplus_step
+    data = {}
+    for rows, n in DENSE_FLOOR_SHAPES:
+        x = tuple(torch.from_numpy(a).cuda() for a in cs._minplus_inputs(
+            "continuous", rows, n, rows + n))
+        data[(rows, n)] = (x, minplus_step(*x))
+    variants = _sources(ops.SOURCES["minplus"][0], DENSE_VARIANTS, "dense")
+    original = ops.SOURCES
+    try:
+        for rnd in range(2):
+            for name, src_v in variants.items():
+                ops.SOURCES = {**original, "minplus": src_v}
+                ops._launcher.cache_clear()
+                row = {}
+                for (rows, n), (x, want) in data.items():
+                    cs.check(same(ops.minplus_step(*x), want),
+                             f"dense variant {name} differs at ({rows}, {n})")
+                    row[f"{rows}x{n}"] = cs.graph_ms(
+                        lambda: ops.minplus_step(*x), 20, torch)
+                cs.emit({"dense_variant": name, "round": rnd, "ms": row})
+    finally:
+        ops.SOURCES = original
+        ops._launcher.cache_clear()
+    x = tuple(torch.from_numpy(a).cuda() for a in cs._minplus_inputs(
+        "continuous", 180, 2816, 2816 + 7))
+    want = minplus_step_structured(*x, check=False)
+    sources = _sources(ops.SOURCES["minplus_structured"][0],
+                       STRUCTURED_VARIANTS, "structured")
+    original = ops.SOURCES
+    try:
+        for rnd in range(2):
+            for name, src_v in sources.items():
+                ops.SOURCES = {**original, "minplus_structured": src_v}
+                ops._launcher.cache_clear()
+                got = ops.minplus_step_structured(*x)
+                ok = same(got, want)
+                cs.check(ok or name.startswith(("no_", "upto_")),
+                         f"structured variant {name} differs")
+                one = tuple(t[:1].contiguous() for t in x)
+                cs.emit({"structured_variant": name, "round": rnd,
+                         "bitwise": ok, "ms": cs.graph_ms(
+                             lambda: ops.minplus_step_structured(*x), 20,
+                             torch),
+                         "one_row_ms": cs.graph_ms(
+                             lambda: ops.minplus_step_structured(*one), 20,
+                             torch)})
+    finally:
+        ops.SOURCES = original
+        ops._launcher.cache_clear()
+    # rows against waves: 132 SMs, two blocks a SM at N = 2816
+    for rows in STRUCTURED_ROWS:
+        xb = tuple(t[:rows].contiguous() for t in x) if rows <= 180 else \
+            tuple(t.repeat(2, 1)[:rows].contiguous() for t in x)
+        cs.emit({"structured_rows": rows, "ms": cs.graph_ms(
+            lambda: ops.minplus_step_structured(*xb), 20, torch)})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -146,8 +354,15 @@ def main() -> int:
     from repro_torch.device import resolve_device
     resolve_device("cuda")
     _, smi = cs.phase_device(torch)
-    decode_variants(torch, cs)
-    arrival_by_code(torch, cs)
+    parts = sys.argv[1:] or ["decode_attn", "arrival", "minplus"]
+    if "decode_attn" in parts:
+        decode_variants(torch, cs)
+    if "arrival" in parts:
+        arrival_by_code(torch, cs)
+    if "minplus" in parts:
+        minplus_variants(torch, cs)
+    if "split_sweep" in parts:
+        split_sweep(torch, cs)
     print(smi, flush=True)
     return 0
 
