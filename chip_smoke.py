@@ -11,13 +11,20 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                nvcc, one process each, all started together (seconds,
                ptxas report)
   kernel       spork_predict against its plain PyTorch version at C in
-               {1, 32} cells x N in {16, 128, 200, 512, 4096} bins and at
-               C=16, N=128: against the plain version on the card, mask
-               equal and finite entries within rtol 2e-5; against the plain
-               version on the CPU (the oracle of the allocator's choices),
-               mask and argmin equal on every shape and J bitwise equal at
-               the main paths' shapes (Table 8: C=32, N=512; Table 9:
-               C in {16, 32}, N=128); times at C=32, N=512
+               {1, 32} cells x N in {16, 128, 200, 512, 4096} bins, at
+               Table 9's (16, 128) and (4, 128), and at (1, 13) and
+               (32, 201) (N % 4 != 0: the kernel's scalar path); at C=1
+               also with float coefficients, as the serial paths pass
+               them; at (32, 512) and (32, 4096) also on rows one float
+               past a 16-byte boundary (the scalar path again): against
+               the plain version on the card, mask equal and finite
+               entries within rtol 2e-5; J bitwise equal to the plain
+               version on the CPU (the oracle of the allocator's choices)
+               at every case; kernel and plain times (CUDA-graph replay,
+               and eager: the first of three rounds of 200 calls and
+               their median) at (32, 512), (16, 128), (4, 128), (32,
+               128), (1, 512) and (32, 4096) beside the bound and the
+               launch floor (a one-element in-place add_)
   main         Table 8 for the Azure "short" stand-ins (13 apps, 7200 s,
                n_max 512) through `sweep` + `tune_fpga_dynamic_cells` on
                the card, all eight schedulers; the kernel's launch count
@@ -132,6 +139,12 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                entries: idle share and the arrival kernel's device time;
                then one decode step at the serve shape: idle share and
                decode_attn's device time per launch and share of busy time
+  predict_paths
+               spork_predict at every (C, N) that Table 8, Table 9 and the
+               router ran, bitwise against the CPU plain version again;
+               each path's launches by (C, N), and its sum of launches x
+               the kernel's time at that shape (graph and eager) and x
+               its bound
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
 the sum over its three paths, Table 8, Table 9 and the serve router, each
@@ -161,10 +174,19 @@ FP32_OPS = FP32_FLOPS / 2
 INT32_OPS = FP32_OPS / 2
 RTOL_KERNEL = 2e-5
 PREDICT_BINS = (16, 128, 200, 512, 4096)     # spork_predict cases, C in {1, 32}
-# spork_predict's shapes on the main paths, where J must be bitwise the CPU
-# plain version's: Table 8 (32 cells, n_max 512) and Table 9 (chunks of 16
-# or 32 cells, n_max 128)
-PREDICT_BITWISE = ((32, 512), (16, 128), (32, 128))
+# spork_predict's cases, at each of which J must be bitwise the CPU plain
+# version's: C in {1, 32} x PREDICT_BINS, Table 9's chunks of 16 and 4
+# cells, and two sizes with N % 4 != 0 (the kernel's scalar path)
+PREDICT_CASES = tuple((c, n) for c in (1, 32) for n in PREDICT_BINS) + (
+    (16, 128), (4, 128), (1, 13), (32, 201))
+# cases also run on rows that start one float past a 16-byte boundary
+# (the scalar path at block-aligned sizes)
+PREDICT_OFFSET = ((32, 512), (32, 4096))
+# timed: Table 8 (32 cells, n_max 512), Table 9 (chunks of 16, 4 or 32
+# cells, n_max 128), the router and the serial EventSim (one cell, n_max
+# 512), and MAX_N
+PREDICT_TIMED = ((32, 512), (16, 128), (4, 128), (32, 128), (1, 512),
+                 (32, 4096))
 RTOL_CPU = 1e-5
 MINPLUS_ROWS = (1, 180)           # Fig. 2's largest group has 180 rows
 MINPLUS_LEVELS = (1, 8, 257, 1024, 2816)    # 2816: Fig. 2's level bucket
@@ -295,6 +317,16 @@ def cuda_ms(fn, reps: int, torch) -> float:
     return start.elapsed_time(end) / reps
 
 
+def eager_rounds(fn, torch) -> dict:
+    """The host's time per call where it, not the device, sets the pace:
+    three rounds of `cuda_ms` over 200 eager calls. ``eager_ms`` is the
+    first round (the measure of earlier runs), ``eager_median_ms`` the
+    median of the three (less moved by the host's neighbours)."""
+    rounds = [cuda_ms(fn, 200, torch) for _ in range(3)]
+    return {"eager_ms": rounds[0], "eager_median_ms": sorted(rounds)[1],
+            "eager_rounds_ms": rounds}
+
+
 def graph_ms(fn, reps: int, torch) -> float:
     """Device time of one ``fn`` call, from a CUDA graph of ``reps``
     calls (no host launch overhead between them)."""
@@ -384,82 +416,160 @@ def _predict_inputs(cells: int, n: int, seed: int, torch, dev="cuda"):
 
 
 def coeffs_cpu(coeffs):
-    return type(coeffs)(*(x.cpu() for x in coeffs))
+    return type(coeffs)(*(x.cpu() if hasattr(x, "cpu") else x
+                          for x in coeffs))
 
 
-def phase_kernel(torch) -> dict:
-    from repro_torch.core.predictor import expected_objective as plain
-    from repro_torch.kernels.spork_predict import ops
-    cases = []
-    main = None
-    shapes = [(cells, n) for cells in (1, 32) for n in PREDICT_BINS]
-    for cells, n in shapes + [(16, TABLE9_N_MAX)]:
-        hist, coeffs, amort = _predict_inputs(cells, n, 1000 * cells + n,
-                                              torch)
-        got = ops.expected_objective(hist, coeffs, amort)
-        want = plain(hist, coeffs, amort)
-        torch.cuda.synchronize()
-        fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
-        check(bool(torch.equal(fin_g, fin_w)),
-              f"spork_predict mask differs at C={cells} N={n}")
-        diff = (got - want).abs()[fin_w]
-        rel = diff / want.abs()[fin_w].clamp(min=1e-30)
-        max_abs = float(diff.max()) if diff.numel() else 0.0
-        max_rel = float(rel.max()) if rel.numel() else 0.0
-        check(max_rel <= RTOL_KERNEL,
-              f"spork_predict rel err {max_rel} at C={cells} N={n}")
-        # The plain version on the CPU is the oracle of the allocator's
-        # choices (tests and goldens run it); cuBLAS sums the card's
-        # plain version in another order, so its argmin may flip on a
-        # near-tie and is only counted.
-        cpu_plain = plain(hist.cpu(), coeffs_cpu(coeffs), amort.cpu())
-        got_cpu = got.cpu()
-        check(bool(torch.equal(torch.isfinite(got_cpu),
-                               torch.isfinite(cpu_plain))),
-              f"spork_predict mask differs from the CPU at C={cells} N={n}")
-        rows = torch.isfinite(cpu_plain).any(dim=1)
-        a_got = torch.argmin(got_cpu, 1)
-        check(bool(torch.equal(a_got[rows],
-                               torch.argmin(cpu_plain, 1)[rows])),
-              f"spork_predict argmin differs from the CPU plain version "
-              f"at C={cells} N={n}")
-        flips = int((rows & (a_got != torch.argmin(want.cpu(), 1))).sum())
-        bitwise_cpu = bool(torch.equal(got_cpu, cpu_plain))
-        if (cells, n) in PREDICT_BITWISE:
-            check(bitwise_cpu, f"spork_predict is not bitwise equal to the "
-                               f"CPU plain version at a main path's shape "
-                               f"C={cells} N={n}")
-        case = {"C": cells, "N": n, "max_abs_err": max_abs,
-                "max_rel_err": max_rel, "argmin_equal_cpu_plain": True,
-                "bitwise_equal_cpu_plain": bitwise_cpu,
-                "bitwise_equal_card_plain": bool(torch.equal(got, want)),
-                "argmin_flips_vs_card_plain": flips}
-        cases.append(case)
-        if (cells, n) == (32, 512):
-            main = (hist, coeffs, amort, case)
-    hist, coeffs, amort, case = main
-    cells, n = hist.shape
-    kernel_ms = graph_ms(lambda: ops.expected_objective(hist, coeffs, amort),
-                         100, torch)
-    plain_ms = graph_ms(lambda: plain(hist, coeffs, amort), 100, torch)
-    eager_ms = cuda_ms(lambda: ops.expected_objective(hist, coeffs, amort),
-                       200, torch)
-    plain_eager_ms = cuda_ms(lambda: plain(hist, coeffs, amort), 200, torch)
-    # least work: read hist + amort + 3 coefficients per cell, write J;
-    # ~20 flops per candidate (p, p*b, two prefix adds, the J expression)
+def _predict_bound(cells: int, n: int) -> dict:
+    """Least work: read hist + amort + 3 coefficients per cell, write J;
+    ~20 flops per candidate (p, p*b, two prefix adds, the J expression)."""
     nbytes = 4 * (3 * cells * n + 3 * cells)
     flops = 20 * cells * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _predict_timing(cells: int, n: int, torch) -> dict:
+    """Kernel and plain-version times at (C, N) on `_predict_inputs`; at
+    C = 1 the kernel takes float coefficients, as the serial paths pass
+    them (the plain version takes tensors: floats would copy to the card
+    in every call, which a CUDA graph cannot capture)."""
+    from repro_torch.core.predictor import expected_objective as plain
+    from repro_torch.kernels.spork_predict import ops
+    hist, coeffs, amort = _predict_inputs(cells, n, 1000 * cells + n, torch)
+    co = coeffs
+    if cells == 1:
+        co = type(coeffs)(*(float(x[0]) for x in coeffs))
+
+    def kernel():
+        return ops.expected_objective(hist, co, amort)
+
+    def plain_call():
+        return plain(hist, coeffs, amort)
+    plain_eager = eager_rounds(plain_call, torch)
+    return {"C": cells, "N": n, "ms": graph_ms(kernel, 100, torch),
+            **eager_rounds(kernel, torch),
+            "plain_ms": graph_ms(plain_call, 100, torch),
+            "plain_eager_ms": plain_eager["eager_ms"],
+            "plain_eager_median_ms": plain_eager["eager_median_ms"],
+            "coeffs": "floats" if cells == 1 else "tensors",
+            **_predict_bound(cells, n)}
+
+
+def _predict_check(cells: int, n: int, form: str, torch) -> dict:
+    """spork_predict on `_predict_inputs` at (C, N) against its plain
+    version: on the card, mask equal and finite entries within
+    RTOL_KERNEL; on the CPU (the oracle of the allocator's choices, which
+    tests and goldens run, and whose order the kernel follows), J
+    bitwise equal. ``form``: "tensors" (per-cell coefficients), "floats"
+    (C = 1, as the serial paths pass them) or "offset" (hist and amort
+    rows one float past a 16-byte boundary). cuBLAS sums the card's
+    plain version in another order, so its argmin may flip on a near-tie
+    and is only counted."""
+    from repro_torch.core.predictor import expected_objective as plain
+    from repro_torch.kernels.spork_predict import ops
+    hist, co, amort = _predict_inputs(cells, n, 1000 * cells + n, torch)
+    if form == "floats":
+        co = type(co)(*(float(x[0]) for x in co))
+    elif form == "offset":
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            y = buf[1:].view(x.shape)
+            y.copy_(x)
+            return y
+        hist, amort = shifted(hist), shifted(amort)
+        check(hist.data_ptr() % 16 == 4 and hist.is_contiguous(),
+              "offset rows are not one float past a 16-byte boundary")
+    got = ops.expected_objective(hist, co, amort)
+    want = plain(hist, co, amort)
+    torch.cuda.synchronize()
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    check(bool(torch.equal(fin_g, fin_w)),
+          f"spork_predict mask differs at C={cells} N={n} ({form})")
+    diff = (got - want).abs()[fin_w]
+    rel = diff / want.abs()[fin_w].clamp(min=1e-30)
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    max_rel = float(rel.max()) if rel.numel() else 0.0
+    check(max_rel <= RTOL_KERNEL,
+          f"spork_predict rel err {max_rel} at C={cells} N={n} ({form})")
+    cpu_plain = plain(hist.cpu(), coeffs_cpu(co), amort.cpu())
+    got_cpu = got.cpu()
+    check(bool(torch.equal(got_cpu.view(torch.int32),
+                           cpu_plain.view(torch.int32))),
+          f"spork_predict is not bitwise equal to the CPU plain version "
+          f"at C={cells} N={n} ({form})")
+    rows = torch.isfinite(cpu_plain).any(dim=1)
+    a_got = torch.argmin(got_cpu, 1)
+    flips = int((rows & (a_got != torch.argmin(want.cpu(), 1))).sum())
+    return {"C": cells, "N": n, "coeffs": form, "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "bitwise_equal_cpu_plain": True,
+            "bitwise_equal_card_plain": bool(torch.equal(got, want)),
+            "argmin_flips_vs_card_plain": flips}
+
+
+def phase_kernel(torch) -> dict:
+    cases = []
+    for cells, n in PREDICT_CASES:
+        forms = ["tensors"] + (["floats"] if cells == 1 else []) + (
+            ["offset"] if (cells, n) in PREDICT_OFFSET else [])
+        cases += [_predict_check(cells, n, form, torch) for form in forms]
+    timed = {f"{c}x{n}": _predict_timing(c, n, torch)
+             for c, n in PREDICT_TIMED}
+    x = torch.zeros(1, device="cuda")
+    floor = eager_rounds(lambda: x.add_(1.0), torch)
     out = {"phase": "kernel", "name": "spork_predict", "cases": cases,
-           "C": cells, "N": n, "ms": kernel_ms, "plain_ms": plain_ms,
-           "eager_ms": eager_ms, "plain_eager_ms": plain_eager_ms,
-           "bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None, "max_abs_err": case["max_abs_err"],
+           **timed["32x512"], "timed": timed,
+           "launch_floor_ms": graph_ms(lambda: x.add_(1.0), 100, torch),
+           "launch_floor_eager_ms": floor["eager_ms"],
+           "launch_floor_eager_median_ms": floor["eager_median_ms"],
+           "library_ms": None, "max_abs_err": max(c["max_abs_err"]
+                                                  for c in cases),
            "timing": "ms/plain_ms: CUDA-graph replay of 100 calls (device "
-                     "time); eager_ms: CUDA events over 200 eager calls"}
+                     "time); eager_ms: CUDA events over 200 eager calls "
+                     "(the first of 3 rounds), eager_median_ms: the "
+                     "median of the 3; launch_floor: a one-element "
+                     "in-place add_, the same ways"}
     emit(out)
     return out
+
+
+def phase_predict_paths(kernel: dict, paths: dict, torch) -> dict:
+    """spork_predict at every (C, N) a path ran: J bitwise equal to the
+    CPU plain version there (`_predict_check`, floats too at C = 1), and
+    each path's launches by shape times the kernel's time at that shape
+    (timed here if the kernel phase did not)."""
+    timed = dict(kernel["timed"])
+    checked = []
+    for key in sorted({k for shapes in paths.values() for k in shapes}):
+        cells, n = map(int, key.split("x"))
+        for form in ["tensors"] + (["floats"] if cells == 1 else []):
+            _predict_check(cells, n, form, torch)
+            checked.append(f"{key} {form}")
+    out = {"phase": "predict_paths", "bitwise_equal_cpu_plain": checked,
+           "paths": {}}
+    for path, shapes in paths.items():
+        row = {"launches": sum(shapes.values()), "shapes": shapes,
+               "sum_launches_ms_s": 0.0, "sum_launches_eager_ms_s": 0.0,
+               "sum_launches_bound_s": 0.0}
+        for key, count in shapes.items():
+            if key not in timed:
+                cells, n = map(int, key.split("x"))
+                timed[key] = _predict_timing(cells, n, torch)
+            t = timed[key]
+            row["sum_launches_ms_s"] += count * t["ms"] / 1e3
+            row["sum_launches_eager_ms_s"] += count * t["eager_ms"] / 1e3
+            row["sum_launches_bound_s"] += count * t["bound_ms"] / 1e3
+        out["paths"][path] = row
+    out["timed_here"] = {k: v for k, v in timed.items()
+                         if k not in kernel["timed"]}
+    emit(out)
+    return out
+
+
+def _shape_tally(ops) -> dict:
+    return {f"{c}x{n}": k for (c, n), k in
+            sorted(ops.expected_objective.shapes.items())}
 
 
 def _table8_cells():
@@ -489,7 +599,7 @@ def phase_main(torch) -> dict:
     plan = plan_sweep(plain)
     expected = sum(d.static[4] // d.static[1] for d in plan.dispatches
                    if d.static[0].uses_predictor)
-    ops.expected_objective.launches = 0
+    ops.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = sweep(plain, device="cuda")
@@ -498,6 +608,7 @@ def phase_main(torch) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = ops.expected_objective.launches
+    shapes = _shape_tally(ops)
 
     merged: dict[str, RunTotals] = {}
     for i, cell in enumerate(res.cells):
@@ -531,6 +642,7 @@ def phase_main(torch) -> dict:
            "sweep_dispatches": res.n_dispatches, "sweep_wall_s": t1 - t0,
            "tune_wall_s": t2 - t1, "wall_s": t2 - t0,
            "spork_predict_launches": launches,
+           "spork_predict_shapes": shapes,
            "expected_launches": expected}
     emit(out)
     check(expected == 1440, f"plan gives {expected} allocator ticks, not 1440")
@@ -1444,7 +1556,7 @@ def phase_table9(torch) -> dict:
     tick_entries = [int(d.arrays["is_tick"].any(axis=0).sum())
                     for d in plan.dispatches]
     arrival_ops.arrival_block.launches = 0
-    predict_ops.expected_objective.launches = 0
+    predict_ops.reset_counts()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     res = sweep_events(cells, device="cuda", **kw)
@@ -1452,6 +1564,7 @@ def phase_table9(torch) -> dict:
     wall = time.perf_counter() - t1
     launches = {"arrival": arrival_ops.arrival_block.launches,
                 "spork_predict": predict_ops.expected_objective.launches}
+    predict_shapes = _shape_tally(predict_ops)
     overflow = [i for i, t in enumerate(res) if t.breakdown["slot_overflow"]]
     for i, tot in enumerate(res):
         check(tot.is_finite() and tot.requests == len(cells[i].arrival_times),
@@ -1466,6 +1579,7 @@ def phase_table9(torch) -> dict:
                           for d, e, k in zip(plan.dispatches, entries,
                                              tick_entries)],
            "trace_s": t_traces, "wall_s": wall, "launches": launches,
+           "spork_predict_shapes": predict_shapes,
            "expected_launches": {"arrival": sum(entries),
                                  "spork_predict": sum(tick_entries)},
            "slot_overflow_cells": [list(map(str, cells[i].tag))
@@ -1669,7 +1783,7 @@ def _serve_router(torch) -> dict:
     from repro_torch.kernels.spork_predict import ops as predict_ops
     from repro_torch.serve.router import SporkRouter
     horizon = int(ROUTER_MINUTES * 60)
-    predict_ops.expected_objective.launches = 0
+    predict_ops.reset_counts()
     t0 = time.perf_counter()
     router = SporkRouter(SERVE_ARCH, energy_weight=1.0, horizon_s=horizon,
                          device="cuda")
@@ -1683,6 +1797,7 @@ def _serve_router(torch) -> dict:
     rep = router.finish()
     wall = time.perf_counter() - t0
     launches = predict_ops.expected_objective.launches
+    shapes = _shape_tally(predict_ops)
     ticks = math.ceil(horizon / router.fleet.T_s)
     check(rep.totals.is_finite() and rep.totals.requests == len(arrivals),
           "serve router: malformed totals")
@@ -1692,7 +1807,8 @@ def _serve_router(torch) -> dict:
             "rate": ROUTER_RATE, "burstiness": ROUTER_BURSTINESS,
             "objective": "energy", "request_size_s": size,
             "requests": len(arrivals), "wall_s": wall,
-            "spork_predict_launches": launches, "ticks": ticks,
+            "spork_predict_launches": launches,
+            "spork_predict_shapes": shapes, "ticks": ticks,
             "report": {"energy_efficiency": rep.energy_efficiency,
                        "relative_cost": rep.relative_cost,
                        "deadline_miss_rate": rep.deadline_miss_rate,
@@ -2108,6 +2224,11 @@ def main() -> int:
         "table8": main_run["out"]["spork_predict_launches"],
         "table9": t9["out"]["launches"]["spork_predict"],
         "serve_router": serve["out"]["router"]["spork_predict_launches"]}
+    phase_predict_paths(kernel, {
+        "table8": main_run["out"]["spork_predict_shapes"],
+        "table9": t9["out"]["spork_predict_shapes"],
+        "serve_router": serve["out"]["router"]["spork_predict_shapes"]},
+        torch)
     mp_launches = {
         "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
         "minplus_structured":

@@ -54,7 +54,12 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
     cross-block offsets via a second — so the summation order (and the
     fp32 matmul precision it relies on) is the reference's. Other sizes
     use `torch.cumsum`, where the reference uses an associative scan:
-    the two agree to float32 rounding."""
+    the two agree to float32 rounding.
+
+    The offsets product always runs over at least two rows: over one row
+    it is a vector-matrix product, which the CPU's BLAS does not sum in
+    sequential order, so a cell's prefix would differ in the last bit
+    between a batch of one and a larger batch."""
     n = x.shape[-1]
     b = _PFX_BLOCK
     if n < 2 * b or n % b:
@@ -63,10 +68,13 @@ def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
     blocks = x.reshape(*x.shape[:-1], k, b)
     incl = torch.triu(torch.ones((b, b), dtype=x.dtype, device=x.device))
     within = blocks @ incl                               # prefix within block
-    sums = within[..., -1]                               # block totals (..., k)
+    sums = within[..., -1].reshape(-1, k)                # block totals
+    rows = sums.shape[0]
+    if rows == 1:
+        sums = torch.cat([sums, torch.zeros_like(sums)])
     strict = torch.triu(torch.ones((k, k), dtype=x.dtype, device=x.device), 1)
-    offsets = sums @ strict                              # exclusive offsets
-    return (within + offsets[..., None]).reshape(x.shape)
+    offsets = (sums @ strict)[:rows]                     # exclusive offsets
+    return (within + offsets.reshape(*x.shape[:-1], k, 1)).reshape(x.shape)
 
 
 def amortization_vector(life_sum: torch.Tensor, life_cnt: torch.Tensor,

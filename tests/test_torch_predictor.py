@@ -20,7 +20,8 @@ from repro.core.workers import DEFAULT_FLEET
 from repro.kernels.spork_predict import ops as ref_ops
 from repro_torch import interop
 from repro_torch.core import predictor as pp
-from repro_torch.core.breakeven import ObjectiveCoeffs
+from repro_torch.core.breakeven import ObjectiveCoeffs, weighted_coeffs
+from repro_torch.core.workers import DEFAULT_FLEET as PORT_FLEET
 from repro_torch.kernels.spork_predict import ops
 from repro_torch.kernels.spork_predict.ref import expected_objective_ref
 
@@ -134,30 +135,188 @@ def test_wrapper_on_cpu_uses_plain_version_and_counts_no_launch():
         ops.expected_objective(_t(hist).to("meta"), coeffs, amort.to("meta"))
 
 
+# chip_smoke.py's kernel cases: (1, 13) and (32, 201) take the kernel's
+# scalar path (N % 4 != 0), as do the OFFSET cases on rows one float past
+# a 16-byte boundary
+PREDICT_BINS = (16, 128, 200, 512, 4096)
+PATH_SHAPES = [(c, n) for c in (1, 32) for n in PREDICT_BINS] + [
+    (16, 128), (4, 128), (1, 13), (32, 201)]
+OFFSET_SHAPES = [(32, 512), (32, 4096)]
+
+
+def _path_inputs(cells, n, seed):
+    """Histograms, amortization vectors and per-cell objective mixes like
+    an allocator tick's (chip_smoke.py's `kernel` cases), on the CPU:
+    integer counts with half the bins empty, an empty histogram and a
+    one-bin histogram."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, 6, (cells, n)).astype(np.float32)
+    hist[rng.random((cells, n)) < 0.5] = 0.0
+    if cells > 2:
+        hist[1] = 0.0
+        hist[2] = 0.0
+        hist[2, n // 2] = 7.0
+    co = [weighted_coeffs(PORT_FLEET, float(w))
+          for w in rng.uniform(0.0, 1.0, cells)]
+    coeffs = ObjectiveCoeffs(*(_t([c[i] for c in co]) for i in range(4)))
+    amort = pp.amortization_vector(
+        _t(rng.uniform(0, 200, (cells, n))),
+        _t(rng.integers(0, 4, (cells, n))),
+        _t(rng.integers(0, n, cells), torch.int32), PORT_FLEET.T_s,
+        coeffs.amort_unit)
+    return _t(hist), coeffs, amort
+
+
+def _kernel_order_j(hist, coeffs, amort):
+    """J in numpy float32, in the order of spork_predict.cu: a sequential
+    chain per (array, 32-bin block), one sequential exclusive chain of
+    block totals per array, P(c-1) = within + offset; for sizes that are
+    not block-aligned one double chain per array, rounded at each prefix;
+    then the J expression, one rounding per operation."""
+    f32 = np.float32
+    h = hist.numpy()
+    a = amort.numpy()
+    co = [np.asarray(x, f32).reshape(-1, 1) for x in coeffs[:3]]
+    cells, n = h.shape
+    total = h.astype(np.float64).sum(1).astype(f32)     # exact: integer counts
+    p = h / np.maximum(total, f32(1.0))[:, None]
+    bins = np.arange(n, dtype=f32)
+    pb = p * bins
+
+    def prefix(x):
+        if n < 64 or n % 32:
+            return np.cumsum(x.astype(np.float64), axis=1).astype(f32)
+        k = n // 32
+        blocks = x.reshape(cells, k, 32)
+        within = np.empty_like(blocks)
+        acc = np.zeros((cells, k), f32)
+        for i in range(32):
+            acc = acc + blocks[:, :, i]
+            within[:, :, i] = acc
+        off = np.empty((cells, k), f32)
+        run = np.zeros(cells, f32)
+        for b in range(k):
+            off[:, b] = run
+            run = run + within[:, b, 31]
+        return (within + off[:, :, None]).reshape(cells, n)
+
+    P, M = prefix(p), prefix(pb)
+    zero = np.zeros((cells, 1), f32)
+    pm1 = np.concatenate([zero, P[:, :-1]], 1)
+    mm1 = np.concatenate([zero, M[:, :-1]], 1)
+    tail = P[:, -1:] - pm1
+    e_min = mm1 + bins * tail
+    e_over = bins * pm1 - mm1
+    e_under = (M[:, -1:] - mm1) - bins * tail
+    j = co[0] * e_min + co[1] * e_over + co[2] * e_under + a
+    idx = np.arange(n)
+    has = h > 0
+    lo = np.where(has, idx, n).min(1, keepdims=True)
+    hi = np.where(has, idx, -1).max(1, keepdims=True)
+    return np.where((idx >= lo) & (idx <= hi), j, np.inf).astype(f32)
+
+
+@pytest.mark.parametrize("n", [128, 512, 4096])
+def test_plain_j_of_a_cell_is_the_same_alone_and_in_a_batch(n):
+    """A cell's amortization vector and J are bitwise the same computed
+    alone (C = 1, the serial paths) and in a batch of 32 (the batched
+    paths): the blocked prefix sum sums its offsets in sequential order
+    at every C."""
+    hist, coeffs, _ = _path_inputs(32, n, n)
+    rng = np.random.default_rng(n + 1)
+    life_sum = _t(rng.uniform(0, 200, (32, n)))
+    life_cnt = _t(rng.integers(0, 4, (32, n)))
+    n_curr = _t(rng.integers(0, n, 32), torch.int32)
+    amort = pp.amortization_vector(life_sum, life_cnt, n_curr, 10.0,
+                                   coeffs.amort_unit)
+    batch = pp.expected_objective(hist, coeffs, amort)
+    for c in range(32):
+        one = ObjectiveCoeffs(*(x[c:c + 1] for x in coeffs))
+        amort_c = pp.amortization_vector(life_sum[c:c + 1], life_cnt[c:c + 1],
+                                         n_curr[c:c + 1], 10.0,
+                                         one.amort_unit)
+        assert torch.equal(amort_c[0], amort[c]), f"amort, cell {c}"
+        alone = pp.expected_objective(hist[c:c + 1], one, amort_c)
+        assert torch.equal(alone[0], batch[c]), f"J, cell {c}"
+
+
+@pytest.mark.parametrize("cells,n", PATH_SHAPES)
+def test_kernel_order_emulation_equals_cpu_plain_version(cells, n):
+    """The order spork_predict.cu is built to follow, emulated in numpy,
+    is bitwise the CPU plain version at every kernel case of
+    chip_smoke.py (which holds the kernel to the same on the card)."""
+    hist, coeffs, amort = _path_inputs(cells, n, 1000 * cells + n)
+    want = pp.expected_objective(hist, coeffs, amort).numpy()
+    got = _kernel_order_j(hist, coeffs, amort)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_coefficient_arguments():
+    """Floats go by value; float32 tensors by pointer with their per-cell
+    stride, 0 for one value; nothing else is taken."""
+    cpu = torch.device("cpu")
+    cells = 4
+    got = ops.coeff_args(ObjectiveCoeffs(1.5, 2, np.float32(0.25), 9.0),
+                         cells, cpu)
+    assert got == [None, None, None, 0, 0, 0, 1.5, 2.0, 0.25]
+    vec = torch.arange(cells, dtype=torch.float32)
+    col = torch.zeros((cells, 3))[:, 1]                  # stride 3
+    zero_dim = torch.tensor(7.0)
+    one = torch.tensor([3.0])
+    got = ops.coeff_args(ObjectiveCoeffs(vec, col, zero_dim, 1.0), cells, cpu)
+    assert got == [vec.data_ptr(), col.data_ptr(), zero_dim.data_ptr(),
+                   1, 3, 0, 0.0, 0.0, 0.0]
+    got = ops.coeff_args(ObjectiveCoeffs(0.5, one, vec, vec), cells, cpu)
+    assert got == [None, one.data_ptr(), vec.data_ptr(), 0, 0, 1,
+                   0.5, 0.0, 0.0]
+    bad = [torch.zeros(cells + 1), torch.zeros(cells, 1),
+           torch.zeros(cells, dtype=torch.float64),
+           torch.zeros(cells, device="meta")]
+    for x in bad:
+        with pytest.raises(ValueError, match="co_over"):
+            ops.coeff_args(ObjectiveCoeffs(1.0, x, 1.0, 1.0), cells, cpu)
+
+
 def test_cuda_kernel_matches_plain_version():
-    """The hand-written kernel against the plain version on the card
-    (needs a CUDA card and nvcc; `chip_smoke.py` runs the same check at
-    the main path's shapes)."""
+    """The hand-written kernel on the card at every kernel case of
+    chip_smoke.py: bitwise equal to the plain version on the CPU, with
+    per-cell tensor, float and one-value coefficients, and at the OFFSET
+    cases on rows one float past a 16-byte boundary; one launch a call,
+    tallied by shape (needs a CUDA card and nvcc)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for cells, n in ((1, 16), (3, 200), (32, 512), (2, 4096)):
-        hist, life_sum, life_cnt = _j_inputs(n, n, cells)
-        hist = _t(hist).cuda()
-        coeffs = ObjectiveCoeffs(*(torch.full((cells,), v, device="cuda")
-                                   for v in energy_coeffs(DEFAULT_FLEET)))
-        amort = pp.amortization_vector(_t(life_sum).cuda(),
-                                       _t(life_cnt).cuda(),
-                                       torch.zeros(cells, dtype=torch.int32,
-                                                   device="cuda"),
-                                       10.0, coeffs.amort_unit)
-        before = ops.expected_objective.launches
-        got = ops.expected_objective(hist, coeffs, amort).cpu()
-        assert ops.expected_objective.launches == before + 1
-        want = expected_objective_ref(hist, coeffs, amort).cpu()
-        for c in range(cells):
-            _assert_j_close(got[c].numpy(), want[c].numpy(), f"{cells}x{n}")
-        rows = torch.isfinite(want).any(dim=1)
-        assert torch.equal(got.argmin(1)[rows], want.argmin(1)[rows])
+
+    def offset(x):
+        buf = torch.empty(x.numel() + 1, device="cuda")
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 == 4
+        return y
+    for cells, n in PATH_SHAPES:
+        hist, coeffs, amort = _path_inputs(cells, n, 1000 * cells + n)
+        forms = ["tensors", "floats", "one_value"]
+        if (cells, n) in OFFSET_SHAPES:
+            forms.append("offset")
+        for form in forms:
+            co = coeffs
+            if form == "floats":
+                co = ObjectiveCoeffs(*(float(x[0]) for x in coeffs))
+            elif form == "one_value":
+                co = ObjectiveCoeffs(*(x[0] for x in coeffs))
+            want = expected_objective_ref(hist, co, amort)
+            co_cuda = ObjectiveCoeffs(*(x.cuda() if torch.is_tensor(x) else x
+                                        for x in co))
+            move = offset if form == "offset" else torch.Tensor.cuda
+            before = ops.expected_objective.launches
+            shape_before = ops.expected_objective.shapes[(cells, n)]
+            got = ops.expected_objective(move(hist), co_cuda,
+                                         move(amort)).cpu()
+            assert ops.expected_objective.launches == before + 1
+            assert ops.expected_objective.shapes[(cells, n)] == \
+                shape_before + 1
+            np.testing.assert_array_equal(
+                got.numpy().view(np.int32), want.numpy().view(np.int32),
+                err_msg=f"{cells}x{n} {form}")
 
 
 def _random_state(cells, n, interval=10, spin=10, t=50, seed=0):

@@ -5,7 +5,7 @@ splits, on one CUDA card.
 
 Usage, from the root of a checkout:
     python3 tools/kernel_variants.py [decode_attn] [arrival] [minplus]
-        [split_sweep]
+        [split_sweep] [predict]
 (no argument: the first three).
 
 Each variant is a kernel source with a few strings replaced, built with
@@ -23,7 +23,10 @@ the queries, for a breakdown) at (180, 2816) and one row, then at 1 to
 265 rows against the waves of two blocks a SM; the SASS of both libraries
 to build/sass/ when `cuobjdump` is there. split_sweep: every candidate
 split of the dense kernel at every bucket of the dense run, each checked
-bitwise, then the fit of `ops.DENSE_COST`. Kernels that must be bitwise
+bitwise, then the fit of `ops.DENSE_COST`. predict: `spork_predict`
+(PREDICT_VARIANTS: warps a cell, the offsets' batch, the division, phase
+cut-offs) at chip_smoke.py's timed shapes, each checked bitwise against
+the CPU plain version, then the eager cost split. Kernels that must be bitwise
 are checked against their plain versions. One JSON line per measurement.
 No JAX: only the port and chip_smoke.py's helpers.
 """
@@ -175,6 +178,111 @@ STRUCTURED_VARIANTS = {
 }
 
 
+# source changes of spork_predict.cu per variant ("chosen": as
+# committed): warps a cell (with the float4s a thread may hold raised to
+# cover N = 4096), timed at every shape, so the fastest count on each
+# side of N = 1024 says whether a split there would pay; the block totals
+# loaded ahead in phase D; the division without its zero guard;
+# "upto_<phase>" returns before that phase (for timing only: its output
+# is not the function's). Cells a block are not swept: one cell a block
+# beat two and four by 0.4 and 1.0 us at C >= 16 (PERF.md).
+_WARPS = "constexpr int kWarps = 4;"
+_HOLD = "constexpr int kMaxHold = 8;"
+_OFFB = "constexpr int kOffBatch = 4;"
+
+
+def _const(line: str, value: int) -> dict:
+    return {line: line.rsplit("=", 1)[0] + f"= {value};"}
+
+
+PREDICT_VARIANTS = {
+    "chosen": {},
+    "warps1": {**_const(_WARPS, 1), **_const(_HOLD, 32)},
+    "warps2": {**_const(_WARPS, 2), **_const(_HOLD, 16)},
+    **{f"offb{b}": _const(_OFFB, b) for b in (2, 8, 16)},
+    "fdiv_zero": {"__fdiv_rn(h == 0.0f ? 1.0f : h, d)": "__fdiv_rn(h, d)"},
+    **{f"upto_{ph}": {marker: "if (n > 0) return;\n  " + marker}
+       for ph, marker in (("B", "// B. p(b)"), ("C", "// C. prefixes"),
+                          ("E", "// E. J(c)"))},
+}
+
+
+def predict_variants(torch, cs) -> None:
+    """Each of PREDICT_VARIANTS at chip_smoke.py's timed shapes, checked
+    bitwise against the CPU plain version first, in two rounds; the SASS
+    size; then the eager cost split: the wrapper, the bare ctypes launch
+    with its arguments ready, and a one-element add_."""
+    from repro_torch.core.predictor import expected_objective as plain
+    from repro_torch.kernels.spork_predict import ops
+    data = {}
+    for cells, n in cs.PREDICT_TIMED:
+        hist, coeffs, amort = cs._predict_inputs(cells, n, 1000 * cells + n,
+                                                 torch)
+        if cells == 1:
+            coeffs = type(coeffs)(*(float(x[0]) for x in coeffs))
+        data[(cells, n)] = (hist, coeffs, amort,
+                            plain(hist.cpu(), cs.coeffs_cpu(coeffs),
+                                  amort.cpu()))
+    sources = _sources(ops.SOURCES[0], PREDICT_VARIANTS, "predict")
+    original = ops.SOURCES
+    try:
+        for rnd in range(2):
+            for name, src_v in sources.items():
+                ops.SOURCES = src_v
+                ops._launcher.cache_clear()
+                row = {}
+                for (cells, n), (hist, co, amort, want) in data.items():
+                    got = ops.expected_objective(hist, co, amort).cpu()
+                    cs.check(name.startswith("upto_") or torch.equal(
+                        got.view(torch.int32), want.view(torch.int32)),
+                        f"predict variant {name} differs at ({cells}, {n})")
+                    row[f"{cells}x{n}"] = cs.graph_ms(
+                        lambda: ops.expected_objective(hist, co, amort), 100,
+                        torch)
+                cs.emit({"predict_variant": name, "round": rnd, "ms": row})
+    finally:
+        ops.SOURCES = original
+        ops._launcher.cache_clear()
+    _sass("spork_predict", ops.SOURCES, cs)
+    hist, co, amort, _ = data[(32, 512)]
+    out = torch.empty_like(hist)
+    launch = ops._launcher()
+    args = (hist.data_ptr(), amort.data_ptr(), out.data_ptr(),
+            *ops.coeff_args(co, 32, hist.device), 32, 512,
+            torch.cuda.current_stream().cuda_stream)
+    x = torch.zeros(1, device="cuda")
+    cs.emit({"predict_eager": "32x512", "wrapper_ms": cs.cuda_ms(
+        lambda: ops.expected_objective(hist, co, amort), 500, torch),
+             "ctypes_launch_ms": cs.cuda_ms(lambda: launch(*args), 500,
+                                            torch),
+             "add_ms": cs.cuda_ms(lambda: x.add_(1.0), 500, torch)})
+
+
+def _sass(name: str, sources, cs) -> None:
+    """Resource usage and SASS instruction count of each kernel in the
+    library, the SASS into build/sass/<name>.txt (needs `cuobjdump`)."""
+    import re
+    import shutil
+    import subprocess
+    from repro_torch.kernels.build import build_library
+    lib = str(build_library(name, sources).path)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        return
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True).stdout
+    res = subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True,
+                         text=True).stdout
+    out = ROOT / "build" / "sass" / f"{name}.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(sass)
+    cs.emit({"sass": name, "instructions": {
+        part.split()[0]: len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
+        for part in sass.split("Function : ")[1:]},
+        "res_usage": [ln.strip() for ln in res.splitlines()
+                      if "REG" in ln]})
+
+
 def _sources(src: Path, variants: dict, tag: str) -> dict:
     """``src`` with each variant's replacements, under build/variants/."""
     out = {}
@@ -268,25 +376,15 @@ def split_sweep(torch, cs) -> None:
 
 
 def minplus_variants(torch, cs) -> None:
-    import shutil
-    import subprocess
     from repro_torch.core.dp import minplus_step_structured
-    from repro_torch.kernels.build import build_library
     from repro_torch.kernels.minplus import ops
 
     def same(a, b):
         return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) \
             and torch.equal(a[1], b[1])
 
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in ("minplus", "minplus_structured"):
-        lib = build_library(name, ops.SOURCES[name]).path
-        if Path(cuobjdump).exists():
-            out = ROOT / "build" / "sass" / f"{name}.txt"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            out.write_text(subprocess.run(
-                [cuobjdump, "-sass", str(lib)], capture_output=True,
-                text=True).stdout)
+        _sass(name, ops.SOURCES[name], cs)
     _card_check(torch, cs)
     from repro_torch.core.dp import minplus_step
     data = {}
@@ -363,6 +461,8 @@ def main() -> int:
         minplus_variants(torch, cs)
     if "split_sweep" in parts:
         split_sweep(torch, cs)
+    if "predict" in parts:
+        predict_variants(torch, cs)
     print(smi, flush=True)
     return 0
 
