@@ -82,7 +82,14 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                beside the bound (bytes, and the function's fp32 and int32
                operations each at its rate), pristine and failure-aware,
                and the time per arrival (over B, and over the longest
-               cell's chain of real arrivals, which bounds it in fact)
+               cell's chain of real arrivals, which bounds it in fact);
+               then the fleet path's shape (C = 4, W = 96, B = 1): the
+               fleet phase's 16-tenant chunk over its first 4 entries,
+               each arrival with its tenant's size and deadline swapped
+               in, pristine and failure-aware, every carry leaf bitwise
+               equal to both plain versions after every block; the raw
+               launch, the wrapper's step and the plain version timed
+               there beside the bound
   event_goldens
                the 6 pinned event goldens (tests/goldens/policy_goldens.json
                ["event"], the trace of tests/test_policy_equivalence.py)
@@ -130,6 +137,40 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                across) on the CPU: 2 requests of 16 + 8 tokens; every
                step's logits within 1e-3 x that step's max |logit|, tokens
                equal except at CPU top-2 gaps below that (counted)
+  scenario_suite
+               benchmarks/scenario_suite.py at BENCH_FAST=0: the 8 registry
+               scenarios realized on the card (10 seeds, 7200 s; every
+               batch must pass its validator) and the 240 cells (SporkE,
+               CPU-dynamic, FPGA-static) through `sweep` on the card: at
+               most 5 dispatches, spork_predict launches equal to the
+               plan's allocator ticks; wall time and the 24 rows
+  scenario_vs_cpu
+               seed 0 of each scenario under SporkE, cut to 1800 s, on the
+               card and the CPU from the same counts: counters identical,
+               floats within 1e-5
+  chaos_suite  benchmarks/chaos_suite.py at BENCH_FAST=0: 4 chaos scenarios
+               x 3 dispatchers x (baseline + intensities 0, 0.5, 1) x 6
+               seeds through sweep_events on the card; every intensity-0
+               cell bitwise its baseline; at most 8 static groups and one
+               dispatch per group chunk (288 cells need at least 9
+               dispatches of 32, see CHAOS_MAX_GROUPS); arrival launches
+               equal to the plan's entries, spork_predict to its tick
+               entries, no table overflow; wall time and the 36 rows
+  chaos_vs_cpu crash_storm's seed-0 cells (12) on the card and the CPU from
+               the same arrival streams: counters identical, floats within
+               1e-5
+  fleet        benchmarks/fleet_suite.py in its fast mode (16, 64, 256 and
+               1024 tenants x 3 admission policies, 60 s, 0.05 workers a
+               tenant) through sweep_fleet on the card, every arrival slot
+               one arrival launch (B = 1): at most 8 dispatches, tenant
+               rows conserving to each cell's totals, arrival launches
+               equal to the slots walked; the 16- and 64-tenant cells also
+               through FleetSim on the card and TenantRouter on one
+               16-tenant cell (counters identical, floats within 1e-5);
+               wall time, time per arrival slot and the 12 rows
+  fleet_vs_cpu the 64-tenant cells on the CPU from the card's streams
+               (explicit twins with the same plan arrays): counters and
+               per-tenant counters identical, floats within 1e-5
   profile      device-idle share of one Spork chunk (32 cells, first
                120 s) under torch.profiler, and the kernel's device time;
                then one hybrid transition="kernel" dispatch of Fig. 2 and
@@ -138,17 +179,22 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                per launch; then the first Table 9 dispatch cut to 300
                entries: idle share and the arrival kernel's device time;
                then one decode step at the serve shape: idle share and
-               decode_attn's device time per launch and share of busy time
+               decode_attn's device time per launch and share of busy time;
+               then the 1024-tenant fleet dispatch cut to 4 entries: idle
+               share, device ops and wall per arrival slot
   predict_paths
-               spork_predict at every (C, N) that Table 8, Table 9 and the
-               router ran, bitwise against the CPU plain version again;
+               spork_predict at every (C, N) that Table 8, Table 9, the
+               router, the scenario, chaos and fleet suites and the fleet
+               oracle ran, bitwise against the CPU plain version again;
                each path's launches by (C, N), and its sum of launches x
                the kernel's time at that shape (graph and eager) and x
                its bound
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
-the sum over its three paths, Table 8, Table 9 and the serve router, each
-also given on its own), the raw nvidia-smi line, and
+the sum over its seven paths, Table 8, Table 9, the serve router, the
+scenario, chaos and fleet suites and the fleet oracle with TenantRouter;
+arrival's over Table 9, the chaos suite and the fleet suite; each also
+given on its own), the raw nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
 a checkout (no src/repro_torch beside it), it exits 2 and prints no
 result.
@@ -278,6 +324,40 @@ VS_CPU_MAX_LEN = 64
 VS_CPU_PROMPT = 16
 VS_CPU_NEW = 8
 VS_CPU_RTOL = 1e-3               # x the step's max |logit|
+# the device the phases run on
+CARD = "cuda"
+# benchmarks/scenario_suite.py at BENCH_FAST=0 (a copy: the benchmark folder
+# is not ported): 8 scenarios x 10 seeds x 3 schedulers, 7200 s
+SCENARIO_POLICIES = (("SporkE", "spork", 1.0),
+                     ("CPU-dynamic", "cpu_dynamic", 1.0),
+                     ("FPGA-static", "fpga_static", 1.0))
+SCENARIO_SEEDS = 10
+SCENARIO_HORIZON_S = 7200
+SCENARIO_MAX_DISPATCHES = 5      # the suite's own bound in full mode
+SCENARIO_VS_CPU_S = 1800         # scenario_vs_cpu: seed 0, SporkE, cut
+# benchmarks/chaos_suite.py at BENCH_FAST=0: 4 chaos scenarios x 3
+# dispatchers x (baseline + 3 intensities) x 6 seeds, 240 s
+CHAOS_POLICIES = (("SporkE", "spork"), ("IndexPack", "index_packing"),
+                  ("RoundRobin", "round_robin"))
+CHAOS_INTENSITIES = (0.0, 0.5, 1.0)
+CHAOS_SEEDS = 6
+# The suite's dispatch budget of 8 is "4 stream shapes x 2 failure keys"
+# static groups; its 288 cells in chunks of at most EV_CHUNK_MAX = 32 need
+# at least 9 dispatches, so the phase holds the groups to 8 and the
+# dispatches to exactly one per group chunk.
+CHAOS_MAX_GROUPS = 8
+CHAOS_VS_CPU = "crash_storm"
+# benchmarks/fleet_suite.py in its fast mode: 16-1024 Zipf tenants x 3
+# admission policies, 60 s tenant horizons at 0.05 workers a tenant
+FLEET_SCALES = (16, 64, 256, 1024)
+FLEET_HORIZON_S = 60.0
+FLEET_DEMAND = 0.05
+FLEET_SEED = 1
+FLEET_MAX_DISPATCHES = 8
+FLEET_ORACLE_SCALES = (16, 64)   # also through FleetSim on the card
+FLEET_VS_CPU_SCALE = 64
+FLEET_CHECK_ENTRIES = 4          # arrival_kernel's fleet case: entries walked
+FLEET_PROFILE_ENTRIES = 4        # profile: the 1024-tenant dispatch, cut
 SCHEDULERS = [                   # benchmarks/table8_production.py
     ("CPU-dynamic", "cpu_dynamic", {}),
     ("FPGA-static", "fpga_static", {}),
@@ -1387,6 +1467,93 @@ def _arrival_bound(times, W: int, w_f: int, failures: bool) -> dict:
             "real_arrivals": arrivals, "chain_arrivals": chain}
 
 
+def _arrival_fleet(failures, torch) -> dict:
+    """The kernel at the fleet path's shape: the 16-tenant chunk of the
+    fleet phase (C = 4, W = 96, B = 1) over its first FLEET_CHECK_ENTRIES
+    entries, every arrival with its tenant's size and deadline swapped in
+    (`bind`'s step) and the engine's ticks between entries; each block
+    through the kernel, the plain version on the card and the plain
+    version on the CPU from the same carry, every carry leaf bitwise
+    equal. Then the kernel's time per launch there (raw, and through the
+    step with its swap) beside the bound and the plain version's."""
+    from repro_torch.ft.failures import FailureSpec
+    from repro_torch.interop import to_numpy
+    from repro_torch.kernels.arrival import ops
+    from repro_torch.kernels.arrival.ref import arrival_block_ref
+    from repro_torch.sim import events_batched as eb
+    from repro_torch.sim.exec import _fleet_args
+    from repro_torch.sim.plan import plan_fleet
+    spec = None if failures is None else FailureSpec(**failures)
+    cells = [replace(c, failures=spec) for c in _fleet_cells((16,))]
+    d, = plan_fleet(cells, device=CARD).dispatches
+    dev = torch.device(CARD)
+    (es, codes, _, times, tids, tick_t, is_tick, ta_size, ta_dl, *_,
+     slots) = _fleet_args(d, dev)
+    fstat, n_max, w_f, W = d.static[3], d.static[0], d.static[1], \
+        d.static[1] + d.static[2]
+    es_c, codes_c = _to(es, "cpu"), codes.cpu()
+    step = ops.bind(es, fstat, codes, w_f)
+    ar = torch.arange(d.chunk, device=dev)
+    sd_tab = torch.stack([ta_size, ta_dl], dim=2)
+    is_f = torch.arange(W, device=dev) < w_f
+    c = eb.init_carry(d.chunk, W, dev)
+    ts = eb.init_tick_state(d.chunk, n_max, dev)
+    arrivals, max_abs = 0, 0.0
+    for e in range(FLEET_CHECK_ENTRIES):
+        for i in range(slots[e]):
+            t = times[:, e, i:i + 1]
+            sd = sd_tab[ar, tids[:, e, i].long()]
+            ck = step(c, t, sd)
+            cg = arrival_block_ref(ops._swapped(es, sd), fstat, codes, w_f, c,
+                                   t)
+            cc = arrival_block_ref(ops._swapped(es_c, sd.cpu()), fstat,
+                                   codes_c, w_f, _to(c, "cpu"), t.cpu())
+            got = dict(_flat(to_numpy(ck)))
+            for name, other in (("card", cg), ("cpu", cc)):
+                for path, want in _flat(to_numpy(other)):
+                    check(got[path].tobytes() == want.tobytes(),
+                          f"arrival kernel (fleet shape) differs from the "
+                          f"{name} plain version at entry {e} slot {i}, "
+                          f"leaf {path}")
+            arrivals += int(torch.isfinite(t).sum())
+            c = ck
+        if bool(is_tick[:, e].any()):
+            c, ts = eb._tick_step(es, fstat, w_f, is_f, c, ts, tick_t[:, e],
+                                  is_tick[:, e])
+    # timing on a slot where every cell has a real arrival
+    e, i = next((e, i) for e in range(times.shape[1])
+                for i in range(slots[e])
+                if bool(torch.isfinite(times[:, e, i]).all()))
+    t = times[:, e, i:i + 1].contiguous()
+    sd = sd_tab[ar, tids[:, e, i].long()]
+    cells_in = ops.pack_cells(ops._swapped(es, sd), codes)
+    ins = [*cells_in, t, *ops.pack_carry(c)]
+    outs = [torch.empty_like(x) for x in ins[4:]]
+    launch = ops._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        rc = launch(*(x.data_ptr() for x in ins + outs), d.chunk, W, w_f, 1,
+                    int(fstat.enabled), int(fstat.max_retries),
+                    int(fstat.max_failover), stream)
+        check(rc == 0, f"arrival launch failed: CUDA error {rc}")
+
+    chained = [step(c, t, sd)]
+
+    def engine_step():          # as the engine calls it: on its last result
+        chained[0] = step(chained[0], t, sd)
+
+    return {"C": d.chunk, "W": W, "B": 1,
+            "failures": failures is not None, "entries": FLEET_CHECK_ENTRIES,
+            "blocks": sum(slots[:FLEET_CHECK_ENTRIES]), "arrivals": arrivals,
+            "bitwise_equal": True, "max_abs_err": max_abs,
+            "ms": cuda_ms(raw, 200, torch),
+            "step_ms": cuda_ms(engine_step, 200, torch),
+            "plain_ms": cuda_ms(lambda: arrival_block_ref(
+                ops._swapped(es, sd), fstat, codes, w_f, c, t), 20, torch),
+            **_arrival_bound(t, W, w_f, bool(fstat.enabled))}
+
+
 def phase_arrival_kernel(torch) -> dict:
     from repro_torch.kernels.arrival import ops
     from repro_torch.kernels.arrival.ref import arrival_block_ref
@@ -1441,8 +1608,12 @@ def phase_arrival_kernel(torch) -> dict:
             **_arrival_bound(tb, W, TABLE9_W[0], bool(fstat.enabled))}
         t["us_per_arrival"] = t["ms"] * 1e3 / B
         t["us_per_chain_arrival"] = t["ms"] * 1e3 / t["chain_arrivals"]
+    fleet = {name: _arrival_fleet(f, torch)
+             for name, f in (("pristine", None),
+                             ("failures", ARRIVAL_FAIL_SPEC))}
     out = {"phase": "arrival_kernel", "cases": cases,
            "C": len(cells), "W": W, "B": B, "kernels": timing,
+           "fleet_shape": fleet,
            **timing["pristine"], "library_ms": None,
            "max_abs_err": max(c["max_abs_err"] for c in cases),
            "timing": "ms: CUDA events over 50 back-to-back raw launches on "
@@ -1452,7 +1623,11 @@ def phase_arrival_kernel(torch) -> dict:
                      "us_per_chain_arrival: ms over the longest cell's real "
                      "arrivals (the chain of dependent arrivals on one warp "
                      "bounds the kernel in fact, beside the operation "
-                     "bound)",
+                     "bound); fleet_shape: the same at (4, 96, 1), "
+                     "step_ms the wrapper's step with its size/deadline "
+                     "swap on its own last result, as the fleet engine "
+                     "calls it (eager, so the host's time), plain_ms over "
+                     "20 calls",
            "library": "none: no PyTorch call computes an arrival block"}
     emit(out)
     return out
@@ -2080,6 +2255,510 @@ def phase_serve_vs_cpu(torch) -> dict:
     return out
 
 
+# ------------------------- slices 4-5: the workload library and the fleet
+
+def _totals_gap(pairs, counters, floats) -> dict:
+    """Card/CPU comparison of (tag, card RunTotals, cpu RunTotals) pairs:
+    counters must be identical, floats within RTOL_CPU (or 1e-3 absolute);
+    the largest relative gap and the bitwise-equal float fields counted."""
+    bad, max_rel, same, n = [], 0.0, 0, 0
+    for tag, g, c in pairs:
+        for f in counters:
+            if getattr(g, f) != getattr(c, f):
+                bad.append((tag, f, getattr(g, f), getattr(c, f)))
+        for f in floats:
+            a, b = getattr(g, f), getattr(c, f)
+            rel = abs(a - b) / max(abs(b), 1e-12)
+            max_rel = max(max_rel, rel)
+            same += a == b
+            n += 1
+            if rel > RTOL_CPU and abs(a - b) > 1e-3:
+                bad.append((tag, f, a, b))
+    return {"max_rel_err": max_rel, "float_fields_bitwise_equal": same,
+            "float_fields": n, "mismatches": [list(map(str, b))
+                                              for b in bad[:10]],
+            "ok": not bad}
+
+
+def _predictor_ticks(plan) -> int:
+    """Allocator ticks of a rate plan's predictor dispatches: one
+    spork_predict launch each."""
+    return sum(d.static[4] // d.static[1] for d in plan.dispatches
+               if d.static[0].uses_predictor)
+
+
+def phase_scenario_suite(torch) -> dict:
+    """benchmarks/scenario_suite.py at BENCH_FAST=0 through the port's
+    realize and sweep on the card."""
+    import numpy as np
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.kernels.spork_predict import ops
+    from repro_torch.sim.plan import plan_sweep
+    from repro_torch.sim.sweep import SweepCell, sweep
+    from repro_torch.workloads import generators, registry, scenarios, stats
+    seeds = tuple(range(SCENARIO_SEEDS))
+    specs = [registry.get(n).with_(horizon_s=SCENARIO_HORIZON_S)
+             for n in registry.names()]
+    scen, failures, cells = {}, [], []
+    t0 = time.perf_counter()
+    for spec in specs:
+        synth0 = scenarios.SYNTH_DISPATCHES
+        batch = scenarios.realize(spec, seeds, device=CARD)
+        ok, st, fails = stats.validate(spec, batch.rates)
+        failures += fails
+        scen[spec.name] = {"synth_dispatches":
+                           scenarios.SYNTH_DISPATCHES - synth0,
+                           "validator_ok": ok, **st}
+        cells += [SweepCell(policy, fleet=DEFAULT_FLEET, scenario=spec,
+                            seed=s, energy_weight=ew, tag=(spec.name, label))
+                  for label, policy, ew in SCENARIO_POLICIES for s in seeds]
+    t_realize = time.perf_counter() - t0
+    g = torch.Generator(device=CARD).manual_seed(0)
+    t0 = time.perf_counter()
+    generators.mmpp_rates(g, SCENARIO_HORIZON_S, 100.0)
+    t_mmpp = time.perf_counter() - t0
+    plan = plan_sweep(cells, device=CARD)
+    expected = _predictor_ticks(plan)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(cells, device=CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.expected_objective.launches
+    shapes = _shape_tally(ops)
+    acc: dict[tuple, list] = {}
+    for i, cell in enumerate(res.cells):
+        check(res.totals(i).is_finite(), f"scenario cell {cell.tag}: "
+                                         f"non-finite totals")
+        r = res.report(i)
+        acc.setdefault(cell.tag, []).append(
+            (r.energy_efficiency, r.relative_cost, r.deadline_miss_rate))
+    rows = [{"scenario": spec.name, "scheduler": label,
+             **{k: float(np.mean([v[j] for v in acc[(spec.name, label)]]))
+                for j, k in enumerate(("energy_eff", "rel_cost",
+                                       "miss_rate"))},
+             "b_est": scen[spec.name]["bias_est"],
+             "peak_to_mean": scen[spec.name]["peak_to_mean"]}
+            for spec in specs for label, _, _ in SCENARIO_POLICIES]
+    out = {"phase": "scenario_suite", "scenarios": len(specs),
+           "seeds": len(seeds), "horizon_s": SCENARIO_HORIZON_S,
+           "cells": len(cells), "realize_wall_s": t_realize,
+           "mmpp_7200s_wall_ms": t_mmpp * 1e3, "validators": scen,
+           "validator_failures": failures,
+           "sweep_dispatches": res.n_dispatches, "wall_s": wall,
+           "spork_predict_launches": launches,
+           "spork_predict_shapes": shapes, "expected_launches": expected,
+           "rows": rows}
+    emit(out)
+    check(not failures, f"scenario validators failed: {failures[:3]}")
+    check(len(cells) == 240, f"scenario grid has {len(cells)} cells")
+    check(res.n_dispatches <= SCENARIO_MAX_DISPATCHES,
+          f"scenario grid took {res.n_dispatches} dispatches "
+          f"(> {SCENARIO_MAX_DISPATCHES})")
+    check(launches == expected, f"scenario grid: {launches} spork_predict "
+                                f"launches, plan has {expected} ticks")
+    return {"res": res, "out": out}
+
+
+def phase_scenario_vs_cpu(scen: dict) -> dict:
+    """Seed 0 of every scenario under SporkE, cut to its first
+    SCENARIO_VS_CPU_S seconds, on the card and on the CPU from the same
+    (card-realized) counts."""
+    from repro_torch.core.metrics import RunTotals
+    from repro_torch.sim.sweep import sweep
+    res = scen["res"]
+    cells = [replace(c, counts=c.counts[:SCENARIO_VS_CPU_S])
+             for c in res.cells if c.seed == 0 and c.tag[1] == "SporkE"]
+    card = sweep(cells, device=CARD)
+    t0 = time.perf_counter()
+    cpu = sweep(cells, device="cpu")
+    wall = time.perf_counter() - t0
+    gap = _totals_gap([(c.tag[0], card.totals(i), cpu.totals(i))
+                       for i, c in enumerate(cells)],
+                      RunTotals.COUNT_FIELDS, RunTotals.FLOAT_FIELDS)
+    out = {"phase": "scenario_vs_cpu", "cells": len(cells),
+           "horizon_s": SCENARIO_VS_CPU_S, "cpu_wall_s": wall, **gap}
+    emit(out)
+    check(len(cells) == 8, f"scenario_vs_cpu: {len(cells)} cells")
+    check(gap["ok"], f"scenario card/CPU mismatches: {gap['mismatches'][:3]}")
+    return out
+
+
+CHAOS_FIELDS = (                 # benchmarks/chaos_suite.py::_TOTAL_FIELDS
+    "energy_j", "cost_usd", "work_cpu_s", "work_on_fpga_cpu_s",
+    "work_on_cpu_cpu_s", "requests", "deadline_misses", "fpga_spinups",
+    "cpu_spinups", "fpga_idle_j", "fpga_busy_j", "cpu_busy_j", "spinup_j",
+    "retries", "failed_spinups", "crashes", "recovered_requests",
+    "failure_misses", "wasted_spinup_j")
+
+
+def _chaos_cells():
+    """benchmarks/chaos_suite.py's grid at BENCH_FAST=0: per chaos
+    scenario, dispatcher and seed a ``failures=None`` baseline (the
+    scenario's profile stripped) and one cell per intensity."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.sim.sweep import EventCell
+    from repro_torch.workloads import registry
+    cells = []
+    for name in registry.chaos_names():
+        spec = registry.get_chaos(name)
+        base = spec.with_(failures=None)
+        for label, policy in CHAOS_POLICIES:
+            for s in range(CHAOS_SEEDS):
+                cells.append(EventCell(policy, fleet=DEFAULT_FLEET,
+                                       scenario=base, seed=s,
+                                       tag=(name, label, "base", s)))
+                cells += [EventCell(policy, fleet=DEFAULT_FLEET,
+                                    scenario=spec, seed=s,
+                                    failures=spec.failures.scaled(inten),
+                                    tag=(name, label, inten, s))
+                          for inten in CHAOS_INTENSITIES]
+    return cells
+
+
+def phase_chaos_suite(torch) -> dict:
+    """benchmarks/chaos_suite.py at BENCH_FAST=0 through sweep_events on
+    the card, with both of the suite's guards."""
+    import numpy as np
+    from repro_torch.kernels.arrival import ops as arrival_ops
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.sim.events_batched import EV_CHUNK_MAX
+    from repro_torch.sim.plan import plan_events
+    from repro_torch.sim.sweep import sweep_events
+    cells = _chaos_cells()
+    t0 = time.perf_counter()
+    plan = plan_events(cells, device=CARD)
+    t_plan = time.perf_counter() - t0
+    entries = sum(d.arrays["times"].shape[1] for d in plan.dispatches)
+    tick_entries = sum(int(d.arrays["is_tick"].any(axis=0).sum())
+                       for d in plan.dispatches)
+    groups: dict = {}
+    for d in plan.dispatches:
+        key = (d.arrays["times"].shape[1], tuple(d.static[3]))
+        groups[key] = groups.get(key, 0) + d.n_real
+    chunks = sum(math.ceil(n / EV_CHUNK_MAX) for n in groups.values())
+    arrival_ops.arrival_block.launches = 0
+    predict_ops.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sweep_events(cells, device=CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"arrival": arrival_ops.arrival_block.launches,
+                "spork_predict": predict_ops.expected_objective.launches}
+    shapes = _shape_tally(predict_ops)
+    by_tag = {c.tag: res.totals(i) for i, c in enumerate(res.cells)}
+    overflow = [c.tag for i, c in enumerate(res.cells)
+                if res.totals(i).breakdown["slot_overflow"]]
+    diverged = []
+    for (name, label, kind, s), base in by_tag.items():
+        if kind != "base":
+            continue
+        zero = by_tag[(name, label, 0.0, s)]
+        diverged += [(name, label, s, f) for f in CHAOS_FIELDS
+                     if getattr(base, f) != getattr(zero, f)]
+    rows = []
+    for name in sorted({t[0] for t in by_tag}):
+        for label, _ in CHAOS_POLICIES:
+            e_base = np.mean([by_tag[(name, label, 0.0, s)].energy_j
+                              for s in range(CHAOS_SEEDS)])
+            for inten in CHAOS_INTENSITIES:
+                tots = [by_tag[(name, label, inten, s)]
+                        for s in range(CHAOS_SEEDS)]
+                n_req = sum(t.requests for t in tots)
+                rows.append({
+                    "scenario": name, "scheduler": label,
+                    "intensity": inten,
+                    "miss_rate": sum(t.deadline_misses for t in tots)
+                    / max(n_req, 1),
+                    "failure_misses": sum(t.failure_misses for t in tots),
+                    "crashes": sum(t.crashes for t in tots),
+                    "retries": sum(t.retries for t in tots),
+                    "recovered": sum(t.recovered_requests for t in tots),
+                    "energy_x": float(np.mean([t.energy_j for t in tots])
+                                      / max(e_base, 1e-9))})
+    out = {"phase": "chaos_suite", "cells": len(cells),
+           "arrivals": int(sum(len(c.arrival_times) for c in plan.cells)),
+           "plan_wall_s": t_plan, "wall_s": wall,
+           "sweep_dispatches": res.n_dispatches,
+           "static_groups": [{"entries": k[0], "failures": list(k[1]),
+                              "cells": n} for k, n in groups.items()],
+           "dispatches_for_the_groups": chunks,
+           "launches": launches, "spork_predict_shapes": shapes,
+           "expected_launches": {"arrival": entries,
+                                 "spork_predict": tick_entries},
+           "zero_intensity_diverged": [list(map(str, d))
+                                       for d in diverged[:10]],
+           "slot_overflow_cells": [list(map(str, t)) for t in overflow],
+           "rows": rows}
+    emit(out)
+    check(len(cells) == 288, f"chaos grid has {len(cells)} cells")
+    check(not diverged, f"chaos: intensity 0 differs from its baseline: "
+                        f"{diverged[:3]}")
+    check(len(groups) <= CHAOS_MAX_GROUPS,
+          f"chaos grid plans {len(groups)} static groups "
+          f"(> {CHAOS_MAX_GROUPS}): intensity leaked into a group key")
+    check(res.n_dispatches == chunks,
+          f"chaos grid took {res.n_dispatches} dispatches for {chunks} "
+          f"group chunks")
+    check(not overflow, f"chaos: {len(overflow)} cells overflowed a table")
+    check(launches["arrival"] == entries,
+          f"chaos: {launches['arrival']} arrival launches, plan has "
+          f"{entries} entries")
+    check(launches["spork_predict"] == tick_entries,
+          f"chaos: {launches['spork_predict']} spork_predict launches, "
+          f"plan has {tick_entries} tick entries")
+    return {"res": res, "out": out}
+
+
+def phase_chaos_vs_cpu(chaos: dict) -> dict:
+    """One chaos scenario (CHAOS_VS_CPU, seed 0) at every intensity and
+    its baselines, all three dispatchers, on the card and on the CPU from
+    the same (card-realized) arrival streams."""
+    from repro_torch.core.metrics import RunTotals
+    from repro_torch.sim.sweep import sweep_events
+    res = chaos["res"]
+    cells = [c for c in res.cells if c.tag[0] == CHAOS_VS_CPU
+             and c.tag[3] == 0]
+    card = sweep_events(cells, device=CARD)
+    t0 = time.perf_counter()
+    cpu = sweep_events(cells, device="cpu")
+    wall = time.perf_counter() - t0
+    gap = _totals_gap([(c.tag, g, p) for c, g, p in zip(cells, card, cpu)],
+                      RunTotals.COUNT_FIELDS, RunTotals.FLOAT_FIELDS)
+    out = {"phase": "chaos_vs_cpu", "scenario": CHAOS_VS_CPU,
+           "cells": len(cells), "cpu_wall_s": wall, **gap}
+    emit(out)
+    check(len(cells) == 12, f"chaos_vs_cpu: {len(cells)} cells")
+    check(gap["ok"], f"chaos card/CPU mismatches: {gap['mismatches'][:3]}")
+    return out
+
+
+def _fleet_cells(scales=None):
+    """benchmarks/fleet_suite.py's grid in its fast mode: Zipf tenant
+    populations x every admission policy."""
+    from repro_torch.fleet import FleetCell
+    from repro_torch.policies import admission_policy_names
+    from repro_torch.workloads import tenant_population
+    return [FleetCell(tenants=tenant_population(
+                n, horizon_s=FLEET_HORIZON_S,
+                mean_demand_workers=FLEET_DEMAND, seed=FLEET_SEED),
+                admission=adm, tag=(n, adm))
+            for n in (scales or FLEET_SCALES)
+            for adm in admission_policy_names()]
+
+
+def _fleet_slots(plan) -> int:
+    """Arrival slots the fleet engine walks for a plan: one `arrival`
+    launch each on the card."""
+    import numpy as np
+    return int(sum(np.isfinite(d.arrays["times"]).sum(axis=2).max(axis=0)
+                   .sum() for d in plan.dispatches))
+
+
+def _conservation(tot, rows) -> list:
+    """What breaks the per-tenant rows' conservation to the cell totals
+    (sim/harness.py::check_fleet_result's contract; slice 6 ports it)."""
+    bad = []
+    sums = {"requests": (sum(r.admitted for r in rows), tot.requests),
+            "shed": (sum(r.shed for r in rows),
+                     tot.breakdown["shed_requests"]),
+            "offered": (sum(r.requests for r in rows),
+                        tot.breakdown["offered_requests"]),
+            "misses": (sum(r.deadline_misses for r in rows),
+                       tot.deadline_misses)}
+    bad += [k for k, (a, b) in sums.items() if a != b]
+    bad += [f"tenant {r.tenant}" for r in rows
+            if r.requests != r.admitted + r.shed
+            or r.deadline_misses > r.admitted]
+    for f in ("work_on_fpga_cpu_s", "work_on_cpu_cpu_s", "energy_j",
+              "cost_usd"):
+        a, b = sum(getattr(r, f) for r in rows), getattr(tot, f)
+        if abs(a - b) > 1e-6 * max(abs(b), 1.0):
+            bad.append(f)
+    return bad
+
+
+def _fleet_pair(a, b, tag) -> list:
+    """Fleet (RunTotals, rows) pairs: counters and per-tenant counters
+    identical, floats within RTOL_CPU; returns the mismatches."""
+    from repro_torch.core.metrics import RunTotals
+    (at, ar), (bt, br) = a, b
+    gap = _totals_gap([(tag, at, bt)], RunTotals.COUNT_FIELDS,
+                      RunTotals.FLOAT_FIELDS)
+    bad = list(gap["mismatches"])
+    for k in ("offered_requests", "shed_requests"):
+        if at.breakdown[k] != bt.breakdown[k]:
+            bad.append([str(tag), k])
+    for x, y in zip(ar, br):
+        if (x.requests, x.admitted, x.shed, x.deadline_misses) != \
+                (y.requests, y.admitted, y.shed, y.deadline_misses):
+            bad.append([str(tag), f"tenant {x.tenant}"])
+    return bad
+
+
+def phase_fleet(torch) -> dict:
+    """benchmarks/fleet_suite.py in its fast mode through sweep_fleet on
+    the card (the arrival kernel in blocks of one); then the serial
+    FleetSim on the 16- and 64-tenant cells and TenantRouter on one
+    16-tenant cell, on the card."""
+    import numpy as np
+    from repro_torch.fleet import resolve_fleet_cell, simulate_fleet
+    from repro_torch.kernels.arrival import ops as arrival_ops
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.serve.router import TenantRouter
+    from repro_torch.sim.plan import plan_fleet
+    from repro_torch.sim.sweep import sweep_fleet
+    cells = _fleet_cells()
+    t0 = time.perf_counter()
+    plan = plan_fleet(cells, device=CARD)
+    t_plan = time.perf_counter() - t0
+    slots = _fleet_slots(plan)
+    tick_entries = sum(int(d.arrays["is_tick"].any(axis=0).sum())
+                       for d in plan.dispatches)
+    arrival_ops.arrival_block.launches = 0
+    predict_ops.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sweep_fleet(cells, device=CARD)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"arrival": arrival_ops.arrival_block.launches,
+                "spork_predict": predict_ops.expected_objective.launches}
+    shapes = _shape_tally(predict_ops)
+    broken, rows = [], []
+    for i, cell in enumerate(res.cells):
+        n, adm = cell.tag
+        t, tr = res.totals(i), res.tenants(i)
+        broken += [(n, adm, b) for b in _conservation(t, tr)]
+        check(t.is_finite() and t.breakdown["slot_overflow"] == 0,
+              f"fleet cell {cell.tag}: malformed totals or overflow")
+        offered, shed = (t.breakdown["offered_requests"],
+                         t.breakdown["shed_requests"])
+        miss = np.array([r.deadline_misses / max(r.admitted, 1) for r in tr])
+        w = np.array([r.weight for r in tr])
+        light = w <= np.quantile(w, 0.25)
+
+        def shed_rate(m):
+            return (sum(r.shed for r, k in zip(tr, m) if k)
+                    / max(sum(r.requests for r, k in zip(tr, m) if k), 1))
+
+        served = t.work_on_fpga_cpu_s + t.work_on_cpu_cpu_s
+        rows.append({"n_tenants": n, "admission": adm, "offered": offered,
+                     "shed": shed, "shed_rate": shed / max(offered, 1),
+                     "miss_rate": t.deadline_misses / max(t.requests, 1),
+                     "worst_tenant_miss_rate": float(miss.max()),
+                     "light_shed_rate": shed_rate(light),
+                     "heavy_shed_rate": shed_rate(~light),
+                     "j_per_served_s": t.energy_j / max(served, 1e-9)})
+    offered = sum(r["offered"] for r in rows)
+    # the serial oracle and the online router on the card
+    predict_ops.reset_counts()
+    oracle_bad, t2 = [], time.perf_counter()
+    for i, cell in enumerate(res.cells):
+        if cell.tag[0] in FLEET_ORACLE_SCALES:
+            oracle_bad += _fleet_pair(
+                (res.totals(i), res.tenants(i)),
+                simulate_fleet(cell, device=CARD), cell.tag)
+    oracle_wall = time.perf_counter() - t2
+    cell = next(c for c in res.cells if c.tag == (16, "token_bucket"))
+    rs = resolve_fleet_cell(cell, CARD)
+    router = TenantRouter(cell, device=CARD)
+    for t, tid in zip(rs.times, rs.tids):
+        router.submit(float(t), int(tid))
+    rep, router_rows = router.finish()
+    oracle_bad += _fleet_pair((rep.totals, router_rows),
+                              simulate_fleet(cell, device=CARD), "router")
+    oracle_launches = predict_ops.expected_objective.launches
+    oracle_shapes = _shape_tally(predict_ops)
+    out = {"phase": "fleet", "scales": list(FLEET_SCALES),
+           "horizon_s": FLEET_HORIZON_S, "demand": FLEET_DEMAND,
+           "cells": len(cells), "offered": offered, "plan_wall_s": t_plan,
+           "sweep_dispatches": res.n_dispatches,
+           "dispatches": [{"chunk": d.chunk, "cells": d.n_real,
+                           "tenants": d.arrays["ta_size"].shape[1],
+                           "entries": d.arrays["times"].shape[1]}
+                          for d in plan.dispatches],
+           "wall_s": wall, "ms_per_arrival_slot": wall * 1e3 / slots,
+           "arrival_slots": slots, "launches": launches,
+           "spork_predict_shapes": shapes,
+           "expected_launches": {"arrival": slots,
+                                 "spork_predict": tick_entries},
+           "conservation_broken": [list(map(str, b)) for b in broken[:10]],
+           "oracle": {"scales": list(FLEET_ORACLE_SCALES),
+                      "wall_s": oracle_wall,
+                      "spork_predict_launches": oracle_launches,
+                      "spork_predict_shapes": oracle_shapes,
+                      "router_requests": rep.totals.requests,
+                      "mismatches": oracle_bad[:10]},
+           "rows": rows}
+    emit(out)
+    check(res.n_dispatches <= FLEET_MAX_DISPATCHES,
+          f"fleet grid took {res.n_dispatches} dispatches "
+          f"(> {FLEET_MAX_DISPATCHES})")
+    check(not broken, f"fleet: tenant rows do not conserve: {broken[:3]}")
+    check(launches["arrival"] == slots,
+          f"fleet: {launches['arrival']} arrival launches, the plan walks "
+          f"{slots} slots")
+    check(launches["spork_predict"] == tick_entries,
+          f"fleet: {launches['spork_predict']} spork_predict launches, plan "
+          f"has {tick_entries} tick entries")
+    check(not oracle_bad, f"fleet: FleetSim / TenantRouter differ from the "
+                          f"batched engine: {oracle_bad[:3]}")
+    return {"res": res, "plan": plan, "out": out}
+
+
+def _explicit_twin(cell, rs):
+    """A scenario-tenant FleetCell as explicit streams: the same merged
+    stream and tables, independent of where it was realized."""
+    from repro_torch.fleet import FleetCell, TenantSpec
+    tenants = tuple(TenantSpec(arrival_times=tuple(rs.times[rs.tids == i]),
+                               request_size_s=float(rs.sizes[i]),
+                               slo=t.slo, weight=t.weight, seed=t.seed)
+                    for i, t in enumerate(cell.tenants))
+    return FleetCell(tenants=tenants, dispatcher=cell.dispatcher,
+                     admission=cell.admission, fleet=cell.fleet,
+                     energy_weight=cell.energy_weight, horizon_s=rs.horizon_s,
+                     allocate_fpgas=cell.allocate_fpgas,
+                     failures=rs.failures, tag=cell.tag)
+
+
+def phase_fleet_vs_cpu(fleet: dict) -> dict:
+    """The FLEET_VS_CPU_SCALE-tenant cells on the CPU from the card's
+    realized streams (explicit twins, whose plan arrays equal the card
+    plan's), against the card run."""
+    import numpy as np
+    from repro_torch.sim.plan import plan_fleet
+    from repro_torch.sim.sweep import sweep_fleet
+    res, plan = fleet["res"], fleet["plan"]
+    idx = [i for i, c in enumerate(res.cells)
+           if c.tag[0] == FLEET_VS_CPU_SCALE]
+    twins = [_explicit_twin(res.cells[i], plan.meta["resolved"][i])
+             for i in idx]
+    d_card = next(d for d in plan.dispatches if d.cell_idx[0] == idx[0])
+    d_twin, = plan_fleet(twins).dispatches
+    for k, a in d_card.arrays.items():
+        check(np.array_equal(a, d_twin.arrays[k]),
+              f"fleet_vs_cpu: the explicit twins' {k} differ")
+    t0 = time.perf_counter()
+    cpu = sweep_fleet(twins, device="cpu")
+    wall = time.perf_counter() - t0
+    bad = []
+    for j, i in enumerate(idx):
+        bad += _fleet_pair((res.totals(i), res.tenants(i)),
+                           (cpu.totals(j), cpu.tenants(j)), res.cells[i].tag)
+    out = {"phase": "fleet_vs_cpu", "n_tenants": FLEET_VS_CPU_SCALE,
+           "cells": len(idx),
+           "offered": sum(cpu.totals(j).breakdown["offered_requests"]
+                          for j in range(len(idx))),
+           "cpu_wall_s": wall, "mismatches": bad[:10]}
+    emit(out)
+    check(len(idx) == 3, f"fleet_vs_cpu: {len(idx)} cells")
+    check(not bad, f"fleet card/CPU mismatches: {bad[:3]}")
+    return out
+
+
 def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
     """Run ``run`` once under torch.profiler; the wall time, the union of
     device spans (busy time, idle share) and, per kernel name, its
@@ -2139,8 +2818,37 @@ def _serve_profile(serve: dict, torch) -> dict:
     return {"slots": SERVE_SLOTS, "lengths": lengths, **prof}
 
 
+def _fleet_profile(fleet_run: dict, torch) -> dict:
+    """The fleet path under the profiler: the 1024-tenant dispatch of the
+    fleet phase cut to its first FLEET_PROFILE_ENTRIES entries, after a
+    warm-up on two; idle share, device ops and wall per arrival slot."""
+    import numpy as np
+    from repro_torch.sim.exec import LocalBackend
+    d = max(fleet_run["plan"].dispatches,
+            key=lambda d: d.arrays["ta_size"].shape[1])
+
+    def cut(n):
+        return replace(d, arrays={k: (v[:, :n] if k in ("times", "tids",
+                                                        "tick_t", "is_tick")
+                                      else v)
+                                  for k, v in d.arrays.items()})
+
+    backend = LocalBackend(CARD)
+    backend.run(cut(2))                             # warm up the allocator
+    fleet_cut = cut(FLEET_PROFILE_ENTRIES)
+    slots = int(np.isfinite(fleet_cut.arrays["times"]).sum(axis=2)
+                .max(axis=0).sum())
+    prof = _device_profile(lambda: backend.run(fleet_cut),
+                           "fleet_dispatch.json", ["arrival_kernel"], torch)
+    return {"cells": d.n_real, "chunk": d.chunk,
+            "tenants": d.arrays["ta_size"].shape[1],
+            "entries": FLEET_PROFILE_ENTRIES, "arrival_slots": slots,
+            "wall_ms_per_slot": prof["wall_ms"] / slots,
+            "device_ops_per_slot": prof["device_ops"] / slots, **prof}
+
+
 def phase_profile(main: dict, fig2: dict, t9: dict, serve: dict,
-                  torch) -> dict:
+                  fleet_run: dict, torch) -> dict:
     import numpy as np
     from repro_torch.core.dp import level_buckets, solve_dp_batch
     from repro_torch.sim.sweep import sweep
@@ -2185,6 +2893,7 @@ def phase_profile(main: dict, fig2: dict, t9: dict, serve: dict,
         **_device_profile(lambda: backend.run(cut), "table9_dispatch.json",
                           ["arrival_kernel", "spork_predict"], torch)}
     out["serve_decode_step"] = _serve_profile(serve, torch)
+    out["fleet_dispatch"] = _fleet_profile(fleet_run, torch)
     out["note"] = "wall times are under the profiler"
     emit(out)
     return out
@@ -2218,17 +2927,34 @@ def main() -> int:
     decode = phase_decode_attn_kernel(torch)
     serve = phase_serve(torch)
     phase_serve_vs_cpu(torch)
-    phase_profile(main_run, fig2, t9, serve, torch)
+    scen = phase_scenario_suite(torch)
+    phase_scenario_vs_cpu(scen)
+    chaos = phase_chaos_suite(torch)
+    phase_chaos_vs_cpu(chaos)
+    fleet = phase_fleet(torch)
+    phase_fleet_vs_cpu(fleet)
+    phase_profile(main_run, fig2, t9, serve, fleet, torch)
     # each path's count was zeroed just before it ran and read just after
     predict_paths = {
         "table8": main_run["out"]["spork_predict_launches"],
         "table9": t9["out"]["launches"]["spork_predict"],
-        "serve_router": serve["out"]["router"]["spork_predict_launches"]}
+        "serve_router": serve["out"]["router"]["spork_predict_launches"],
+        "scenario": scen["out"]["spork_predict_launches"],
+        "chaos": chaos["out"]["launches"]["spork_predict"],
+        "fleet": fleet["out"]["launches"]["spork_predict"],
+        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_launches"]}
     phase_predict_paths(kernel, {
         "table8": main_run["out"]["spork_predict_shapes"],
         "table9": t9["out"]["spork_predict_shapes"],
-        "serve_router": serve["out"]["router"]["spork_predict_shapes"]},
+        "serve_router": serve["out"]["router"]["spork_predict_shapes"],
+        "scenario": scen["out"]["spork_predict_shapes"],
+        "chaos": chaos["out"]["spork_predict_shapes"],
+        "fleet": fleet["out"]["spork_predict_shapes"],
+        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_shapes"]},
         torch)
+    arrival_paths = {"table9": t9["out"]["launches"]["arrival"],
+                     "chaos": chaos["out"]["launches"]["arrival"],
+                     "fleet": fleet["out"]["launches"]["arrival"]}
     mp_launches = {
         "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
         "minplus_structured":
@@ -2254,9 +2980,13 @@ def main() -> int:
             "name": "arrival", "route": "cuda",
             "source": "src/repro_torch/kernels/arrival/csrc/arrival.cu",
             "replaces": "src/repro/kernels/arrival/arrival.py:139",
-            "launches": t9["out"]["launches"]["arrival"],
+            "launches": sum(arrival_paths.values()),
+            "launches_by_path": arrival_paths,
             **{k: arrival[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}},
+                                       "bound_ms", "bound_by", "library_ms")},
+            "fleet_shape": {k: arrival["fleet_shape"]["pristine"][k]
+                            for k in ("C", "W", "B", "ms", "step_ms",
+                                      "plain_ms", "bound_ms", "bound_by")}},
         {"name": "decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/decode_attn.py:92",

@@ -10,12 +10,15 @@ Port of `repro.core.bmodel`. The reference draws its coin flips with
 `jax.random`, whose bits cannot be reproduced here, so this cascade draws
 from a numpy `Generator` seeded from ``seed`` and matches the reference
 in distribution only (same float32 cascade arithmetic, same volume and
-mean). Trace preparation is host-side setup, so it stays in numpy.
+mean). Trace preparation is host-side setup, so it stays in numpy;
+`bmodel_series_torch` is the same cascade on a `torch.Generator`, for
+the workload library's batch synthesis on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def bmodel_series(rng: np.random.Generator, bias: float, levels: int,
@@ -29,6 +32,21 @@ def bmodel_series(rng: np.random.Generator, bias: float, levels: int,
         bits = rng.random(vols.shape[0]) < 0.5
         left = np.where(bits, b, one - b)
         vols = np.stack([vols * left, vols * (one - left)], axis=1).reshape(-1)
+    return vols
+
+
+def bmodel_series_torch(g: torch.Generator, bias: float, levels: int,
+                        total_volume: float) -> torch.Tensor:
+    """`bmodel_series` on the generator's device: ``2**levels`` float32
+    volumes summing to total_volume, the coin flips drawn from ``g``."""
+    vols = torch.full((1,), float(total_volume), dtype=torch.float32,
+                      device=g.device)
+    b = torch.tensor(bias, dtype=torch.float32, device=g.device)
+    for _ in range(levels):
+        bits = torch.rand(vols.shape[0], generator=g, device=g.device) < 0.5
+        left = torch.where(bits, b, 1.0 - b)
+        vols = torch.stack([vols * left, vols * (1.0 - left)],
+                           dim=1).reshape(-1)
     return vols
 
 

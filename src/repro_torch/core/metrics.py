@@ -7,15 +7,16 @@ and spin-up overhead) with *default* worker parameters:
   energy_efficiency = E_ideal / E_actual        (<= 1.0, higher is better)
   relative_cost     = cost_actual / cost_ideal  (>= 1.0, lower is better)
 
-Transliterated from `repro.core.metrics`. The per-tenant rows
-(`TenantTotals`, `attribute_tenants`) belong to the fleet layer and are
-not ported yet.
+Transliterated from `repro.core.metrics`, with the fleet layer's
+per-tenant rows (`TenantTotals`, `attribute_tenants`).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from .workers import FleetParams
 
@@ -67,6 +68,90 @@ class RunTotals:
         """True iff every float field is finite."""
         return all(math.isfinite(float(getattr(self, f)))
                    for f in self.FLOAT_FIELDS)
+
+
+@dataclass
+class TenantTotals:
+    """Per-tenant slice of one multi-tenant fleet run (`repro_torch.fleet`).
+
+    Conservation contract: over all tenants of one
+    `repro_torch.fleet.specs.FleetCell`,
+
+      * sum(admitted)        == fleet ``RunTotals.requests``   (exact)
+      * sum(shed)            == ``breakdown['shed_requests']`` (exact)
+      * sum(deadline_misses) == fleet ``deadline_misses``      (exact)
+      * sum(work_on_*_cpu_s) == fleet ``work_on_*_cpu_s``      (~float)
+      * sum(energy_j/cost_usd) == fleet totals                 (~float)
+
+    and per tenant ``admitted + shed == requests`` (offered) with
+    ``deadline_misses <= admitted``. Energy and cost are *attributed*
+    (the fleet is shared hardware): each tenant gets a share proportional
+    to its served work (`attribute_tenants`)."""
+
+    tenant: int = 0                   # tenant index within the cell
+    weight: float = 1.0               # TenantSpec.weight (fairness share)
+    requests: int = 0                 # offered = admitted + shed
+    admitted: int = 0
+    shed: int = 0                     # rejected by router-level admission
+    deadline_misses: int = 0
+    work_cpu_s: float = 0.0           # admitted demand, CPU-seconds
+    work_on_fpga_cpu_s: float = 0.0
+    work_on_cpu_cpu_s: float = 0.0
+    energy_j: float = 0.0             # attributed share of fleet energy
+    cost_usd: float = 0.0             # attributed share of fleet cost
+
+    def row(self) -> dict:
+        """Flat record (rounded) for printing and comparing rows."""
+        return {
+            "tenant": self.tenant, "weight": round(self.weight, 4),
+            "requests": self.requests, "admitted": self.admitted,
+            "shed": self.shed, "misses": self.deadline_misses,
+            "miss_rate": round(self.deadline_misses
+                               / max(self.admitted, 1), 6),
+            "shed_rate": round(self.shed / max(self.requests, 1), 6),
+            "energy_j": round(self.energy_j, 3),
+            "cost_usd": round(self.cost_usd, 6),
+        }
+
+
+def attribute_tenants(totals: "RunTotals", weights, sizes, offered,
+                      admitted, shed, missed, work_f,
+                      work_c) -> list[TenantTotals]:
+    """Build per-tenant `TenantTotals` rows from one fleet run.
+
+    Counters (``offered``/``admitted``/``shed``/``missed``) and the
+    served-work splits (``work_f``/``work_c``, CPU-seconds) come straight
+    from the engines' per-tenant accumulators; shared-fleet ``energy_j``
+    and ``cost_usd`` are attributed proportionally to each tenant's
+    served work (falling back to its admitted-request share when nothing
+    was served), so the rows always sum back to the fleet totals within
+    float tolerance. Both `repro_torch.fleet.oracle.FleetSim` and the
+    batched `repro_torch.fleet.engine` produce rows through this one
+    function, so the attribution rule cannot drift between engines."""
+    weights = np.asarray(weights, np.float64)
+    sizes = np.asarray(sizes, np.float64)
+    offered = np.asarray(offered, np.int64)
+    admitted = np.asarray(admitted, np.int64)
+    shed = np.asarray(shed, np.int64)
+    missed = np.asarray(missed, np.int64)
+    work_f = np.asarray(work_f, np.float64)
+    work_c = np.asarray(work_c, np.float64)
+    served = work_f + work_c
+    basis = served if served.sum() > 0 else admitted.astype(np.float64)
+    total = basis.sum()
+    share = (basis / total if total > 0
+             else np.full(len(basis), 1.0 / max(len(basis), 1)))
+    return [
+        TenantTotals(
+            tenant=i, weight=float(weights[i]),
+            requests=int(offered[i]), admitted=int(admitted[i]),
+            shed=int(shed[i]), deadline_misses=int(missed[i]),
+            work_cpu_s=float(admitted[i] * sizes[i]),
+            work_on_fpga_cpu_s=float(work_f[i]),
+            work_on_cpu_cpu_s=float(work_c[i]),
+            energy_j=float(totals.energy_j * share[i]),
+            cost_usd=float(totals.cost_usd * share[i]))
+        for i in range(len(basis))]
 
 
 @dataclass(frozen=True)

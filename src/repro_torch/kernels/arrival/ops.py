@@ -91,18 +91,31 @@ def pack_cells(es: EventScalars, code) -> tuple[torch.Tensor, ...]:
 
 
 def bind(es: EventScalars, fstat: FailStatic, code, w_f: int):
-    """The arrival-block step of one chunk of cells: ``step(c, times)``
-    applies one block of arrivals (``times`` ``(C, B)`` float32, +inf
-    padded) to the carry of every cell and returns the new carry.
-    ``code`` is the ``(C,)`` dispatch policy code.
+    """The arrival-block step of one chunk of cells:
+    ``step(c, times, size_deadline=None)`` applies one block of arrivals
+    (``times`` ``(C, B)`` float32, +inf padded) to the carry of every
+    cell and returns the new carry. ``code`` is the ``(C,)`` dispatch
+    policy code. ``size_deadline``, a ``(C, 2)`` float32 tensor, replaces
+    each cell's request size and deadline for this block only (the fleet
+    engine's per-arrival tenant, as the reference swaps them into its
+    scalars with ``es._replace``).
 
     What is the same for the whole chunk is packed once, here: on the
     card the scalar rows, seed and codes, after one host read that checks
-    the codes against the built-in policies the kernel implements."""
+    the codes against the built-in policies the kernel implements; per
+    block only the two swapped columns are written, on the device. A
+    carry that is the previous block's result is passed on as the
+    kernel's own output tables, not packed again."""
     dev = es.size.device
     if dev.type == "cpu":
         from .ref import arrival_block_ref
-        return functools.partial(arrival_block_ref, es, fstat, code, w_f)
+
+        def plain(c: EvCarry, times: torch.Tensor,
+                  size_deadline: torch.Tensor | None = None) -> EvCarry:
+            return arrival_block_ref(_swapped(es, size_deadline), fstat,
+                                     code, w_f, c, times)
+
+        return plain
     if dev.type != "cuda":
         raise ValueError(f"arrival: unsupported device {dev}")
     cells_in = pack_cells(es, code)
@@ -114,8 +127,11 @@ def bind(es: EventScalars, fstat: FailStatic, code, w_f: int):
     cells = len(cells_in[0])
     flags = (int(fstat.enabled), int(fstat.max_retries),
              int(fstat.max_failover))
+    swap_rows = cells_in[0].clone()     # scalar rows with swapped columns
+    last: list = [None, None]           # (carry, its tables) of the last block
 
-    def step(c: EvCarry, times: torch.Tensor) -> EvCarry:
+    def step(c: EvCarry, times: torch.Tensor,
+             size_deadline: torch.Tensor | None = None) -> EvCarry:
         W = c.serv_slot.shape[1]
         if c.serv_slot.shape[0] != cells or times.dim() != 2 \
                 or times.shape[0] != cells:
@@ -127,21 +143,40 @@ def bind(es: EventScalars, fstat: FailStatic, code, w_f: int):
         if not 1 <= w_f <= W <= MAX_W:
             raise ValueError(f"arrival: need 1 <= w_f <= W <= {MAX_W}, got "
                              f"w_f={w_f}, W={W}")
-        ins = (*cells_in, times.contiguous(), *pack_carry(c))
+        rows = cells_in[0]
+        if size_deadline is not None:
+            if size_deadline.shape != (cells, 2) \
+                    or size_deadline.dtype != torch.float32:
+                raise ValueError(f"arrival: size_deadline must be ({cells}, "
+                                 f"2) float32")
+            rows = swap_rows
+            rows[:, :2].copy_(size_deadline)
+        tables = last[1] if c is last[0] else pack_carry(c)
+        ins = (rows, *cells_in[1:], times.contiguous(), *tables)
         if any(x.device != dev for x in ins):
             raise ValueError("arrival: carry, times and scalars must lie on "
                              "one device")
-        outs = [torch.empty_like(x) for x in ins[4:]]
+        outs = tuple(torch.empty_like(x) for x in tables)
         with torch.cuda.device(dev):
-            rc = _launcher()(*(x.data_ptr() for x in ins + tuple(outs)),
+            rc = _launcher()(*(x.data_ptr() for x in ins + outs),
                              cells, W, w_f, times.shape[1], *flags,
                              torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"arrival launch failed: CUDA error {rc}")
         arrival_block.launches += 1
-        return unpack_carry(*outs)
+        out = unpack_carry(*outs)
+        last[:] = [out, outs]
+        return out
 
     return step
+
+
+def _swapped(es: EventScalars, size_deadline) -> EventScalars:
+    """``es`` with the size and deadline of ``size_deadline`` ``(C, 2)``
+    (None: unchanged)."""
+    if size_deadline is None:
+        return es
+    return es._replace(size=size_deadline[:, 0], deadline=size_deadline[:, 1])
 
 
 def arrival_block(es: EventScalars, fstat: FailStatic, code, w_f: int,

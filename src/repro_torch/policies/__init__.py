@@ -1,6 +1,5 @@
-"""repro_torch.policies — the rate and dispatch families of the
-policy-as-plugin layer (port of `repro.policies`; the admission family
-waits for the fleet slice).
+"""repro_torch.policies — the rate, dispatch and admission families of
+the policy-as-plugin layer (port of `repro.policies`).
 
 A policy is a frozen dataclass (static structure: plan group key) + a
 `RateParams` tuple of per-cell tensors + pure step functions on batched
@@ -12,13 +11,18 @@ from repro_torch.policies.base import (DISPATCH_REGISTRY, RATE_REGISTRY,
                                        RateParams, RatePolicy)
 from repro_torch.policies import des as _des  # noqa: F401  (registers dispatch)
 from repro_torch.policies import rate as _rate  # noqa: F401  (registers rate)
+from repro_torch.policies.admission import (ADMISSION_REGISTRY,
+                                            AdmissionPolicy,
+                                            admission_decide)
 from repro_torch.policies.des import dispatch_select
 
 __all__ = [
-    "Candidates", "DispatchPolicy", "RateCtx", "RateParams", "RatePolicy",
-    "dispatch_policies", "dispatch_policy_names", "dispatch_select",
-    "get_dispatch_policy", "get_rate_policy", "rate_policies",
-    "rate_policy_names", "register_dispatch", "register_rate",
+    "AdmissionPolicy", "Candidates", "DispatchPolicy", "RateCtx",
+    "RateParams", "RatePolicy", "admission_decide", "admission_policies",
+    "admission_policy_names", "dispatch_policies", "dispatch_policy_names",
+    "dispatch_select", "get_admission_policy", "get_dispatch_policy",
+    "get_rate_policy", "rate_policies", "rate_policy_names",
+    "register_admission", "register_dispatch", "register_rate",
 ]
 
 
@@ -66,3 +70,27 @@ def register_dispatch(policy: DispatchPolicy) -> DispatchPolicy:
             raise ValueError(
                 f"dispatch code {policy.code} already taken by {p.name!r}")
     return DISPATCH_REGISTRY.register(policy)
+
+
+def get_admission_policy(policy) -> AdmissionPolicy:
+    """Resolve an admission policy by name, or pass an instance through."""
+    return ADMISSION_REGISTRY.get(policy)
+
+
+def admission_policy_names() -> tuple[str, ...]:
+    return ADMISSION_REGISTRY.names()
+
+
+def admission_policies() -> tuple[AdmissionPolicy, ...]:
+    return ADMISSION_REGISTRY.all()
+
+
+def register_admission(policy: AdmissionPolicy) -> AdmissionPolicy:
+    """Register a new admission policy object (unique name AND unique code
+    required: both fleet engines select the shared `admission_decide`
+    function by the code)."""
+    for p in ADMISSION_REGISTRY.all():
+        if p.code == policy.code:
+            raise ValueError(
+                f"admission code {policy.code} already taken by {p.name!r}")
+    return ADMISSION_REGISTRY.register(policy)

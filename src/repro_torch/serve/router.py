@@ -11,7 +11,8 @@ card (`repro_torch.launch.mesh`); when a dry-run record exists its
 roofline terms override the analytic estimate. The router itself is the
 paper's machinery (Algs. 1-3 via `repro_torch.sim.events.EventSim`)
 driven online; its allocator ticks run the `spork_predict` kernel on the
-card. The multi-tenant `TenantRouter` waits for the fleet layer.
+card. `TenantRouter` drives the fleet layer's multi-tenant oracle online
+the same way.
 """
 
 from __future__ import annotations
@@ -84,6 +85,44 @@ def fleet_for_arch(arch: str, avg_new_tokens: int = 64,
         fpga=base.fpga.replace(speedup=sm.speedup),
         cpu=base.cpu.replace(speedup=1.0))
     return fleet, size_cpu_s
+
+
+class TenantRouter:
+    """Online multi-tenant router: the fleet layer's admission + dispatch
+    driven request-by-request over ONE shared fleet.
+
+    Wraps `repro_torch.fleet.FleetSim` the way `SporkRouter` wraps
+    `EventSim`: `submit(t, tenant)` runs the cell's router-level
+    admission policy (`repro_torch.policies.admission`, float32 —
+    decisions bit-identical to both batch engines) and, if admitted,
+    dispatches with the tenant's own size and SLO deadline; `finish`
+    returns the fleet `Report` plus the per-tenant
+    `repro_torch.core.metrics.TenantTotals` rows. Online submission
+    equals `repro_torch.fleet.simulate_fleet` on the same stream.
+    ``device`` (None: the card) runs the allocator's per-tick predict."""
+
+    def __init__(self, cell, n_max: int = 512,
+                 device: str | torch.device | None = None):
+        from repro_torch.fleet import FleetSim, resolve_fleet_cell
+        self.cell = cell
+        self.sim = FleetSim(cell, n_max=n_max, device=device)
+        self.horizon = resolve_fleet_cell(cell, device).horizon_s
+        self.sim.schedule_ticks(self.horizon)
+
+    def submit(self, t: float, tenant: int) -> bool:
+        """One tenant request at time t; returns admitted (False = shed)."""
+        return self.sim.submit_tagged(t, tenant)
+
+    def advance(self, t: float) -> None:
+        self.sim.drain_until(t, self.horizon)
+
+    def finish(self) -> tuple[Report, list]:
+        # drain the WHOLE event heap (spin-ups/reclaims can land past
+        # the horizon) — `FleetSim.run_tagged` does the same, and the
+        # online == batch equivalence is exact only if both settle alike
+        self.sim.drain_until(float("inf"), self.horizon)
+        totals, rows = self.sim.finalize_fleet(self.horizon)
+        return report(totals, self.cell.fleet), rows
 
 
 class SporkRouter:

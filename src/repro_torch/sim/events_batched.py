@@ -710,8 +710,15 @@ def _simulate_cells(n_max: int, w_fpga: int, w_cpu: int, fstat: FailStatic,
         if ticks[e]:
             c, ts = _tick_step(es, fstat, w_fpga, is_f, c, ts, tick_t[:, e],
                                is_tick[:, e])
-    # final drain: every remaining worker idles out at its own timeout
-    inf = torch.full((cells,), torch.inf, device=dev)
+    return _finish(es, fstat, w_fpga, is_f, c, ts)
+
+
+def _finish(es: EventScalars, fstat: FailStatic, w_fpga: int, is_f,
+            c: EvCarry, ts: TickState) -> tuple:
+    """Final drain (every remaining worker idles out at its own timeout)
+    and the run's ``(Accum, FailAcc, overflow)``, every leaf ``(C,)``."""
+    inf = torch.full((c.next_wid.shape[0],), torch.inf,
+                     device=c.next_wid.device)
     c, ts = _settle(es, is_f, c, ts, inf, True)
     fl = c.fail
     if fstat.enabled:
@@ -758,10 +765,10 @@ def _scalars(cell: "EventCell") -> tuple:
 class EventCell:
     """One DES grid cell: one app trace under one dispatch policy.
 
-    Demand is explicit (``arrival_times`` + ``size_s``). ``scenario`` and
-    ``seed`` keep the reference's fields for named workloads, but the
-    workload library is not ported yet: the planner rejects cells that
-    rely on them."""
+    Demand is explicit (``arrival_times`` + ``size_s``) or a named
+    workload (``scenario`` realized at ``seed``), which
+    `repro_torch.sim.sweep.sweep_events` resolves
+    (`repro_torch.sim.plan.resolve_scenarios`)."""
 
     dispatcher: str
     arrival_times: np.ndarray | None = None
@@ -772,7 +779,7 @@ class EventCell:
     deadline_s: float | None = None
     allocate_fpgas: bool = True
     tag: Any = None
-    scenario: Any = None          # not ported yet (plan_events rejects it)
+    scenario: Any = None          # workloads.scenarios.ScenarioSpec
     seed: int = 0                 # scenario realization seed
     failures: FailureSpec | None = None   # fault model (static sweep axis)
 
@@ -817,26 +824,38 @@ class EventCell:
                 f"{np.shape(self.seed)}")
 
 
-def _entries(arr: np.ndarray, interval_s: float,
-             horizon: float) -> list[tuple]:
+def _entries(arr: np.ndarray, interval_s: float, horizon: float,
+             payload: np.ndarray | None = None) -> list[tuple]:
     """Flat entry stream for one cell: ``(row, tick)`` pairs of
     fixed-width arrival blocks, with tick markers riding on the last block
     of each interval. Bucket k holds arrivals in ((k-1)*T_s, k*T_s] so
     every arrival precedes its tick (the oracle pops arrivals before
     same-time events), and the final bucket holds the post-last-tick
-    tail."""
+    tail.
+
+    With ``payload`` (a per-arrival array aligned with ``arr``, e.g. the
+    fleet layer's tenant indices) entries are ``(row, pay_row, tick)``
+    3-tuples, the payload sliced identically to the times."""
     K = int(np.ceil(horizon / interval_s))
     idx = np.minimum(np.ceil(np.asarray(arr, np.float64) / interval_s)
                      .astype(np.int64), K)
     idx = np.maximum(idx, 0)
     out: list[tuple] = []
+
+    def split(x):
+        return [x[j:j + BLOCK] for j in range(0, len(x), BLOCK)] or [x[:0]]
+
     for k in range(K + 1):
-        b = np.asarray(arr)[idx == k]
-        blocks = ([b[j:j + BLOCK] for j in range(0, len(b), BLOCK)]
-                  or [b[:0]])
+        sel = idx == k
+        blocks = split(np.asarray(arr)[sel])
         tick = k * interval_s if k < K else None
-        out.extend((r, None) for r in blocks[:-1])
-        out.append((blocks[-1], tick))
+        if payload is None:
+            out.extend((r, None) for r in blocks[:-1])
+            out.append((blocks[-1], tick))
+        else:
+            pblocks = split(np.asarray(payload)[sel])
+            out.extend((r, p, None) for r, p in zip(blocks[:-1], pblocks))
+            out.append((blocks[-1], pblocks[-1], tick))
     return out
 
 
@@ -858,7 +877,8 @@ def simulate_events_batch(cells: Iterable[EventCell], n_max: int = 512,
     ``device=None`` runs on the card."""
     from repro_torch.sim.exec import execute
     from repro_torch.sim.plan import plan_events
-    plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu)
+    plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu,
+                       resolve=False)
     return execute(plan, backend, device=device).totals()
 
 

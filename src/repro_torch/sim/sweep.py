@@ -9,7 +9,10 @@ one batched simulator call (`repro_torch.sim.exec`).
 
 `sweep_events` does the same for discrete-event cells (`EventCell`,
 Table 9): the batched `events_batched` engine, chunks of up to 32 cells
-grouped by entry-stream length.
+grouped by entry-stream length. `sweep_fleet` runs multi-tenant fleet
+cells (`repro_torch.fleet.FleetCell`) on the batched fleet engine. Cells
+may name a workload scenario instead of explicit demand; it is realized
+on the sweep's device (`repro_torch.sim.plan.resolve_scenarios`).
 
 Equivalence: per-cell totals match per-call `ratesim.simulate` at the
 same ``n_max`` to float32 tolerance.
@@ -28,23 +31,26 @@ from repro_torch.core.workers import DEFAULT_FLEET, FleetParams
 from repro_torch.sim.events_batched import EventCell
 from repro_torch.sim.exec import Backend, execute, get_backend
 from repro_torch.sim.plan import (CHUNK, CHUNK_BIG, _N_MAX_CAP,
-                                  EventSweepResult, SweepPlan, SweepResult,
-                                  check_cells, plan_events, plan_sweep)
+                                  EventSweepResult, FleetSweepResult,
+                                  SweepPlan, SweepResult, check_cells,
+                                  plan_events, plan_fleet, plan_sweep,
+                                  resolve_scenarios)
 from repro_torch.sim.ratesim import headroom_unit, tune_fpga_dynamic
 
 __all__ = [
-    "EventCell", "EventSweepResult", "SweepCell", "SweepResult",
-    "SweepPlan", "sweep", "sweep_events", "tune_fpga_dynamic_cells",
-    "CHUNK", "CHUNK_BIG",
+    "EventCell", "EventSweepResult", "FleetSweepResult", "SweepCell",
+    "SweepResult", "SweepPlan", "resolve_scenarios", "sweep",
+    "sweep_events", "sweep_fleet", "tune_fpga_dynamic_cells", "CHUNK",
+    "CHUNK_BIG",
 ]
 
 
 @dataclass(frozen=True)
 class SweepCell:
     """One grid cell of a parameter sweep: explicit per-second ``counts``
-    plus a scalar ``size_s``. ``scenario``/``seed`` keep the reference's
-    fields, but the planner rejects scenario cells until the workload
-    library is ported. A cell with ``failures`` runs on its degraded fleet
+    plus a scalar ``size_s``, or a named workload (``scenario`` realized
+    at ``seed``, `repro_torch.workloads.scenarios.ScenarioSpec`). A cell
+    with ``failures`` runs on its degraded fleet
     (`FailureSpec.degrade_fleet`)."""
 
     policy: str
@@ -55,7 +61,7 @@ class SweepCell:
     headroom: int = 0             # fpga_dynamic family only
     forecast_gain: float = 1.0    # predictive only: trend-extrapolation gain
     tag: Any = None               # caller's join key; carried through
-    scenario: Any = None          # not ported yet (plan_sweep rejects it)
+    scenario: Any = None          # workloads.scenarios.ScenarioSpec
     seed: int = 0                 # scenario realization seed
     failures: Any = None          # FailureSpec, fluidized by plan_sweep
 
@@ -100,8 +106,11 @@ def sweep(cells: Iterable[SweepCell], n_max: int | None = None,
           device: str | torch.device | None = None) -> SweepResult:
     """Simulate every cell, one batched call per (policy, interval,
     spin-up, horizon) group chunk. Cell order is preserved in the result.
-    ``device=None`` runs on the card."""
-    return execute(plan_sweep(cells, n_max=n_max), backend, device=device)
+    ``device=None`` runs on the card (scenario cells are realized there
+    too)."""
+    backend = get_backend(backend, device)
+    return execute(plan_sweep(cells, n_max=n_max, device=backend.device),
+                   backend)
 
 
 def sweep_events(cells: Iterable[EventCell], n_max: int = 512,
@@ -120,12 +129,43 @@ def sweep_events(cells: Iterable[EventCell], n_max: int = 512,
     enough). ``checkpoint_dir`` and ``retry`` belong to the operability
     layer, which is not ported yet: passing either raises
     NotImplementedError."""
+    _no_operability("sweep_events", checkpoint_dir, retry)
+    backend = get_backend(backend, device)
+    plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu,
+                       device=backend.device)
+    return execute(plan, backend)
+
+
+def sweep_fleet(cells, n_max: int = 512, w_fpga: int = 32, w_cpu: int = 64,
+                backend: str | Backend | None = None,
+                device: str | torch.device | None = None,
+                checkpoint_dir=None, retry=None) -> FleetSweepResult:
+    """Multi-tenant fleet cells (`repro_torch.fleet.FleetCell`) in sweep
+    grids. Each cell is N tenants sharing ONE fleet under one dispatch
+    policy and one admission policy; the batched engine
+    (`repro_torch.fleet.engine`) carries the tenant axis beside the DES
+    state, so a 1024-tenant x policy grid is a handful of dispatches.
+    ``device=None`` runs on the card, where every arrival goes through
+    the `arrival` kernel as a block of one.
+
+    Returns a `FleetSweepResult`: cell-ordered fleet `RunTotals` (with
+    ``breakdown['offered_requests']`` / ``['shed_requests']``) plus
+    per-tenant `repro_torch.core.metrics.TenantTotals` rows via
+    ``.tenants(i)``. ``checkpoint_dir`` and ``retry`` belong to the
+    operability layer, which is not ported yet: passing either raises
+    NotImplementedError."""
+    _no_operability("sweep_fleet", checkpoint_dir, retry)
+    backend = get_backend(backend, device)
+    plan = plan_fleet(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu,
+                      device=backend.device)
+    return execute(plan, backend)
+
+
+def _no_operability(name: str, checkpoint_dir, retry) -> None:
     if checkpoint_dir is not None or retry is not None:
         raise NotImplementedError(
-            "sweep_events(checkpoint_dir=..., retry=...) needs the "
-            "operability layer, which repro_torch does not port yet")
-    plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu)
-    return execute(plan, backend, device=device)
+            f"{name}(checkpoint_dir=..., retry=...) needs the operability "
+            f"layer, which repro_torch does not port yet")
 
 
 def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,
@@ -141,9 +181,9 @@ def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,
     delta, so real traces tune at k <= ~2; a cell still missing
     deadlines at max_k falls back to the full serial-equivalent search
     (`ratesim.tune_fpga_dynamic`, k <= 32)."""
-    cells = list(cells)
-    check_cells(cells)
     backend = get_backend(backend, device)
+    cells = resolve_scenarios(cells, backend.device)
+    check_cells(cells)
     K = max_k + 1
     units, expanded = [], []
     for c in cells:

@@ -111,8 +111,14 @@ def test_plan_events_matches_reference_plan():
 
 
 def test_planner_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="scenario"):
-        plan_events([EventCell("spork", scenario="steady")])
+    # scenario cells are resolved now (tests/test_torch_workloads.py holds
+    # them to the reference); unresolved, they still fail fast
+    from repro_torch.workloads import registry
+    spec = registry.get("steady").with_(horizon_s=60, mean_demand_workers=2.0)
+    plan = plan_events([EventCell("spork", scenario=spec)], device="cpu")
+    assert plan.cells[0].arrival_times is not None
+    with pytest.raises(ValueError, match="sweep_events"):
+        plan_events([EventCell("spork", scenario=spec)], resolve=False)
     with pytest.raises(ValueError, match="explicit"):
         plan_events([EventCell("spork")])
     cell = _golden_cell(EVENT_KEYS[0])

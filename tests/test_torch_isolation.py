@@ -58,3 +58,12 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
     alone = _run_chip_smoke(tmp_path)
     assert alone.returncode != 0
     assert '"ok"' not in alone.stdout
+
+
+def test_port_reads_its_own_copy_of_the_replay_data():
+    """The ``replay`` scenarios read the port's own copy of the sample
+    trace, not the reference package's tree."""
+    from repro_torch.workloads import scenarios
+    data = Path(scenarios._DATA_DIR).resolve()
+    assert data == PORT / "workloads" / "data"
+    assert (data / "sample_trace.csv").is_file()

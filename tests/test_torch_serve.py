@@ -8,7 +8,10 @@ sums in another order). The router's request size divides by the card's
 memory rate (`repro_torch.launch.mesh.HBM_BW`), so the reference module's
 ``HBM_BW`` is set to the same value for the comparison (an attribute
 patched at run time, no reference file edited); the routers then run the
-same arrival times: counters identical, floats within 1e-5.
+same arrival times: counters identical, floats within 1e-5. The
+multi-tenant `TenantRouter`, submitted request by request, equals the
+batch `simulate_fleet` and the reference's `TenantRouter` on the same
+stream, and refuses an out-of-order submit.
 """
 
 import dataclasses
@@ -204,3 +207,82 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert out["emitted"] == 6 and out["requests"] > 0
     assert 0.0 < out["report"].energy_efficiency <= 1.0
     assert "[engine] decoded 6 tokens" in capsys.readouterr().out
+
+
+def _tenant_cell(admission):
+    """One 3-tenant cell for the port and its reference twin; admission
+    ``(name, knobs)`` starved enough to shed."""
+    import repro.policies.admission as ref_adm
+    import repro_torch.policies.admission as port_adm
+    from repro.fleet import FleetCell as RefCell, TenantSpec as RefTenant
+    from repro_torch.fleet import FleetCell, TenantSpec
+    cls, knobs = admission
+    rng = np.random.default_rng(2)
+    specs = [(tuple(np.sort(rng.integers(0, 60 * 8, 100)) / 8.0), s, slo, w)
+             for s, slo, w in ((0.125, "tight", 2.0), (0.25, "standard", 1.0),
+                               (0.125, "relaxed", 0.5))]
+
+    def cell(cell_cls, tenant_cls, module):
+        return cell_cls(tenants=tuple(
+            tenant_cls(arrival_times=a, request_size_s=s, slo=slo, weight=w)
+            for a, s, slo, w in specs),
+            admission=getattr(module, cls)(**knobs), horizon_s=60.0)
+
+    return cell(FleetCell, TenantSpec, port_adm), cell(RefCell, RefTenant,
+                                                       ref_adm)
+
+
+@pytest.mark.parametrize("admission", [
+    ("TokenBucket", {"rate": 0.5, "burst": 2.0}),
+    ("IntervalQuota", {"quota": 4.0})], ids=["token_bucket", "quota"])
+def test_tenant_router_online_matches_batch_and_reference(admission):
+    """Request-by-request `TenantRouter` submission reproduces the batch
+    fleet simulation exactly (admission decisions, totals, per-tenant
+    rows), and the reference's router on the same stream."""
+    from repro.serve.router import TenantRouter as RefRouter
+    from repro_torch.fleet import resolve_fleet_cell, simulate_fleet
+    cell, ref_cell = _tenant_cell(admission)
+    bt, brows = simulate_fleet(cell, n_max=64, device="cpu")
+
+    tr = router.TenantRouter(cell, n_max=64, device="cpu")
+    ref = RefRouter(ref_cell, n_max=64)
+    rs = resolve_fleet_cell(cell)
+    admitted = 0
+    for t, tid in zip(rs.times, rs.tids):
+        got = tr.submit(float(t), int(tid))
+        assert got == ref.submit(float(t), int(tid))
+        admitted += got
+    rep, rows = tr.finish()
+    ref_rep, ref_rows = ref.finish()
+    assert admitted == bt.requests == rep.totals.requests
+    assert bt.breakdown["shed_requests"] > 0
+    assert rep.totals.deadline_misses == bt.deadline_misses
+    assert rep.totals.energy_j == bt.energy_j
+    for ra, rb in zip(rows, brows):
+        assert ra.row() == rb.row()
+    assert rep.row() == ref_rep.row()
+    for f in ("requests", "deadline_misses", "fpga_spinups", "cpu_spinups"):
+        assert getattr(rep.totals, f) == getattr(ref_rep.totals, f), f
+    np.testing.assert_allclose(rep.totals.energy_j, ref_rep.totals.energy_j,
+                               rtol=1e-5)
+    for ra, rb in zip(rows, ref_rows):
+        assert ra.row() == rb.row()
+
+
+def test_tenant_router_rejects_out_of_order_submit():
+    """Submissions arrive in merged time order across tenants; a t behind
+    the router clock raises instead of running admission against the
+    wrong bucket state."""
+    from repro_torch.fleet import FleetCell, TenantSpec
+    tenants = (TenantSpec(arrival_times=(1.0, 2.0), request_size_s=0.125),
+               TenantSpec(arrival_times=(0.5,), request_size_s=0.125))
+    cell = FleetCell(tenants=tenants, admission="token_bucket",
+                     horizon_s=60.0)
+    tr = router.TenantRouter(cell, device="cpu")
+    assert tr.submit(1.0, 0)
+    with pytest.raises(ValueError, match="out-of-order"):
+        tr.submit(0.5, 1)          # tenant 1's arrival is in the past
+    assert tr.submit(2.0, 0)       # clock still consistent afterwards
+    tr.advance(30.0)
+    rep, rows = tr.finish()
+    assert rep.totals.requests == 2 and len(rows) == 2

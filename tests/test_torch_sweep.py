@@ -125,8 +125,12 @@ def test_tune_fpga_dynamic_cells_matches_reference():
 
 def test_unported_cells_and_backends_are_rejected():
     tr = _traces(1)[0]
-    with pytest.raises(NotImplementedError, match="scenario"):
-        plan_sweep([SweepCell("spork", scenario="steady")])
+    # scenario cells are resolved now (tests/test_torch_workloads.py holds
+    # them to the reference)
+    from repro_torch.workloads import registry
+    spec = registry.get("steady").with_(horizon_s=60)
+    planned = plan_sweep([SweepCell("spork", scenario=spec)], device="cpu")
+    assert len(planned.cells[0].counts) == 60
     # failure-bearing cells are no longer rejected: they run on the
     # degraded fleet (tests/test_torch_failures.py holds the numbers)
     from repro_torch.ft.failures import FailureSpec
