@@ -167,10 +167,30 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                equal to the slots walked; the 16- and 64-tenant cells also
                through FleetSim on the card and TenantRouter on one
                16-tenant cell (counters identical, floats within 1e-5);
-               wall time, time per arrival slot and the 12 rows
+               wall time, time per arrival slot and the 12 rows (the
+               rows' conservation is the harness's check_fleet_result)
   fleet_vs_cpu the 64-tenant cells on the CPU from the card's streams
                (explicit twins with the same plan arrays): counters and
                per-tenant counters identical, floats within 1e-5
+  operability  the Figs. 5-7 grid of launch/spork_sim.py at --points 64
+               (1800 s, n_max 256: 2 dispatches of 32 Spork cells) on the
+               card, spork_predict launches equal to its ticks; the same
+               grid in a child process with a checkpoint directory,
+               SIGKILLed by the harness's hook after its first chunk (exit
+               -9), then resumed here: 1 chunk restored, 1 run, every Accum
+               leaf and eff/cost bitwise the first run; the chaos grid
+               checkpointed, half its entries deleted and rerun (restored +
+               run = its dispatches, totals bitwise the chaos_suite phase)
+               and the 16-tenant fleet cells checkpointed and restored
+               (totals and tenant rows bitwise the fleet phase); a mesh
+               backend whose run raises degrading every chunk to
+               LocalBackend on cuda:0, bitwise; MeshBackend over cuda:0
+               twice (two shards a dispatch, one host thread each),
+               bitwise; fleet results poisoned on the card (a NaN energy,
+               a tenant row off by one request) raising InvariantViolation
+  operability_vs_cpu
+               the same 64 grid points on the CPU: counters identical,
+               floats and eff/cost within 1e-5
   profile      device-idle share of one Spork chunk (32 cells, first
                120 s) under torch.profiler, and the kernel's device time;
                then one hybrid transition="kernel" dispatch of Fig. 2 and
@@ -184,15 +204,20 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                share, device ops and wall per arrival slot
   predict_paths
                spork_predict at every (C, N) that Table 8, Table 9, the
-               router, the scenario, chaos and fleet suites and the fleet
-               oracle ran, bitwise against the CPU plain version again;
+               router, the scenario, chaos and fleet suites, the fleet
+               oracle and the spork_sim grid (local and mesh) ran, bitwise
+               against the CPU plain version again;
                each path's launches by (C, N), and its sum of launches x
                the kernel's time at that shape (graph and eager) and x
                its bound
 
+Every sweep of every phase runs the invariant guards of
+`repro_torch.sim.harness` (the script never sets REPRO_SKIP_INVARIANTS).
+
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
-the sum over its seven paths, Table 8, Table 9, the serve router, the
-scenario, chaos and fleet suites and the fleet oracle with TenantRouter;
+the sum over its nine paths, Table 8, Table 9, the serve router, the
+scenario, chaos and fleet suites, the fleet oracle with TenantRouter and
+the spork_sim grid, local and on the mesh;
 arrival's over Table 9, the chaos suite and the fleet suite; each also
 given on its own), the raw nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
@@ -358,6 +383,12 @@ FLEET_ORACLE_SCALES = (16, 64)   # also through FleetSim on the card
 FLEET_VS_CPU_SCALE = 64
 FLEET_CHECK_ENTRIES = 4          # arrival_kernel's fleet case: entries walked
 FLEET_PROFILE_ENTRIES = 4        # profile: the 1024-tenant dispatch, cut
+OPS_POINTS = 64                  # operability: spork_sim.py's --points 64
+OPS_HORIZON_S = 1800             # sweep_grid's default horizon
+OPS_N_MAX = 256                  # run_grid's default n_max
+OPS_DISPATCHES = 2               # 64 Spork cells in chunks of 32
+OPS_FLEET_SCALE = 16             # the fleet cells resumed and poisoned
+OPS_MESH = ("cuda:0", "cuda:0")  # two shards on the one card
 SCHEDULERS = [                   # benchmarks/table8_production.py
     ("CPU-dynamic", "cpu_dynamic", {}),
     ("FPGA-static", "fpga_static", {}),
@@ -2557,29 +2588,6 @@ def _fleet_slots(plan) -> int:
                    .sum() for d in plan.dispatches))
 
 
-def _conservation(tot, rows) -> list:
-    """What breaks the per-tenant rows' conservation to the cell totals
-    (sim/harness.py::check_fleet_result's contract; slice 6 ports it)."""
-    bad = []
-    sums = {"requests": (sum(r.admitted for r in rows), tot.requests),
-            "shed": (sum(r.shed for r in rows),
-                     tot.breakdown["shed_requests"]),
-            "offered": (sum(r.requests for r in rows),
-                        tot.breakdown["offered_requests"]),
-            "misses": (sum(r.deadline_misses for r in rows),
-                       tot.deadline_misses)}
-    bad += [k for k, (a, b) in sums.items() if a != b]
-    bad += [f"tenant {r.tenant}" for r in rows
-            if r.requests != r.admitted + r.shed
-            or r.deadline_misses > r.admitted]
-    for f in ("work_on_fpga_cpu_s", "work_on_cpu_cpu_s", "energy_j",
-              "cost_usd"):
-        a, b = sum(getattr(r, f) for r in rows), getattr(tot, f)
-        if abs(a - b) > 1e-6 * max(abs(b), 1.0):
-            bad.append(f)
-    return bad
-
-
 def _fleet_pair(a, b, tag) -> list:
     """Fleet (RunTotals, rows) pairs: counters and per-tenant counters
     identical, floats within RTOL_CPU; returns the mismatches."""
@@ -2608,6 +2616,7 @@ def phase_fleet(torch) -> dict:
     from repro_torch.kernels.arrival import ops as arrival_ops
     from repro_torch.kernels.spork_predict import ops as predict_ops
     from repro_torch.serve.router import TenantRouter
+    from repro_torch.sim.harness import InvariantViolation, check_fleet_result
     from repro_torch.sim.plan import plan_fleet
     from repro_torch.sim.sweep import sweep_fleet
     cells = _fleet_cells()
@@ -2628,10 +2637,13 @@ def phase_fleet(torch) -> dict:
                 "spork_predict": predict_ops.expected_objective.launches}
     shapes = _shape_tally(predict_ops)
     broken, rows = [], []
+    try:                              # sweep_fleet ran it too, by default
+        check_fleet_result(res)
+    except InvariantViolation as exc:
+        broken.append(str(exc))
     for i, cell in enumerate(res.cells):
         n, adm = cell.tag
         t, tr = res.totals(i), res.tenants(i)
-        broken += [(n, adm, b) for b in _conservation(t, tr)]
         check(t.is_finite() and t.breakdown["slot_overflow"] == 0,
               f"fleet cell {cell.tag}: malformed totals or overflow")
         offered, shed = (t.breakdown["offered_requests"],
@@ -2685,7 +2697,7 @@ def phase_fleet(torch) -> dict:
            "spork_predict_shapes": shapes,
            "expected_launches": {"arrival": slots,
                                  "spork_predict": tick_entries},
-           "conservation_broken": [list(map(str, b)) for b in broken[:10]],
+           "conservation_broken": broken,
            "oracle": {"scales": list(FLEET_ORACLE_SCALES),
                       "wall_s": oracle_wall,
                       "spork_predict_launches": oracle_launches,
@@ -2756,6 +2768,284 @@ def phase_fleet_vs_cpu(fleet: dict) -> dict:
     emit(out)
     check(len(idx) == 3, f"fleet_vs_cpu: {len(idx)} cells")
     check(not bad, f"fleet card/CPU mismatches: {bad[:3]}")
+    return out
+
+
+_OPS_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import spork_sim
+counts, _, speeds, busy = spork_sim.sweep_grid(int(sys.argv[3]), seed=0,
+                                               horizon_s=int(sys.argv[4]))
+spork_sim.run_sweep(counts, speeds, busy, n_max=int(sys.argv[5]),
+                    checkpoint_dir=sys.argv[2])
+"""
+
+
+def _accum_same(a, b) -> bool:
+    """Two rate SweepResults bitwise equal in every Accum leaf."""
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a.accum, b.accum))
+
+
+def _grid_same(res, eff_cost, want: dict) -> bool:
+    """A rate grid result and its (eff, cost) bitwise equal to `want`'s."""
+    import numpy as np
+    return (_accum_same(res, want["res"])
+            and all(np.array_equal(x, y)
+                    for x, y in zip(eff_cost, want["eff_cost"])))
+
+
+def _totals_same(a, b) -> bool:
+    """Event or fleet results bitwise equal: every RunTotals field and the
+    breakdown, and the tenant rows where there are any."""
+    from repro_torch.core.metrics import RunTotals
+    fields = RunTotals.FLOAT_FIELDS + RunTotals.COUNT_FIELDS
+    same = len(a) == len(b) and all(
+        all(getattr(x, f) == getattr(y, f) for f in fields)
+        and x.breakdown == y.breakdown for x, y in zip(a, b))
+    if hasattr(a, "tenants"):
+        same &= a.tenants() == b.tenants()
+    return same
+
+
+def _drop_half(ckpt: Path) -> int:
+    """Delete every other complete chunk entry; returns how many went."""
+    import shutil
+    from repro_torch.checkpoint import ChunkStore
+    store = ChunkStore(ckpt)
+    gone = store.keys()[::2]
+    for key in gone:
+        shutil.rmtree(ckpt / (ChunkStore.PREFIX + key))
+    return len(gone)
+
+
+def phase_operability(chaos: dict, fleet: dict, torch) -> dict:
+    """The operability layer on the card: the Figs. 5-7 grid of
+    launch/spork_sim.py at --points 64, killed after one chunk and
+    resumed, degraded from a failing mesh, split over two shards of one
+    card; the chaos grid and the 16-tenant fleet cells resumed from
+    their checkpoints; poisoned fleet results caught by the guards."""
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint import ChunkStore
+    from repro_torch.kernels.arrival import ops as arrival_ops
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.launch import spork_sim
+    from repro_torch.sim import harness
+    from repro_torch.sim.exec import LocalBackend, MeshBackend, execute
+    from repro_torch.sim.plan import plan_fleet, plan_sweep
+    from repro_torch.sim.sweep import sweep_events, sweep_fleet
+    work = ROOT / "build" / "operability"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"phase": "operability", "points": OPS_POINTS,
+           "horizon_s": OPS_HORIZON_S, "n_max": OPS_N_MAX}
+
+    def timed(fn):
+        predict_ops.reset_counts()
+        arrival_ops.arrival_block.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"wall_s": time.perf_counter() - t0,
+                     "spork_predict_launches":
+                         predict_ops.expected_objective.launches,
+                     "spork_predict_shapes": _shape_tally(predict_ops),
+                     "arrival_launches": arrival_ops.arrival_block.launches}
+
+    # (a) the grid at full size on the card
+    counts, _, speeds, busy = spork_sim.sweep_grid(
+        OPS_POINTS, seed=0, horizon_s=OPS_HORIZON_S)
+    plan = plan_sweep(spork_sim.grid_cells(counts, speeds, busy),
+                      n_max=OPS_N_MAX, device=CARD)
+    ticks = _predictor_ticks(plan)
+
+    def grid(**kw):
+        res = spork_sim.run_sweep(counts, speeds, busy, n_max=OPS_N_MAX,
+                                  device=CARD, **kw)
+        return res, spork_sim.grid_metrics(res, speeds, busy)
+
+    (res, eff_cost), stats = timed(grid)
+    a = {"res": res, "eff_cost": eff_cost}
+    eff, cost = eff_cost
+    out["grid"] = {"dispatches": res.n_dispatches, "meta": res.meta,
+                   "expected_spork_predict_launches": ticks,
+                   "eff_mean": float(eff.mean()),
+                   "cost_mean": float(cost.mean()), **stats}
+    check(res.n_dispatches == OPS_DISPATCHES,
+          f"spork_sim grid took {res.n_dispatches} dispatches")
+    check(stats["spork_predict_launches"] == ticks,
+          f"spork_sim: {stats['spork_predict_launches']} spork_predict "
+          f"launches, the plan has {ticks} ticks")
+    check(bool(np.isfinite(eff).all() and (cost > 0).all()),
+          "spork_sim: non-finite eff or non-positive cost")
+
+    # (b) killed after its first chunk in a child, resumed here
+    ckpt = work / "grid"
+    env = {**os.environ, harness.ENV_KILL_AFTER: "1"}
+    env.pop(harness.ENV_SKIP_INVARIANTS, None)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", _OPS_CHILD, str(ROOT / "src"), str(ckpt),
+         str(OPS_POINTS), str(OPS_HORIZON_S), str(OPS_N_MAX)],
+        env=env, capture_output=True, text=True, timeout=600)
+    child_wall = time.perf_counter() - t0
+    persisted = len(ChunkStore(ckpt).keys())
+    (res_b, ec_b), stats = timed(lambda: grid(checkpoint_dir=ckpt))
+    out["kill_resume"] = {"child_returncode": child.returncode,
+                          "child_wall_s": child_wall,
+                          "child_stderr": child.stderr[-500:],
+                          "persisted_before_resume": persisted,
+                          "meta": res_b.meta,
+                          "bitwise_equal": _grid_same(res_b, ec_b, a),
+                          **stats}
+    check(child.returncode == -9, f"operability: the killed sweep exited "
+                                  f"{child.returncode}, not -9")
+    check(persisted == 1, f"operability: {persisted} chunks persisted")
+    check(res_b.meta["restored_chunks"] == 1
+          and res_b.meta["executed_chunks"] == 1,
+          f"operability: resume ran {res_b.meta}")
+    check(out["kill_resume"]["bitwise_equal"],
+          "operability: the resumed grid differs from the uninterrupted one")
+
+    # (c) the chaos grid with half its entries gone; the fleet cells
+    chaos_res = chaos["res"]
+    ck = work / "chaos"
+    first, st1 = timed(lambda: sweep_events(chaos_res.cells, device=CARD,
+                                            checkpoint_dir=ck))
+    dropped = _drop_half(ck)
+    again, st2 = timed(lambda: sweep_events(chaos_res.cells, device=CARD,
+                                            checkpoint_dir=ck))
+    out["chaos_resume"] = {
+        "dispatches": again.n_dispatches, "dropped": dropped,
+        "first_meta": first.meta, "meta": again.meta,
+        "first_bitwise_equal": _totals_same(first, chaos_res),
+        "bitwise_equal": _totals_same(again, chaos_res),
+        "first": st1, "resumed": st2}
+    m = again.meta
+    check(m["restored_chunks"] + m["executed_chunks"] == again.n_dispatches
+          == chaos_res.n_dispatches and m["executed_chunks"] == dropped > 0,
+          f"chaos resume: {m} after dropping {dropped}")
+    check(out["chaos_resume"]["first_bitwise_equal"]
+          and out["chaos_resume"]["bitwise_equal"],
+          "chaos resume: totals differ from the chaos_suite phase")
+    fl_res = fleet["res"]
+    idx = [i for i, c in enumerate(fl_res.cells)
+           if c.tag[0] == OPS_FLEET_SCALE]
+    f_cells = [fl_res.cells[i] for i in idx]
+    want = [(fl_res.totals(i), fl_res.tenants(i)) for i in idx]
+    fk = work / "fleet"
+    runs = [timed(lambda: sweep_fleet(f_cells, device=CARD,
+                                      checkpoint_dir=fk)) for _ in range(2)]
+    out["fleet_resume"] = {
+        "n_tenants": OPS_FLEET_SCALE, "cells": len(f_cells),
+        "metas": [r.meta for r, _ in runs],
+        "bitwise_equal": [[(r.totals(j), r.tenants(j)) for j in
+                           range(len(f_cells))] == want for r, _ in runs],
+        "runs": [st for _, st in runs]}
+    check(runs[1][0].meta["restored_chunks"] == runs[1][0].n_dispatches
+          and runs[1][0].meta["executed_chunks"] == 0,
+          f"fleet resume: {runs[1][0].meta}")
+    check(all(out["fleet_resume"]["bitwise_equal"]),
+          "fleet resume: totals or tenant rows differ from the fleet phase")
+
+    # (d) a failing mesh degrades to LocalBackend on its first device
+    class DeadMesh(MeshBackend):
+        def run(self, d):
+            raise RuntimeError("every shard lost")
+
+    dead = DeadMesh(list(OPS_MESH))
+    (res_d, ec_d), stats = timed(lambda: grid(
+        backend=dead, retry=harness.RetryPolicy(max_retries=1,
+                                                backoff_s=0.0)))
+    out["degraded"] = {"meta": res_d.meta,
+                       "bitwise_equal": _grid_same(res_d, ec_d, a), **stats}
+    check(res_d.meta["degraded_chunks"] == list(range(OPS_DISPATCHES))
+          and res_d.meta["degraded_device"] == "cuda:0",
+          f"degradation: {res_d.meta}")
+    check(out["degraded"]["bitwise_equal"],
+          "degradation: the degraded grid differs from the local one")
+
+    # (e) two shards on one card
+    mesh = MeshBackend(list(OPS_MESH))
+    (res_e, ec_e), stats = timed(lambda: grid(backend=mesh))
+    out["mesh"] = {"devices": list(OPS_MESH),
+                   "dispatch_devices": res_e.dispatch_devices,
+                   "bitwise_equal": _grid_same(res_e, ec_e, a), **stats,
+                   "note": "one H100: both shards on cuda:0; no second "
+                           "card was measured"}
+    check(res_e.dispatch_devices == [2] * OPS_DISPATCHES,
+          f"mesh: dispatch devices {res_e.dispatch_devices}")
+    check(out["mesh"]["bitwise_equal"],
+          "mesh: the two-shard grid differs from LocalBackend's")
+
+    # (f) guards catch results poisoned on the card
+    f_plan = plan_fleet(f_cells, device=CARD)
+
+    class Poisoned(LocalBackend):
+        def __init__(self, how):
+            super().__init__(CARD)
+            self.how = how
+
+        def run(self, d):
+            acc, fail, over, fa = super().run(d)
+            if self.how == "nan_energy":
+                acc.fpga_busy_j[1] = float("nan")
+            else:
+                fa.offered[0, 0] += 1
+            return acc, fail, over, fa
+
+    caught = {}
+    for how, rule in (("nan_energy", "finite"),
+                      ("tenant_off_by_one", "tenant_conservation")):
+        try:
+            execute(f_plan, Poisoned(how))
+            caught[how] = None
+        except harness.InvariantViolation as exc:
+            caught[how] = {"invariant": exc.invariant, "where": exc.where}
+        check(caught[how] is not None and caught[how]["invariant"] == rule,
+              f"guards: {how} gave {caught[how]}, not {rule}")
+    cost = {}
+    for name, r in (("grid", a["res"]), ("chaos", chaos_res),
+                    ("fleet", fl_res)):
+        t0 = time.perf_counter()
+        harness.check_sweep_result(r)
+        cost[name] = time.perf_counter() - t0
+    out["guards"] = {**caught, "check_s": cost}
+    emit(out)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"a": a, "speeds": speeds, "busy": busy, "counts": counts,
+            "out": out}
+
+
+def phase_operability_vs_cpu(ops: dict) -> dict:
+    """The same 64-point grid arrays on the CPU: counters identical,
+    floats and eff/cost within 1e-5."""
+    import numpy as np
+    from repro_torch.core.metrics import RunTotals
+    from repro_torch.launch import spork_sim
+    card = ops["a"]["res"]
+    t0 = time.perf_counter()
+    cpu = spork_sim.run_sweep(ops["counts"], ops["speeds"], ops["busy"],
+                              n_max=OPS_N_MAX, device="cpu")
+    wall = time.perf_counter() - t0
+    eff, cost = spork_sim.grid_metrics(cpu, ops["speeds"], ops["busy"])
+    gap = _totals_gap([(i, card.totals(i), cpu.totals(i))
+                       for i in range(len(cpu))],
+                      RunTotals.COUNT_FIELDS, RunTotals.FLOAT_FIELDS)
+    c_eff, c_cost = ops["a"]["eff_cost"]
+    rel = max(float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-12)))
+              for x, y in ((c_eff, eff), (c_cost, cost)))
+    out = {"phase": "operability_vs_cpu", "points": len(cpu),
+           "cpu_wall_s": wall, "eff_cost_max_rel_err": rel,
+           "accum_bitwise_equal": _accum_same(card, cpu), **gap}
+    emit(out)
+    check(gap["ok"], f"operability card/CPU mismatches: "
+                     f"{gap['mismatches'][:3]}")
+    check(rel <= RTOL_CPU, f"operability: eff/cost differ by {rel}")
     return out
 
 
@@ -2933,6 +3223,8 @@ def main() -> int:
     phase_chaos_vs_cpu(chaos)
     fleet = phase_fleet(torch)
     phase_fleet_vs_cpu(fleet)
+    ops = phase_operability(chaos, fleet, torch)
+    phase_operability_vs_cpu(ops)
     phase_profile(main_run, fig2, t9, serve, fleet, torch)
     # each path's count was zeroed just before it ran and read just after
     predict_paths = {
@@ -2942,7 +3234,9 @@ def main() -> int:
         "scenario": scen["out"]["spork_predict_launches"],
         "chaos": chaos["out"]["launches"]["spork_predict"],
         "fleet": fleet["out"]["launches"]["spork_predict"],
-        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_launches"]}
+        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_launches"],
+        "spork_sim": ops["out"]["grid"]["spork_predict_launches"],
+        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_launches"]}
     phase_predict_paths(kernel, {
         "table8": main_run["out"]["spork_predict_shapes"],
         "table9": t9["out"]["spork_predict_shapes"],
@@ -2950,7 +3244,9 @@ def main() -> int:
         "scenario": scen["out"]["spork_predict_shapes"],
         "chaos": chaos["out"]["spork_predict_shapes"],
         "fleet": fleet["out"]["spork_predict_shapes"],
-        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_shapes"]},
+        "fleet_oracle": fleet["out"]["oracle"]["spork_predict_shapes"],
+        "spork_sim": ops["out"]["grid"]["spork_predict_shapes"],
+        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_shapes"]},
         torch)
     arrival_paths = {"table9": t9["out"]["launches"]["arrival"],
                      "chaos": chaos["out"]["launches"]["arrival"],

@@ -13,7 +13,9 @@ ask for it. The hand-written kernels live under `repro_torch.kernels`.
 
 What is ported (the rate-simulator main path behind Table 8, the
 min-plus DP behind Figs. 2-3, the exact discrete-event simulation
-behind Table 9 and the LM serving path: configs, the dense-family model,
-`ServeEngine` and `SporkRouter`) and what waits for later slices is
-tracked in ROADMAP.md.
+behind Table 9, the LM serving path: configs, the dense-family model,
+`ServeEngine` and `SporkRouter`; the workload library, the multi-tenant
+fleet layer, and the operability layer: checkpoints, resumable and
+guarded sweeps, the mesh backend, the Figs. 5-7 launcher) and what waits
+for later slices is tracked in ROADMAP.md.
 """

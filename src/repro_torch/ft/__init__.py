@@ -1,5 +1,5 @@
-"""Fault model of the discrete-event simulators (port of the serving half
-of `repro.ft`): `failures` holds the counter-based hash and `FailureSpec`,
-`elastic` the survivor filter the serial oracle's allocator uses. The
-training-side pieces (heartbeat monitor, failure injector, mesh shrinking)
-wait for the LM slice."""
+"""Fault tolerance (port of `repro.ft`): `failures` holds the DES fault
+model (the counter-based hash and `FailureSpec`) and the host-level
+drills (`HeartbeatMonitor`, `FailureInjector`); `elastic` the survivor
+filter the serial oracle's allocator uses and `StragglerPolicy`. Mesh
+shrinking waits for the distributed layer."""

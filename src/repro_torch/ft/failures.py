@@ -1,6 +1,5 @@
-"""Serving-side fault model of the discrete-event simulators (port of
-`repro.ft.failures`; `HeartbeatMonitor` and `FailureInjector` are
-training-side and wait for the LM slice).
+"""Fault model of the discrete-event simulators, and host-level failure
+drills (port of `repro.ft.failures`).
 
 `FailureSpec` is threaded through both DES engines
 (`repro_torch.sim.events` is the exact oracle, `repro_torch.sim.
@@ -225,3 +224,57 @@ class FailureSpec:
 def fail_static(failures: "FailureSpec | None") -> FailStatic:
     """Static key for an optional spec (None -> disabled)."""
     return FSTAT_OFF if failures is None else failures.static_key()
+
+
+class HeartbeatMonitor:
+    """Last heartbeat per host; a host is dead once ``timeout_s`` has
+    passed since its last beat (strictly)."""
+
+    def __init__(self, hosts, timeout_s: float = 10.0):
+        self.timeout = timeout_s
+        self.last = {h: 0.0 for h in hosts}
+
+    def beat(self, host, now: float) -> None:
+        if host in self.last:
+            self.last[host] = now
+
+    def dead(self, now: float) -> list:
+        return [h for h, t in self.last.items() if now - t > self.timeout]
+
+    def evict(self, host) -> None:
+        self.last.pop(host, None)
+
+    @property
+    def alive(self) -> list:
+        return sorted(self.last)
+
+
+@dataclass
+class FailureEvent:
+    step: int
+    host: int
+    kind: str            # 'crash' | 'straggle'
+    factor: float = 1.0  # slowdown factor for stragglers
+
+
+class FailureInjector:
+    """Deterministic failure schedule for tests and chaos drills."""
+
+    def __init__(self, n_hosts: int, seed: int = 0, crash_rate: float = 0.0,
+                 straggle_rate: float = 0.0, horizon_steps: int = 1000):
+        rng = np.random.default_rng(seed)
+        self.events: list[FailureEvent] = []
+        for step in range(horizon_steps):
+            if rng.random() < crash_rate:
+                self.events.append(FailureEvent(
+                    step, int(rng.integers(n_hosts)), "crash"))
+            if rng.random() < straggle_rate:
+                self.events.append(FailureEvent(
+                    step, int(rng.integers(n_hosts)), "straggle",
+                    factor=float(rng.uniform(2, 10))))
+        self._by_step: dict[int, list[FailureEvent]] = {}
+        for e in self.events:
+            self._by_step.setdefault(e.step, []).append(e)
+
+    def at(self, step: int) -> list[FailureEvent]:
+        return self._by_step.get(step, [])

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -37,6 +38,8 @@ from repro_torch.sim.events_batched import (FLOAT_FIELDS, EvCarry,
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "arrival.cu",)
 #: Widest worker table: the kernel runs one warp per cell, 8 slots a lane.
 MAX_W = 256
+
+_COUNT_LOCK = threading.Lock()
 
 _WF = ("alloc_t", "ready_at", "avail", "busy", "crash_t", "slow")
 _WI = ("wid", "level", "n_assign", "nfail")
@@ -163,7 +166,8 @@ def bind(es: EventScalars, fstat: FailStatic, code, w_f: int):
                              torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"arrival launch failed: CUDA error {rc}")
-        arrival_block.launches += 1
+        with _COUNT_LOCK:                   # one host thread per mesh shard
+            arrival_block.launches += 1
         out = unpack_carry(*outs)
         last[:] = [out, outs]
         return out

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -77,7 +78,11 @@ def build_libraries(libs: Mapping[str, Sequence[Path]]) -> dict[str, Build]:
                 builds[name] = Build(out, 0.0, "")
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            # unique to this process and thread: a build abandoned by a
+            # timed-out attempt never shares a file with its retry, and a
+            # killed one leaves no half-written library under ``out``
+            tmp = out.with_name(f"{out.name}.{os.getpid()}."
+                                f"{threading.get_ident()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                    *map(str, sources)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

@@ -9,7 +9,8 @@ PyTorch version (`repro_torch.core.predictor.expected_objective`); a
 CUDA tensor launches the kernel, or this raises. ``expected_objective.
 launches`` counts the kernel launches and nothing else, and
 ``expected_objective.shapes`` counts them by ``(C, N)``; reset both
-together (`reset_counts`).
+together (`reset_counts`). The counts are kept under a lock: a
+`MeshBackend` launches from one host thread per shard.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 from pathlib import Path
 
 import torch
@@ -28,6 +30,8 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "spork_predict.cu",)
 #: Largest histogram width: the kernel keeps two padded (N,) float rows of
 #: one cell in shared memory, inside the default 48 KB per block.
 MAX_N = 4096
+
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.cache
@@ -108,8 +112,9 @@ def expected_objective(hist: torch.Tensor, coeffs: ObjectiveCoeffs,
                              torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spork_predict launch failed: CUDA error {rc}")
-    expected_objective.launches += 1
-    expected_objective.shapes[(cells, n)] += 1
+    with _COUNT_LOCK:
+        expected_objective.launches += 1
+        expected_objective.shapes[(cells, n)] += 1
     return out
 
 

@@ -1,2 +1,4 @@
-"""Simulators and the sweep stack (port of `repro.sim`; this slice ports
-the rate simulator and the rate half of plan/execute/sweep)."""
+"""Simulators and the sweep stack (port of `repro.sim`): the rate
+simulator, the exact DES and its batched engine, plan / execute / sweep
+over local and mesh backends, and the resilience harness (checkpoint /
+resume, retry, invariant guards)."""

@@ -443,13 +443,19 @@ def plan_fleet(cells: Iterable, n_max: int = 512, w_fpga: int = 32,
 class SweepResult:
     """Per-cell `Accum` (numpy leaves, cell order) + conversion to
     paper-style totals/reports. ``n_dispatches`` counts the batched
-    simulator calls the sweep cost (one per plan chunk); ``backend`` and
-    ``device`` record where they ran."""
+    simulator calls the sweep cost (one per plan chunk); ``backend``,
+    ``device`` (the backend's first device), ``n_devices`` and
+    ``dispatch_devices`` (how many devices each dispatch was split over:
+    all 1 on `LocalBackend`) record where they ran. ``meta`` carries the
+    `repro_torch.sim.harness.ResilientRunner` record: executed and
+    restored chunks, retried dispatches and ``degraded_chunks``."""
 
     def __init__(self, cells: Sequence, accum: Accum,
                  total_work: np.ndarray, total_requests: np.ndarray,
                  n_dispatches: int = 0, backend: str = "local",
-                 device: str = "", meta: dict | None = None):
+                 device: str = "", n_devices: int = 1,
+                 dispatch_devices: Sequence[int] | None = None,
+                 meta: dict | None = None):
         self.cells = list(cells)
         self.accum = accum                      # leaves: (n_cells,) np arrays
         self._work = total_work
@@ -457,6 +463,8 @@ class SweepResult:
         self.n_dispatches = n_dispatches
         self.backend = backend
         self.device = device
+        self.n_devices = n_devices
+        self.dispatch_devices = list(dispatch_devices or [])
         self.meta = dict(meta or {})
 
     def __len__(self) -> int:
@@ -482,19 +490,24 @@ class SweepResult:
 
 class EventSweepResult:
     """DES counterpart of `SweepResult`: per-cell `RunTotals` in cell
-    order plus the batching metadata (``n_dispatches``, ``backend``,
-    ``device``). Sequence-compatible with a bare ``list[RunTotals]``:
+    order plus the same record of where and how it ran (``n_dispatches``,
+    ``backend``, ``device``, ``n_devices``, ``dispatch_devices``,
+    ``meta``). Sequence-compatible with a bare ``list[RunTotals]``:
     iteration, ``len`` and indexing all see the totals, and ``totals()``
     / ``totals(i)`` mirror `SweepResult.totals`."""
 
     def __init__(self, cells: Sequence, totals: Sequence[RunTotals],
                  n_dispatches: int = 0, backend: str = "local",
-                 device: str = "", meta: dict | None = None):
+                 device: str = "", n_devices: int = 1,
+                 dispatch_devices: Sequence[int] | None = None,
+                 meta: dict | None = None):
         self.cells = list(cells)
         self._totals = list(totals)
         self.n_dispatches = n_dispatches
         self.backend = backend
         self.device = device
+        self.n_devices = n_devices
+        self.dispatch_devices = list(dispatch_devices or [])
         self.meta = dict(meta or {})
 
     def __len__(self) -> int:
@@ -524,11 +537,8 @@ class FleetSweepResult(EventSweepResult):
     the fleet totals by construction (`repro_torch.sim.exec`)."""
 
     def __init__(self, cells: Sequence, totals: Sequence[RunTotals],
-                 tenants: Sequence[list], n_dispatches: int = 0,
-                 backend: str = "local", device: str = "",
-                 meta: dict | None = None):
-        super().__init__(cells, totals, n_dispatches=n_dispatches,
-                         backend=backend, device=device, meta=meta)
+                 tenants: Sequence[list], **kwargs):
+        super().__init__(cells, totals, **kwargs)
         self._tenants = list(tenants)
 
     def tenants(self, i: int | None = None):

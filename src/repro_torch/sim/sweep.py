@@ -14,6 +14,14 @@ cells (`repro_torch.fleet.FleetCell`) on the batched fleet engine. Cells
 may name a workload scenario instead of explicit demand; it is realized
 on the sweep's device (`repro_torch.sim.plan.resolve_scenarios`).
 
+Every entry point takes ``backend=`` (`repro_torch.sim.exec`: "local",
+"mesh" or a `Backend`), ``checkpoint_dir=`` (each completed chunk is
+persisted; a killed sweep restarted with the same directory re-executes
+only the unfinished chunks, bit-identically) and ``retry=`` (a
+`repro_torch.sim.harness.RetryPolicy`); every result passes the
+invariant guards of `repro_torch.sim.harness` unless
+``REPRO_SKIP_INVARIANTS`` opts out.
+
 Equivalence: per-cell totals match per-call `ratesim.simulate` at the
 same ``n_max`` to float32 tolerance.
 """
@@ -103,14 +111,16 @@ class SweepCell:
 
 def sweep(cells: Iterable[SweepCell], n_max: int | None = None,
           backend: str | Backend | None = None,
-          device: str | torch.device | None = None) -> SweepResult:
+          device: str | torch.device | None = None,
+          checkpoint_dir=None, retry=None) -> SweepResult:
     """Simulate every cell, one batched call per (policy, interval,
     spin-up, horizon) group chunk. Cell order is preserved in the result.
     ``device=None`` runs on the card (scenario cells are realized there
-    too)."""
+    too). ``checkpoint_dir`` makes the sweep resumable and ``retry`` is a
+    `repro_torch.sim.harness.RetryPolicy`."""
     backend = get_backend(backend, device)
     return execute(plan_sweep(cells, n_max=n_max, device=backend.device),
-                   backend)
+                   backend, checkpoint_dir=checkpoint_dir, retry=retry)
 
 
 def sweep_events(cells: Iterable[EventCell], n_max: int = 512,
@@ -126,14 +136,12 @@ def sweep_events(cells: Iterable[EventCell], n_max: int = 512,
 
     Returns an `EventSweepResult` (cell-ordered totals, each with
     ``breakdown['slot_overflow']``, 0 when the table regions are large
-    enough). ``checkpoint_dir`` and ``retry`` belong to the operability
-    layer, which is not ported yet: passing either raises
-    NotImplementedError."""
-    _no_operability("sweep_events", checkpoint_dir, retry)
+    enough). ``checkpoint_dir`` / ``retry`` harden execution as in
+    `sweep`."""
     backend = get_backend(backend, device)
     plan = plan_events(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu,
                        device=backend.device)
-    return execute(plan, backend)
+    return execute(plan, backend, checkpoint_dir=checkpoint_dir, retry=retry)
 
 
 def sweep_fleet(cells, n_max: int = 512, w_fpga: int = 32, w_cpu: int = 64,
@@ -151,27 +159,20 @@ def sweep_fleet(cells, n_max: int = 512, w_fpga: int = 32, w_cpu: int = 64,
     Returns a `FleetSweepResult`: cell-ordered fleet `RunTotals` (with
     ``breakdown['offered_requests']`` / ``['shed_requests']``) plus
     per-tenant `repro_torch.core.metrics.TenantTotals` rows via
-    ``.tenants(i)``. ``checkpoint_dir`` and ``retry`` belong to the
-    operability layer, which is not ported yet: passing either raises
-    NotImplementedError."""
-    _no_operability("sweep_fleet", checkpoint_dir, retry)
+    ``.tenants(i)``, conservation-checked against the fleet totals by
+    the default-on guards (`repro_torch.sim.harness.check_fleet_result`).
+    ``checkpoint_dir`` / ``retry`` harden execution as in `sweep`."""
     backend = get_backend(backend, device)
     plan = plan_fleet(cells, n_max=n_max, w_fpga=w_fpga, w_cpu=w_cpu,
                       device=backend.device)
-    return execute(plan, backend)
-
-
-def _no_operability(name: str, checkpoint_dir, retry) -> None:
-    if checkpoint_dir is not None or retry is not None:
-        raise NotImplementedError(
-            f"{name}(checkpoint_dir=..., retry=...) needs the operability "
-            f"layer, which repro_torch does not port yet")
+    return execute(plan, backend, checkpoint_dir=checkpoint_dir, retry=retry)
 
 
 def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,
                             n_max: int | None = None,
                             backend: str | Backend | None = None,
                             device: str | torch.device | None = None,
+                            checkpoint_dir=None, retry=None,
                             ) -> list[tuple[int, RunTotals]]:
     """Batched §5.1 headroom tuning: expand every cell into all
     ``max_k + 1`` headroom levels, simulate them in one sweep, and pick
@@ -191,7 +192,8 @@ def tune_fpga_dynamic_cells(cells: Iterable[SweepCell], max_k: int = 16,
         units.append(unit)
         expanded.extend(replace(c, policy="fpga_dynamic", headroom=k * unit)
                         for k in range(K))
-    res = sweep(expanded, n_max=n_max, backend=backend)
+    res = sweep(expanded, n_max=n_max, backend=backend,
+                checkpoint_dir=checkpoint_dir, retry=retry)
     misses = res.deadline_misses.reshape(len(cells), K)
     out = []
     for ci, c in enumerate(cells):

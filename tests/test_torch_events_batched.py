@@ -110,7 +110,7 @@ def test_plan_events_matches_reference_plan():
                 np.testing.assert_array_equal(a[r], a[0], err_msg=k)
 
 
-def test_planner_rejects_what_is_not_ported():
+def test_planner_rejects_what_is_not_ported(tmp_path):
     # scenario cells are resolved now (tests/test_torch_workloads.py holds
     # them to the reference); unresolved, they still fail fast
     from repro_torch.workloads import registry
@@ -121,9 +121,10 @@ def test_planner_rejects_what_is_not_ported():
         plan_events([EventCell("spork", scenario=spec)], resolve=False)
     with pytest.raises(ValueError, match="explicit"):
         plan_events([EventCell("spork")])
+    # checkpoint_dir is ported (tests/test_torch_harness.py holds resume)
     cell = _golden_cell(EVENT_KEYS[0])
-    with pytest.raises(NotImplementedError, match="operability"):
-        sweep_events([cell], device="cpu", checkpoint_dir="x")
+    res = sweep_events([cell], device="cpu", checkpoint_dir=tmp_path)
+    assert res.meta["checkpointed"] and res.meta["executed_chunks"] == 1
     with pytest.raises(ValueError, match="sorted"):
         EventCell("spork", np.array([2.0, 1.0]), 1.0)
 

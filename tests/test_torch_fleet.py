@@ -491,7 +491,7 @@ def test_cuda_fleet_route_matches_plain_version():
 
 # ------------------------------------------------------------ spec hygiene
 
-def test_spec_validation():
+def test_spec_validation(tmp_path):
     with pytest.raises(ValueError):
         TenantSpec()                                     # no demand source
     with pytest.raises(ValueError):
@@ -515,9 +515,10 @@ def test_spec_validation():
         resolve_fleet_cell(FleetCell(tenants=bad, horizon_s=60.0))
     with pytest.raises(TypeError, match="FleetCell"):
         plan_fleet([object()])
-    with pytest.raises(NotImplementedError, match="operability"):
-        sweep_fleet([FleetCell(tenants=t, horizon_s=60.0)], device=CPU,
-                    checkpoint_dir="x")
+    # checkpoint_dir is ported (tests/test_torch_harness.py holds resume)
+    res = sweep_fleet([FleetCell(tenants=t, horizon_s=60.0)], device=CPU,
+                      checkpoint_dir=tmp_path)
+    assert res.meta["checkpointed"] and res.meta["executed_chunks"] == 1
 
 
 def test_resolved_stream_is_stable_merge():

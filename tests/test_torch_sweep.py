@@ -144,7 +144,9 @@ def test_unported_cells_and_backends_are_rejected():
     with pytest.raises(ValueError, match="unknown policy"):
         plan_sweep([SweepCell("nope", tr.counts, 0.05)])
     with pytest.raises(ValueError, match="unknown sweep backend"):
-        get_backend("mesh", device="cpu")
+        get_backend("pmap", device="cpu")
+    # the mesh backend is ported (tests/test_torch_mesh.py)
+    assert get_backend("mesh", device="cpu").name == "mesh"
     with pytest.raises(ValueError, match="must be 1-D"):
         SweepCell("spork", np.ones((2, 2)), 0.05)
     assert "spork" in rate_policy_names()
