@@ -6,10 +6,10 @@ Usage, from the root of a checkout:  python3 chip_smoke.py
 Phases, each printed as one JSON line; any failed check exits non-zero:
 
   device       card name, compute capability, nvidia-smi name/power limit
-  build        the five kernels (spork_predict, minplus, minplus_structured,
-               arrival, decode_attn) built from the checkout's sources with
-               nvcc, one process each, all started together (seconds,
-               ptxas report)
+  build        the six kernels (spork_predict, minplus, minplus_structured,
+               arrival, decode_attn, relax) built from the checkout's
+               sources with nvcc, one process each, all started together
+               (seconds, ptxas report)
   kernel       spork_predict against its plain PyTorch version at C in
                {1, 32} cells x N in {16, 128, 200, 512, 4096} bins, at
                Table 9's (16, 128) and (4, 128), and at (1, 13) and
@@ -137,6 +137,51 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                across) on the CPU: 2 requests of 16 + 8 tokens; every
                step's logits within 1e-3 x that step's max |logit|, tokens
                equal except at CPU top-2 gaps below that (counted)
+  serve_hybrid SporkRouter("recurrentgemma-2b") as in serve, then
+               ServeEngine over recurrentgemma-2b at full width in bf16
+               (8 slots of 2048 positions: the ring holds the whole
+               window; 8 requests of 128 + 64 tokens): decode_attn
+               launches = 8 attention layers x (1024 + 64) = 8704 at D =
+               256, the plain version never called; every attention
+               layer's call of the last step rerun on its own tensors
+               against the plain version; the kernel, the plain version
+               and SDPA timed at that call beside the bound; prefill and
+               decode wall, tokens/s, a decode step's idle share; the
+               interleaving regression (tokens, logits, K/V rows and the
+               recurrent state bitwise alone = interleaved)
+  serve_hybrid_vs_cpu
+               the smoke config (window 16) in float32 on the card and,
+               weights carried across, on the CPU: one lane of 8 + 32
+               positions (the ring wraps twice); streams identical,
+               every step's logits within 1e-4 + 1e-4 |want|
+  relax_kernel the relax kernels (forward and reverse of the gradient
+               tuner's relaxation) against the plain loop and autograd on
+               the card at K in {1, 60, 180, 720} intervals x five thetas
+               (tests/test_policy_tune.py's three and a point on each
+               projection bound): value and gradient within rtol 1e-5
+               (float32) and 1e-10 (float64); times per launch at K = 180
+               and 720 beside the dependent-chain bound, the plain loop,
+               one autograd step, and an Adam step on the card and the
+               CPU
+  tune         benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65,
+               seeds 0-2, 1800 s, 120 steps) through tune_gradient on the
+               card: objective <= grid objective in every row, 121
+               forward and 120 reverse relax launches a trace, no
+               spork_predict launch; wall, ms per Adam step and per real
+               simulation, and the full grid's projected time (run only
+               when under 120 s)
+  tune_vs_cpu  the row (0.55, 0) with device="cpu": headroom, gain and
+               source identical, theta within rtol 1e-4, the selection's
+               totals (counters identical, floats within 1e-5) and the
+               grid search's choice
+  fig4         benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0 (SporkE,
+               SporkC, SporkE-ideal, MArk-ideal at a 60 s FPGA spin-up,
+               biases 0.5-0.75, 10 seeds, 7200 s) through sweep on the
+               card: spork_predict launches equal to the plan's ticks;
+               wall and the 16 rows
+  fig4_vs_cpu  the Spork cells (SporkE, SporkC, SporkE-ideal) of bias
+               0.5, seed 0 on the CPU: counters identical, floats within
+               1e-5
   scenario_suite
                benchmarks/scenario_suite.py at BENCH_FAST=0: the 8 registry
                scenarios realized on the card (10 seeds, 7200 s; every
@@ -215,11 +260,13 @@ Every sweep of every phase runs the invariant guards of
 `repro_torch.sim.harness` (the script never sets REPRO_SKIP_INVARIANTS).
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
-the sum over its nine paths, Table 8, Table 9, the serve router, the
-scenario, chaos and fleet suites, the fleet oracle with TenantRouter and
-the spork_sim grid, local and on the mesh;
-arrival's over Table 9, the chaos suite and the fleet suite; each also
-given on its own), the raw nvidia-smi line, and
+the sum over its eleven paths, Table 8, Table 9, the serve router, the
+scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
+the spork_sim grid, local and on the mesh, the hybrid's router and Fig.
+4; arrival's over Table 9, the chaos suite and the fleet suite;
+decode_attn's over serve and serve_hybrid; each also given on its own;
+relax_forward's and relax_backward's on the tune path), the raw
+nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
 a checkout (no src/repro_torch beside it), it exits 2 and prints no
 result.
@@ -349,6 +396,52 @@ VS_CPU_MAX_LEN = 64
 VS_CPU_PROMPT = 16
 VS_CPU_NEW = 8
 VS_CPU_RTOL = 1e-3               # x the step's max |logit|
+# relax_kernel: the relaxation at K intervals (1, the test trace's 60, the
+# fast grid's 180, the full grid's 720) x tests/test_policy_tune.py's
+# THETAS and a point on each projection bound, both types
+RELAX_K = (1, 60, 180, 720)
+RELAX_THETAS = ((0.5, 0.0, 0.9), (2.3, 0.7, 0.85), (7.0, 1.5, 0.65),
+                (0.0, 0.0, 0.5), (3.0, 4.0, 1.0))
+RELAX_RTOL = {"float32": 1e-5, "float64": 1e-10}
+RELAX_TIMED_K = (180, 720)
+# the bound: the recurrence's dependent chain, in operations an interval
+# (csrc/relax.cu), each at the latency of a dependent fp32 / fp64
+# operation on Hopper, in SM cycles
+RELAX_CHAIN_OPS = {"forward": 8, "backward": 3}
+RELAX_DEP_CYCLES = {"float32": 4, "float64": 8}
+RELAX_ADAM_STEPS = 50            # Adam steps timed on the card
+RELAX_ADAM_CPU_STEPS = 5         # and on the CPU
+# tune: benchmarks/policy_tuning.py's fast grid on the card; its full grid
+# runs only when the fast run projects it under TUNE_FULL_MAX_S
+TUNE_BIASES = (0.55, 0.65)
+TUNE_SEEDS = 3
+TUNE_HORIZON_S = 1800
+TUNE_STEPS = 120
+TUNE_FULL = {"biases": (0.5, 0.6, 0.7), "seeds": 10, "horizon_s": 7200,
+             "steps": 300}
+TUNE_FULL_MAX_S = 120.0
+TUNE_VS_CPU = (0.55, 0)          # tune_vs_cpu: the (bias, seed) rerun
+TUNE_THETA_RTOL = 1e-4
+# serve_hybrid: recurrentgemma-2b at full width in bf16, the serve phase's
+# requests in 8 slots of 2048 positions (its ring holds the whole window):
+# 8 attention layers x (1024 prefilled + 64 steps) decode_attn launches
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_MAX_LEN = 2048
+HYBRID_LAUNCHES = 8 * (SERVE_REQUESTS * SERVE_PROMPT + SERVE_NEW)
+# serve_hybrid_vs_cpu: the smoke config (window 16) in float32, one lane
+# of 8 prompt + 32 new positions (the ring wraps twice)
+HYBRID_VS_CPU_PROMPT = 8
+HYBRID_VS_CPU_NEW = 32
+HYBRID_VS_CPU_MAX_LEN = 64
+TOL_LOGITS = 1e-4                # tests/test_torch_models.py's TOL32
+# fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
+FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
+                   ("SporkE-ideal", "spork_ideal", 1.0),
+                   ("MArk-ideal", "mark_ideal", 1.0))
+FIG4_BIASES = (0.5, 0.6, 0.7, 0.75)
+FIG4_SEEDS = 10
+FIG4_HORIZON_S = 7200
+FIG4_SPIN_UP_S = 60.0
 # the device the phases run on
 CARD = "cuda"
 # benchmarks/scenario_suite.py at BENCH_FAST=0 (a copy: the benchmark folder
@@ -482,12 +575,15 @@ def phase_build() -> None:
     from repro_torch.kernels.build import build_libraries
     from repro_torch.kernels.decode_attn import ops as decode_ops
     from repro_torch.kernels.minplus import ops as minplus_ops
+    from repro_torch.kernels.relax import ops as relax_ops
     from repro_torch.kernels.spork_predict import ops
     t0 = time.perf_counter()
     builds = build_libraries({"spork_predict": ops.SOURCES,
                               **minplus_ops.SOURCES,
                               "arrival": arrival_ops.SOURCES,
-                              "decode_attn": decode_ops.SOURCES})
+                              "decode_attn": decode_ops.SOURCES,
+                              "relax": relax_ops.SOURCES})
+    check(len(builds) == 6, f"build: {len(builds)} libraries, not 6")
     wall = time.perf_counter() - t0
     emit({"phase": "build", "wall_s": wall, "kernels": {
         name: {"seconds": b.seconds, "library": b.path.name,
@@ -1983,7 +2079,7 @@ def phase_decode_attn_kernel(torch) -> dict:
     return out
 
 
-def _serve_router(torch) -> dict:
+def _serve_router(torch, arch: str = SERVE_ARCH) -> dict:
     """launch/serve.py's router with its defaults, on the card."""
     from repro_torch.core.traces import synthetic_trace
     from repro_torch.kernels.spork_predict import ops as predict_ops
@@ -1991,7 +2087,7 @@ def _serve_router(torch) -> dict:
     horizon = int(ROUTER_MINUTES * 60)
     predict_ops.reset_counts()
     t0 = time.perf_counter()
-    router = SporkRouter(SERVE_ARCH, energy_weight=1.0, horizon_s=horizon,
+    router = SporkRouter(arch, energy_weight=1.0, horizon_s=horizon,
                          device="cuda")
     size = router.size_s
     tr = synthetic_trace(seed=1, bias=ROUTER_BURSTINESS, horizon_s=horizon,
@@ -2009,7 +2105,7 @@ def _serve_router(torch) -> dict:
           "serve router: malformed totals")
     check(launches == ticks, f"serve router: {launches} spork_predict "
                              f"launches for {ticks} allocator ticks")
-    return {"arch": SERVE_ARCH, "minutes": ROUTER_MINUTES,
+    return {"arch": arch, "minutes": ROUTER_MINUTES,
             "rate": ROUTER_RATE, "burstiness": ROUTER_BURSTINESS,
             "objective": "energy", "request_size_s": size,
             "requests": len(arrivals), "wall_s": wall,
@@ -2043,8 +2139,9 @@ def _recorded(eng) -> dict:
 
 def _lanes(eng, log: dict) -> dict:
     """Per request: its logits, its cache length and its lane of every
-    cache leaf up to that length, read once the engine is idle (a slot's
-    lanes are reset only at the next admission)."""
+    cache leaf (the K/V rows up to that length; a hybrid's recurrent
+    state whole), read once the engine is idle (a slot's lanes are reset
+    only at the next admission)."""
     import torch
     out = {}
     for rid, rec in log.items():
@@ -2052,13 +2149,17 @@ def _lanes(eng, log: dict) -> dict:
         n = int(eng.cache["length"][slot])
         out[rid] = {"length": n, "logits": torch.stack(rec["logits"]),
                     **{name: eng.cache["kv"][name][:, slot, :n].clone()
-                       for name in ("k", "v")}}
+                       for name in ("k", "v")},
+                    **{name: leaf.narrow(eng._axes[name], slot, 1).clone()
+                       for name, leaf in eng.cache.items()
+                       if name not in ("length", "kv")}}
     return out
 
 
-def _alone(model, prompt, n_new: int) -> tuple[list[int], dict]:
+def _alone(model, prompt, n_new: int,
+           max_len: int = SERVE_MAX_LEN) -> tuple[list[int], dict]:
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    eng = ServeEngine(model, SERVE_SLOTS, max_len)
     log = _recorded(eng)
     eng.add_request(Request(rid=0, prompt=prompt, max_new_tokens=n_new))
     toks = []
@@ -2067,12 +2168,13 @@ def _alone(model, prompt, n_new: int) -> tuple[list[int], dict]:
     return toks, _lanes(eng, log)[0]
 
 
-def _interleaved(model, pa, pb, n_new: int) -> tuple[dict, dict]:
+def _interleaved(model, pa, pb, n_new: int,
+                 max_len: int = SERVE_MAX_LEN) -> tuple[dict, dict]:
     """tests/test_serve.py's schedule: admit A, decode 2 tokens, admit B
     while A is active, decode both to the end. Returns the token streams
     and each request's logits and cache lanes."""
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    eng = ServeEngine(model, SERVE_SLOTS, max_len)
     log = _recorded(eng)
     eng.add_request(Request(rid=0, prompt=pa, max_new_tokens=n_new))
     got = {0: [], 1: []}
@@ -2092,7 +2194,8 @@ def _same_lanes(inter: dict, alone: dict) -> dict:
     cache lanes, interleaved against alone; the largest difference of
     each is returned for the record."""
     diff = {"length": [inter["length"], alone["length"]]}
-    for key in ("logits", "k", "v"):
+    keys = [key for key in inter if key != "length"]
+    for key in keys:
         a, b = inter[key], alone[key]
         same = a.shape == b.shape
         diff[key] = (float((a.float() - b.float()).abs().max())
@@ -2100,7 +2203,7 @@ def _same_lanes(inter: dict, alone: dict) -> dict:
     diff["equal"] = (inter["length"] == alone["length"]
                      and all(inter[key].shape == alone[key].shape
                              and bool((inter[key] == alone[key]).all())
-                             for key in ("logits", "k", "v")))
+                             for key in keys))
     return diff
 
 
@@ -2283,6 +2386,627 @@ def phase_serve_vs_cpu(torch) -> dict:
            "near_tie_steps": near_ties, "token_flips": flips,
            "card_tokens": card_tokens, "wall_s": wall}
     emit(out)
+    return out
+
+
+# ------------------- slices 7 and 8.1: the gradient tuner, the hybrid family
+
+def _tune_trace(bias: float, seed: int, horizon_s: int):
+    """benchmarks/policy_tuning.py's trace (the port's numpy b-model)."""
+    from repro_torch.core.traces import synthetic_trace
+    return synthetic_trace(seed=seed, bias=bias, horizon_s=horizon_s,
+                           request_size_s=0.05, mean_demand_workers=100.0)
+
+
+def _sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi), for the relax bound."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def _relax_bound(k: int, dtype: str, clock_hz: float) -> dict:
+    """Least time of one launch of each relax kernel: the dependent chain
+    of the recurrence, RELAX_CHAIN_OPS operations an interval, each at
+    the latency of a dependent operation (RELAX_DEP_CYCLES) at the SM
+    clock. Bytes (K values in, 3K out) take under 0.01 us at K = 720."""
+    cyc = RELAX_DEP_CYCLES[dtype]
+    return {pass_: {"chain_ops": k * n,
+                    "bound_ms": k * n * cyc / clock_hz * 1e3,
+                    "bound_by": "operations"}
+            for pass_, n in RELAX_CHAIN_OPS.items()}
+
+
+def _host_ms(fn, reps: int, torch) -> float:
+    """Wall time per call on the host clock, synchronized, after one
+    warm-up call (the plain loops and Adam steps, host-bound)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_relax_kernel(torch) -> dict:
+    """The relax kernels against their plain version on the card: the
+    relaxation's value and gradient at K in RELAX_K intervals x
+    RELAX_THETAS, float32 and float64; times per launch at the tune
+    path's K = 180 and the full grid's K = 720 beside the bound, the
+    plain autograd step and an Adam step (card and CPU)."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.kernels.relax import ops, ref
+    from repro_torch.policies import tune
+    tr = _tune_trace(TUNE_BIASES[0], 0, max(RELAX_K) * 10)
+    cases, worst, worst_abs = [], {}, {}
+    for dtype, rtol in RELAX_RTOL.items():
+        dt = getattr(torch, dtype)
+        full = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                              dtype=dt, device="cuda")
+        for k in RELAX_K:
+            spec = full._replace(demand=full.demand[:k].contiguous())
+            consts = tuple(spec[1:])
+            for theta in RELAX_THETAS:
+                th = torch.tensor(theta, dtype=dt, device="cuda")
+                x = th.clone().requires_grad_(True)
+                cost = tune.relaxed_cost(x, spec)
+                grad, = torch.autograd.grad(cost, x)
+                want = ref.relaxed_cost_ref(th, spec.demand, consts)
+                want_g = ref.relax_grad_ref(th, spec.demand, consts)
+                torch.cuda.synchronize()
+                pairs = list(zip([float(cost.detach()), *grad.tolist()],
+                                 [float(want), *want_g.tolist()]))
+                err = max(abs(a - b) / abs(b) if b else abs(a)
+                          for a, b in pairs)
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                worst_abs[dtype] = max(worst_abs.get(dtype, 0.0),
+                                       *(abs(a - b) for a, b in pairs))
+                cases.append({"dtype": dtype, "K": k, "theta": list(theta),
+                              "cost": pairs[0][0], "grad": grad.tolist(),
+                              "max_rel_err": err})
+                check(err <= rtol, f"relax {dtype} K={k} theta={theta}: "
+                                   f"relative error {err} over {rtol}")
+    clock = _sm_clock_hz()
+    timed = {}
+    f32 = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                         device="cuda")
+    for k in RELAX_TIMED_K:
+        spec = f32._replace(demand=f32.demand[:k].contiguous())
+        consts = tuple(spec[1:])
+        th = torch.tensor(RELAX_THETAS[1], device="cuda")
+        saved = ops.relax_forward(th, spec.demand, consts)[1:]
+        go = torch.ones((), device="cuda")
+
+        def step():                     # the autograd step fit() takes
+            x = th.clone().requires_grad_(True)
+            torch.autograd.grad(tune.relaxed_cost(x, spec), x)
+
+        def plain_step():
+            ref.relax_grad_ref(th, spec.demand, consts)
+
+        cpu_spec = spec._replace(demand=spec.demand.cpu())
+        bound = _relax_bound(k, "float32", clock)
+        fwd = graph_ms(lambda: ops.relax_forward(th, spec.demand, consts),
+                       50, torch)
+        bwd = graph_ms(lambda: ops.relax_backward(th, spec.demand, consts,
+                                                  saved, go), 50, torch)
+        timed[f"K{k}"] = {
+            "K": k, "dtype": "float32",
+            "forward_ms": fwd, "backward_ms": bwd,
+            "forward_bound_ms": bound["forward"]["bound_ms"],
+            "backward_bound_ms": bound["backward"]["bound_ms"],
+            "step_eager_ms": cuda_ms(step, 50, torch),
+            "plain_forward_ms": _host_ms(
+                lambda: ref.relaxed_cost_ref(th, spec.demand, consts), 2,
+                torch),
+            "plain_step_ms": _host_ms(plain_step, 2, torch),
+            "adam_step_ms": _host_ms(
+                lambda: tune.fit(spec, steps=RELAX_ADAM_STEPS), 1, torch)
+            / RELAX_ADAM_STEPS,
+            # on the CPU at the tune path's K only (0.5 s a step at 720)
+            "adam_step_cpu_ms": _host_ms(
+                lambda: tune.fit(cpu_spec, steps=RELAX_ADAM_CPU_STEPS), 1,
+                torch) / RELAX_ADAM_CPU_STEPS
+            if k == RELAX_TIMED_K[0] else None}
+    main = timed[f"K{RELAX_TIMED_K[0]}"]
+    out = {"phase": "relax_kernel", "cases": len(cases),
+           "max_rel_err_by_dtype": worst,
+           "max_abs_err_by_dtype": worst_abs, "tolerance": RELAX_RTOL,
+           "sm_clock_hz": clock, "dep_cycles": RELAX_DEP_CYCLES,
+           "chain_ops_per_interval": RELAX_CHAIN_OPS, "timed": timed,
+           "worst_cases": sorted(cases, key=lambda c: -c["max_rel_err"])[:4],
+           "max_abs_err": worst_abs["float32"],
+           "timing": "forward_ms, backward_ms: CUDA-graph replay (device "
+                     "time per launch); step_eager_ms: one autograd step "
+                     "(forward + reverse launch, eager) by CUDA events; "
+                     "plain_*: the plain loop (and autograd) on the card, "
+                     "host clock; adam_step_ms: tune.fit's wall per step "
+                     "on the card, adam_step_cpu_ms on the CPU"}
+    # the kernels line's numbers for each pass (at the tune path's K)
+    out["passes"] = {
+        "relax_forward": {"ms": main["forward_ms"],
+                          "plain_ms": main["plain_forward_ms"],
+                          "bound_ms": main["forward_bound_ms"],
+                          "bound_by": "operations"},
+        "relax_backward": {"ms": main["backward_ms"],
+                           "plain_ms": main["plain_step_ms"]
+                           - main["plain_forward_ms"],
+                           "bound_ms": main["backward_bound_ms"],
+                           "bound_by": "operations"}}
+    emit(out)
+    return out
+
+
+def phase_tune(torch) -> dict:
+    """benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65, seeds
+    0-2, 1800 s, 120 steps) through the port's tune_gradient on the card:
+    objective <= grid objective in every row; 2 x steps + 1 relax launches
+    a trace (one forward and one reverse an Adam step, and the final
+    loss)."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.kernels.relax import ops
+    from repro_torch.kernels.spork_predict import ops as predict_ops
+    from repro_torch.policies import tune
+    from repro_torch.sim import ratesim
+    rows, results = [], {}
+    fwd = bwd = 0
+    predict_ops.reset_counts()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for bias in TUNE_BIASES:
+        for seed in range(TUNE_SEEDS):
+            tr = _tune_trace(bias, seed, TUNE_HORIZON_S)
+            ops.relax_forward.launches = ops.relax_backward.launches = 0
+            t0 = time.perf_counter()
+            res = tune.tune_gradient(tr.counts, tr.request_size_s,
+                                     DEFAULT_FLEET, steps=TUNE_STEPS,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            lf, lb = ops.relax_forward.launches, ops.relax_backward.launches
+            fwd += lf
+            bwd += lb
+            results[(bias, seed)] = res
+            rows.append({"bias": bias, "seed": seed,
+                         "grid_headroom": res.grid_headroom,
+                         "grad_headroom": res.headroom,
+                         "grid_objective_j": res.grid_objective,
+                         "grad_objective_j": res.objective,
+                         "source": res.source,
+                         "sim_evals": res.n_sim_evals,
+                         "theta": list(res.theta),
+                         "loss_first_last": [res.losses[0], res.losses[-1]],
+                         "misses": res.totals.deadline_misses,
+                         "wall_grad_s": wall,
+                         "relax_launches": [lf, lb]})
+            check(res.objective <= res.grid_objective,
+                  f"tune: the gradient tuner lost to the grid at bias "
+                  f"{bias} seed {seed}: {res.objective} > "
+                  f"{res.grid_objective}")
+            check((lf, lb) == (TUNE_STEPS + 1, TUNE_STEPS),
+                  f"tune: {lf} forward and {lb} reverse relax launches, "
+                  f"expected {TUNE_STEPS + 1} and {TUNE_STEPS}")
+            check(len(res.losses) == TUNE_STEPS + 1
+                  and res.losses[-1] < res.losses[0],
+                  f"tune: the surrogate loss did not fall at {bias}/{seed}")
+    torch.cuda.synchronize()
+    wall_all = time.perf_counter() - t_all
+    predict = predict_ops.expected_objective.launches
+    # one trace's parts alone: the grid search, one real simulation and
+    # fit's Adam steps
+    tr = _tune_trace(TUNE_BIASES[0], 0, TUNE_HORIZON_S)
+    t0 = time.perf_counter()
+    ratesim.tune_fpga_dynamic(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                              device="cuda")
+    t_grid = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ratesim.simulate("fpga_dynamic", tr.counts, tr.request_size_s,
+                     DEFAULT_FLEET, headroom=rows[0]["grad_headroom"],
+                     device="cuda")
+    t_sim = time.perf_counter() - t0
+    spec = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                          device="cuda")
+    adam_ms = _host_ms(lambda: tune.fit(spec, steps=TUNE_STEPS), 1,
+                       torch) / TUNE_STEPS
+    n_full = len(TUNE_FULL["biases"]) * TUNE_FULL["seeds"]
+    scale = TUNE_FULL["horizon_s"] / TUNE_HORIZON_S
+    evals = sum(r["sim_evals"] for r in rows) / len(rows)
+    projected = n_full * (scale * (t_grid + evals * t_sim)
+                          + TUNE_FULL["steps"] * adam_ms)
+    out = {"phase": "tune", "biases": list(TUNE_BIASES),
+           "seeds": TUNE_SEEDS, "horizon_s": TUNE_HORIZON_S,
+           "steps": TUNE_STEPS, "rows": rows, "wall_s": wall_all,
+           "beat_grid": sum(r["grad_objective_j"] < r["grid_objective_j"]
+                            for r in rows),
+           "matched_grid": sum(r["grad_objective_j"] == r["grid_objective_j"]
+                               for r in rows),
+           "relax_forward_launches": fwd, "relax_backward_launches": bwd,
+           "spork_predict_launches": predict,
+           "grid_search_s": t_grid, "real_sim_ms": t_sim * 1e3,
+           "adam_step_ms": adam_ms,
+           "full_grid": {**TUNE_FULL, "projected_s": projected,
+                         "projection": "traces x (horizon scale x (grid + "
+                                       "mean evals x simulation) + steps x "
+                                       "Adam step at K = 180)"}}
+    if projected < TUNE_FULL_MAX_S:
+        out["full_grid"]["ran"] = _tune_full(torch)
+    emit(out)
+    check(predict == 0, f"tune: {predict} spork_predict launches "
+                        f"(fpga_dynamic has no predictor)")
+    return {"out": out, "results": results}
+
+
+def _tune_full(torch) -> dict:
+    """The full grid (3 biases x 10 seeds, 7200 s, 300 steps): the
+    contract in every row, and the wall."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.policies import tune
+    t0 = time.perf_counter()
+    for bias in TUNE_FULL["biases"]:
+        for seed in range(TUNE_FULL["seeds"]):
+            tr = _tune_trace(bias, seed, TUNE_FULL["horizon_s"])
+            res = tune.tune_gradient(tr.counts, tr.request_size_s,
+                                     DEFAULT_FLEET,
+                                     steps=TUNE_FULL["steps"], device="cuda")
+            check(res.objective <= res.grid_objective,
+                  f"tune (full): lost to the grid at {bias}/{seed}")
+    return {"wall_s": time.perf_counter() - t0}
+
+
+def phase_tune_vs_cpu(tune_run: dict) -> dict:
+    """One row of the fast grid (bias 0.55, seed 0) with device="cpu":
+    the same choice, theta within rtol 1e-4, the real simulator's totals
+    as main_vs_cpu holds them."""
+    import numpy as np
+    from repro_torch.core.metrics import RunTotals
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.policies import tune
+    bias, seed = TUNE_VS_CPU
+    card = tune_run["results"][(bias, seed)]
+    tr = _tune_trace(bias, seed, TUNE_HORIZON_S)
+    t0 = time.perf_counter()
+    cpu = tune.tune_gradient(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                             steps=TUNE_STEPS, device="cpu")
+    wall = time.perf_counter() - t0
+    theta_rel = float(np.max(np.abs(np.subtract(card.theta, cpu.theta))
+                             / np.abs(cpu.theta)))
+    gap = _totals_gap([("selection", card.totals, cpu.totals)],
+                      RunTotals.COUNT_FIELDS, RunTotals.FLOAT_FIELDS)
+    grid_rel = (abs(card.grid_objective - cpu.grid_objective)
+                / abs(cpu.grid_objective))
+    out = {"phase": "tune_vs_cpu", "bias": bias, "seed": seed,
+           "cpu_wall_s": wall,
+           "card": [card.headroom, card.gain, card.source],
+           "cpu": [cpu.headroom, cpu.gain, cpu.source],
+           "theta_card": list(card.theta), "theta_cpu": list(cpu.theta),
+           "theta_max_rel_err": theta_rel,
+           "objective": [card.objective, cpu.objective],
+           "grid_headroom": [card.grid_headroom, cpu.grid_headroom],
+           "grid_objective_rel_err": grid_rel, **gap}
+    emit(out)
+    check((card.headroom, card.gain, card.source)
+          == (cpu.headroom, cpu.gain, cpu.source),
+          f"tune_vs_cpu: card chose {out['card']}, CPU {out['cpu']}")
+    check(theta_rel <= TUNE_THETA_RTOL, f"tune_vs_cpu: theta differs by "
+                                        f"{theta_rel}")
+    check(gap["ok"], f"tune_vs_cpu: totals differ: {gap['mismatches'][:3]}")
+    check(card.grid_headroom == cpu.grid_headroom and grid_rel <= RTOL_CPU,
+          f"tune_vs_cpu: grid searches differ: {out['grid_headroom']}, "
+          f"objective by {grid_rel}")
+    return out
+
+
+def _hybrid_capture(attn_mod, n_layers: int):
+    """Wrap the attention module's `decode_attention` so the arguments of
+    the last ``n_layers`` calls are kept (the path's own tensors); returns
+    (the list they go to, a function that restores the module)."""
+    kept = []
+    fn = attn_mod.decode_attention
+
+    def recorder(q, k, v, lengths):
+        kept.append((q, k, v, lengths))
+        del kept[:-n_layers]
+        return fn(q, k, v, lengths)
+
+    attn_mod.decode_attention = recorder
+
+    def restore():
+        attn_mod.decode_attention = fn
+    return kept, restore
+
+
+def phase_serve_hybrid(torch) -> dict:
+    """SporkRouter("recurrentgemma-2b") on the card, then ServeEngine over
+    recurrentgemma-2b at full width in bf16 (8 slots of 2048 positions:
+    the ring holds the whole window; 8 requests of 128 + 64 tokens):
+    decode_attn at D = 256 on every attention layer of every step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    F = torch.nn.functional
+    router = _serve_router(torch, HYBRID_ARCH)
+    cfg = get_config(HYBRID_ARCH, "full")
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"serve_hybrid: the full config is not {SERVE_DTYPE}")
+    n_attn = sum(1 for i in range(cfg.n_layers)
+                 if cfg.block_pattern[i % len(cfg.block_pattern)] == "attn")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServeEngine(model, SERVE_SLOTS, HYBRID_MAX_LEN)
+    ring = eng.cache["kv"]["k"].shape[2]
+    check(ring == min(cfg.window, HYBRID_MAX_LEN) == 2048,
+          f"serve_hybrid: ring of {ring} positions")
+    plain_calls = []
+    ref_fn = ops.decode_attention_ref
+    ops.decode_attention_ref = lambda *a: plain_calls.append(1) or ref_fn(*a)
+    kept, restore = _hybrid_capture(attn_mod, n_attn)
+    try:
+        ops.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for rid, prompt in enumerate(prompts):
+            check(eng.add_request(Request(rid=rid, prompt=prompt,
+                                          max_new_tokens=SERVE_NEW)),
+                  f"serve_hybrid: request {rid} not admitted")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tokens, steps = {}, 0
+        while eng.n_active:
+            for rid, tok in eng.step():
+                tokens.setdefault(rid, []).append(tok)
+            steps += 1
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = ops.decode_attention.launches
+    finally:
+        ops.decode_attention_ref = ref_fn
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    emitted = sum(len(t) for t in tokens.values())
+    prefilled = SERVE_REQUESTS * SERVE_PROMPT
+    expected = n_attn * (prefilled + steps)
+    check(emitted == SERVE_REQUESTS * SERVE_NEW,
+          f"serve_hybrid: {emitted} tokens emitted")
+    check(all(0 <= t < cfg.vocab_size for ts in tokens.values() for t in ts),
+          "serve_hybrid: a token outside the vocabulary")
+    check(launches == expected == HYBRID_LAUNCHES,
+          f"serve_hybrid: {launches} decode_attn launches, expected "
+          f"{n_attn} x ({prefilled} + {steps}) = {expected}, "
+          f"{HYBRID_LAUNCHES}")
+    check(not plain_calls, f"serve_hybrid: the plain decode attention ran "
+                           f"{len(plain_calls)} times")
+    # every attention layer of the last step, on its own tensors
+    check(len(kept) == n_attn, f"serve_hybrid: {len(kept)} calls kept")
+    layer_err = []
+    for q, k, v, lengths in kept:
+        got = ops.decode_attention(q, k, v, lengths)
+        want = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = DECODE_TOL[SERVE_DTYPE]
+        over = float((err - tol * want.float().abs()).max())
+        layer_err.append(float(err.max()))
+        check(over <= tol, f"serve_hybrid: a layer's decode_attn differs "
+                           f"from the plain version by {float(err.max())}")
+    q, k, v, lengths = kept[-1]
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    lens = lengths.cpu().numpy()
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    shape_t = {"shape": [b, hq, hkv, d, s], "lengths": lens.tolist(),
+               "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths),
+                              50, torch),
+               "plain_ms": graph_ms(lambda: decode_attention_ref(
+                   q, k, v, lengths), 5, torch),
+               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
+               **_decode_bound((b, hq, hkv, d, s), lens, q.element_size())}
+    shape_t["bound_share"] = shape_t["bound_ms"] / shape_t["ms"]
+    shape_t["vs_library"] = shape_t["library_ms"] / shape_t["ms"]
+    shape_t["loss_s"] = launches * (shape_t["ms"] - shape_t["bound_ms"]) / 1e3
+    del kept
+    # a decode step of the path under the profiler: every lane, once more
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
+    every = torch.ones(SERVE_SLOTS, dtype=torch.bool, device="cuda")
+    model.decode_step(tok, eng.cache, lanes=every)
+    prof = _device_profile(lambda: model.decode_step(tok, eng.cache,
+                                                     lanes=every),
+                           "serve_hybrid_decode_step.json",
+                           ["decode_attn_kernel"], torch)
+    # the interleaving regression: tokens, logits at every step, K/V rows
+    # and the recurrent state bitwise the same alone and interleaved
+    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
+    t4 = time.perf_counter()
+    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW,
+                                      HYBRID_MAX_LEN)
+    alone, lanes_diff = {}, {}
+    for rid, prompt in enumerate((pa, pb)):
+        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW,
+                                         HYBRID_MAX_LEN)
+        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
+    del inter_lanes, alone_lanes
+    t_inter = time.perf_counter() - t4
+    check(inter == alone, f"serve_hybrid: interleaved streams {inter} "
+                          f"differ from the run-alone streams {alone}")
+    check(all(d["equal"] for d in lanes_diff.values()),
+          f"serve_hybrid: interleaved logits, cache rows or recurrent state "
+          f"differ from the run-alone ones: {lanes_diff}")
+    out = {"phase": "serve_hybrid", "router": router,
+           "engine": {"arch": HYBRID_ARCH, "variant": "full",
+                      "dtype": SERVE_DTYPE, "params": n_params,
+                      "attention_layers": n_attn, "ring": ring,
+                      "slots": SERVE_SLOTS, "max_len": HYBRID_MAX_LEN,
+                      "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
+                      "new_tokens": SERVE_NEW, "build_s": t_build,
+                      "prefill_wall_s": t2 - t1, "prefill_steps": prefilled,
+                      "decode_wall_s": t3 - t2, "decode_steps": steps,
+                      "emitted": emitted,
+                      "decode_tokens_per_s": emitted / (t3 - t2),
+                      "tokens_per_s": emitted / (t3 - t1),
+                      "ms_per_step": 1e3 * (t3 - t1) / (prefilled + steps),
+                      "decode_attn_launches": launches,
+                      "expected_launches": expected,
+                      "plain_decode_attention_calls": len(plain_calls),
+                      "peak_memory_bytes": peak,
+                      "first_tokens": {r: t[:8] for r, t in tokens.items()}},
+           "last_step_layers_max_abs_err": layer_err,
+           "decode_attn": shape_t, "decode_step_profile": prof,
+           "interleaved": {"prompt": INTERLEAVE_PROMPT,
+                           "new_tokens": INTERLEAVE_NEW, "equal": True,
+                           "streams": inter, "lanes": lanes_diff,
+                           "wall_s": t_inter}}
+    emit(out)
+    del model, eng
+    torch.cuda.empty_cache()
+    return {"out": out}
+
+
+def phase_serve_hybrid_vs_cpu(torch) -> dict:
+    """recurrentgemma-2b's smoke config in float32 (window 16) on the card
+    and, weights carried across, on the CPU: one lane decodes 40
+    positions (8 prompt + 32 new), wrapping its ring twice; greedy
+    streams identical, every step's logits within the tests' 1e-4."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(HYBRID_ARCH, "smoke").replace(dtype=torch.float32)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    prompt = np.random.default_rng(SERVE_SEED + 2).integers(
+        0, cfg.vocab_size, HYBRID_VS_CPU_PROMPT)
+    logs, streams = [], []
+    t0 = time.perf_counter()
+    for m in (card, cpu):
+        eng = ServeEngine(m, 2, HYBRID_VS_CPU_MAX_LEN)
+        log = _recorded(eng)
+        eng.add_request(Request(rid=0, prompt=prompt,
+                                max_new_tokens=HYBRID_VS_CPU_NEW))
+        toks = []
+        while eng.n_active:
+            toks.extend(t for _, t in eng.step())
+        streams.append(toks)
+        logs.append(torch.stack(log[0]["logits"]).cpu()[:, :cfg.vocab_size])
+        ring = eng.cache["kv"]["k"].shape[2]
+        length = int(eng.cache["length"][0])
+    wall = time.perf_counter() - t0
+    err = float((logs[0] - logs[1]).abs().max())
+    over = float(((logs[0] - logs[1]).abs()
+                  - TOL_LOGITS * logs[1].abs()).max())
+    out = {"phase": "serve_hybrid_vs_cpu", "dtype": "float32",
+           "window": cfg.window, "ring": ring, "positions": length,
+           "ring_wraps": length // ring, "steps": len(logs[0]),
+           "max_logit_abs_err": err, "tolerance": TOL_LOGITS,
+           "card_tokens": streams[0], "cpu_tokens": streams[1],
+           "wall_s": wall}
+    emit(out)
+    check(length == HYBRID_VS_CPU_PROMPT + HYBRID_VS_CPU_NEW
+          and length >= 2 * ring,
+          f"serve_hybrid_vs_cpu: {length} positions in a ring of {ring}")
+    check(streams[0] == streams[1], f"serve_hybrid_vs_cpu: streams differ: "
+                                    f"{streams}")
+    check(over <= TOL_LOGITS, f"serve_hybrid_vs_cpu: logits differ by {err}")
+    return out
+
+
+def _fig4_cells():
+    """benchmarks/fig4_spork_vs_mark.py's grid at BENCH_FAST=0."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.sim.sweep import SweepCell
+    fleet = DEFAULT_FLEET.replace(
+        fpga=DEFAULT_FLEET.fpga.replace(spin_up_s=FIG4_SPIN_UP_S))
+    traces = {(bias, seed): _tune_trace(bias, seed, FIG4_HORIZON_S)
+              for bias in FIG4_BIASES for seed in range(FIG4_SEEDS)}
+    cells = []
+    for bias in FIG4_BIASES:
+        for label, policy, ew in FIG4_SCHEDULERS:
+            cells.extend(
+                SweepCell(policy, traces[(bias, seed)].counts,
+                          traces[(bias, seed)].request_size_s, fleet,
+                          energy_weight=ew, tag=(bias, label, seed))
+                for seed in range(FIG4_SEEDS))
+    return cells
+
+
+def phase_fig4(torch) -> dict:
+    """Fig. 4 (SporkE, SporkC, SporkE-ideal, MArk-ideal at a 60 s FPGA
+    spin-up, biases 0.5-0.75, 10 seeds, 7200 s) through sweep on the
+    card: spork_predict launches equal to the plan's allocator ticks; the
+    figure's rows (means over seeds)."""
+    import numpy as np
+    from repro_torch.kernels.spork_predict import ops
+    from repro_torch.sim.plan import plan_sweep
+    from repro_torch.sim.sweep import sweep
+    cells = _fig4_cells()
+    plan = plan_sweep(cells)
+    expected = _predictor_ticks(plan)
+    ops.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(cells, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.expected_objective.launches
+    acc = {}
+    for i, cell in enumerate(res.cells):
+        tot, r = res.totals(i), res.report(i)
+        check(tot.is_finite(), f"fig4: cell {cell.tag} non-finite")
+        acc.setdefault(cell.tag[:2], []).append(
+            (r.energy_efficiency, r.relative_cost, r.cpu_request_fraction,
+             tot.fpga_spinups))
+    rows = [{"bias": bias, "scheduler": label,
+             **{k: float(np.mean([v[j] for v in acc[(bias, label)]]))
+                for j, k in enumerate(("energy_eff", "rel_cost", "cpu_frac",
+                                       "fpga_spinups"))}}
+            for bias in FIG4_BIASES for label, _, _ in FIG4_SCHEDULERS]
+    out = {"phase": "fig4", "cells": len(cells), "horizon_s": FIG4_HORIZON_S,
+           "spin_up_s": FIG4_SPIN_UP_S, "seeds": FIG4_SEEDS,
+           "dispatches": res.n_dispatches, "wall_s": wall, "rows": rows,
+           "spork_predict_launches": launches,
+           "spork_predict_shapes": _shape_tally(ops),
+           "expected_launches": expected}
+    emit(out)
+    check(launches == expected > 0, f"fig4: {launches} spork_predict "
+                                    f"launches, the plan has {expected} ticks")
+    return {"res": res, "out": out}
+
+
+def phase_fig4_vs_cpu(fig4: dict) -> dict:
+    """The Spork cells (SporkE, SporkC, SporkE-ideal) of bias 0.5, seed 0
+    on the CPU: counters identical, floats within 1e-5."""
+    from repro_torch.core.metrics import RunTotals
+    from repro_torch.sim.sweep import sweep
+    res = fig4["res"]
+    idx = [i for i, c in enumerate(res.cells)
+           if c.tag[0] == FIG4_BIASES[0] and c.tag[2] == 0
+           and c.policy in ("spork", "spork_ideal")]
+    t0 = time.perf_counter()
+    cpu = sweep([res.cells[i] for i in idx], device="cpu")
+    wall = time.perf_counter() - t0
+    gap = _totals_gap([(res.cells[i].tag, res.totals(i), cpu.totals(j))
+                       for j, i in enumerate(idx)],
+                      RunTotals.COUNT_FIELDS, RunTotals.FLOAT_FIELDS)
+    out = {"phase": "fig4_vs_cpu", "cells": len(idx), "cpu_wall_s": wall,
+           **gap}
+    emit(out)
+    check(len(idx) == 3, f"fig4_vs_cpu: {len(idx)} cells")
+    check(gap["ok"], f"fig4 card/CPU mismatches: {gap['mismatches'][:3]}")
     return out
 
 
@@ -3217,6 +3941,13 @@ def main() -> int:
     decode = phase_decode_attn_kernel(torch)
     serve = phase_serve(torch)
     phase_serve_vs_cpu(torch)
+    hybrid = phase_serve_hybrid(torch)
+    phase_serve_hybrid_vs_cpu(torch)
+    relax = phase_relax_kernel(torch)
+    tune_run = phase_tune(torch)
+    phase_tune_vs_cpu(tune_run)
+    fig4 = phase_fig4(torch)
+    phase_fig4_vs_cpu(fig4)
     scen = phase_scenario_suite(torch)
     phase_scenario_vs_cpu(scen)
     chaos = phase_chaos_suite(torch)
@@ -3236,7 +3967,10 @@ def main() -> int:
         "fleet": fleet["out"]["launches"]["spork_predict"],
         "fleet_oracle": fleet["out"]["oracle"]["spork_predict_launches"],
         "spork_sim": ops["out"]["grid"]["spork_predict_launches"],
-        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_launches"]}
+        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_launches"],
+        "serve_hybrid_router":
+            hybrid["out"]["router"]["spork_predict_launches"],
+        "fig4": fig4["out"]["spork_predict_launches"]}
     phase_predict_paths(kernel, {
         "table8": main_run["out"]["spork_predict_shapes"],
         "table9": t9["out"]["spork_predict_shapes"],
@@ -3246,11 +3980,21 @@ def main() -> int:
         "fleet": fleet["out"]["spork_predict_shapes"],
         "fleet_oracle": fleet["out"]["oracle"]["spork_predict_shapes"],
         "spork_sim": ops["out"]["grid"]["spork_predict_shapes"],
-        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_shapes"]},
+        "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_shapes"],
+        "serve_hybrid_router":
+            hybrid["out"]["router"]["spork_predict_shapes"],
+        "fig4": fig4["out"]["spork_predict_shapes"]},
         torch)
     arrival_paths = {"table9": t9["out"]["launches"]["arrival"],
                      "chaos": chaos["out"]["launches"]["arrival"],
                      "fleet": fleet["out"]["launches"]["arrival"]}
+    decode_paths = {
+        "serve": serve["out"]["engine"]["decode_attn_launches"],
+        "serve_hybrid": hybrid["out"]["engine"]["decode_attn_launches"]}
+    d256 = hybrid["out"]["decode_attn"]
+    relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
+                      "relax_backward":
+                          tune_run["out"]["relax_backward_launches"]}
     mp_launches = {
         "minplus": fig2["out"]["runs"]["dense"]["launches"]["minplus"],
         "minplus_structured":
@@ -3286,10 +4030,21 @@ def main() -> int:
         {"name": "decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn/decode_attn.py:92",
-         "launches": serve["out"]["engine"]["decode_attn_launches"],
+         "launches": sum(decode_paths.values()),
+         "launches_by_path": decode_paths,
          **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}}
-        ]})
+                                   "bound_ms", "bound_by", "library_ms")},
+         "serve_hybrid_shape": {k: d256[k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by")}}] + [{
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/relax/csrc/relax.cu",
+            "replaces": "none: port-only; the reference compiles "
+                        "src/repro/policies/tune.py:84 (relaxed_cost's "
+                        "lax.scan) with XLA, no pallas_call",
+            "launches": relax_launches[name],
+            "max_abs_err": relax["max_abs_err"], **t, "library_ms": None}
+        for name, t in relax["passes"].items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

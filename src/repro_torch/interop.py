@@ -174,35 +174,48 @@ def _array_tensor(a, dev) -> torch.Tensor:
 
 def model_params(params, cfg, device: str | torch.device | None = None
                  ) -> dict[str, torch.Tensor]:
-    """The state dict of `repro_torch.models.Model` (dense family) from the
-    reference's parameter pytree (nested mappings of numpy arrays):
-    ``embed``, ``final_norm`` and ``layers`` with a leading layer axis,
-    unstacked into ``layers.<i>.<name>``. Tensors take ``cfg.dtype``."""
+    """The state dict of `repro_torch.models.Model` from the reference's
+    parameter pytree (nested mappings of numpy arrays): ``embed`` and
+    ``final_norm``, and each stack with a leading layer axis (dense
+    ``layers``; hybrid ``super`` and ``tail``) unstacked into
+    ``<stack>.<i>.<name>``. Tensors take ``cfg.dtype``, except the RG-LRU's
+    ``lam``, which is float32 in every config, as in the reference."""
     dev = resolve_device(device)
 
-    def t(a) -> torch.Tensor:
-        return _array_tensor(a, dev).to(cfg.dtype)
+    def t(a, name: str) -> torch.Tensor:
+        return _array_tensor(a, dev).to(torch.float32 if name == "lam"
+                                        else cfg.dtype)
 
-    out = {"embed": t(params["embed"]), "final_norm": t(params["final_norm"])}
+    out = {"embed": t(params["embed"], "embed"),
+           "final_norm": t(params["final_norm"], "final_norm")}
 
-    def walk(prefix: str, tree) -> None:
+    def walk(stack: str, prefix: str, tree) -> None:
         for name, leaf in tree.items():
             if isinstance(leaf, Mapping):
-                walk(f"{prefix}{name}.", leaf)
+                walk(stack, f"{prefix}{name}.", leaf)
             else:
                 stacked = np.asarray(leaf)
-                for i in range(cfg.n_layers):
-                    out[f"layers.{i}.{prefix}{name}"] = t(stacked[i])
+                for i in range(stacked.shape[0]):
+                    out[f"{stack}.{i}.{prefix}{name}"] = t(stacked[i], name)
 
-    walk("", params["layers"])
+    for stack in ("layers", "super", "tail"):
+        if stack in params:
+            walk(stack, "", params[stack])
     return out
 
 
 def model_cache(cache, device: str | torch.device | None = None) -> dict:
-    """A decode cache (``length`` (B,) and ``kv`` with ``k``/``v`` leaves
-    (L, B, S, Hkv, D)) from the reference's, keeping each leaf's type
-    (lengths int32)."""
+    """A decode cache from the reference's, leaf for leaf in the same
+    nesting and each leaf's type (dense: ``length`` (B,) int32 and ``kv``
+    with ``k``/``v`` (L, B, S, Hkv, D); hybrid also ``conv``, ``h``,
+    ``tail_conv`` and ``tail_h``)."""
     dev = resolve_device(device)
-    return {"length": _array_tensor(cache["length"], dev).to(_I32),
-            "kv": {name: _array_tensor(cache["kv"][name], dev)
-                   for name in ("k", "v")}}
+
+    def walk(tree):
+        return {name: (walk(leaf) if isinstance(leaf, Mapping)
+                       else _array_tensor(leaf, dev))
+                for name, leaf in tree.items()}
+
+    out = walk(cache)
+    out["length"] = out["length"].to(_I32)
+    return out

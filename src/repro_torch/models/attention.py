@@ -7,9 +7,10 @@ sends every step's attention through `repro_torch.kernels.decode_attn`:
 the hand-written CUDA kernel for a cache on the card, its plain PyTorch
 version for a cache on the CPU.
 
-Supports grouped/multi-query heads, qk RMSNorm (qwen3) and non-causal
-masks. Sliding windows wait for the families that use them. Cross-attention against an encoder memory waits
-for the encoder-decoder family.
+Supports grouped/multi-query heads, qk RMSNorm (qwen3), non-causal masks
+and sliding windows (recurrentgemma's local attention: a window mask in
+prefill, a ring-buffer cache in decode). Cross-attention against an
+encoder memory waits for the encoder-decoder family.
 """
 
 from __future__ import annotations
@@ -75,12 +76,13 @@ def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
     return q, k, v
 
 
-def sdpa_chunked(q, k, v, *, causal=True, q_block=512):
+def sdpa_chunked(q, k, v, *, causal=True, window=0, q_block=512):
     """Scaled dot-product attention, tiled over query blocks.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). Hq % Hkv == 0.
-    Mask: causal (q_pos >= kv_pos) when ``causal``. Scores, softmax and the product with v in
-    float32; the output in q's type.
+    Masks: causal (q_pos >= kv_pos) when ``causal`` and, when ``window``
+    is not 0, the sliding window (q_pos - kv_pos < window). Scores,
+    softmax and the product with v in float32; the output in q's type.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -95,23 +97,26 @@ def sdpa_chunked(q, k, v, *, causal=True, q_block=512):
         qblk = q[:, s0:s1].reshape(b, s1 - s0, hkv, g, d).permute(
             0, 2, 3, 1, 4)                                # (B, Hkv, G, q, D)
         scores = (qblk.float() * scale) @ kt[:, :, None]
+        qp = torch.arange(s0, s1, device=q.device)[:, None]
         if causal:
-            qp = torch.arange(s0, s1, device=q.device)[:, None]
             scores = torch.where(qp >= kp, scores, NEG)
+        if window:
+            scores = torch.where((qp - kp) < window, scores, NEG)
         w = torch.softmax(scores, dim=-1)
         out = (w @ vt[:, :, None]).to(q.dtype)            # (B, Hkv, G, q, Dv)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, s1 - s0, hq, -1))
     return torch.cat(outs, dim=1)
 
 
-def attention_block(p, x, cfg):
+def attention_block(p, x, cfg, layer_window=0):
     """Full attention sub-block for prefill/forward (projections + sdpa +
-    output)."""
+    output); ``layer_window`` > 0 masks to a sliding window."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                            pos, cfg.rope_theta, cfg.qk_norm)
-    out = sdpa_chunked(q, k, v, causal=cfg.causal, q_block=cfg.q_block)
+    out = sdpa_chunked(q, k, v, causal=cfg.causal, window=layer_window,
+                       q_block=cfg.q_block)
     return out.reshape(b, s, -1) @ p.wo
 
 

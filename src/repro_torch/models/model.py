@@ -1,4 +1,4 @@
-"""The dense-family LM (port of `repro.models.model`).
+"""The dense and hybrid LM families (port of `repro.models.model`).
 
     build_model(cfg, seed, device)    -> Model, weights drawn from a seed
     Model.forward(tokens)             -> (logits, aux)       [eval]
@@ -7,15 +7,23 @@
     Model.decode_step(tokens, cache)  -> logits       (cache in place)
 
 The weights live in the module, under the reference's names with the
-layer axis unstacked: ``embed``, ``final_norm``, ``layers.<i>.ln1``,
-``layers.<i>.attn.wq``, ..., ``layers.<i>.mlp.w_down``
-(`repro_torch.interop.model_params` carries the reference's pytree
-across). The reference's scan over stacked layers is a Python loop over
-`layers`. The cache keeps the reference's layout: ``length`` (B,) int32
-and ``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D). Decode writes it in
-place, where the reference returns a new cache.
+layer axis unstacked (`repro_torch.interop.model_params` carries the
+reference's pytree across). Dense: ``embed``, ``final_norm``,
+``layers.<i>.ln1``, ``layers.<i>.attn.wq``, ..., ``layers.<i>.mlp.w_down``.
+Hybrid (recurrentgemma): super-blocks ``super.<i>.b<j>_<kind>`` over
+``cfg.block_pattern`` (``kind`` "rglru" or "attn", each with ``ln1``,
+``ln2``, ``mlp`` and its ``rglru`` or ``attn``), and a tail
+``tail.0.b<j>_rglru`` of the ``n_layers % len(pattern)`` layers left.
+The reference's scans over stacked layers are Python loops.
 
-Only the dense family is ported; the others raise NotImplementedError.
+The cache keeps the reference's layout: ``length`` (B,) int32; dense
+``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D); hybrid ``conv`` (n_super,
+n_rec, B, 3, W) in ``cfg.dtype``, ``h`` (n_super, n_rec, B, W) float32,
+``kv`` with a ring of ``min(window, max_len)`` positions a layer, and
+``tail_conv`` / ``tail_h`` for the tail. Decode writes it in place, where
+the reference returns a new cache.
+
+The other families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, embed, init_embed, mlp, rms_norm, \
     unembed
@@ -53,11 +62,49 @@ class Block(torch.nn.Module):
         self.mlp.init(generator)
 
 
+class HybridLayer(torch.nn.Module):
+    """One pre-norm layer of a hybrid super-block: an RG-LRU recurrent
+    block (``kind`` "rglru") or a local attention (any other kind), then
+    the MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.kind = kind
+        self.ln1 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                      requires_grad=False)
+        self.ln2 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                      requires_grad=False)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dt, device=device)
+        if kind == "attn":
+            self.attn = attn.Attention(d, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.d_head, dt, cfg.qk_norm,
+                                       device=device)
+        else:
+            self.rglru = rglru_mod.RGLRU(d, cfg.lru_width or d, dt,
+                                         device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        (self.attn if self.kind == "attn" else self.rglru).init(generator)
+        self.mlp.init(generator)
+
+
+class SuperBlock(torch.nn.ModuleDict):
+    """The layers of one pass over a block pattern, keyed ``b<j>_<kind>``
+    as in the reference's pytree."""
+
+    def __init__(self, cfg: ModelConfig, pattern, device=None):
+        super().__init__({f"b{j}_{kind}": HybridLayer(cfg, kind, device)
+                          for j, kind in enumerate(pattern)})
+
+
 class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig,
                  device: str | torch.device | None = None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise NotImplementedError(_NOT_PORTED.format(family=cfg.family))
         dev = resolve_device(device)
         self.cfg = cfg
@@ -67,8 +114,20 @@ class Model(torch.nn.Module):
         self.final_norm = torch.nn.Parameter(
             torch.zeros(cfg.d_model, dtype=cfg.dtype, device=dev),
             requires_grad=False)
-        self.layers = torch.nn.ModuleList(Block(cfg, dev)
-                                          for _ in range(cfg.n_layers))
+        if cfg.family == "dense":
+            self.layers = torch.nn.ModuleList(Block(cfg, dev)
+                                              for _ in range(cfg.n_layers))
+            return
+        pat = cfg.block_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pat))
+        if any(kind == "attn" for kind in pat[:rem]):
+            raise NotImplementedError("hybrid: an attention layer in the "
+                                      "tail (the reference's tail decode "
+                                      "runs recurrent layers only)")
+        self.super = torch.nn.ModuleList(SuperBlock(cfg, pat, dev)
+                                         for _ in range(n_super))
+        self.tail = torch.nn.ModuleList(
+            [SuperBlock(cfg, pat[:rem], dev)] if rem else [])
 
     @property
     def device(self) -> torch.device:
@@ -84,20 +143,37 @@ class Model(torch.nn.Module):
         g.manual_seed(seed)
         self.embed.copy_(init_embed(g, *self.embed.shape, self.cfg.dtype))
         self.final_norm.zero_()
-        for block in self.layers:
-            block.init(g)
+        if self.cfg.family == "dense":
+            for block in self.layers:
+                block.init(g)
+            return self
+        for sb in (*self.super, *self.tail):
+            for layer in sb.values():
+                layer.init(g)
         return self
 
     # ------------------------------------------------------- full sequence
     def forward(self, tokens: torch.Tensor):
         """Logits (B, S, padded vocab) float32 for the full sequence
-        (training-style pass), and the auxiliary loss (0 for dense)."""
+        (training-style pass), and the auxiliary loss (0 for both families)."""
         cfg = self.cfg
         x = embed(self.embed, tokens.to(self.device))
-        for block in self.layers:
-            x = x + attn.attention_block(block.attn, rms_norm(x, block.ln1),
-                                         cfg)
-            x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+        if cfg.family == "hybrid":
+            for sb in (*self.super, *self.tail):
+                for layer in sb.values():
+                    hn = rms_norm(x, layer.ln1)
+                    if layer.kind == "attn":
+                        x = x + attn.attention_block(layer.attn, hn, cfg,
+                                                     layer_window=cfg.window)
+                    else:
+                        x = x + rglru_mod.rglru_block(layer.rglru, hn, cfg)
+                    x = x + mlp(layer.mlp, rms_norm(x, layer.ln2),
+                                cfg.mlp_type)
+        else:
+            for block in self.layers:
+                x = x + attn.attention_block(block.attn,
+                                             rms_norm(x, block.ln1), cfg)
+                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
         x = rms_norm(x, self.final_norm)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return unembed(self.embed, x, cfg.vocab_size), aux
@@ -109,11 +185,32 @@ class Model(torch.nn.Module):
         (the model's device when None; ``"meta"`` gives shapes only)."""
         cfg = self.cfg
         dev = self.device if device is None else torch.device(device)
-        shp = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"length": torch.zeros(batch_size, dtype=torch.int32,
-                                      device=dev),
-                "kv": {"k": torch.zeros(shp, dtype=cfg.dtype, device=dev),
-                       "v": torch.zeros(shp, dtype=cfg.dtype, device=dev)}}
+
+        def zeros(*shape, dtype=cfg.dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def kv(n_layers, s):
+            shp = (n_layers, batch_size, s, cfg.n_kv_heads, cfg.d_head)
+            return {"k": zeros(*shp), "v": zeros(*shp)}
+
+        cache = {"length": zeros(batch_size, dtype=torch.int32)}
+        if cfg.family == "dense":
+            cache["kv"] = kv(cfg.n_layers, max_len)
+            return cache
+        pat = cfg.block_pattern
+        n_super, rem = divmod(cfg.n_layers, len(pat))
+        w = cfg.lru_width or cfg.d_model
+        n_rec = sum(1 for kind in pat if kind != "attn")
+        win = min(cfg.window or max_len, max_len)
+        cache["conv"] = zeros(n_super, n_rec, batch_size, 3, w)
+        cache["h"] = zeros(n_super, n_rec, batch_size, w,
+                           dtype=torch.float32)
+        cache["kv"] = kv(n_super * (len(pat) - n_rec), win)
+        if rem:
+            cache["tail_conv"] = zeros(1, rem, batch_size, 3, w)
+            cache["tail_h"] = zeros(1, rem, batch_size, w,
+                                    dtype=torch.float32)
+        return cache
 
     def prefill(self, batch: dict, cache: dict):
         """Sequential prefill: feed tokens (B, S) one at a time through
@@ -138,16 +235,62 @@ class Model(torch.nn.Module):
         cfg = self.cfg
         x = embed(self.embed, tokens.to(self.device))
         length = cache["length"]
-        ks, vs = cache["kv"]["k"], cache["kv"]["v"]
-        for i, block in enumerate(self.layers):
-            x = x + attn.decode_attention_step(
-                block.attn, rms_norm(x, block.ln1), ks[i], vs[i], length, cfg,
-                lanes=lanes)
-            x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+        if cfg.family == "hybrid":
+            x = self._decode_hybrid(x, cache, lanes)
+        else:
+            ks, vs = cache["kv"]["k"], cache["kv"]["v"]
+            for i, block in enumerate(self.layers):
+                x = x + attn.decode_attention_step(
+                    block.attn, rms_norm(x, block.ln1), ks[i], vs[i], length,
+                    cfg, lanes=lanes)
+                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
         x = rms_norm(x, self.final_norm)
         logits = unembed(self.embed, x[:, 0], cfg.vocab_size)
         length += 1 if lanes is None else lanes.to(length.dtype)
         return logits
+
+    def _decode_hybrid(self, x, cache: dict, lanes):
+        """The super-blocks' and the tail's layers for one token. The
+        attention layers decode through `decode_attention_step(ring=True)`
+        (the `decode_attn` kernel on the card) and write their ring slot
+        on ``lanes``; the recurrent layers' ``conv`` and ``h`` state moves
+        only on ``lanes`` too (an idle lane's state would otherwise advance
+        for good)."""
+        cfg = self.cfg
+        length = cache["length"]
+        ks, vs = cache["kv"]["k"], cache["kv"]["v"]
+
+        def keep(old, new):
+            """old <- new on the active lanes (batch axis 0 of both)."""
+            if lanes is None:
+                old.copy_(new)
+            else:
+                m = lanes.reshape(-1, *([1] * (new.dim() - 1)))
+                old.copy_(torch.where(m, new, old))
+
+        ai = 0
+        for blocks, conv, hst in ((self.super, cache["conv"], cache["h"]),
+                                  (self.tail, cache.get("tail_conv"),
+                                   cache.get("tail_h"))):
+            for s, sb in enumerate(blocks):
+                ri = 0
+                for layer in sb.values():
+                    hn = rms_norm(x, layer.ln1)
+                    if layer.kind == "attn":
+                        x = x + attn.decode_attention_step(
+                            layer.attn, hn, ks[ai], vs[ai], length, cfg,
+                            ring=True, lanes=lanes)
+                        ai += 1
+                    else:
+                        t, nc, nh = rglru_mod.rglru_decode_step(
+                            layer.rglru, hn, conv[s, ri], hst[s, ri], cfg)
+                        keep(conv[s, ri], nc)
+                        keep(hst[s, ri], nh)
+                        x = x + t
+                        ri += 1
+                    x = x + mlp(layer.mlp, rms_norm(x, layer.ln2),
+                                cfg.mlp_type)
+        return x
 
 
 def build_model(cfg: ModelConfig, seed: int = 0,

@@ -19,6 +19,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class RateParams(NamedTuple):
     """Per-cell rate-policy parameters, each a ``(C,)`` tensor.
@@ -30,6 +32,17 @@ class RateParams(NamedTuple):
     headroom: torch.Tensor      # i32 — fpga_dynamic/predictive spare capacity
     static_level: torch.Tensor  # i32 — fpga_static provisioning level
     gain: torch.Tensor          # f32 — predictive forecast gain
+
+    @staticmethod
+    def make(headroom: int = 0, static_level: int = 0, gain: float = 1.0,
+             device: str | torch.device | None = None) -> "RateParams":
+        """One cell's parameters, each a ``(1,)`` tensor on ``device``
+        (None: the card)."""
+        dev = resolve_device(device)
+        return RateParams(
+            torch.tensor([headroom], dtype=torch.int32, device=dev),
+            torch.tensor([static_level], dtype=torch.int32, device=dev),
+            torch.tensor([gain], dtype=torch.float32, device=dev))
 
 
 class RateCtx(NamedTuple):

@@ -128,15 +128,28 @@ def test_unembed_masks_the_padded_vocabulary():
                                             (False, 16)])
 def test_sdpa_chunked(causal, q_block):
     """Query blocks smaller than the sequence, a ragged last block, GQA."""
+    _sdpa_case(causal, 0, q_block)
+
+
+@pytest.mark.parametrize("causal,window,q_block", [(True, 3, 4),
+                                                   (True, 8, 16),
+                                                   (False, 5, 8)])
+def test_sdpa_chunked_sliding_window(causal, window, q_block):
+    """Sliding windows shorter than the sequence (and, non-causal, a band
+    on both sides), across query blocks."""
+    _sdpa_case(causal, window, q_block)
+
+
+def _sdpa_case(causal, window, q_block):
     rng = np.random.default_rng(8)
     q = rng.standard_normal((2, 11, 4, 16)).astype(np.float32)
     k = rng.standard_normal((2, 11, 2, 16)).astype(np.float32)
     v = rng.standard_normal((2, 11, 2, 16)).astype(np.float32)
     want = ref_attn.sdpa_chunked(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=causal,
-                                 q_block=q_block)
+                                 window=window, q_block=q_block)
     got = attn.sdpa_chunked(_t(q), _t(k), _t(v), causal=causal,
-                            q_block=q_block)
+                            window=window, q_block=q_block)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
@@ -295,8 +308,8 @@ def test_build_model_is_seeded_and_draws_the_reference_init():
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b",
-                                  "recurrentgemma-2b", "whisper-base",
-                                  "internvl2-76b", "deepseek-v3-671b"])
+                                  "whisper-base", "internvl2-76b",
+                                  "deepseek-v3-671b"])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Model(get_config(arch, "smoke"), "cpu")
@@ -307,3 +320,126 @@ def test_model_defaults_to_the_card():
         pytest.skip("a card is visible: device=None resolves to it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(get_config("qwen3-0.6b", "smoke"))
+
+
+# ------------------------------------------------------- hybrid family
+
+HYBRID = "recurrentgemma-2b"
+
+
+def test_hybrid_forward_matches_reference_float32():
+    """Smoke config (one super-block of rglru, rglru, attn and a tail of
+    two rglru layers; window 16) over 20 tokens, past the window."""
+    rm, params, m = _pair(HYBRID)
+    assert len(m.super) == 1 and len(m.tail) == 1
+    assert list(m.super[0]) == ["b0_rglru", "b1_rglru", "b2_attn"]
+    toks = np.random.default_rng(9).integers(
+        0, rm.cfg.vocab_size, (2, 20)).astype(np.int32)
+    want, _ = rm.forward(params, jnp.asarray(toks))
+    got, aux = m.forward(torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL32,
+                               atol=TOL32)
+    assert float(aux) == 0.0
+
+
+def test_hybrid_sliding_window_ring_cache():
+    """The reference's test_sliding_window_ring_cache on the port: window
+    8, 20 tokens; prefill's last logits equal the windowed forward's."""
+    cfg = get_config(HYBRID, "smoke").replace(dtype=torch.float32, window=8)
+    m = build_model(cfg, seed=4, device="cpu")
+    b, s = 2, 20                       # well past the window
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (b, s)))
+    logits_fwd, _ = m.forward(toks)
+    cache = m.init_cache(b, s)
+    assert cache["kv"]["k"].shape[2] == 8   # ring sized to the window
+    last = m.prefill({"tokens": toks}, cache)
+    np.testing.assert_allclose(last.numpy(), logits_fwd[:, -1].numpy(),
+                               rtol=1e-3, atol=1e-3)
+    assert cache["length"].tolist() == [s, s]
+
+
+def test_hybrid_decode_matches_reference():
+    """20 decode steps from carried weights, past the 16-position ring:
+    each step's logits and, at the end, every cache leaf."""
+    rm, params, m = _pair(HYBRID)
+    toks = np.random.default_rng(11).integers(
+        0, rm.cfg.vocab_size, (2, 20)).astype(np.int32)
+    rc, pc = rm.init_cache(2, 32), m.init_cache(2, 32)
+    ref_shapes = jax.tree.map(lambda a: (a.shape, a.dtype.name), rc)
+    port_shapes = {k: ({kk: (tuple(vv.shape), str(vv.dtype)[6:])
+                        for kk, vv in v.items()} if isinstance(v, dict)
+                       else (tuple(v.shape), str(v.dtype)[6:]))
+                   for k, v in pc.items()}
+    assert port_shapes == ref_shapes
+    for t in range(20):
+        rc, want = rm.decode_step(params, jnp.asarray(toks[:, t:t + 1]), rc)
+        got = m.decode_step(torch.from_numpy(toks[:, t:t + 1]), pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=TOL32, atol=TOL32)
+    np.testing.assert_array_equal(pc["length"].numpy(),
+                                  np.asarray(rc["length"]))
+    for name in ("conv", "h", "tail_conv", "tail_h"):
+        np.testing.assert_allclose(pc[name].numpy(), np.asarray(rc[name]),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(pc["kv"][name].numpy(),
+                                   np.asarray(rc["kv"][name]), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    # a step from the reference's own cache, carried across
+    carried = interop.model_cache(_np(rc), "cpu")
+    assert carried["h"].dtype == torch.float32
+    _, want = rm.decode_step(params, jnp.asarray(toks[:, :1]), rc)
+    got = m.decode_step(torch.from_numpy(toks[:, :1]), carried)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL32,
+                               atol=TOL32)
+
+
+def test_hybrid_decode_moves_only_active_lanes():
+    """A masked-out lane's recurrent state, ring and length stay bitwise
+    as they were while the other lane decodes."""
+    cfg = get_config(HYBRID, "smoke").replace(dtype=torch.float32)
+    m = build_model(cfg, seed=5, device="cpu")
+    cache = m.init_cache(2, 32)
+    m.prefill({"tokens": torch.tensor([[3, 1, 4], [1, 5, 9]])}, cache)
+    before = {k: (v.clone() if not isinstance(v, dict)
+                  else {kk: vv.clone() for kk, vv in v.items()})
+              for k, v in cache.items()}
+    lanes = torch.tensor([True, False])
+    for tok in (2, 6, 5):
+        m.decode_step(torch.tensor([[tok], [7]]), cache, lanes=lanes)
+    for name in ("conv", "h", "tail_conv", "tail_h"):
+        assert torch.equal(cache[name][:, :, 1], before[name][:, :, 1])
+        assert not torch.equal(cache[name][:, :, 0], before[name][:, :, 0])
+    for name in ("k", "v"):
+        assert torch.equal(cache["kv"][name][:, 1],
+                           before["kv"][name][:, 1])
+    assert cache["length"].tolist() == [6, 3]
+
+
+def test_hybrid_full_config_builds_on_meta_shapes():
+    """recurrentgemma-2b at full width: 8 super-blocks and a tail of two
+    recurrent layers, 8 attention layers of 10 query heads on one KV head
+    of 256, a ring of min(2048, max_len); every leaf of the reference's
+    pytree (its shapes, from `jax.eval_shape`) and no other."""
+    cfg = get_config(HYBRID, "full")
+    m = Model(cfg, "meta")
+    assert len(m.super) == 8 and list(m.tail[0]) == ["b0_rglru", "b1_rglru"]
+    ref = jax.eval_shape(ref_build(ref_config(HYBRID, "full")).init, KEY)
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+        keys = [k.key for k in path]
+        if keys[0] in ("super", "tail"):
+            for i in range(leaf.shape[0]):
+                want[".".join([keys[0], str(i), *keys[1:]])] = leaf.shape[1:]
+        else:
+            want[".".join(keys)] = leaf.shape
+    got = {k: tuple(v.shape) for k, v in m.state_dict().items()}
+    assert got == want
+    assert sum(p.numel() for p in m.parameters()) == 2_894_481_920
+    cache = m.init_cache(8, 4096, device="meta")
+    assert tuple(cache["kv"]["k"].shape) == (8, 8, 2048, 1, 256)
+    assert tuple(cache["conv"].shape) == (8, 2, 8, 3, 2560)
+    assert cache["h"].dtype == torch.float32
+    assert tuple(m.init_cache(8, 1024, device="meta")["kv"]["k"].shape) == \
+        (8, 8, 1024, 1, 256)

@@ -286,3 +286,89 @@ def test_tenant_router_rejects_out_of_order_submit():
     tr.advance(30.0)
     rep, rows = tr.finish()
     assert rep.totals.requests == 2 and len(rows) == 2
+
+
+# ------------------------------------------------------- hybrid family
+
+HYBRID = "recurrentgemma-2b"
+
+
+@pytest.fixture(scope="module")
+def hybrid_models():
+    rm = ref_build(ref_config(HYBRID, "smoke").replace(dtype=jnp.float32))
+    params = rm.init(KEY)
+    cfg = get_config(HYBRID, "smoke").replace(dtype=torch.float32)
+    m = Model(cfg, "cpu")
+    m.load_state_dict(interop.model_params(jax.tree.map(np.asarray, params),
+                                           cfg, "cpu"))
+    return rm, params, m
+
+
+def _lane(cache, axes, slot):
+    """One slot's lane of every cache leaf (cloned)."""
+    if isinstance(cache, dict):
+        return {k: _lane(cache[k], axes[k], slot) for k in cache}
+    return cache.narrow(axes, slot, 1).clone()
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def test_hybrid_engine_streams_and_cache_match_reference(hybrid_models):
+    """recurrentgemma-2b (smoke, window 16) under tests/test_serve.py's
+    schedule: the same token streams as the reference engine; the cache
+    after both finished (recurrent state, ring, lengths) within 1e-5."""
+    rm, params, m = hybrid_models
+    ref = RefEngine(rm, params, batch_slots=3, max_len=32)
+    want = _interleaved(ref, RefRequest)
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    got = _interleaved(eng, Request)
+    assert got == want
+    assert eng._axes == {"length": 0, "conv": 2, "h": 2,
+                         "kv": {"k": 1, "v": 1}, "tail_conv": 2,
+                         "tail_h": 2}
+    np.testing.assert_array_equal(eng.cache["length"].numpy(),
+                                  np.asarray(ref.cache["length"]))
+    ref_leaves = dict(_leaves(ref.cache))
+    for name, leaf in _leaves(eng.cache):
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(ref_leaves[name]),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_hybrid_interleaved_admission_equals_alone(hybrid_models):
+    """A's and B's streams equal their run-alone streams, and B's prefill
+    leaves A's lane (recurrent state, ring, length) and the unused slot's
+    lane bitwise as they were."""
+    m = hybrid_models[2]
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    assert eng.add_request(Request(rid=0, prompt=PA, max_new_tokens=6))
+    got = {0: [], 1: []}
+    for _ in range(2):
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    a_lane, idle = (_lane(eng.cache, eng._axes, s) for s in (0, 2))
+    assert eng.add_request(Request(rid=1, prompt=PB, max_new_tokens=4))
+    for (name, before), (_, after) in zip(
+            _leaves(a_lane), _leaves(_lane(eng.cache, eng._axes, 0))):
+        assert torch.equal(before, after), name
+    while eng.n_active:
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    for (name, before), (_, after) in zip(
+            _leaves(idle), _leaves(_lane(eng.cache, eng._axes, 2))):
+        assert torch.equal(before, after) and not after.any(), name
+    assert got[0] == _alone(ServeEngine(m, 3, 32), PA, 6)
+    assert got[1] == _alone(ServeEngine(m, 3, 32), PB, 4)
+
+
+def test_serve_main_runs_the_hybrid_on_the_cpu(capsys):
+    out = main(["--arch", HYBRID, "--minutes", "0.5", "--rate", "5",
+                "--engine-requests", "2", "--new-tokens", "3",
+                "--device", "cpu"])
+    assert out["emitted"] == 6 and out["requests"] > 0
+    assert "[engine] decoded 6 tokens" in capsys.readouterr().out
