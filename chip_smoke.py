@@ -156,13 +156,19 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                every step's logits within 1e-4 + 1e-4 |want|
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
-               the card at K in {1, 60, 180, 720} intervals x five thetas
-               (tests/test_policy_tune.py's three and a point on each
-               projection bound): value and gradient within rtol 1e-5
-               (float32) and 1e-10 (float64); times per launch at K = 180
-               and 720 beside the dependent-chain bound, the plain loop,
-               one autograd step, and an Adam step on the card and the
-               CPU
+               the card at K in {1, 60, 180, 720, 2161} intervals x five
+               thetas (tests/test_policy_tune.py's three and a point on
+               each projection bound): value and gradient within rtol 1e-5
+               (float32) and 1e-10 (float64), and the forward's saved n,
+               delta and w within the same, each over the scale its
+               rounding sets (max |n|; sharp / 4 x that for w); the
+               forward bound's chain alone, one thread from registers
+               (clock64; the shortest float32 sequence that meets the
+               contract, fixed apart from the kernel's own chain); times
+               per launch at K = 180 and 720 beside the bounds (forward:
+               K x that chain's measured cycles; reverse: the
+               larger of bytes and the scan's depth), the plain loop, one
+               autograd step, and an Adam step on the card and the CPU
   tune         benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65,
                seeds 0-2, 1800 s, 120 steps) through tune_gradient on the
                card: objective <= grid objective in every row, 121
@@ -397,17 +403,28 @@ VS_CPU_PROMPT = 16
 VS_CPU_NEW = 8
 VS_CPU_RTOL = 1e-3               # x the step's max |logit|
 # relax_kernel: the relaxation at K intervals (1, the test trace's 60, the
-# fast grid's 180, the full grid's 720) x tests/test_policy_tune.py's
-# THETAS and a point on each projection bound, both types
-RELAX_K = (1, 60, 180, 720)
+# fast grid's 180, the full grid's 720, and six hours of 10 s intervals
+# plus one, 2161: several of the kernels' tiles, a multiple of neither) x
+# tests/test_policy_tune.py's THETAS and a point on each projection bound,
+# both types
+RELAX_K = (1, 60, 180, 720, 2161)
 RELAX_THETAS = ((0.5, 0.0, 0.9), (2.3, 0.7, 0.85), (7.0, 1.5, 0.65),
                 (0.0, 0.0, 0.5), (3.0, 4.0, 1.0))
 RELAX_RTOL = {"float32": 1e-5, "float64": 1e-10}
 RELAX_TIMED_K = (180, 720)
-# the bound: the recurrence's dependent chain, in operations an interval
-# (csrc/relax.cu), each at the latency of a dependent fp32 / fp64
-# operation on Hopper, in SM cycles
-RELAX_CHAIN_OPS = {"forward": 8, "backward": 3}
+# the bounds: forward, K x one interval of the shortest float32 chain
+# that meets the contract (five dependent operations, a fixed sequence in
+# relax.cu apart from the kernel's chain), measured by ops.chain_cycles
+# (RELAX_CHAIN_REPS intervals, the least of RELAX_CHAIN_ROUNDS walks): a
+# measured floor for that sequence, not an operation count; beside it the
+# former figure of RELAX_OLD_CHAIN_OPS dependent ops an interval at
+# RELAX_DEP_CYCLES.
+# Reverse, the larger of its bytes and the scan's depth: ceil(log2 K)
+# float64 combines and as many adds of the reduction, each at the
+# latency of a dependent fp64 operation
+RELAX_CHAIN_REPS = 4096
+RELAX_CHAIN_ROUNDS = 3
+RELAX_OLD_CHAIN_OPS = 8
 RELAX_DEP_CYCLES = {"float32": 4, "float64": 8}
 RELAX_ADAM_STEPS = 50            # Adam steps timed on the card
 RELAX_ADAM_CPU_STEPS = 5         # and on the CPU
@@ -2407,16 +2424,39 @@ def _sm_clock_hz() -> float:
     return float(mhz) * 1e6
 
 
-def _relax_bound(k: int, dtype: str, clock_hz: float) -> dict:
-    """Least time of one launch of each relax kernel: the dependent chain
-    of the recurrence, RELAX_CHAIN_OPS operations an interval, each at
-    the latency of a dependent operation (RELAX_DEP_CYCLES) at the SM
-    clock. Bytes (K values in, 3K out) take under 0.01 us at K = 720."""
-    cyc = RELAX_DEP_CYCLES[dtype]
-    return {pass_: {"chain_ops": k * n,
-                    "bound_ms": k * n * cyc / clock_hz * 1e3,
-                    "bound_by": "operations"}
-            for pass_, n in RELAX_CHAIN_OPS.items()}
+def _relax_bound(k: int, dtype: str, clock_hz: float,
+                 chain_cycles: float) -> dict:
+    """Least time of one launch of each relax kernel at the SM clock.
+    Forward: K intervals of the bound's float32 chain, ``chain_cycles``
+    each (measured), beside the former 8-ops x 4-cycle figure. Reverse: the
+    larger of its bytes (K demand and 3K saved values in, theta and
+    grad_out in, 3 out) at HBM_BYTES_PER_S and the scan's depth, 2
+    ceil(log2 K) dependent float64 operations."""
+    size = 4 if dtype == "float32" else 8
+    depth = 2 * max(1, math.ceil(math.log2(k)))
+    bytes_ms = ((4 * k + 4) * size + 3 * size) / HBM_BYTES_PER_S * 1e3
+    depth_ms = depth * RELAX_DEP_CYCLES["float64"] / clock_hz * 1e3
+    return {"forward": {"bound_ms": k * chain_cycles / clock_hz * 1e3,
+                        "old_bound_ms": k * RELAX_OLD_CHAIN_OPS
+                        * RELAX_DEP_CYCLES[dtype] / clock_hz * 1e3},
+            "backward": {"bound_ms": max(bytes_ms, depth_ms),
+                         "bound_by": ("bytes" if bytes_ms >= depth_ms
+                                      else "operations"),
+                         "bytes_ms": bytes_ms, "scan_depth_ms": depth_ms}}
+
+
+def _saved_err(got, want, sharp: float) -> dict:
+    """The kernel's saved (n, delta, w) against the plain loop's: max
+    |difference| over the scale its rounding sets. n and delta = target -
+    n are state-sized numbers: max |n|; w = sigmoid(sharp delta) moves by
+    at most sharp / 4 per unit of delta: sharp / 4 x max |n|."""
+    scale = float(want[0].abs().max())
+    out = {}
+    for name, a, b, s in zip(("n", "delta", "w"), got, want,
+                             (scale, scale, sharp / 4 * scale)):
+        diff = float((a - b).abs().max())
+        out[name] = diff / s if s else diff
+    return out
 
 
 def _host_ms(fn, reps: int, torch) -> float:
@@ -2433,15 +2473,18 @@ def _host_ms(fn, reps: int, torch) -> float:
 
 def phase_relax_kernel(torch) -> dict:
     """The relax kernels against their plain version on the card: the
-    relaxation's value and gradient at K in RELAX_K intervals x
-    RELAX_THETAS, float32 and float64; times per launch at the tune
-    path's K = 180 and the full grid's K = 720 beside the bound, the
-    plain autograd step and an Adam step (card and CPU)."""
+    relaxation's value and gradient, and the forward's saved n, delta and
+    w (`_saved_err`), at K in RELAX_K intervals x RELAX_THETAS, float32
+    and float64; the forward bound's chain alone (`ops.chain_cycles`, the
+    least of RELAX_CHAIN_ROUNDS walks); times per
+    launch at the tune path's K = 180 and the full grid's K = 720 beside
+    the bounds, the plain loop, one autograd step and an Adam step (card
+    and CPU)."""
     from repro_torch.core.workers import DEFAULT_FLEET
     from repro_torch.kernels.relax import ops, ref
     from repro_torch.policies import tune
     tr = _tune_trace(TUNE_BIASES[0], 0, max(RELAX_K) * 10)
-    cases, worst, worst_abs = [], {}, {}
+    cases, worst, worst_abs, worst_saved = [], {}, {}, {}
     for dtype, rtol in RELAX_RTOL.items():
         dt = getattr(torch, dtype)
         full = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
@@ -2454,25 +2497,38 @@ def phase_relax_kernel(torch) -> dict:
                 x = th.clone().requires_grad_(True)
                 cost = tune.relaxed_cost(x, spec)
                 grad, = torch.autograd.grad(cost, x)
-                want = ref.relaxed_cost_ref(th, spec.demand, consts)
-                want_g = ref.relax_grad_ref(th, spec.demand, consts)
+                saved = ops.relax_forward(th, spec.demand, consts)[1:]
+                p = th.clone().requires_grad_(True)
+                want, *want_saved = ref.relax_loop(p, spec.demand, consts)
+                want_g, = torch.autograd.grad(want, p)
                 torch.cuda.synchronize()
                 pairs = list(zip([float(cost.detach()), *grad.tolist()],
-                                 [float(want), *want_g.tolist()]))
+                                 [float(want.detach()), *want_g.tolist()]))
                 err = max(abs(a - b) / abs(b) if b else abs(a)
                           for a, b in pairs)
+                saved_err = _saved_err(saved, [t.detach()
+                                               for t in want_saved],
+                                       spec.sharp)
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 worst_abs[dtype] = max(worst_abs.get(dtype, 0.0),
                                        *(abs(a - b) for a, b in pairs))
+                worst_saved[dtype] = {
+                    name: max(worst_saved.get(dtype, {}).get(name, 0.0), e)
+                    for name, e in saved_err.items()}
                 cases.append({"dtype": dtype, "K": k, "theta": list(theta),
                               "cost": pairs[0][0], "grad": grad.tolist(),
-                              "max_rel_err": err})
+                              "max_rel_err": err, "saved_err": saved_err})
                 check(err <= rtol, f"relax {dtype} K={k} theta={theta}: "
                                    f"relative error {err} over {rtol}")
+                check(max(saved_err.values()) <= rtol,
+                      f"relax {dtype} K={k} theta={theta}: saved buffers "
+                      f"off the plain loop's by {saved_err} over {rtol}")
     clock = _sm_clock_hz()
-    timed = {}
     f32 = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
                          device="cuda")
+    chain = min(ops.chain_cycles(RELAX_CHAIN_REPS, tuple(f32[1:]))
+                for _ in range(RELAX_CHAIN_ROUNDS))
+    timed = {}
     for k in RELAX_TIMED_K:
         spec = f32._replace(demand=f32.demand[:k].contiguous())
         consts = tuple(spec[1:])
@@ -2488,7 +2544,7 @@ def phase_relax_kernel(torch) -> dict:
             ref.relax_grad_ref(th, spec.demand, consts)
 
         cpu_spec = spec._replace(demand=spec.demand.cpu())
-        bound = _relax_bound(k, "float32", clock)
+        bound = _relax_bound(k, "float32", clock, chain)
         fwd = graph_ms(lambda: ops.relax_forward(th, spec.demand, consts),
                        50, torch)
         bwd = graph_ms(lambda: ops.relax_backward(th, spec.demand, consts,
@@ -2497,7 +2553,11 @@ def phase_relax_kernel(torch) -> dict:
             "K": k, "dtype": "float32",
             "forward_ms": fwd, "backward_ms": bwd,
             "forward_bound_ms": bound["forward"]["bound_ms"],
+            "forward_old_bound_ms": bound["forward"]["old_bound_ms"],
             "backward_bound_ms": bound["backward"]["bound_ms"],
+            "backward_bound_by": bound["backward"]["bound_by"],
+            "backward_bytes_ms": bound["backward"]["bytes_ms"],
+            "backward_scan_depth_ms": bound["backward"]["scan_depth_ms"],
             "step_eager_ms": cuda_ms(step, 50, torch),
             "plain_forward_ms": _host_ms(
                 lambda: ref.relaxed_cost_ref(th, spec.demand, consts), 2,
@@ -2514,9 +2574,16 @@ def phase_relax_kernel(torch) -> dict:
     main = timed[f"K{RELAX_TIMED_K[0]}"]
     out = {"phase": "relax_kernel", "cases": len(cases),
            "max_rel_err_by_dtype": worst,
-           "max_abs_err_by_dtype": worst_abs, "tolerance": RELAX_RTOL,
+           "max_abs_err_by_dtype": worst_abs,
+           "saved_err_by_dtype": worst_saved, "tolerance": RELAX_RTOL,
            "sm_clock_hz": clock, "dep_cycles": RELAX_DEP_CYCLES,
-           "chain_ops_per_interval": RELAX_CHAIN_OPS, "timed": timed,
+           "chain_cycles_per_interval": chain,
+           "chain": "one thread walks the forward bound's float32 chain "
+                    f"{RELAX_CHAIN_REPS} times from registers (clock64; "
+                    f"least of {RELAX_CHAIN_ROUNDS}): FFMA, MUFU.EX2, "
+                    "FADD, MUFU.RCP, FFMA, a fixed sequence apart from the "
+                    "kernel's chain",
+           "timed": timed,
            "worst_cases": sorted(cases, key=lambda c: -c["max_rel_err"])[:4],
            "max_abs_err": worst_abs["float32"],
            "timing": "forward_ms, backward_ms: CUDA-graph replay (device "
@@ -2535,7 +2602,7 @@ def phase_relax_kernel(torch) -> dict:
                            "plain_ms": main["plain_step_ms"]
                            - main["plain_forward_ms"],
                            "bound_ms": main["backward_bound_ms"],
-                           "bound_by": "operations"}}
+                           "bound_by": main["backward_bound_by"]}}
     emit(out)
     return out
 

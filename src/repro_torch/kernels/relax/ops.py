@@ -2,8 +2,9 @@
 function that joins them.
 
 `relax_forward(theta, demand, consts)` computes the relaxation's cost and
-saves, per interval, n, delta and w; `relax_backward(...)` walks the
-adjoint back over the intervals and returns grad_out * dcost/dtheta.
+saves, per interval, n, delta and w; `relax_backward(...)` composes the
+adjoint's affine maps over the intervals (a scan) and returns grad_out *
+dcost/dtheta.
 `relaxed_cost(theta, demand, consts)` is the `torch.autograd.Function`
 over the two: one forward launch gives the cost, one backward launch its
 gradient. theta (3,) and demand (K,) are float32 or float64, of one type.
@@ -14,12 +15,20 @@ reverse pass); a CUDA tensor launches the kernel, or this raises.
 ``relax_forward.launches`` and ``relax_backward.launches`` count the
 calls that launched, and nothing else.
 
-Sums: the kernel adds the interval costs in interval order, in double,
-and rounds once; the plain version sums the stacked costs with
-``torch.sum`` (pairwise) in the working type. In float32 the two sums of
-the same 720 costs differ by a few units in the last place, and the
-recurrence's own rounding (fused multiply-adds on the card) by more; the
-checks hold them to rtol 1e-5 in float32 and 1e-10 in float64.
+Sums: the forward kernel adds the interval costs in double, each thread
+its intervals and then across the block (warp shuffles, then one pass
+over the warps), and rounds once; the reverse composes the adjoint's
+affine maps and adds the three gradient sums in double the same way.
+The plain version sums the stacked costs with ``torch.sum`` (pairwise) in
+the working type. In float32 the two sums of the same 720 costs differ by
+a few units in the last place, and the recurrence's own rounding (fused
+multiply-adds and, on the chain, the MUFU exp and reciprocal on the card)
+by more; the checks hold them to rtol 1e-5 in float32 and 1e-10 in
+float64.
+
+``chain_cycles`` times the forward bound's chain alone on the card (one
+thread, no memory traffic): the shortest float32 sequence from n to n_new
+that meets the contract, fixed in the source apart from the kernel's own.
 """
 
 from __future__ import annotations
@@ -48,6 +57,10 @@ def _library():
                        + [ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_double] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.relax_chain_bench_launch.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_double] * 5
+        + [ctypes.c_void_p])
+    lib.relax_chain_bench_launch.restype = ctypes.c_int
     return lib
 
 
@@ -122,6 +135,28 @@ def relax_backward(theta: torch.Tensor, demand: torch.Tensor, consts,
 
 relax_forward.launches = 0
 relax_backward.launches = 0
+
+
+# the chain microbenchmark's targets: FPGA counts like the fast grid's
+_CHAIN_TARGETS = (50.0, 52.0)
+
+
+def chain_cycles(k: int, consts) -> float:
+    """SM cycles (clock64) of one interval of the forward bound's float32
+    chain (delta, w = sigmoid(sharp delta), n_new; five dependent
+    operations, see `relax_chain_bench_kernel`), walked ``k`` times by one
+    thread on the card from registers, the target alternating between two
+    values. Not a path's kernel, so no launch is counted."""
+    interval_s, spin_up_s, *_, sharp = _consts(consts)
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.empty(1, dtype=torch.float32, device="cuda")
+    rc = _library().relax_chain_bench_launch(
+        cycles.data_ptr(), sink.data_ptr(), k, *_CHAIN_TARGETS, interval_s,
+        spin_up_s, sharp, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"relax chain_cycles launch failed: CUDA error "
+                           f"{rc}")
+    return int(cycles.item()) / k
 
 
 class _Relax(torch.autograd.Function):

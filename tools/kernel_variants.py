@@ -5,7 +5,7 @@ splits, on one CUDA card.
 
 Usage, from the root of a checkout:
     python3 tools/kernel_variants.py [decode_attn] [arrival] [minplus]
-        [split_sweep] [predict]
+        [split_sweep] [predict] [relax]
 (no argument: the first three).
 
 Each variant is a kernel source with a few strings replaced, built with
@@ -26,7 +26,11 @@ split of the dense kernel at every bucket of the dense run, each checked
 bitwise, then the fit of `ops.DENSE_COST`. predict: `spork_predict`
 (PREDICT_VARIANTS: warps a cell, the offsets' batch, the division, phase
 cut-offs) at chip_smoke.py's timed shapes, each checked bitwise against
-the CPU plain version, then the eager cost split. Kernels that must be bitwise
+the CPU plain version, then the eager cost split. relax (RELAX_VARIANTS:
+the float32 chain unfolded and in its accurate form, block sizes of both
+passes) at chip_smoke.py's timed K in float32, each checked against the
+plain loop at chip_smoke.py's tolerance, then the SASS. Kernels that must
+be bitwise
 are checked against their plain versions. One JSON line per measurement.
 No JAX: only the port and chip_smoke.py's helpers.
 """
@@ -205,6 +209,79 @@ PREDICT_VARIANTS = {
        for ph, marker in (("B", "// B. p(b)"), ("C", "// C. prefixes"),
                           ("E", "// E. J(c)"))},
 }
+
+
+# relax.cu's constants replaced per variant; "unfolded" takes the float32
+# chain as delta * scale, 2^x, 1 + e, the reciprocal and n + (1 - (1 -
+# alpha) w) delta: three dependent operations more an interval
+_RELAX_FOLD = """    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e)
+        : "f"(fmaf(n, -ch.ex2_scale, tgt * ch.ex2_scale)));
+    w = __fdividef(1.f, 1.f + e);
+    return fmaf(-ch.one_minus_alpha * delta, w, tgt);
+"""
+RELAX_VARIANTS = {
+    "chosen": {},
+    "unfolded": {_RELAX_FOLD: """    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(delta * ch.ex2_scale));
+    w = __fdividef(1.f, 1.f + e);
+    return step_n(n, delta, w, ch.one_minus_alpha);
+"""},
+    "accurate_chain": {"kFastChain = true": "kFastChain = false"},
+    "fwd128": {"kFwdThreads = 256": "kFwdThreads = 128"},
+    "fwd512": {"kFwdThreads = 256": "kFwdThreads = 512"},
+    "rev256": {"kRevThreads = 512": "kRevThreads = 256"},
+    "rev1024": {"kRevThreads = 512": "kRevThreads = 1024"},
+}
+
+
+def relax_variants(torch, cs) -> None:
+    """Each of RELAX_VARIANTS at chip_smoke.py's RELAX_TIMED_K in float32
+    (theta RELAX_THETAS[1]): cost and gradient checked against the plain
+    loop first at chip_smoke.py's rtol, then forward and reverse timed by
+    CUDA-graph replay, in two rounds; then the chosen library's SASS."""
+    from repro_torch.core.workers import DEFAULT_FLEET
+    from repro_torch.kernels.relax import ops, ref
+    from repro_torch.policies import tune
+    tr = cs._tune_trace(cs.TUNE_BIASES[0], 0, max(cs.RELAX_TIMED_K) * 10)
+    full = tune.make_spec(tr.counts, tr.request_size_s, DEFAULT_FLEET,
+                          device="cuda")
+    th = torch.tensor(cs.RELAX_THETAS[1], device="cuda")
+    go = torch.ones((), device="cuda")
+    data = {}
+    for k in cs.RELAX_TIMED_K:
+        demand = full.demand[:k].contiguous()
+        consts = tuple(full[1:])
+        data[k] = (demand, consts, float(ref.relaxed_cost_ref(
+            th, demand, consts)), ref.relax_grad_ref(th, demand, consts))
+    rtol = cs.RELAX_RTOL["float32"]
+    sources = _sources(ops.SOURCES[0], RELAX_VARIANTS, "relax")
+    original = ops.SOURCES
+    try:
+        for rnd in range(2):
+            for name, src_v in sources.items():
+                ops.SOURCES = src_v
+                ops._library.cache_clear()
+                row = {}
+                for k, (demand, consts, want, want_g) in data.items():
+                    cost, *saved = ops.relax_forward(th, demand, consts)
+                    grad = ops.relax_backward(th, demand, consts, saved, go)
+                    err = max(abs(float(cost) - want) / abs(want),
+                              float(((grad - want_g).abs()
+                                     / want_g.abs()).max()))
+                    cs.check(err <= rtol, f"relax variant {name}: error "
+                                          f"{err} at K = {k}")
+                    row[f"K{k}"] = {
+                        "forward_ms": cs.graph_ms(lambda: ops.relax_forward(
+                            th, demand, consts), 50, torch),
+                        "backward_ms": cs.graph_ms(
+                            lambda: ops.relax_backward(th, demand, consts,
+                                                       saved, go), 50,
+                            torch),
+                        "max_rel_err": err}
+                cs.emit({"relax_variant": name, "round": rnd, "ms": row})
+    finally:
+        ops.SOURCES = original
+        ops._library.cache_clear()
+    _sass("relax", ops.SOURCES, cs)
 
 
 def predict_variants(torch, cs) -> None:
@@ -463,6 +540,8 @@ def main() -> int:
         split_sweep(torch, cs)
     if "predict" in parts:
         predict_variants(torch, cs)
+    if "relax" in parts:
+        relax_variants(torch, cs)
     print(smi, flush=True)
     return 0
 
