@@ -154,6 +154,45 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                weights carried across, on the CPU: one lane of 8 + 32
                positions (the ring wraps twice); streams identical,
                every step's logits within 1e-4 + 1e-4 |want|
+  serve_encdec whisper-base at full width in bf16 (70794752 parameters)
+               through Model.prefill and decode_step, the family's
+               serving API: the encoder over a seeded frontend (8, 1536,
+               512), every decoder layer's memory K/V, 128 prompt tokens,
+               then 64 greedy steps on 8 lanes of 448 positions;
+               decode_attn launches = 6 layers x 2 x (128 + 64) = 2304
+               (1152 self-attention over the text cache, 1152
+               cross-attention over the 1536 frames: the split pass and
+               the combine), the plain version never called; each of the
+               last step's 12 calls rerun on its own tensors against the
+               plain version; the kernel, the plain version and SDPA
+               timed at the last layer's self and cross calls beside the
+               bound; encode + memory, prefill and decode wall, tokens/s,
+               peak memory, a decode step's idle share; the interleaving
+               regression through ServeEngine (no frontend: its lanes
+               decode against zero memory, as the reference's do; tokens,
+               logits, K/V rows and mem_k/mem_v lanes bitwise alone =
+               interleaved); launch/serve.py --arch whisper-base once
+  serve_encdec_vs_cpu
+               whisper-base at full width in float32 on the card and,
+               weights carried across, on the CPU: 2 lanes, a frontend
+               (2, 1536, 512), 16 + 8 tokens in lockstep; every step's
+               logits within 1e-3 x the step's max |logit|, tokens equal
+               except at CPU top-2 gaps below that (counted), mem_k and
+               mem_v within 1e-4 of their max
+  serve_vlm    internvl2-76b at full width, n_layers cut 80 -> 2
+               (2764087296 parameters), bf16: a seeded prefix of 256
+               patches through decode_step(embeds=), 128 prompt tokens,
+               64 greedy steps on 8 lanes of 448 positions; decode_attn
+               launches = 2 x (256 + 128 + 64) = 896 at D = 128 with a
+               query-head group of 8, the plain version never called; the
+               last step's calls against the plain version; the kernel,
+               the plain version and SDPA at (8, 64, 8, 128, 448) beside
+               the bound; walls, tokens/s, peak memory
+  serve_vlm_vs_cpu
+               the smoke config (8 patches, D = 16) in float32 on the card
+               and on the CPU: 2 lanes of 8 + 8 tokens after the patches;
+               streams identical, every step's logits within 1e-4 + 1e-4
+               |want|
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -170,12 +209,14 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                larger of bytes and the scan's depth), the plain loop, one
                autograd step, and an Adam step on the card and the CPU
   tune         benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65,
-               seeds 0-2, 1800 s, 120 steps) through tune_gradient on the
-               card: objective <= grid objective in every row, 121
+               1800 s, 120 steps) cut in depth to seed 0 (of 0-2: the
+               room for the encdec and VLM phases) through tune_gradient
+               on the card: objective <= grid objective in every row, 121
                forward and 120 reverse relax launches a trace, no
                spork_predict launch; wall, ms per Adam step and per real
-               simulation, and the full grid's projected time (run only
-               when under 120 s)
+               simulation, the seconds the cut frees (the 4 traces cut x
+               the mean wall of a tuned trace), and the full grid's
+               projected time (run only when under 120 s)
   tune_vs_cpu  the row (0.55, 0) with device="cpu": headroom, gain and
                source identical, theta within rtol 1e-4, the selection's
                totals (counters identical, floats within 1e-5) and the
@@ -264,13 +305,16 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
 
 Every sweep of every phase runs the invariant guards of
 `repro_torch.sim.harness` (the script never sets REPRO_SKIP_INVARIANTS).
+Every phase line carries ``phase_wall_s``, the phase's whole wall.
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
 the sum over its eleven paths, Table 8, Table 9, the serve router, the
 scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
 the spork_sim grid, local and on the mesh, the hybrid's router and Fig.
 4; arrival's over Table 9, the chaos suite and the fleet suite;
-decode_attn's over serve and serve_hybrid; each also given on its own;
+decode_attn's over serve, serve_hybrid, serve_encdec and serve_vlm, with
+the kernel timed at each of those paths' shapes; each also given on its
+own;
 relax_forward's and relax_backward's on the tune path), the raw
 nvidia-smi line, and
 last `{"ok": true, "device": {...}}`. With no CUDA card, or run outside
@@ -428,10 +472,15 @@ RELAX_OLD_CHAIN_OPS = 8
 RELAX_DEP_CYCLES = {"float32": 4, "float64": 8}
 RELAX_ADAM_STEPS = 50            # Adam steps timed on the card
 RELAX_ADAM_CPU_STEPS = 5         # and on the CPU
-# tune: benchmarks/policy_tuning.py's fast grid on the card; its full grid
-# runs only when the fast run projects it under TUNE_FULL_MAX_S
+# tune: benchmarks/policy_tuning.py's fast grid on the card, cut in depth
+# from its 3 seeds to 1 (both biases, the horizon and the steps as they
+# are) to make room for the encoder-decoder and VLM serving phases; the
+# line reports the seconds the cut frees, TUNE_SEEDS_CUT traces x the
+# mean wall of a tuned trace. Its full grid runs only when the fast run
+# projects it under TUNE_FULL_MAX_S
 TUNE_BIASES = (0.55, 0.65)
-TUNE_SEEDS = 3
+TUNE_SEEDS = 1
+TUNE_SEEDS_CUT = 2               # seeds 1-2 of the fast grid, not run
 TUNE_HORIZON_S = 1800
 TUNE_STEPS = 120
 TUNE_FULL = {"biases": (0.5, 0.6, 0.7), "seeds": 10, "horizon_s": 7200,
@@ -451,6 +500,27 @@ HYBRID_VS_CPU_PROMPT = 8
 HYBRID_VS_CPU_NEW = 32
 HYBRID_VS_CPU_MAX_LEN = 64
 TOL_LOGITS = 1e-4                # tests/test_torch_models.py's TOL32
+# serve_encdec: whisper-base at full width in bf16, 8 lanes of 448 text
+# positions (whisper's text context, n_text_ctx, arXiv:2212.04356), a
+# seeded frontend of its src_len frames, the serve phase's 128-token
+# prompts and 64 greedy decode steps: decode_attn launches = 6 decoder
+# layers x 2 (self- and cross-attention) x (128 + 64)
+ENCDEC_ARCH = "whisper-base"
+ENCDEC_MAX_LEN = 448
+ENCDEC_LAUNCHES = 6 * 2 * (SERVE_PROMPT + SERVE_NEW)
+MEM_RTOL = 1e-4                  # serve_encdec_vs_cpu: x max |mem_k|, |mem_v|
+# serve_vlm: internvl2-76b at full width with n_layers cut 80 -> 2 (69.5 B
+# parameters do not fit one card), a seeded prefix of its 256 patches, the
+# same prompts and steps, in 8 lanes of 256 + 128 + 64 = 448 positions:
+# decode_attn launches = 2 layers x 448
+VLM_ARCH = "internvl2-76b"
+VLM_LAYERS = 2
+VLM_MAX_LEN = 448
+VLM_LAUNCHES = VLM_LAYERS * VLM_MAX_LEN
+# serve_vlm_vs_cpu: the smoke config (8 patches) in float32, 2 lanes of 8
+# prompt tokens and 8 greedy steps
+VLM_VS_CPU_PROMPT = 8
+VLM_VS_CPU_NEW = 8
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -516,7 +586,18 @@ class CheckFailed(RuntimeError):
 
 
 def emit(obj: dict) -> None:
+    """Print one JSON line. A phase line (one with a "phase" key) also
+    gets ``phase_wall_s``: the host's seconds since the line before it,
+    which is the phase's whole wall, since each phase prints one line, at
+    its end."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_wall_s": now - emit.last}
+    emit.last = now
     print(json.dumps(obj), flush=True)
+
+
+emit.last = time.perf_counter()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2608,11 +2689,11 @@ def phase_relax_kernel(torch) -> dict:
 
 
 def phase_tune(torch) -> dict:
-    """benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65, seeds
-    0-2, 1800 s, 120 steps) through the port's tune_gradient on the card:
-    objective <= grid objective in every row; 2 x steps + 1 relax launches
-    a trace (one forward and one reverse an Adam step, and the final
-    loss)."""
+    """benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65, seed 0,
+    cut from seeds 0-2; 1800 s, 120 steps) through the port's
+    tune_gradient on the card: objective <= grid objective in every row;
+    2 x steps + 1 relax launches a trace (one forward and one reverse an
+    Adam step, and the final loss)."""
     from repro_torch.core.workers import DEFAULT_FLEET
     from repro_torch.kernels.relax import ops
     from repro_torch.kernels.spork_predict import ops as predict_ops
@@ -2692,6 +2773,13 @@ def phase_tune(torch) -> dict:
                                for r in rows),
            "relax_forward_launches": fwd, "relax_backward_launches": bwd,
            "spork_predict_launches": predict,
+           "depth_cut": {
+               "seeds_cut": TUNE_SEEDS_CUT,
+               "traces_cut": TUNE_SEEDS_CUT * len(TUNE_BIASES),
+               "freed_s": TUNE_SEEDS_CUT * len(TUNE_BIASES)
+               * sum(r["wall_grad_s"] for r in rows) / len(rows),
+               "reckoning": "traces cut x the mean wall_grad_s of the "
+                            "traces run"},
            "grid_search_s": t_grid, "real_sim_ms": t_sim * 1e3,
            "adam_step_ms": adam_ms,
            "full_grid": {**TUNE_FULL, "projected_s": projected,
@@ -2766,23 +2854,77 @@ def phase_tune_vs_cpu(tune_run: dict) -> dict:
     return out
 
 
-def _hybrid_capture(attn_mod, n_layers: int):
+def _decode_capture(attn_mod, n_calls: int):
     """Wrap the attention module's `decode_attention` so the arguments of
-    the last ``n_layers`` calls are kept (the path's own tensors); returns
-    (the list they go to, a function that restores the module)."""
-    kept = []
+    the last ``n_calls`` calls are kept (the path's own tensors) and the
+    calls are tallied by cache length S; returns (the list they go to,
+    the tally {S: calls}, a function that restores the module)."""
+    kept, by_len = [], {}
     fn = attn_mod.decode_attention
 
     def recorder(q, k, v, lengths):
         kept.append((q, k, v, lengths))
-        del kept[:-n_layers]
+        del kept[:-n_calls]
+        by_len[k.shape[1]] = by_len.get(k.shape[1], 0) + 1
         return fn(q, k, v, lengths)
 
     attn_mod.decode_attention = recorder
 
     def restore():
         attn_mod.decode_attention = fn
-    return kept, restore
+    return kept, by_len, restore
+
+
+def _check_calls(kept, tag: str, torch) -> list[float]:
+    """Rerun each kept decode_attn call on its own tensors through the
+    kernel and the plain version: within DECODE_TOL of the path's type.
+    Returns each call's largest error."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    errs = []
+    for q, k, v, lengths in kept:
+        got = ops.decode_attention(q, k, v, lengths)
+        want = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = DECODE_TOL[str(q.dtype).removeprefix("torch.")]
+        over = float((err - tol * want.float().abs()).max())
+        errs.append(float(err.max()))
+        check(over <= tol, f"{tag}: a decode_attn call differs from the "
+                           f"plain version by {float(err.max())}")
+    return errs
+
+
+def _decode_timing(call, launches: int, torch) -> dict:
+    """One decode_attn call of a path on its own tensors: the kernel, the
+    plain version and SDPA (GQA, boolean length mask) timed by CUDA-graph
+    replay beside the bound and its share; loss_s = launches x (ms -
+    bound)."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    F = torch.nn.functional
+    q, k, v, lengths = call
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    lens = lengths.cpu().numpy()
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    out = {"shape": [b, hq, hkv, d, s],
+           "dtype": str(q.dtype).removeprefix("torch."),
+           "lengths": lens.tolist(),
+           "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths),
+                          50, torch),
+           "plain_ms": graph_ms(lambda: decode_attention_ref(
+               q, k, v, lengths), 5, torch),
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+               qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
+           **_decode_bound((b, hq, hkv, d, s), lens, q.element_size())}
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["vs_library"] = out["library_ms"] / out["ms"]
+    out["launches"] = launches
+    out["loss_s"] = launches * (out["ms"] - out["bound_ms"]) / 1e3
+    return out
 
 
 def phase_serve_hybrid(torch) -> dict:
@@ -2793,11 +2935,9 @@ def phase_serve_hybrid(torch) -> dict:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
-    F = torch.nn.functional
     router = _serve_router(torch, HYBRID_ARCH)
     cfg = get_config(HYBRID_ARCH, "full")
     check(cfg.dtype == getattr(torch, SERVE_DTYPE),
@@ -2819,7 +2959,7 @@ def phase_serve_hybrid(torch) -> dict:
     plain_calls = []
     ref_fn = ops.decode_attention_ref
     ops.decode_attention_ref = lambda *a: plain_calls.append(1) or ref_fn(*a)
-    kept, restore = _hybrid_capture(attn_mod, n_attn)
+    kept, _, restore = _decode_capture(attn_mod, n_attn)
     try:
         ops.decode_attention.launches = 0
         torch.cuda.synchronize()
@@ -2857,35 +2997,8 @@ def phase_serve_hybrid(torch) -> dict:
                            f"{len(plain_calls)} times")
     # every attention layer of the last step, on its own tensors
     check(len(kept) == n_attn, f"serve_hybrid: {len(kept)} calls kept")
-    layer_err = []
-    for q, k, v, lengths in kept:
-        got = ops.decode_attention(q, k, v, lengths)
-        want = decode_attention_ref(q, k, v, lengths)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = DECODE_TOL[SERVE_DTYPE]
-        over = float((err - tol * want.float().abs()).max())
-        layer_err.append(float(err.max()))
-        check(over <= tol, f"serve_hybrid: a layer's decode_attn differs "
-                           f"from the plain version by {float(err.max())}")
-    q, k, v, lengths = kept[-1]
-    b, hq, d = q.shape
-    _, s, hkv, _ = k.shape
-    lens = lengths.cpu().numpy()
-    mask = (torch.arange(s, device="cuda")[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    shape_t = {"shape": [b, hq, hkv, d, s], "lengths": lens.tolist(),
-               "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths),
-                              50, torch),
-               "plain_ms": graph_ms(lambda: decode_attention_ref(
-                   q, k, v, lengths), 5, torch),
-               "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                   qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
-               **_decode_bound((b, hq, hkv, d, s), lens, q.element_size())}
-    shape_t["bound_share"] = shape_t["bound_ms"] / shape_t["ms"]
-    shape_t["vs_library"] = shape_t["library_ms"] / shape_t["ms"]
-    shape_t["loss_s"] = launches * (shape_t["ms"] - shape_t["bound_ms"]) / 1e3
+    layer_err = _check_calls(kept, "serve_hybrid", torch)
+    shape_t = _decode_timing(kept[-1], launches, torch)
     del kept
     # a decode step of the path under the profiler: every lane, once more
     tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
@@ -2989,6 +3102,447 @@ def phase_serve_hybrid_vs_cpu(torch) -> dict:
     check(streams[0] == streams[1], f"serve_hybrid_vs_cpu: streams differ: "
                                     f"{streams}")
     check(over <= TOL_LOGITS, f"serve_hybrid_vs_cpu: logits differ by {err}")
+    return out
+
+
+# ------------- slice 8 items 2 and 5: the encoder-decoder and VLM families
+
+def _prefill_split(model, batch: dict, cache: dict, torch):
+    """`Model.prefill`, its wall split at the first token step (the first
+    `decode_step` without ``embeds``): the frontend's part (encdec: the
+    encoder and every layer's memory K/V; vlm: the patch prefix) and the
+    prompt's. Returns (last logits, frontend_s, prompt_s)."""
+    marks = []
+    step = model.decode_step
+
+    def marked(tokens, cache, lanes=None, embeds=None):
+        if embeds is None and not marks:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        return step(tokens, cache, lanes=lanes, embeds=embeds)
+
+    model.decode_step = marked
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill(batch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        del model.decode_step
+    return logits, marks[0] - t0, t1 - marks[0]
+
+
+def _greedy(model, logits, cache, n_new: int, torch):
+    """n_new decode steps on every lane, each fed the argmax of the last
+    logits (on the logits' device: no host read a step). Returns the fed
+    tokens (B, n_new) and the last logits."""
+    fed = []
+    for _ in range(n_new):
+        tok = logits[:, :model.cfg.vocab_size].argmax(dim=-1, keepdim=True)
+        fed.append(tok)
+        logits = model.decode_step(tok, cache)
+    return torch.cat(fed, dim=1), logits
+
+
+def _steps_recorded(model, log: list):
+    """Wrap ``model.decode_step`` so every step's logits (valid
+    vocabulary, float32, on the CPU) go to ``log``, prefill's steps
+    included; returns the function that unwraps it."""
+    step = model.decode_step
+
+    def recorded(*args, **kwargs):
+        logits = step(*args, **kwargs)
+        log.append(logits[:, :model.cfg.vocab_size].float().cpu())
+        return logits
+
+    model.decode_step = recorded
+    return lambda: delattr(model, "decode_step")
+
+
+def _frontend_serve(tag: str, model, batch: dict, max_len: int,
+                    n_calls: int, torch) -> dict:
+    """Model.prefill (frontend, then the prompt) and SERVE_NEW greedy
+    steps on every lane, with decode_attn's launches counted from 0, its
+    calls tallied by cache length, the plain version forbidden and each
+    call of the last step kept. The peak memory is reported with the
+    model's build (reset before it by the caller) and for the run alone
+    (the build draws the weights in float32); both count the tensors
+    earlier phases keep alive, which the caller reports as
+    ``live_before_bytes``."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import attention as attn_mod
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(batch["tokens"].shape[0], max_len)
+    plain_calls = []                # the plain version must not be reached
+    ref_fn = ops.decode_attention_ref
+    ops.decode_attention_ref = lambda *a: plain_calls.append(1) or ref_fn(*a)
+    kept, by_len, restore = _decode_capture(attn_mod, n_calls)
+    try:
+        ops.decode_attention.launches = 0
+        logits, t_front, t_prompt = _prefill_split(model, batch, cache,
+                                                   torch)
+        t0 = time.perf_counter()
+        fed, logits = _greedy(model, logits, cache, SERVE_NEW, torch)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = ops.decode_attention.launches
+    finally:
+        ops.decode_attention_ref = ref_fn
+        restore()
+    run_peak = torch.cuda.max_memory_allocated()
+    vocab = model.cfg.vocab_size
+    check(not plain_calls, f"{tag}: the plain decode attention ran "
+                           f"{len(plain_calls)} times")
+    check(bool(torch.isfinite(logits[:, :vocab]).all()),
+          f"{tag}: non-finite logits")
+    check(bool(((fed >= 0) & (fed < vocab)).all()),
+          f"{tag}: a token outside the vocabulary")
+    check(len(kept) == n_calls, f"{tag}: {len(kept)} calls kept")
+    emitted = fed.numel()
+    return {"cache": cache, "kept": kept, "fed": fed, "launches": launches,
+            "calls_by_cache_len": dict(by_len),
+            "walls": {"frontend_s": t_front, "prompt_s": t_prompt,
+                      "decode_s": t_decode, "decode_steps": SERVE_NEW,
+                      "emitted": emitted,
+                      "decode_tokens_per_s": emitted / t_decode,
+                      "ms_per_decode_step": 1e3 * t_decode / SERVE_NEW},
+            "plain_decode_attention_calls": len(plain_calls),
+            "peak_memory_bytes": max(build_peak, run_peak),
+            "run_peak_memory_bytes": run_peak}
+
+
+def phase_serve_encdec(torch) -> dict:
+    """whisper-base at full width in bf16 through the reference's serving
+    API for the family, Model.prefill and decode_step: the encoder over a
+    seeded frontend (8, 1536, 512), every decoder layer's memory K/V, 128
+    prompt tokens, then 64 greedy steps on 8 lanes; every self- and
+    cross-attention of every step through the decode_attn kernel (the
+    cross-attention at S = 1536 in its split pass and combine). Then the
+    interleaving regression through ServeEngine, which takes no frontend
+    (its lanes decode against zero memory, as the reference's do), and
+    launch/serve.py --arch whisper-base."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    cfg = get_config(ENCDEC_ARCH, "full")
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"serve_encdec: the full config is not {SERVE_DTYPE}")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SERVE_SEED)
+    frontend = torch.randn((SERVE_SLOTS, cfg.src_len, cfg.d_model),
+                           generator=g, device="cuda")
+    live = torch.cuda.memory_allocated()    # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    run = _frontend_serve(
+        "serve_encdec", model,
+        {"tokens": torch.as_tensor(prompts, device="cuda"),
+         "frontend": frontend}, ENCDEC_MAX_LEN, 2 * cfg.n_layers, torch)
+    cache, kept, launches = run["cache"], run["kept"], run["launches"]
+    per_kind = cfg.n_layers * (SERVE_PROMPT + SERVE_NEW)
+    check(launches == 2 * per_kind == ENCDEC_LAUNCHES,
+          f"serve_encdec: {launches} decode_attn launches, expected "
+          f"{cfg.n_layers} x 2 x ({SERVE_PROMPT} + {SERVE_NEW}) = "
+          f"{ENCDEC_LAUNCHES}")
+    check(run["calls_by_cache_len"] == {ENCDEC_MAX_LEN: per_kind,
+                                        cfg.src_len: per_kind},
+          f"serve_encdec: calls by cache length "
+          f"{run['calls_by_cache_len']}, expected {per_kind} self- "
+          f"({ENCDEC_MAX_LEN}) and {per_kind} cross-attention "
+          f"({cfg.src_len})")
+    check(cache["length"].tolist() == [SERVE_PROMPT + SERVE_NEW]
+          * SERVE_SLOTS, f"serve_encdec: lengths {cache['length'].tolist()}")
+    check(all(bool(cache[m].abs().sum() > 0)
+              and bool(torch.isfinite(cache[m]).all())
+              for m in ("mem_k", "mem_v")),
+          "serve_encdec: the memory K/V is zero or not finite")
+    # every call of the last step (self, cross per layer), on its own
+    # tensors; then the last layer's self- and cross-attention timed
+    call_err = _check_calls(kept, "serve_encdec", torch)
+    self_call, cross_call = kept[-2], kept[-1]
+    check(self_call[1].shape[1] == ENCDEC_MAX_LEN
+          and cross_call[1].shape[1] == cfg.src_len,
+          "serve_encdec: the last two calls are not self- and "
+          "cross-attention")
+    timed = {"self": _decode_timing(self_call, per_kind, torch),
+             "cross": _decode_timing(cross_call, per_kind, torch)}
+    del kept, self_call, cross_call
+    # a decode step of the path under the profiler: every lane, once more
+    tok = run["fed"][:, -1:]
+    model.decode_step(tok, cache)
+    prof = _device_profile(lambda: model.decode_step(tok, cache),
+                           "serve_encdec_decode_step.json",
+                           ["decode_attn_kernel", "decode_attn_combine"],
+                           torch)
+    del cache
+    # the interleaving regression through the engine: tokens, logits at
+    # every step, K/V rows and the (zero) mem_k/mem_v lanes bitwise the
+    # same alone and interleaved
+    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
+    t4 = time.perf_counter()
+    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW,
+                                      ENCDEC_MAX_LEN)
+    alone, lanes_diff = {}, {}
+    for rid, prompt in enumerate((pa, pb)):
+        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW,
+                                         ENCDEC_MAX_LEN)
+        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
+    del inter_lanes, alone_lanes
+    t_inter = time.perf_counter() - t4
+    check(inter == alone, f"serve_encdec: interleaved streams {inter} "
+                          f"differ from the run-alone streams {alone}")
+    check(all(d["equal"] and "mem_k" in d and "mem_v" in d
+              for d in lanes_diff.values()),
+          f"serve_encdec: interleaved logits or cache lanes differ from the "
+          f"run-alone ones: {lanes_diff}")
+    cli_args = ["--arch", ENCDEC_ARCH, *CLI_ARGS]
+    cli = serve_main(cli_args)
+    check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
+                                             + 1]),
+          "serve_encdec: the CLI's engine emitted the wrong number of "
+          "tokens")
+    out = {"phase": "serve_encdec",
+           "engine": {"arch": ENCDEC_ARCH, "variant": "full",
+                      "dtype": SERVE_DTYPE, "params": n_params,
+                      "decoder_layers": cfg.n_layers,
+                      "encoder_layers": cfg.n_encoder_layers,
+                      "lanes": SERVE_SLOTS, "max_len": ENCDEC_MAX_LEN,
+                      "src_len": cfg.src_len, "prompt": SERVE_PROMPT,
+                      "new_tokens": SERVE_NEW, "build_s": t_build,
+                      "encode_and_memory_wall_s": run["walls"]["frontend_s"],
+                      "prefill_wall_s": run["walls"]["prompt_s"],
+                      "decode_wall_s": run["walls"]["decode_s"],
+                      **{k: run["walls"][k] for k in (
+                          "decode_steps", "emitted", "decode_tokens_per_s",
+                          "ms_per_decode_step")},
+                      "decode_attn_launches": launches,
+                      "expected_launches": ENCDEC_LAUNCHES,
+                      "self_attention_launches": per_kind,
+                      "cross_attention_launches": per_kind,
+                      "calls_by_cache_len": run["calls_by_cache_len"],
+                      **{k: run[k] for k in (
+                          "plain_decode_attention_calls",
+                          "peak_memory_bytes", "run_peak_memory_bytes")},
+                      "live_before_bytes": live,
+                      "first_tokens": run["fed"][:, :8].tolist()},
+           "last_step_calls_max_abs_err": call_err,
+           "decode_attn": timed, "decode_step_profile": prof,
+           "interleaved": {"prompt": INTERLEAVE_PROMPT,
+                           "new_tokens": INTERLEAVE_NEW, "equal": True,
+                           "streams": inter, "lanes": lanes_diff,
+                           "wall_s": t_inter},
+           "cli": {"args": cli_args, "requests": cli["requests"],
+                   "emitted": cli["emitted"],
+                   "energy_efficiency": cli["report"].energy_efficiency}}
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return {"out": out}
+
+
+def phase_serve_encdec_vs_cpu(torch) -> dict:
+    """whisper-base at full width in float32 on the card and, weights
+    carried across by load_state_dict, on the CPU: 2 lanes, a seeded
+    frontend (2, 1536, 512), 16 prompt tokens and 8 greedy steps in
+    lockstep (the CPU is fed the card's token). Every step's logits
+    (prefill's included) within VS_CPU_RTOL x that step's max |logit|;
+    tokens equal except at CPU top-2 gaps below that (counted); mem_k and
+    mem_v within MEM_RTOL of their max |value|."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    cfg = get_config(ENCDEC_ARCH, "full").replace(dtype=torch.float32)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (VS_CPU_SLOTS, VS_CPU_PROMPT))),
+             "frontend": torch.from_numpy(rng.standard_normal(
+                 (VS_CPU_SLOTS, cfg.src_len, cfg.d_model)).astype(
+                     np.float32))}
+    models = (card, cpu)
+    caches = [m.init_cache(VS_CPU_SLOTS, VS_CPU_MAX_LEN) for m in models]
+    logs = ([], [])
+    unwrap = [_steps_recorded(m, log) for m, log in zip(models, logs)]
+    near_ties = flips = 0
+    card_tokens = []
+    t0 = time.perf_counter()
+    try:
+        last = [m.prefill(batch, c) for m, c in zip(models, caches)]
+        for _ in range(VS_CPU_NEW):
+            a, b = (x[:, :cfg.vocab_size].float().cpu() for x in last)
+            tol = VS_CPU_RTOL * float(b.abs().max())
+            top2 = torch.topk(b, 2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            near_ties += int((gap < tol).sum())
+            tok = a.argmax(dim=-1)
+            for i in np.flatnonzero((tok != b.argmax(dim=-1)).numpy()):
+                check(float(gap[i]) < tol,
+                      f"serve_encdec_vs_cpu: a token differs at a top-2 "
+                      f"gap {float(gap[i])} >= {tol}")
+                flips += 1
+            card_tokens.append(tok.tolist())
+            last = [m.decode_step(tok[:, None].to(m.device), c)
+                    for m, c in zip(models, caches)]
+    finally:
+        for u in unwrap:
+            u()
+    wall = time.perf_counter() - t0
+    check(len(logs[0]) == len(logs[1]) == VS_CPU_PROMPT + VS_CPU_NEW,
+          f"serve_encdec_vs_cpu: {len(logs[0])} and {len(logs[1])} steps")
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(*logs))
+    mem_rel = {name: float((caches[0][name].cpu() - caches[1][name]).abs()
+                           .max()) / float(caches[1][name].abs().max())
+               for name in ("mem_k", "mem_v")}
+    out = {"phase": "serve_encdec_vs_cpu", "dtype": "float32",
+           "lanes": VS_CPU_SLOTS, "src_len": cfg.src_len,
+           "prompt": VS_CPU_PROMPT, "new_tokens": VS_CPU_NEW,
+           "steps": len(logs[0]), "max_logit_err_rel": worst,
+           "tolerance": VS_CPU_RTOL, "near_tie_steps": near_ties,
+           "token_flips": flips, "mem_max_err_rel": mem_rel,
+           "mem_tolerance": MEM_RTOL, "card_tokens": card_tokens,
+           "wall_s": wall}
+    emit(out)
+    check(worst <= VS_CPU_RTOL, f"serve_encdec_vs_cpu: logits differ by "
+                                f"{worst} of the step's max |logit|")
+    check(all(r <= MEM_RTOL for r in mem_rel.values()),
+          f"serve_encdec_vs_cpu: memory K/V differ: {mem_rel}")
+    return out
+
+
+def phase_serve_vlm(torch) -> dict:
+    """internvl2-76b at full width (64 query heads on 8 KV heads of 128)
+    with n_layers cut 80 -> 2, in bf16: a seeded prefix of 256 patches fed
+    through decode_step(embeds=), 128 prompt tokens and 64 greedy steps on
+    8 lanes of 448 positions; every attention through the decode_attn
+    kernel (a query-head group of 8)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(VLM_ARCH, "full").replace(n_layers=VLM_LAYERS)
+    check(cfg.n_patches + SERVE_PROMPT + SERVE_NEW == VLM_MAX_LEN,
+          "serve_vlm: the lanes do not hold patches + prompt + steps")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SERVE_SEED)
+    patches = torch.randn((SERVE_SLOTS, cfg.n_patches, cfg.d_model),
+                          generator=g, device="cuda")
+    live = torch.cuda.memory_allocated()    # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    run = _frontend_serve(
+        "serve_vlm", model,
+        {"tokens": torch.as_tensor(prompts, device="cuda"),
+         "frontend": patches}, VLM_MAX_LEN, VLM_LAYERS, torch)
+    launches = run["launches"]
+    check(launches == VLM_LAUNCHES
+          and run["calls_by_cache_len"] == {VLM_MAX_LEN: VLM_LAUNCHES},
+          f"serve_vlm: {launches} decode_attn launches "
+          f"({run['calls_by_cache_len']}), expected {VLM_LAYERS} x "
+          f"({cfg.n_patches} + {SERVE_PROMPT} + {SERVE_NEW}) = "
+          f"{VLM_LAUNCHES}")
+    check(run["cache"]["length"].tolist() == [VLM_MAX_LEN] * SERVE_SLOTS,
+          f"serve_vlm: lengths {run['cache']['length'].tolist()}")
+    call_err = _check_calls(run["kept"], "serve_vlm", torch)
+    timed = _decode_timing(run["kept"][-1], launches, torch)
+    check(timed["shape"] == [SERVE_SLOTS, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.d_head, VLM_MAX_LEN],
+          f"serve_vlm: timed shape {timed['shape']}")
+    out = {"phase": "serve_vlm",
+           "engine": {"arch": VLM_ARCH, "variant": "full",
+                      "dtype": SERVE_DTYPE, "n_layers": VLM_LAYERS,
+                      "n_layers_published": get_config(VLM_ARCH).n_layers,
+                      "params": n_params, "lanes": SERVE_SLOTS,
+                      "max_len": VLM_MAX_LEN, "patches": cfg.n_patches,
+                      "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+                      "build_s": t_build,
+                      "patch_prefill_wall_s": run["walls"]["frontend_s"],
+                      "prefill_wall_s": run["walls"]["prompt_s"],
+                      "decode_wall_s": run["walls"]["decode_s"],
+                      **{k: run["walls"][k] for k in (
+                          "decode_steps", "emitted", "decode_tokens_per_s",
+                          "ms_per_decode_step")},
+                      "decode_attn_launches": launches,
+                      "expected_launches": VLM_LAUNCHES,
+                      **{k: run[k] for k in (
+                          "plain_decode_attention_calls",
+                          "peak_memory_bytes", "run_peak_memory_bytes")},
+                      "live_before_bytes": live,
+                      "first_tokens": run["fed"][:, :8].tolist()},
+           "last_step_calls_max_abs_err": call_err, "decode_attn": timed}
+    emit(out)
+    del model, run
+    torch.cuda.empty_cache()
+    return {"out": out}
+
+
+def phase_serve_vlm_vs_cpu(torch) -> dict:
+    """internvl2-76b's smoke config (8 patches, D = 16) in float32 on the
+    card and, weights carried across, on the CPU: 2 lanes, the patch
+    prefix, 8 prompt tokens and 8 greedy steps each; streams identical,
+    every step's logits (the patches' and the prompt's included) within
+    TOL_LOGITS + TOL_LOGITS |want|."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    cfg = get_config(VLM_ARCH, "smoke").replace(dtype=torch.float32)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (VS_CPU_SLOTS, VLM_VS_CPU_PROMPT))),
+             "frontend": torch.from_numpy(rng.standard_normal(
+                 (VS_CPU_SLOTS, cfg.n_patches, cfg.d_model)).astype(
+                     np.float32))}
+    positions = cfg.n_patches + VLM_VS_CPU_PROMPT + VLM_VS_CPU_NEW
+    logs, streams, lengths = [], [], []
+    t0 = time.perf_counter()
+    for m in (card, cpu):
+        log = []
+        unwrap = _steps_recorded(m, log)
+        try:
+            cache = m.init_cache(VS_CPU_SLOTS, positions)
+            fed, _ = _greedy(m, m.prefill(batch, cache), cache,
+                             VLM_VS_CPU_NEW, torch)
+        finally:
+            unwrap()
+        logs.append(torch.stack(log))
+        streams.append(fed.tolist())
+        lengths.append(cache["length"].tolist())
+    wall = time.perf_counter() - t0
+    diff = (logs[0] - logs[1]).abs()
+    over = float((diff - TOL_LOGITS * logs[1].abs()).max())
+    out = {"phase": "serve_vlm_vs_cpu", "dtype": "float32",
+           "lanes": VS_CPU_SLOTS, "patches": cfg.n_patches,
+           "prompt": VLM_VS_CPU_PROMPT, "new_tokens": VLM_VS_CPU_NEW,
+           "steps": len(logs[0]), "lengths": lengths,
+           "max_logit_abs_err": float(diff.max()), "tolerance": TOL_LOGITS,
+           "card_tokens": streams[0], "cpu_tokens": streams[1],
+           "wall_s": wall}
+    emit(out)
+    check(lengths[0] == lengths[1] == [positions] * VS_CPU_SLOTS,
+          f"serve_vlm_vs_cpu: lengths {lengths}")
+    check(streams[0] == streams[1], f"serve_vlm_vs_cpu: streams differ: "
+                                    f"{streams}")
+    check(over <= TOL_LOGITS, f"serve_vlm_vs_cpu: logits differ by "
+                              f"{float(diff.max())}")
     return out
 
 
@@ -4010,6 +4564,10 @@ def main() -> int:
     phase_serve_vs_cpu(torch)
     hybrid = phase_serve_hybrid(torch)
     phase_serve_hybrid_vs_cpu(torch)
+    encdec = phase_serve_encdec(torch)
+    phase_serve_encdec_vs_cpu(torch)
+    vlm = phase_serve_vlm(torch)
+    phase_serve_vlm_vs_cpu(torch)
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)
@@ -4057,8 +4615,15 @@ def main() -> int:
                      "fleet": fleet["out"]["launches"]["arrival"]}
     decode_paths = {
         "serve": serve["out"]["engine"]["decode_attn_launches"],
-        "serve_hybrid": hybrid["out"]["engine"]["decode_attn_launches"]}
-    d256 = hybrid["out"]["decode_attn"]
+        "serve_hybrid": hybrid["out"]["engine"]["decode_attn_launches"],
+        "serve_encdec": encdec["out"]["engine"]["decode_attn_launches"],
+        "serve_vlm": vlm["out"]["engine"]["decode_attn_launches"]}
+    path_shapes = {"serve_hybrid_shape": hybrid["out"]["decode_attn"],
+                   "serve_encdec_self_shape":
+                       encdec["out"]["decode_attn"]["self"],
+                   "serve_encdec_cross_shape":
+                       encdec["out"]["decode_attn"]["cross"],
+                   "serve_vlm_shape": vlm["out"]["decode_attn"]}
     relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
                       "relax_backward":
                           tune_run["out"]["relax_backward_launches"]}
@@ -4101,9 +4666,10 @@ def main() -> int:
          "launches_by_path": decode_paths,
          **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
-         "serve_hybrid_shape": {k: d256[k] for k in (
+         **{label: {k: t[k] for k in (
              "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-             "bound_by")}}] + [{
+             "bound_by", "launches")}
+            for label, t in path_shapes.items()}}] + [{
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/relax/csrc/relax.cu",
             "replaces": "none: port-only; the reference compiles "

@@ -176,9 +176,9 @@ def model_params(params, cfg, device: str | torch.device | None = None
                  ) -> dict[str, torch.Tensor]:
     """The state dict of `repro_torch.models.Model` from the reference's
     parameter pytree (nested mappings of numpy arrays): ``embed`` and
-    ``final_norm``, and each stack with a leading layer axis (dense
-    ``layers``; hybrid ``super`` and ``tail``) unstacked into
-    ``<stack>.<i>.<name>``. Tensors take ``cfg.dtype``, except the RG-LRU's
+    ``final_norm``, and each stack with a leading layer axis (dense and
+    vlm ``layers``; hybrid ``super`` and ``tail``; encdec ``encoder`` and
+    ``decoder``) unstacked into ``<stack>.<i>.<name>``. Tensors take ``cfg.dtype``, except the RG-LRU's
     ``lam``, which is float32 in every config, as in the reference."""
     dev = resolve_device(device)
 
@@ -198,7 +198,7 @@ def model_params(params, cfg, device: str | torch.device | None = None
                 for i in range(stacked.shape[0]):
                     out[f"{stack}.{i}.{prefix}{name}"] = t(stacked[i], name)
 
-    for stack in ("layers", "super", "tail"):
+    for stack in ("layers", "super", "tail", "encoder", "decoder"):
         if stack in params:
             walk(stack, "", params[stack])
     return out
@@ -208,7 +208,7 @@ def model_cache(cache, device: str | torch.device | None = None) -> dict:
     """A decode cache from the reference's, leaf for leaf in the same
     nesting and each leaf's type (dense: ``length`` (B,) int32 and ``kv``
     with ``k``/``v`` (L, B, S, Hkv, D); hybrid also ``conv``, ``h``,
-    ``tail_conv`` and ``tail_h``)."""
+    ``tail_conv`` and ``tail_h``; encdec also ``mem_k`` and ``mem_v``)."""
     dev = resolve_device(device)
 
     def walk(tree):

@@ -9,8 +9,11 @@ version for a cache on the CPU.
 
 Supports grouped/multi-query heads, qk RMSNorm (qwen3), non-causal masks
 and sliding windows (recurrentgemma's local attention: a window mask in
-prefill, a ring-buffer cache in decode). Cross-attention against an
-encoder memory waits for the encoder-decoder family.
+prefill, a ring-buffer cache in decode), non-causal encoders and
+cross-attention against an encoder memory (whisper). The reference's
+decode-time cross-attention calls its plain `decode_attention_ref`
+directly; the port's goes through `decode_attention` like every other
+decode call, so on the card the memory is read by the kernel.
 """
 
 from __future__ import annotations
@@ -60,19 +63,24 @@ def init_attention(generator: torch.Generator, d: int, n_heads: int,
 
 
 def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
-                 qk_norm):
-    """Returns q (B,S,Hq,D), k,v (B,S,Hkv,D); qk-norm before rope, and no
-    rope when ``positions`` is None."""
+                 qk_norm, xkv=None):
+    """Returns q (B,S,Hq,D), k,v (B,Skv,Hkv,D), K/V projected from ``xkv``
+    (B, Skv, d) when it is given (an encoder memory) and from ``x``
+    otherwise; qk-norm before rope, and no rope when ``positions`` is
+    None."""
     b, s, _ = x.shape
+    xkv = x if xkv is None else xkv
+    skv = xkv.shape[1]
     q = (x @ p.wq).reshape(b, s, n_heads, d_head)
-    k = (x @ p.wk).reshape(b, s, n_kv_heads, d_head)
-    v = (x @ p.wv).reshape(b, s, n_kv_heads, d_head)
+    k = (xkv @ p.wk).reshape(b, skv, n_kv_heads, d_head)
+    v = (xkv @ p.wv).reshape(b, skv, n_kv_heads, d_head)
     if qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
     if positions is not None:
         q = rope(q, positions, rope_theta)
-        k = rope(k, positions, rope_theta)
+        k = rope(k, positions[..., :skv] if positions.shape[-1] >= skv
+                 else positions, rope_theta)
     return q, k, v
 
 
@@ -108,14 +116,20 @@ def sdpa_chunked(q, k, v, *, causal=True, window=0, q_block=512):
     return torch.cat(outs, dim=1)
 
 
-def attention_block(p, x, cfg, layer_window=0):
+def attention_block(p, x, cfg, memory=None, layer_window=0, causal=None):
     """Full attention sub-block for prefill/forward (projections + sdpa +
-    output); ``layer_window`` > 0 masks to a sliding window."""
+    output); ``layer_window`` > 0 masks to a sliding window. ``memory``
+    (B, Ssrc, d), an encoder output, makes it cross-attention: K/V from
+    the memory and no rope. ``causal`` None means ``cfg.causal`` for
+    self-attention and no mask for cross-attention."""
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                           pos, cfg.rope_theta, cfg.qk_norm)
-    out = sdpa_chunked(q, k, v, causal=cfg.causal, window=layer_window,
+                           None if memory is not None else pos,
+                           cfg.rope_theta, cfg.qk_norm, xkv=memory)
+    if causal is None:
+        causal = cfg.causal and memory is None
+    out = sdpa_chunked(q, k, v, causal=causal, window=layer_window,
                        q_block=cfg.q_block)
     return out.reshape(b, s, -1) @ p.wo
 
@@ -163,3 +177,28 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
     out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
     return out.reshape(b, 1, -1) @ p.wo
+
+
+def cross_attention_decode(p, x, mem_k, mem_v, cfg):
+    """Decode-time cross-attention against the encoder's K/V. x: (B, 1,
+    d); mem_k/v: (B, Ssrc, Hkv, D), projected once at prefill. Every row
+    attends to all Ssrc positions. Writes nothing. Returns (B, 1, d)."""
+    b = x.shape[0]
+    q = (x @ p.wq).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+    lengths = torch.full((b,), mem_k.shape[1], dtype=torch.int32,
+                         device=x.device)
+    out = decode_attention(q[:, 0], mem_k, mem_v, lengths)
+    return out.reshape(b, 1, -1) @ p.wo
+
+
+def project_memory_kv(p, memory, cfg):
+    """The encoder memory's K/V for cross-attention (cached at prefill):
+    (B, Ssrc, Hkv, D) each, qk-norm on k and no rope."""
+    b, s, _ = memory.shape
+    k = (memory @ p.wk).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = (memory @ p.wv).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm)
+    return k, v

@@ -1,29 +1,41 @@
-"""The dense and hybrid LM families (port of `repro.models.model`).
+"""The dense, hybrid, encoder-decoder and VLM families (port of
+`repro.models.model`).
 
-    build_model(cfg, seed, device)    -> Model, weights drawn from a seed
-    Model.forward(tokens)             -> (logits, aux)       [eval]
-    Model.init_cache(batch, max_len)  -> cache dict          [serving]
-    Model.prefill(batch, cache)       -> last_logits  (cache in place)
-    Model.decode_step(tokens, cache)  -> logits       (cache in place)
+    build_model(cfg, seed, device)        -> Model, weights drawn from a seed
+    Model.forward(tokens, frontend=None)  -> (logits, aux)       [eval]
+    Model.init_cache(batch, max_len)      -> cache dict          [serving]
+    Model.prefill(batch, cache)           -> last_logits  (cache in place)
+    Model.decode_step(tokens, cache)      -> logits       (cache in place)
 
 The weights live in the module, under the reference's names with the
 layer axis unstacked (`repro_torch.interop.model_params` carries the
-reference's pytree across). Dense: ``embed``, ``final_norm``,
+reference's pytree across). Dense and VLM: ``embed``, ``final_norm``,
 ``layers.<i>.ln1``, ``layers.<i>.attn.wq``, ..., ``layers.<i>.mlp.w_down``.
 Hybrid (recurrentgemma): super-blocks ``super.<i>.b<j>_<kind>`` over
 ``cfg.block_pattern`` (``kind`` "rglru" or "attn", each with ``ln1``,
 ``ln2``, ``mlp`` and its ``rglru`` or ``attn``), and a tail
 ``tail.0.b<j>_rglru`` of the ``n_layers % len(pattern)`` layers left.
-The reference's scans over stacked layers are Python loops.
+Encoder-decoder (whisper): ``encoder.<i>`` layers like the dense ones
+(non-causal, no final norm) and ``decoder.<i>`` with ``ln1``,
+``self_attn``, ``ln_x``, ``cross_attn``, ``ln2`` and ``mlp``. The
+reference's scans over stacked layers are Python loops.
 
-The cache keeps the reference's layout: ``length`` (B,) int32; dense
-``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D); hybrid ``conv`` (n_super,
-n_rec, B, 3, W) in ``cfg.dtype``, ``h`` (n_super, n_rec, B, W) float32,
-``kv`` with a ring of ``min(window, max_len)`` positions a layer, and
-``tail_conv`` / ``tail_h`` for the tail. Decode writes it in place, where
-the reference returns a new cache.
+The stubbed frontends enter as ``frontend`` (``batch["frontend"]`` in
+`prefill`): encdec, frame embeddings (B, src_len, d) that the encoder
+turns into the memory whose K/V every decoder layer caches at prefill;
+vlm, patch embeddings (B, n_patches, d) prepended to the tokens
+(`forward` drops their logits; `prefill` feeds them one by one through
+``decode_step(embeds=)``).
 
-The other families raise NotImplementedError.
+The cache keeps the reference's layout: ``length`` (B,) int32; dense and
+vlm ``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D); hybrid ``conv``
+(n_super, n_rec, B, 3, W) in ``cfg.dtype``, ``h`` (n_super, n_rec, B, W)
+float32, ``kv`` with a ring of ``min(window, max_len)`` positions a
+layer, and ``tail_conv`` / ``tail_h`` for the tail; encdec ``kv`` and
+``mem_k``/``mem_v`` (L, B, src_len, Hkv, D). Decode writes it in place,
+where the reference returns a new cache.
+
+The moe and ssm families raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,6 +71,37 @@ class Block(torch.nn.Module):
         self.ln1.zero_()
         self.ln2.zero_()
         self.attn.init(generator)
+        self.mlp.init(generator)
+
+
+class DecoderBlock(torch.nn.Module):
+    """One pre-norm decoder layer of the encoder-decoder family: causal
+    self-attention, cross-attention to the encoder memory, then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+
+        def norm():
+            return torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                      requires_grad=False)
+
+        def attention():
+            return attn.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                  dt, cfg.qk_norm, device=device)
+
+        self.ln1 = norm()
+        self.self_attn = attention()
+        self.ln_x = norm()
+        self.cross_attn = attention()
+        self.ln2 = norm()
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dt, device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for ln in (self.ln1, self.ln_x, self.ln2):
+            ln.zero_()
+        self.self_attn.init(generator)
+        self.cross_attn.init(generator)
         self.mlp.init(generator)
 
 
@@ -104,7 +147,7 @@ class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig,
                  device: str | torch.device | None = None):
         super().__init__()
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "hybrid", "encdec"):
             raise NotImplementedError(_NOT_PORTED.format(family=cfg.family))
         dev = resolve_device(device)
         self.cfg = cfg
@@ -114,9 +157,15 @@ class Model(torch.nn.Module):
         self.final_norm = torch.nn.Parameter(
             torch.zeros(cfg.d_model, dtype=cfg.dtype, device=dev),
             requires_grad=False)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             self.layers = torch.nn.ModuleList(Block(cfg, dev)
                                               for _ in range(cfg.n_layers))
+            return
+        if cfg.family == "encdec":
+            self.encoder = torch.nn.ModuleList(
+                Block(cfg, dev) for _ in range(cfg.n_encoder_layers))
+            self.decoder = torch.nn.ModuleList(
+                DecoderBlock(cfg, dev) for _ in range(cfg.n_layers))
             return
         pat = cfg.block_pattern
         n_super, rem = divmod(cfg.n_layers, len(pat))
@@ -143,22 +192,58 @@ class Model(torch.nn.Module):
         g.manual_seed(seed)
         self.embed.copy_(init_embed(g, *self.embed.shape, self.cfg.dtype))
         self.final_norm.zero_()
-        if self.cfg.family == "dense":
-            for block in self.layers:
-                block.init(g)
-            return self
-        for sb in (*self.super, *self.tail):
-            for layer in sb.values():
-                layer.init(g)
+        if self.cfg.family == "hybrid":
+            blocks = [layer for sb in (*self.super, *self.tail)
+                      for layer in sb.values()]
+        elif self.cfg.family == "encdec":
+            blocks = [*self.encoder, *self.decoder]
+        else:
+            blocks = self.layers
+        for block in blocks:
+            block.init(g)
         return self
 
+    def _frontend(self, frontend) -> torch.Tensor:
+        """The stubbed frontend's embeddings on the model's device, in
+        ``cfg.dtype``."""
+        return torch.as_tensor(frontend, device=self.device).to(self.cfg.dtype)
+
+    def _attn_mlp(self, blocks, x, causal=None):
+        """Pre-norm attention + MLP layers over the full sequence (the
+        reference's `_attn_mlp_scan`)."""
+        cfg = self.cfg
+        for block in blocks:
+            x = x + attn.attention_block(block.attn, rms_norm(x, block.ln1),
+                                         cfg, causal=causal)
+            x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+        return x
+
+    def _encode(self, frontend: torch.Tensor) -> torch.Tensor:
+        """The encoder over the frame embeddings (B, src_len, d): non-causal
+        self-attention with rope on the frame positions, no final norm."""
+        return self._attn_mlp(self.encoder, frontend, causal=False)
+
     # ------------------------------------------------------- full sequence
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, frontend=None):
         """Logits (B, S, padded vocab) float32 for the full sequence
-        (training-style pass), and the auxiliary loss (0 for both families)."""
+        (training-style pass), and the auxiliary loss (0 for these
+        families). ``frontend``: encdec, the frame embeddings the decoder
+        cross-attends to (through the encoder); vlm, patch embeddings
+        prepended to the tokens, whose logits are dropped."""
         cfg = self.cfg
         x = embed(self.embed, tokens.to(self.device))
-        if cfg.family == "hybrid":
+        if cfg.family == "vlm":
+            x = torch.cat([self._frontend(frontend), x], dim=1)
+        if cfg.family == "encdec":
+            memory = self._encode(self._frontend(frontend))
+            for block in self.decoder:
+                x = x + attn.attention_block(block.self_attn,
+                                             rms_norm(x, block.ln1), cfg)
+                x = x + attn.attention_block(block.cross_attn,
+                                             rms_norm(x, block.ln_x), cfg,
+                                             memory=memory)
+                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+        elif cfg.family == "hybrid":
             for sb in (*self.super, *self.tail):
                 for layer in sb.values():
                     hn = rms_norm(x, layer.ln1)
@@ -170,11 +255,10 @@ class Model(torch.nn.Module):
                     x = x + mlp(layer.mlp, rms_norm(x, layer.ln2),
                                 cfg.mlp_type)
         else:
-            for block in self.layers:
-                x = x + attn.attention_block(block.attn,
-                                             rms_norm(x, block.ln1), cfg)
-                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+            x = self._attn_mlp(self.layers, x)
         x = rms_norm(x, self.final_norm)
+        if cfg.family == "vlm":
+            x = x[:, frontend.shape[1]:]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return unembed(self.embed, x, cfg.vocab_size), aux
 
@@ -194,8 +278,13 @@ class Model(torch.nn.Module):
             return {"k": zeros(*shp), "v": zeros(*shp)}
 
         cache = {"length": zeros(batch_size, dtype=torch.int32)}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             cache["kv"] = kv(cfg.n_layers, max_len)
+            return cache
+        if cfg.family == "encdec":
+            cache["kv"] = kv(cfg.n_layers, max_len)
+            mem = kv(cfg.n_layers, cfg.src_len)
+            cache["mem_k"], cache["mem_v"] = mem["k"], mem["v"]
             return cache
         pat = cfg.block_pattern
         n_super, rem = divmod(cfg.n_layers, len(pat))
@@ -215,28 +304,58 @@ class Model(torch.nn.Module):
     def prefill(self, batch: dict, cache: dict):
         """Sequential prefill: feed tokens (B, S) one at a time through
         `decode_step`, which updates ``cache`` in place. Returns the logits
-        of the last token."""
+        of the last token. The stubbed frontend's ``batch["frontend"]`` is
+        ingested first: encdec encodes it and writes every decoder layer's
+        memory K/V into ``mem_k``/``mem_v`` (every row); vlm feeds its
+        patches through ``decode_step(embeds=)``, each advancing
+        ``length``."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            memory = self._encode(self._frontend(batch["frontend"]))
+            for i, block in enumerate(self.decoder):
+                k, v = attn.project_memory_kv(block.cross_attn, memory, cfg)
+                cache["mem_k"][i].copy_(k)
+                cache["mem_v"][i].copy_(v)
+        if cfg.family == "vlm" and batch.get("frontend") is not None:
+            patches = self._frontend(batch["frontend"])
+            for t in range(patches.shape[1]):
+                self.decode_step(None, cache, embeds=patches[:, t:t + 1])
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         logits = None
         for t in range(tokens.shape[1]):
             logits = self.decode_step(tokens[:, t:t + 1], cache)
         return logits
 
-    def decode_step(self, tokens: torch.Tensor, cache: dict,
-                    lanes: torch.Tensor | None = None):
-        """tokens: (B, 1). Returns the logits (B, padded vocab) float32.
+    def decode_step(self, tokens: torch.Tensor | None, cache: dict,
+                    lanes: torch.Tensor | None = None,
+                    embeds: torch.Tensor | None = None):
+        """tokens: (B, 1), or None with ``embeds`` (B, 1, d) in
+        ``cfg.dtype`` (a frontend prefix fed through the decode path).
+        Returns the logits (B, padded vocab) float32.
 
         The cache is updated in place. ``lanes`` (B,) bool,
         when given, advances only those rows: the others' keys, values
         and lengths stay as they were (their logits are computed and
         meaningless). The reference steps every row and then merges the
         old cache back on the masked rows; writing only the active rows
-        gives the same cache without a copy of it per step."""
+        gives the same cache without a copy of it per step. An encdec
+        step reads ``mem_k``/``mem_v`` and writes neither."""
         cfg = self.cfg
-        x = embed(self.embed, tokens.to(self.device))
+        x = embed(self.embed, tokens.to(self.device)) if embeds is None \
+            else embeds
         length = cache["length"]
         if cfg.family == "hybrid":
             x = self._decode_hybrid(x, cache, lanes)
+        elif cfg.family == "encdec":
+            ks, vs = cache["kv"]["k"], cache["kv"]["v"]
+            for i, block in enumerate(self.decoder):
+                x = x + attn.decode_attention_step(
+                    block.self_attn, rms_norm(x, block.ln1), ks[i], vs[i],
+                    length, cfg, lanes=lanes)
+                x = x + attn.cross_attention_decode(
+                    block.cross_attn, rms_norm(x, block.ln_x),
+                    cache["mem_k"][i], cache["mem_v"][i], cfg)
+                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
         else:
             ks, vs = cache["kv"]["k"], cache["kv"]["v"]
             for i, block in enumerate(self.layers):

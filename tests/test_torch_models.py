@@ -308,7 +308,6 @@ def test_build_model_is_seeded_and_draws_the_reference_init():
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b",
-                                  "whisper-base", "internvl2-76b",
                                   "deepseek-v3-671b"])
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -372,3 +372,48 @@ def test_serve_main_runs_the_hybrid_on_the_cpu(capsys):
                 "--device", "cpu"])
     assert out["emitted"] == 6 and out["requests"] > 0
     assert "[engine] decoded 6 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------- encoder-decoder and VLM families
+
+def _family_models(arch):
+    rm = ref_build(ref_config(arch, "smoke").replace(dtype=jnp.float32))
+    params = rm.init(KEY)
+    cfg = get_config(arch, "smoke").replace(dtype=torch.float32)
+    m = Model(cfg, "cpu")
+    m.load_state_dict(interop.model_params(jax.tree.map(np.asarray, params),
+                                           cfg, "cpu"))
+    return rm, params, m
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+def test_frontend_family_engine_streams_and_cache_match_reference(arch):
+    """The engines take no frontend, in both packages: an encdec request
+    decodes against the zero memory its slot was reset to (the reference's
+    caveat, kept). Under tests/test_serve.py's schedule the streams equal
+    the reference engine's and every cache leaf (mem_k/mem_v zero) is
+    within 1e-5."""
+    rm, params, m = _family_models(arch)
+    ref = RefEngine(rm, params, batch_slots=3, max_len=32)
+    want = _interleaved(ref, RefRequest)
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    got = _interleaved(eng, Request)
+    assert got == want
+    ref_leaves = dict(_leaves(jax.tree.map(np.asarray, ref.cache)))
+    port_leaves = dict(_leaves(eng.cache))
+    assert sorted(port_leaves) == sorted(ref_leaves)
+    for name, leaf in port_leaves.items():
+        np.testing.assert_allclose(leaf.numpy(), ref_leaves[name],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    if arch == "whisper-base":
+        assert eng._axes["mem_k"] == eng._axes["mem_v"] == 1
+        assert not eng.cache["mem_k"].any() and not eng.cache["mem_v"].any()
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-76b"])
+def test_serve_main_runs_the_frontend_families_on_the_cpu(arch, capsys):
+    out = main(["--arch", arch, "--minutes", "0.5", "--rate", "5",
+                "--engine-requests", "2", "--new-tokens", "3",
+                "--device", "cpu"])
+    assert out["emitted"] == 6 and out["requests"] > 0
+    assert "[engine] decoded 6 tokens" in capsys.readouterr().out
