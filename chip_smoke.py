@@ -193,6 +193,39 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                and on the CPU: 2 lanes of 8 + 8 tokens after the patches;
                streams identical, every step's logits within 1e-4 + 1e-4
                |want|
+  serve_moe    dbrx-132b at full width (48 query heads on 8 KV heads of
+               128, 16 experts of 10752, top 4), n_layers cut 40 -> 2
+               (7134744576 parameters by the config's count), bf16: 128
+               seeded prompt tokens through Model.prefill, then 64 greedy
+               steps on 8 lanes of 1024 positions; decode_attn launches =
+               2 x (128 + 64) = 384 at D = 128 with a query-head group of
+               6, the plain version never called; the last step's calls
+               against the plain version; the kernel, the plain version and
+               SDPA at (8, 48, 8, 128, 1024) beside the bound; walls,
+               tokens/s, ms a step, peak memory with and without the build;
+               one decode step under the profiler (idle share, the expert
+               products' share of busy time); the interleaving regression
+               through ServeEngine (tokens, logits, cache lanes bitwise);
+               launch/serve.py --arch dbrx-132b once
+  serve_moe_vs_cpu
+               the smoke config in float32 on the card and, weights carried
+               across, on the CPU: 2 lanes of 8 + 8 tokens; streams
+               identical, every step's logits within 1e-4 + 1e-4 |want|,
+               every MoE layer's chosen experts identical except at a CPU
+               gap below 1e-5 between the k-th and (k+1)-th probability
+               (counted; the smallest gap reported)
+  serve_mla    deepseek-v3-671b at full width, n_layers cut 61 -> 4 (its 3
+               dense layers and one MLA + MoE layer of 256 experts of 2048,
+               top 8, and a shared one; 14186264576 parameters by the
+               count, and the MTP depth), bf16, the same traffic:
+               decode_attn launches = 3 dense layers x 192 = 576 at D = 56,
+               a group of 1 (MLA's absorbed decode launches none); the
+               same checks, timings at (8, 128, 128, 56, 1024), profile
+               (and the MLA decode's device time a step), interleaving
+               and launch/serve.py --arch deepseek-v3-671b
+  serve_mla_vs_cpu
+               the smoke config (1 dense and 2 MLA + MoE layers) in float32,
+               card against CPU, with serve_moe_vs_cpu's checks
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -312,8 +345,9 @@ the sum over its eleven paths, Table 8, Table 9, the serve router, the
 scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
 the spork_sim grid, local and on the mesh, the hybrid's router and Fig.
 4; arrival's over Table 9, the chaos suite and the fleet suite;
-decode_attn's over serve, serve_hybrid, serve_encdec and serve_vlm, with
-the kernel timed at each of those paths' shapes; each also given on its
+decode_attn's over serve, serve_hybrid, serve_encdec, serve_vlm,
+serve_moe and serve_mla, with the kernel timed at each of those paths'
+shapes; each also given on its
 own;
 relax_forward's and relax_backward's on the tune path), the raw
 nvidia-smi line, and
@@ -521,6 +555,26 @@ VLM_LAUNCHES = VLM_LAYERS * VLM_MAX_LEN
 # prompt tokens and 8 greedy steps
 VLM_VS_CPU_PROMPT = 8
 VLM_VS_CPU_NEW = 8
+# serve_moe / serve_mla: the moe family at full width, cut in depth (132 B
+# and 671 B parameters do not fit one card): dbrx-132b 40 -> 2 layers
+# (7134744576 parameters by the config's count), deepseek-v3-671b 61 -> 4
+# (its 3 dense layers and one MLA + MoE layer; 14186264576 by the count,
+# ~0.76 B more of MTP weights, which the count leaves out), the serve
+# phase's requests on 8 lanes of 1024 positions: decode_attn launches =
+# the GQA layers (dbrx's 2, deepseek's 3 dense ones; MLA launches none) x
+# (128 prefilled + 64 steps)
+MOE_ARCH = "dbrx-132b"
+MOE_LAYERS = 2
+MOE_LAUNCHES = MOE_LAYERS * (SERVE_PROMPT + SERVE_NEW)
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_LAUNCHES = 3 * (SERVE_PROMPT + SERVE_NEW)
+# serve_moe_vs_cpu / serve_mla_vs_cpu: the smoke configs in float32, 2
+# lanes of 8 prompt tokens and 8 greedy steps; a routing choice may differ
+# only where the CPU's k-th and (k+1)-th probabilities are closer than this
+MOE_VS_CPU_PROMPT = 8
+MOE_VS_CPU_NEW = 8
+MOE_TIE_GAP = 1e-5
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -2237,20 +2291,25 @@ def _recorded(eng) -> dict:
 
 def _lanes(eng, log: dict) -> dict:
     """Per request: its logits, its cache length and its lane of every
-    cache leaf (the K/V rows up to that length; a hybrid's recurrent
-    state whole), read once the engine is idle (a slot's lanes are reset
-    only at the next admission)."""
+    cache leaf (the rows of each K/V cache up to that length, keyed "k"
+    and "v" for ``kv`` and "<cache>.k" and "<cache>.v" for the moe
+    family's ``dense_kv`` / ``moe_kv``; a recurrent state, a memory or a
+    latent cache whole), read once the engine is idle (a slot's lanes are
+    reset only at the next admission)."""
     import torch
     out = {}
     for rid, rec in log.items():
         slot = rec["slot"]
         n = int(eng.cache["length"][slot])
-        out[rid] = {"length": n, "logits": torch.stack(rec["logits"]),
-                    **{name: eng.cache["kv"][name][:, slot, :n].clone()
-                       for name in ("k", "v")},
-                    **{name: leaf.narrow(eng._axes[name], slot, 1).clone()
-                       for name, leaf in eng.cache.items()
-                       if name not in ("length", "kv")}}
+        lane = {"length": n, "logits": torch.stack(rec["logits"])}
+        for name, leaf in eng.cache.items():
+            if isinstance(leaf, dict):
+                for kv_name, kv in leaf.items():
+                    key = kv_name if name == "kv" else f"{name}.{kv_name}"
+                    lane[key] = kv[:, slot, :n].clone()
+            elif name != "length":
+                lane[name] = leaf.narrow(eng._axes[name], slot, 1).clone()
+        out[rid] = lane
     return out
 
 
@@ -2303,6 +2362,36 @@ def _same_lanes(inter: dict, alone: dict) -> dict:
                              and bool((inter[key] == alone[key]).all())
                              for key in keys))
     return diff
+
+
+def _interleave_regression(tag: str, model, prompts, max_len: int,
+                           lane_keys=()) -> dict:
+    """tests/test_serve.py's interleaving regression through ServeEngine
+    at the path's width: requests A and B (the first INTERLEAVE_PROMPT
+    tokens of the first two prompts, INTERLEAVE_NEW new tokens each) run
+    interleaved and each alone; their tokens, their logits at every step
+    and every cache lane (``lane_keys`` must be among them) must be
+    bitwise the same. The random model echoes its input token, so the
+    tokens alone cannot see a row written into another lane."""
+    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
+    t0 = time.perf_counter()
+    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW, max_len)
+    alone, lanes_diff = {}, {}
+    for rid, prompt in enumerate((pa, pb)):
+        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW,
+                                         max_len)
+        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
+    del inter_lanes, alone_lanes
+    wall = time.perf_counter() - t0
+    check(inter == alone, f"{tag}: interleaved streams {inter} differ from "
+                          f"the run-alone streams {alone}")
+    check(all(d["equal"] and all(key in d for key in lane_keys)
+              for d in lanes_diff.values()),
+          f"{tag}: interleaved logits or cache lanes differ from the "
+          f"run-alone ones: {lanes_diff}")
+    return {"prompt": INTERLEAVE_PROMPT, "new_tokens": INTERLEAVE_NEW,
+            "equal": True, "streams": inter, "lanes": lanes_diff,
+            "wall_s": wall}
 
 
 def phase_serve(torch) -> dict:
@@ -2362,25 +2451,8 @@ def phase_serve(torch) -> dict:
                                 f"{steps}) = {expected}")
     check(not plain_calls, f"serve: the plain decode attention ran "
                            f"{len(plain_calls)} times")
-    # the interleaving regression at full width: a request's tokens, its
-    # logits at every step and its cache lanes are bitwise the same alone
-    # (slot 0) and with another admission while it is active (A in slot
-    # 0, B in slot 1). The random model echoes its input token, so the
-    # tokens alone cannot see a K/V row written into another lane.
-    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
-    t4 = time.perf_counter()
-    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW)
-    alone, lanes_diff = {}, {}
-    for rid, prompt in enumerate((pa, pb)):
-        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW)
-        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
-    del inter_lanes, alone_lanes
-    t_inter = time.perf_counter() - t4
-    check(inter == alone, f"serve: interleaved streams {inter} differ from "
-                          f"the run-alone streams {alone}")
-    check(all(d["equal"] for d in lanes_diff.values()),
-          f"serve: interleaved logits or cache lanes differ from the "
-          f"run-alone ones: {lanes_diff}")
+    interleaved = _interleave_regression("serve", model, prompts,
+                                         SERVE_MAX_LEN)
     cli = serve_main(CLI_ARGS)
     check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
                                              + 1]),
@@ -2402,10 +2474,7 @@ def phase_serve(torch) -> dict:
                       "plain_decode_attention_calls": len(plain_calls),
                       "peak_memory_bytes": peak,
                       "first_tokens": {r: t[:8] for r, t in tokens.items()}},
-           "interleaved": {"prompt": INTERLEAVE_PROMPT,
-                           "new_tokens": INTERLEAVE_NEW, "equal": True,
-                           "streams": inter, "lanes": lanes_diff,
-                           "wall_s": t_inter},
+           "interleaved": interleaved,
            "cli": {"args": CLI_ARGS, "requests": cli["requests"],
                    "emitted": cli["emitted"],
                    "energy_efficiency": cli["report"].energy_efficiency}}
@@ -3008,24 +3077,8 @@ def phase_serve_hybrid(torch) -> dict:
                                                      lanes=every),
                            "serve_hybrid_decode_step.json",
                            ["decode_attn_kernel"], torch)
-    # the interleaving regression: tokens, logits at every step, K/V rows
-    # and the recurrent state bitwise the same alone and interleaved
-    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
-    t4 = time.perf_counter()
-    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW,
-                                      HYBRID_MAX_LEN)
-    alone, lanes_diff = {}, {}
-    for rid, prompt in enumerate((pa, pb)):
-        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW,
+    interleaved = _interleave_regression("serve_hybrid", model, prompts,
                                          HYBRID_MAX_LEN)
-        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
-    del inter_lanes, alone_lanes
-    t_inter = time.perf_counter() - t4
-    check(inter == alone, f"serve_hybrid: interleaved streams {inter} "
-                          f"differ from the run-alone streams {alone}")
-    check(all(d["equal"] for d in lanes_diff.values()),
-          f"serve_hybrid: interleaved logits, cache rows or recurrent state "
-          f"differ from the run-alone ones: {lanes_diff}")
     out = {"phase": "serve_hybrid", "router": router,
            "engine": {"arch": HYBRID_ARCH, "variant": "full",
                       "dtype": SERVE_DTYPE, "params": n_params,
@@ -3046,10 +3099,7 @@ def phase_serve_hybrid(torch) -> dict:
                       "first_tokens": {r: t[:8] for r, t in tokens.items()}},
            "last_step_layers_max_abs_err": layer_err,
            "decode_attn": shape_t, "decode_step_profile": prof,
-           "interleaved": {"prompt": INTERLEAVE_PROMPT,
-                           "new_tokens": INTERLEAVE_NEW, "equal": True,
-                           "streams": inter, "lanes": lanes_diff,
-                           "wall_s": t_inter}}
+           "interleaved": interleaved}
     emit(out)
     del model, eng
     torch.cuda.empty_cache()
@@ -3284,26 +3334,9 @@ def phase_serve_encdec(torch) -> dict:
                            ["decode_attn_kernel", "decode_attn_combine"],
                            torch)
     del cache
-    # the interleaving regression through the engine: tokens, logits at
-    # every step, K/V rows and the (zero) mem_k/mem_v lanes bitwise the
-    # same alone and interleaved
-    pa, pb = prompts[0, :INTERLEAVE_PROMPT], prompts[1, :INTERLEAVE_PROMPT]
-    t4 = time.perf_counter()
-    inter, inter_lanes = _interleaved(model, pa, pb, INTERLEAVE_NEW,
-                                      ENCDEC_MAX_LEN)
-    alone, lanes_diff = {}, {}
-    for rid, prompt in enumerate((pa, pb)):
-        alone[rid], alone_lanes = _alone(model, prompt, INTERLEAVE_NEW,
-                                         ENCDEC_MAX_LEN)
-        lanes_diff[rid] = _same_lanes(inter_lanes[rid], alone_lanes)
-    del inter_lanes, alone_lanes
-    t_inter = time.perf_counter() - t4
-    check(inter == alone, f"serve_encdec: interleaved streams {inter} "
-                          f"differ from the run-alone streams {alone}")
-    check(all(d["equal"] and "mem_k" in d and "mem_v" in d
-              for d in lanes_diff.values()),
-          f"serve_encdec: interleaved logits or cache lanes differ from the "
-          f"run-alone ones: {lanes_diff}")
+    interleaved = _interleave_regression("serve_encdec", model, prompts,
+                                         ENCDEC_MAX_LEN,
+                                         ("mem_k", "mem_v"))
     cli_args = ["--arch", ENCDEC_ARCH, *CLI_ARGS]
     cli = serve_main(cli_args)
     check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
@@ -3336,10 +3369,7 @@ def phase_serve_encdec(torch) -> dict:
                       "first_tokens": run["fed"][:, :8].tolist()},
            "last_step_calls_max_abs_err": call_err,
            "decode_attn": timed, "decode_step_profile": prof,
-           "interleaved": {"prompt": INTERLEAVE_PROMPT,
-                           "new_tokens": INTERLEAVE_NEW, "equal": True,
-                           "streams": inter, "lanes": lanes_diff,
-                           "wall_s": t_inter},
+           "interleaved": interleaved,
            "cli": {"args": cli_args, "requests": cli["requests"],
                    "emitted": cli["emitted"],
                    "energy_efficiency": cli["report"].energy_efficiency}}
@@ -3544,6 +3574,263 @@ def phase_serve_vlm_vs_cpu(torch) -> dict:
     check(over <= TOL_LOGITS, f"serve_vlm_vs_cpu: logits differ by "
                               f"{float(diff.max())}")
     return out
+
+
+# ------------- slice 8 item 3: the MoE family, with and without MLA
+
+def _timed_ranges(targets, torch):
+    """Wrap each ``(module, name)`` function in targets so every call runs
+    inside `torch.profiler.record_function(name)`; returns the function
+    that unwraps them."""
+    kept = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            with torch.profiler.record_function(_name):
+                return _fn(*args, **kwargs)
+
+        setattr(mod, name, wrapped)
+        kept.append((mod, name, fn))
+
+    def restore():
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
+    return restore
+
+
+def _serve_moe_family(tag: str, arch: str, n_layers: int, launches_want: int,
+                      torch) -> dict:
+    """One arch of the moe family at full width with n_layers cut, in bf16:
+    SERVE_PROMPT seeded prompt tokens through Model.prefill on SERVE_SLOTS
+    lanes of SERVE_MAX_LEN positions, then SERVE_NEW greedy steps; every
+    GQA decode through the decode_attn kernel (counted from 0, the plain
+    version forbidden, each call of the last step against the plain
+    version), the last call timed beside the plain version, SDPA and the
+    bound; one decode step under the profiler (idle share, the expert
+    products' share of busy time, and MLA's absorbed decode's device
+    time); the interleaving regression through ServeEngine; then
+    launch/serve.py --arch <arch> (the router and the smoke engine) once
+    on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(arch, "full").replace(n_layers=n_layers)
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"{tag}: the full config is not {SERVE_DTYPE}")
+    n_attn = cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
+    steps = SERVE_PROMPT + SERVE_NEW
+    check(launches_want == n_attn * steps,
+          f"{tag}: {launches_want} launches expected, not {n_attn} x {steps}")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_PROMPT))
+    live = torch.cuda.memory_allocated()    # earlier phases' tensors
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    run = _frontend_serve(tag, model,
+                          {"tokens": torch.as_tensor(prompts, device="cuda")},
+                          SERVE_MAX_LEN, n_attn, torch)
+    launches = run["launches"]
+    check(launches == launches_want
+          and run["calls_by_cache_len"] == {SERVE_MAX_LEN: launches_want},
+          f"{tag}: {launches} decode_attn launches "
+          f"({run['calls_by_cache_len']}), expected {n_attn} attention "
+          f"layers x ({SERVE_PROMPT} + {SERVE_NEW}) = {launches_want}")
+    cache = run["cache"]
+    check(cache["length"].tolist() == [steps] * SERVE_SLOTS,
+          f"{tag}: lengths {cache['length'].tolist()}")
+    if cfg.use_mla:
+        check(all(bool(cache[c][:, :, :steps].abs().sum() > 0)
+                  and not bool(cache[c][:, :, steps:].any())
+                  for c in ("ckv", "kpe")),
+              f"{tag}: the latent caches do not hold exactly {steps} "
+              f"positions")
+    call_err = _check_calls(run["kept"], tag, torch)
+    timed = _decode_timing(run["kept"][-1], launches, torch)
+    check(timed["shape"] == [SERVE_SLOTS, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.d_head, SERVE_MAX_LEN]
+          and timed["lengths"] == [steps] * SERVE_SLOTS,
+          f"{tag}: timed shape {timed['shape']}, lengths {timed['lengths']}")
+    del run["kept"]
+    # a decode step of the path under the profiler: every lane, once more
+    tok = run["fed"][:, -1:]
+    model.decode_step(tok, cache)
+    targets = [(moe_mod, "_expert_ffn")]
+    if cfg.use_mla:
+        targets.append((mla_mod, "mla_decode_step"))
+    restore = _timed_ranges(targets, torch)
+    try:
+        prof = _device_profile(lambda: model.decode_step(tok, cache),
+                               f"{tag}_decode_step.json",
+                               ["decode_attn_kernel"], torch,
+                               ranges=[name for _, name in targets])
+    finally:
+        restore()
+    del cache, run["cache"]
+    interleaved = _interleave_regression(
+        tag, model, prompts, SERVE_MAX_LEN,
+        ("dense_kv.k", "dense_kv.v", "ckv", "kpe") if cfg.use_mla
+        else ("moe_kv.k", "moe_kv.v"))
+    cli_args = ["--arch", arch, *CLI_ARGS]
+    cli = serve_main(cli_args)
+    check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
+                                             + 1]),
+          f"{tag}: the CLI's engine emitted the wrong number of tokens")
+    walls = run["walls"]
+    out = {"phase": tag,
+           "engine": {"arch": arch, "variant": "full", "dtype": SERVE_DTYPE,
+                      "n_layers": n_layers,
+                      "n_layers_published": get_config(arch).n_layers,
+                      "dense_layers": cfg.n_dense_layers,
+                      "attention": "mla" if cfg.use_mla else "gqa",
+                      "experts": cfg.n_experts, "top_k": cfg.top_k,
+                      "shared_experts": cfg.n_shared_experts,
+                      "params": n_params,
+                      "params_analytic": cfg.param_count(),
+                      "lanes": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                      "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+                      "build_s": t_build,
+                      "prefill_wall_s": walls["frontend_s"]
+                      + walls["prompt_s"],
+                      "decode_wall_s": walls["decode_s"],
+                      **{k: walls[k] for k in (
+                          "decode_steps", "emitted", "decode_tokens_per_s",
+                          "ms_per_decode_step")},
+                      "ms_per_prefill_step": 1e3 * (walls["frontend_s"]
+                                                    + walls["prompt_s"])
+                      / SERVE_PROMPT,
+                      "decode_attn_launches": launches,
+                      "expected_launches": launches_want,
+                      "attention_layers_on_the_kernel": n_attn,
+                      "calls_by_cache_len": run["calls_by_cache_len"],
+                      **{k: run[k] for k in (
+                          "plain_decode_attention_calls",
+                          "peak_memory_bytes", "run_peak_memory_bytes")},
+                      "live_before_bytes": live,
+                      "first_tokens": run["fed"][:, :8].tolist()},
+           "last_step_calls_max_abs_err": call_err, "decode_attn": timed,
+           "decode_step_profile": prof, "interleaved": interleaved,
+           "cli": {"args": cli_args, "requests": cli["requests"],
+                   "emitted": cli["emitted"],
+                   "energy_efficiency": cli["report"].energy_efficiency}}
+    emit(out)
+    del model, run
+    torch.cuda.empty_cache()
+    return {"out": out}
+
+
+def phase_serve_moe(torch) -> dict:
+    """dbrx-132b at full width (48 query heads on 8 KV heads of 128, 16
+    experts of 10752, top 4) with n_layers cut 40 -> 2, in bf16; every
+    attention through the decode_attn kernel (a query-head group of 6)."""
+    return _serve_moe_family("serve_moe", MOE_ARCH, MOE_LAYERS,
+                             MOE_LAUNCHES, torch)
+
+
+def phase_serve_mla(torch) -> dict:
+    """deepseek-v3-671b at full width with n_layers cut 61 -> 4 (its 3
+    dense layers, 128 heads of 56 on the kernel, and one MLA + MoE layer
+    of 256 experts of 2048, top 8, and a shared one), in bf16; MLA's
+    absorbed decode launches no decode_attn."""
+    return _serve_moe_family("serve_mla", MLA_ARCH, MLA_LAYERS,
+                             MLA_LAUNCHES, torch)
+
+
+def _moe_vs_cpu(tag: str, arch: str, torch) -> dict:
+    """The arch's smoke config in float32 on the card and, weights carried
+    across, on the CPU: VS_CPU_SLOTS lanes, MOE_VS_CPU_PROMPT prompt
+    tokens through Model.prefill and MOE_VS_CPU_NEW greedy steps each.
+    Streams identical; every step's logits within TOL_LOGITS + TOL_LOGITS
+    |want|; every MoE layer's chosen experts (as a set) identical, except
+    where the CPU's gap between the k-th and (k+1)-th probability is
+    below MOE_TIE_GAP (counted); the smallest such gap reported."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(arch, "smoke").replace(dtype=torch.float32)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (VS_CPU_SLOTS, MOE_VS_CPU_PROMPT)))}
+    positions = MOE_VS_CPU_PROMPT + MOE_VS_CPU_NEW
+    top_k = moe_mod.top_k
+    logs, streams, lengths, choices = [], [], [], []
+    t0 = time.perf_counter()
+    for m in (card, cpu):
+        log, chosen = [], []
+
+        def recorded(probs, k, _chosen=chosen):
+            vals, idx = top_k(probs, k)
+            full = torch.sort(probs, dim=-1, descending=True).values
+            _chosen.append((idx.cpu(), (full[..., k - 1]
+                                        - full[..., k]).cpu()))
+            return vals, idx
+
+        moe_mod.top_k = recorded
+        unwrap = _steps_recorded(m, log)
+        try:
+            cache = m.init_cache(VS_CPU_SLOTS, positions)
+            fed, _ = _greedy(m, m.prefill(batch, cache), cache,
+                             MOE_VS_CPU_NEW, torch)
+        finally:
+            unwrap()
+            moe_mod.top_k = top_k
+        logs.append(torch.stack(log))
+        streams.append(fed.tolist())
+        lengths.append(cache["length"].tolist())
+        choices.append(chosen)
+    wall = time.perf_counter() - t0
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    check(len(choices[0]) == len(choices[1]) == n_moe * positions,
+          f"{tag}: {len(choices[0])} and {len(choices[1])} MoE calls, "
+          f"expected {n_moe} x {positions}")
+    flips = order_diffs = 0
+    min_gap = math.inf
+    for (a, _), (b, gap) in zip(*choices):
+        min_gap = min(min_gap, float(gap.min()))
+        order_diffs += int((a != b).any(-1).sum())
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        for i in np.flatnonzero(differ.reshape(-1).numpy()):
+            g = float(gap.reshape(-1)[i])
+            check(g < MOE_TIE_GAP, f"{tag}: chosen experts differ at a CPU "
+                                   f"gap {g} >= {MOE_TIE_GAP}")
+            flips += 1
+    diff = (logs[0] - logs[1]).abs()
+    over = float((diff - TOL_LOGITS * logs[1].abs()).max())
+    out = {"phase": tag, "arch": arch, "variant": "smoke",
+           "dtype": "float32", "lanes": VS_CPU_SLOTS,
+           "prompt": MOE_VS_CPU_PROMPT, "new_tokens": MOE_VS_CPU_NEW,
+           "steps": len(logs[0]), "lengths": lengths,
+           "moe_calls": len(choices[0]), "experts_differ": flips,
+           "expert_order_differs": order_diffs,
+           "min_topk_gap": min_gap, "tie_gap": MOE_TIE_GAP,
+           "max_logit_abs_err": float(diff.max()), "tolerance": TOL_LOGITS,
+           "card_tokens": streams[0], "cpu_tokens": streams[1],
+           "wall_s": wall}
+    emit(out)
+    check(lengths[0] == lengths[1] == [positions] * VS_CPU_SLOTS,
+          f"{tag}: lengths {lengths}")
+    check(streams[0] == streams[1], f"{tag}: streams differ: {streams}")
+    check(over <= TOL_LOGITS, f"{tag}: logits differ by {float(diff.max())}")
+    return out
+
+
+def phase_serve_moe_vs_cpu(torch) -> dict:
+    return _moe_vs_cpu("serve_moe_vs_cpu", MOE_ARCH, torch)
+
+
+def phase_serve_mla_vs_cpu(torch) -> dict:
+    return _moe_vs_cpu("serve_mla_vs_cpu", MLA_ARCH, torch)
 
 
 def _fig4_cells():
@@ -4394,10 +4681,15 @@ def phase_operability_vs_cpu(ops: dict) -> dict:
     return out
 
 
-def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
+def _device_profile(run, trace_name: str, kernel_names, torch,
+                    ranges=()) -> dict:
     """Run ``run`` once under torch.profiler; the wall time, the union of
     device spans (busy time, idle share) and, per kernel name, its
-    launches and mean device time. The trace goes to build/profile/."""
+    launches and mean device time. Per name in ``ranges`` (host ranges
+    that ``run`` opens with `torch.profiler.record_function`), the device
+    time of the kernels launched inside them (matched to their launch
+    calls by correlation id) and its share of the busy time. The trace
+    goes to build/profile/."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4428,6 +4720,22 @@ def _device_profile(run, trace_name: str, kernel_names, torch) -> dict:
         check(len(kern) > 0, f"profiler saw no {name} kernel")
         out[f"{name}_launches"] = len(kern)
         out[f"{name}_device_us_mean"] = sum(kern) / len(kern)
+    for name in ranges:
+        spans_r = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e.get("name") == name and "dur" in e]
+        corr = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans_r)}
+        kern = [e["dur"] for e in events if e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in corr]
+        check(len(spans_r) > 0 and len(kern) > 0,
+              f"profiler saw no kernel inside the {name} ranges")
+        out[f"{name}_ranges"] = len(spans_r)
+        out[f"{name}_kernels"] = len(kern)
+        out[f"{name}_device_ms"] = sum(kern) / 1e3
+        out[f"{name}_share_of_busy"] = sum(kern) / busy
     return out
 
 
@@ -4568,6 +4876,10 @@ def main() -> int:
     phase_serve_encdec_vs_cpu(torch)
     vlm = phase_serve_vlm(torch)
     phase_serve_vlm_vs_cpu(torch)
+    moe = phase_serve_moe(torch)
+    phase_serve_moe_vs_cpu(torch)
+    mla = phase_serve_mla(torch)
+    phase_serve_mla_vs_cpu(torch)
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)
@@ -4617,13 +4929,17 @@ def main() -> int:
         "serve": serve["out"]["engine"]["decode_attn_launches"],
         "serve_hybrid": hybrid["out"]["engine"]["decode_attn_launches"],
         "serve_encdec": encdec["out"]["engine"]["decode_attn_launches"],
-        "serve_vlm": vlm["out"]["engine"]["decode_attn_launches"]}
+        "serve_vlm": vlm["out"]["engine"]["decode_attn_launches"],
+        "serve_moe": moe["out"]["engine"]["decode_attn_launches"],
+        "serve_mla": mla["out"]["engine"]["decode_attn_launches"]}
     path_shapes = {"serve_hybrid_shape": hybrid["out"]["decode_attn"],
                    "serve_encdec_self_shape":
                        encdec["out"]["decode_attn"]["self"],
                    "serve_encdec_cross_shape":
                        encdec["out"]["decode_attn"]["cross"],
-                   "serve_vlm_shape": vlm["out"]["decode_attn"]}
+                   "serve_vlm_shape": vlm["out"]["decode_attn"],
+                   "serve_moe_shape": moe["out"]["decode_attn"],
+                   "serve_mla_shape": mla["out"]["decode_attn"]}
     relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
                       "relax_backward":
                           tune_run["out"]["relax_backward_launches"]}

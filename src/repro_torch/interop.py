@@ -172,18 +172,27 @@ def _array_tensor(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev)
 
 
+# leaves the reference keeps in float32 whatever the config's type
+_F32_LEAVES = ("lam", "router")
+
+
 def model_params(params, cfg, device: str | torch.device | None = None
                  ) -> dict[str, torch.Tensor]:
     """The state dict of `repro_torch.models.Model` from the reference's
     parameter pytree (nested mappings of numpy arrays): ``embed`` and
     ``final_norm``, and each stack with a leading layer axis (dense and
     vlm ``layers``; hybrid ``super`` and ``tail``; encdec ``encoder`` and
-    ``decoder``) unstacked into ``<stack>.<i>.<name>``. Tensors take ``cfg.dtype``, except the RG-LRU's
-    ``lam``, which is float32 in every config, as in the reference."""
+    ``decoder``; moe ``dense_layers`` and ``moe_layers``, and the MTP
+    depth's ``mtp.block``, a stack of one) unstacked into
+    ``<stack>.<i>.<name>``; only the layer axis goes, so a layer's routed
+    experts stay stacked (E, fan-in, fan-out). The MTP depth's ``proj``
+    and ``ln`` have no layer axis (``mtp.proj``, ``mtp.ln``). Tensors take
+    ``cfg.dtype``, except the RG-LRU's ``lam`` and the MoE ``router``,
+    which are float32 in every config, as in the reference."""
     dev = resolve_device(device)
 
     def t(a, name: str) -> torch.Tensor:
-        return _array_tensor(a, dev).to(torch.float32 if name == "lam"
+        return _array_tensor(a, dev).to(torch.float32 if name in _F32_LEAVES
                                         else cfg.dtype)
 
     out = {"embed": t(params["embed"], "embed"),
@@ -198,9 +207,15 @@ def model_params(params, cfg, device: str | torch.device | None = None
                 for i in range(stacked.shape[0]):
                     out[f"{stack}.{i}.{prefix}{name}"] = t(stacked[i], name)
 
-    for stack in ("layers", "super", "tail", "encoder", "decoder"):
+    for stack in ("layers", "super", "tail", "encoder", "decoder",
+                  "dense_layers", "moe_layers"):
         if stack in params:
             walk(stack, "", params[stack])
+    if "mtp" in params:
+        mtp = params["mtp"]
+        out["mtp.proj"] = t(mtp["proj"], "proj")
+        walk("mtp.block", "", mtp["block"])
+        out["mtp.ln"] = t(mtp["ln"], "ln")
     return out
 
 
@@ -208,7 +223,9 @@ def model_cache(cache, device: str | torch.device | None = None) -> dict:
     """A decode cache from the reference's, leaf for leaf in the same
     nesting and each leaf's type (dense: ``length`` (B,) int32 and ``kv``
     with ``k``/``v`` (L, B, S, Hkv, D); hybrid also ``conv``, ``h``,
-    ``tail_conv`` and ``tail_h``; encdec also ``mem_k`` and ``mem_v``)."""
+    ``tail_conv`` and ``tail_h``; encdec also ``mem_k`` and ``mem_v``; moe
+    ``dense_kv`` and ``moe_kv`` with ``k``/``v``, or with MLA ``ckv`` (L,
+    B, S, kv_lora) and ``kpe`` (L, B, S, rope_dim))."""
     dev = resolve_device(device)
 
     def walk(tree):

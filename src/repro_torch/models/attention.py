@@ -135,19 +135,48 @@ def attention_block(p, x, cfg, memory=None, layer_window=0, causal=None):
 
 
 def _write_slot(cache: torch.Tensor, slot: torch.Tensor, write: torch.Tensor,
-                new: torch.Tensor) -> None:
-    """cache[b, slot[b]] = new[b] where write[b], in place. A row whose
+                new: torch.Tensor, old: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """cache[b, slot[b]] = new[b] where write[b], in place; elsewhere
+    ``old[b]`` (the values already there when ``old`` is None). A row whose
     slot lies at or past the cache's end is left as it was, like the
-    reference's one-hot write, which matches no position there."""
+    reference's one-hot write, which matches no position there. Returns
+    the values the slots held before the write."""
     rows = torch.arange(cache.shape[0], device=cache.device)
     at = slot.clamp(max=cache.shape[1] - 1)
-    keep = cache[rows, at]
-    cache[rows, at] = torch.where(write[:, None, None], new.to(cache.dtype),
-                                  keep)
+    before = cache[rows, at]
+    keep = before if old is None else old
+    mask = write.reshape(-1, *([1] * (new.dim() - 1)))
+    cache[rows, at] = torch.where(mask, new.to(cache.dtype), keep)
+    return before
+
+
+def write_step(caches, slot: torch.Tensor, in_range: torch.Tensor, lanes,
+               every_row: bool):
+    """Write this step's entries ``(cache, new)`` at ``slot`` on the rows
+    where ``in_range``, in place, and on ``lanes`` only when given. With
+    ``every_row`` every row's entry is written for the step's attention
+    and the rows outside ``lanes`` get theirs back by the returned
+    function, called after it: the reference's step of the full batch,
+    whose cache is then merged back on the idle lanes, so that an idle
+    lane's hidden state (which a mixture-of-experts layer routes with the
+    others of its row) is the reference's too."""
+    persist = in_range if lanes is None else in_range & lanes
+    if not every_row or lanes is None:
+        for cache, new in caches:
+            _write_slot(cache, slot, persist, new)
+        return lambda: None
+    olds = [_write_slot(cache, slot, in_range, new) for cache, new in caches]
+
+    def restore():
+        for (cache, new), old in zip(caches, olds):
+            _write_slot(cache, slot, persist, new, old)
+    return restore
 
 
 def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
-                          ring: bool = False, lanes=None):
+                          ring: bool = False, lanes=None,
+                          every_row: bool = False):
     """One-token decode. x: (B, 1, d); cache_k/v: (B, S, Hkv, D) holding
     `length` previously written tokens (scalar or (B,)).
 
@@ -158,7 +187,10 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     The new key and value are written into ``cache_k``/``cache_v`` in
     place (the reference returns new arrays; at full width a copy of the
     cache per layer is waste), only on the rows where ``lanes`` (B,) bool
-    is true when it is given. Returns the attention output (B, 1, d)."""
+    is true when it is given. ``every_row`` (the moe family) lets the rows
+    outside ``lanes`` attend with their new key and value too before they
+    are taken back out (`write_step`). Returns the attention output (B, 1,
+    d)."""
     b = x.shape[0]
     lengths = torch.as_tensor(length, device=x.device).expand(b)
     pos = lengths[:, None]                                  # absolute (B, 1)
@@ -169,13 +201,11 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     k_new = rope(k_new, pos, cfg.rope_theta)
     s = cache_k.shape[1]
     slot = lengths % s if ring else lengths
-    write = slot < s
-    if lanes is not None:
-        write = write & lanes
-    _write_slot(cache_k, slot, write, k_new[:, 0])
-    _write_slot(cache_v, slot, write, v_new[:, 0])
+    restore = write_step(((cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])),
+                         slot, slot < s, lanes, every_row)
     new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
     out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
+    restore()
     return out.reshape(b, 1, -1) @ p.wo
 
 

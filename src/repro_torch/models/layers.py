@@ -49,23 +49,32 @@ def _rope_freq(theta: float, half: int, device: torch.device) -> torch.Tensor:
     return freq.to(device)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10_000.0) -> torch.Tensor:
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0,
+         rotary_dim: int | None = None,
+         has_head_axis: bool | None = None) -> torch.Tensor:
     """Rotary position embedding, half-split (not interleaved).
 
-    x: (B, S, H, D) with a head axis, or (B, S, D)/(S, D) without one
-    (told apart by x.dim()); positions: (S,) or (B, S)."""
+    x: (B, S, H, D) with a head axis (the default when x.dim() >= 4) or
+    (B, S, D)/(S, D) without one; positions: (S,) or (B, S).
+    ``rotary_dim`` rotates the first ``rotary_dim`` features only and
+    passes the rest through."""
     dt = x.dtype
-    half = x.shape[-1] // 2
+    d = x.shape[-1] if rotary_dim is None else rotary_dim
+    half = d // 2
+    if has_head_axis is None:
+        has_head_axis = x.dim() >= 4
     freq = _rope_freq(float(theta), half, x.device)
     pos = torch.as_tensor(positions, device=x.device)
     ang = pos.float()[..., None] * freq                      # (..., S, half)
-    if x.dim() >= 4:
+    if has_head_axis:
         ang = ang[..., None, :]                              # (..., S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(dt)
+    x1, x2 = x[..., :half].float(), x[..., half:d].float()
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                    dim=-1).to(dt)
+    if d < x.shape[-1]:
+        rot = torch.cat([rot, x[..., d:]], dim=-1)
+    return rot
 
 
 # ----------------------------------------------------------------- MLPs

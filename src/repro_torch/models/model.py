@@ -1,5 +1,5 @@
-"""The dense, hybrid, encoder-decoder and VLM families (port of
-`repro.models.model`).
+"""The dense, mixture-of-experts, hybrid, encoder-decoder and VLM families
+(port of `repro.models.model`).
 
     build_model(cfg, seed, device)        -> Model, weights drawn from a seed
     Model.forward(tokens, frontend=None)  -> (logits, aux)       [eval]
@@ -17,8 +17,15 @@ Hybrid (recurrentgemma): super-blocks ``super.<i>.b<j>_<kind>`` over
 ``tail.0.b<j>_rglru`` of the ``n_layers % len(pattern)`` layers left.
 Encoder-decoder (whisper): ``encoder.<i>`` layers like the dense ones
 (non-causal, no final norm) and ``decoder.<i>`` with ``ln1``,
-``self_attn``, ``ln_x``, ``cross_attn``, ``ln2`` and ``mlp``. The
-reference's scans over stacked layers are Python loops.
+``self_attn``, ``ln_x``, ``cross_attn``, ``ln2`` and ``mlp``. MoE
+(dbrx, deepseek-v3): ``dense_layers.<i>`` like the dense ones (the first
+``n_dense_layers``), then ``moe_layers.<i>`` with ``ln1``, ``attn`` (GQA,
+or with ``cfg.use_mla`` multi-head latent attention: ``w_dq``, ...,
+``wo``), ``ln2`` and ``moe`` (``router`` (d, E) float32, ``experts.w_*``
+(E, fan-in, fan-out), ``shared.w_*``); with ``cfg.mtp`` also the
+multi-token-prediction weights ``mtp.proj``, ``mtp.block.0.*`` and
+``mtp.ln``, which no serving step reads (the MTP loss waits for
+training). The reference's scans over stacked layers are Python loops.
 
 The stubbed frontends enter as ``frontend`` (``batch["frontend"]`` in
 `prefill`): encdec, frame embeddings (B, src_len, d) that the encoder
@@ -32,10 +39,12 @@ vlm ``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D); hybrid ``conv``
 (n_super, n_rec, B, 3, W) in ``cfg.dtype``, ``h`` (n_super, n_rec, B, W)
 float32, ``kv`` with a ring of ``min(window, max_len)`` positions a
 layer, and ``tail_conv`` / ``tail_h`` for the tail; encdec ``kv`` and
-``mem_k``/``mem_v`` (L, B, src_len, Hkv, D). Decode writes it in place,
-where the reference returns a new cache.
+``mem_k``/``mem_v`` (L, B, src_len, Hkv, D); moe ``dense_kv`` for the
+dense layers, then ``moe_kv`` or, with MLA, ``ckv`` (L, B, S, kv_lora)
+and ``kpe`` (L, B, S, rope_dim). Decode writes it in place, where the
+reference returns a new cache.
 
-The moe and ssm families raise NotImplementedError.
+The ssm family raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,10 +53,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, embed, init_embed, mlp, rms_norm, \
-    unembed
+from repro_torch.models.layers import MLP, dense_init, embed, init_embed, \
+    mlp, rms_norm, unembed
 
 _NOT_PORTED = ("the {family!r} family is not ported yet: it waits for the "
                "slice that brings the other model families (ROADMAP.md)")
@@ -143,11 +154,56 @@ class SuperBlock(torch.nn.ModuleDict):
                           for j, kind in enumerate(pattern)})
 
 
+class MoEBlock(torch.nn.Module):
+    """One pre-norm layer of the moe family: attention (GQA, or MLA with
+    ``cfg.use_mla``), then the mixture of experts."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.ln1 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                      requires_grad=False)
+        self.attn = mla_mod.MLA(cfg, device) if cfg.use_mla else \
+            attn.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt,
+                           cfg.qk_norm, device=device)
+        self.ln2 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                      requires_grad=False)
+        self.moe = moe_mod.MoE(cfg, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        self.attn.init(generator)
+        self.moe.init(generator)
+
+
+class MTP(torch.nn.Module):
+    """DeepSeek-V3's multi-token-prediction depth: ``proj`` (2d, d), one
+    dense layer ``block.0`` and the norm ``ln``. Built so the weights
+    match the reference's pytree; no serving step reads them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.proj = torch.nn.Parameter(
+            torch.zeros(2 * d, d, dtype=dt, device=device),
+            requires_grad=False)
+        self.block = torch.nn.ModuleList([Block(cfg, device)])
+        self.ln = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
+                                     requires_grad=False)
+
+    def init(self, generator: torch.Generator) -> None:
+        self.proj.copy_(dense_init(generator, *self.proj.shape,
+                                   self.proj.dtype))
+        self.block[0].init(generator)
+        self.ln.zero_()
+
+
 class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig,
                  device: str | torch.device | None = None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "hybrid", "encdec"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "encdec"):
             raise NotImplementedError(_NOT_PORTED.format(family=cfg.family))
         dev = resolve_device(device)
         self.cfg = cfg
@@ -160,6 +216,15 @@ class Model(torch.nn.Module):
         if cfg.family in ("dense", "vlm"):
             self.layers = torch.nn.ModuleList(Block(cfg, dev)
                                               for _ in range(cfg.n_layers))
+            return
+        if cfg.family == "moe":
+            self.dense_layers = torch.nn.ModuleList(
+                Block(cfg, dev) for _ in range(cfg.n_dense_layers))
+            self.moe_layers = torch.nn.ModuleList(
+                MoEBlock(cfg, dev)
+                for _ in range(cfg.n_layers - cfg.n_dense_layers))
+            if cfg.mtp:
+                self.mtp = MTP(cfg, dev)
             return
         if cfg.family == "encdec":
             self.encoder = torch.nn.ModuleList(
@@ -197,6 +262,9 @@ class Model(torch.nn.Module):
                       for layer in sb.values()]
         elif self.cfg.family == "encdec":
             blocks = [*self.encoder, *self.decoder]
+        elif self.cfg.family == "moe":
+            blocks = [*self.dense_layers, *self.moe_layers,
+                      *([self.mtp] if self.cfg.mtp else [])]
         else:
             blocks = self.layers
         for block in blocks:
@@ -226,15 +294,27 @@ class Model(torch.nn.Module):
     # ------------------------------------------------------- full sequence
     def forward(self, tokens: torch.Tensor, frontend=None):
         """Logits (B, S, padded vocab) float32 for the full sequence
-        (training-style pass), and the auxiliary loss (0 for these
+        (training-style pass), and the auxiliary loss (float32: the sum
+        of the MoE layers' load-balancing losses, 0 for the other
         families). ``frontend``: encdec, the frame embeddings the decoder
         cross-attends to (through the encoder); vlm, patch embeddings
         prepended to the tokens, whose logits are dropped."""
         cfg = self.cfg
         x = embed(self.embed, tokens.to(self.device))
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "vlm":
             x = torch.cat([self._frontend(frontend), x], dim=1)
-        if cfg.family == "encdec":
+        if cfg.family == "moe":
+            x = self._attn_mlp(self.dense_layers, x)
+            for block in self.moe_layers:
+                hn = rms_norm(x, block.ln1)
+                x = x + (mla_mod.mla_block(block.attn, hn, cfg) if cfg.use_mla
+                         else attn.attention_block(block.attn, hn, cfg))
+                m, aux_l = moe_mod.moe_block(block.moe,
+                                             rms_norm(x, block.ln2), cfg)
+                x = x + m
+                aux = aux + aux_l
+        elif cfg.family == "encdec":
             memory = self._encode(self._frontend(frontend))
             for block in self.decoder:
                 x = x + attn.attention_block(block.self_attn,
@@ -259,7 +339,6 @@ class Model(torch.nn.Module):
         x = rms_norm(x, self.final_norm)
         if cfg.family == "vlm":
             x = x[:, frontend.shape[1]:]
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return unembed(self.embed, x, cfg.vocab_size), aux
 
     # ------------------------------------------------------------ serving
@@ -280,6 +359,16 @@ class Model(torch.nn.Module):
         cache = {"length": zeros(batch_size, dtype=torch.int32)}
         if cfg.family in ("dense", "vlm"):
             cache["kv"] = kv(cfg.n_layers, max_len)
+            return cache
+        if cfg.family == "moe":
+            n = cfg.n_layers - cfg.n_dense_layers
+            if cfg.n_dense_layers:
+                cache["dense_kv"] = kv(cfg.n_dense_layers, max_len)
+            if cfg.use_mla:
+                cache["ckv"] = zeros(n, batch_size, max_len, cfg.kv_lora_rank)
+                cache["kpe"] = zeros(n, batch_size, max_len, cfg.qk_rope_dim)
+            else:
+                cache["moe_kv"] = kv(n, max_len)
             return cache
         if cfg.family == "encdec":
             cache["kv"] = kv(cfg.n_layers, max_len)
@@ -339,13 +428,20 @@ class Model(torch.nn.Module):
         meaningless). The reference steps every row and then merges the
         old cache back on the masked rows; writing only the active rows
         gives the same cache without a copy of it per step. An encdec
-        step reads ``mem_k``/``mem_v`` and writes neither."""
+        step reads ``mem_k``/``mem_v`` and writes neither. In the moe
+        family the rows outside ``lanes`` still route: their tokens take
+        part in their row's dispatch and capacity as in the reference's
+        full-batch step, so they attend with this step's key and value,
+        taken back out of their cache after the attention, and their
+        logits are the reference's."""
         cfg = self.cfg
         x = embed(self.embed, tokens.to(self.device)) if embeds is None \
             else embeds
         length = cache["length"]
         if cfg.family == "hybrid":
             x = self._decode_hybrid(x, cache, lanes)
+        elif cfg.family == "moe":
+            x = self._decode_moe(x, cache, lanes)
         elif cfg.family == "encdec":
             ks, vs = cache["kv"]["k"], cache["kv"]["v"]
             for i, block in enumerate(self.decoder):
@@ -367,6 +463,37 @@ class Model(torch.nn.Module):
         logits = unembed(self.embed, x[:, 0], cfg.vocab_size)
         length += 1 if lanes is None else lanes.to(length.dtype)
         return logits
+
+    def _decode_moe(self, x, cache: dict, lanes):
+        """The dense layers (``dense_kv``) and the MoE layers for one
+        token: GQA through `decode_attention_step` (the `decode_attn`
+        kernel on the card) over ``dense_kv`` / ``moe_kv``, or MLA's
+        absorbed decode (plain products) over ``ckv``/``kpe``; every
+        row's token goes through `moe_block`."""
+        cfg = self.cfg
+        length = cache["length"]
+        if cfg.n_dense_layers:
+            ks, vs = cache["dense_kv"]["k"], cache["dense_kv"]["v"]
+            for i, block in enumerate(self.dense_layers):
+                x = x + attn.decode_attention_step(
+                    block.attn, rms_norm(x, block.ln1), ks[i], vs[i], length,
+                    cfg, lanes=lanes, every_row=True)
+                x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
+        if not cfg.use_mla:
+            ks, vs = cache["moe_kv"]["k"], cache["moe_kv"]["v"]
+        for i, block in enumerate(self.moe_layers):
+            hn = rms_norm(x, block.ln1)
+            if cfg.use_mla:
+                x = x + mla_mod.mla_decode_step(
+                    block.attn, hn, cache["ckv"][i], cache["kpe"][i], length,
+                    cfg, lanes=lanes, every_row=True)
+            else:
+                x = x + attn.decode_attention_step(
+                    block.attn, hn, ks[i], vs[i], length, cfg, lanes=lanes,
+                    every_row=True)
+            m, _ = moe_mod.moe_block(block.moe, rms_norm(x, block.ln2), cfg)
+            x = x + m
+        return x
 
     def _decode_hybrid(self, x, cache: dict, lanes):
         """The super-blocks' and the tail's layers for one token. The

@@ -417,3 +417,39 @@ def test_serve_main_runs_the_frontend_families_on_the_cpu(arch, capsys):
                 "--device", "cpu"])
     assert out["emitted"] == 6 and out["requests"] > 0
     assert "[engine] decoded 6 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------------ MoE family
+
+@pytest.mark.parametrize("arch,slots", [("dbrx-132b", 48),
+                                        ("deepseek-v3-671b", 64)])
+def test_moe_engine_streams_and_cache_match_reference(arch, slots):
+    """dbrx (GQA) and deepseek-v3 (dense layers, then MLA) under
+    tests/test_serve.py's schedule in 48 and 64 slots, where a decode
+    step's routing rows hold 3 and 2 tokens, idle lanes among them: the
+    same token streams as the reference engine, and every cache leaf
+    (``moe_kv`` / ``dense_kv``, ``ckv``, ``kpe``, ``length``) within 1e-5
+    after both finished."""
+    rm, params, m = _family_models(arch)
+    ref = RefEngine(rm, params, batch_slots=slots, max_len=16)
+    want = _interleaved(ref, RefRequest)
+    eng = ServeEngine(m, batch_slots=slots, max_len=16)
+    got = _interleaved(eng, Request)
+    assert got == want
+    ref_leaves = dict(_leaves(jax.tree.map(np.asarray, ref.cache)))
+    port_leaves = dict(_leaves(eng.cache))
+    assert sorted(port_leaves) == sorted(ref_leaves)
+    for name, leaf in port_leaves.items():
+        np.testing.assert_allclose(leaf.numpy(), ref_leaves[name],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+    assert all(ax == (0 if name == "length" else 1)
+               for name, ax in _leaves(eng._axes))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_serve_main_runs_the_moe_family_on_the_cpu(arch, capsys):
+    out = main(["--arch", arch, "--minutes", "0.5", "--rate", "5",
+                "--engine-requests", "2", "--new-tokens", "3",
+                "--device", "cpu"])
+    assert out["emitted"] == 6 and out["requests"] > 0
+    assert "[engine] decoded 6 tokens" in capsys.readouterr().out
