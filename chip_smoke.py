@@ -29,7 +29,8 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                n_max 512) through `sweep` + `tune_fpga_dynamic_cells` on
                the card, all eight schedulers; the kernel's launch count
                over this run must equal the plan's allocator ticks
-  main_vs_cpu  the Spork cells rerun with device="cpu" (plain version):
+  main_vs_cpu  the SporkE cells (13 of the 39 Spork cells until the SSM and
+               training phases) rerun with device="cpu" (plain version):
                counters identical, energies/costs within 1e-5 relative
   minplus_kernel
                the dense `minplus` and the `minplus_structured` kernels at
@@ -65,15 +66,17 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                otherwise than g + h over 720 intervals; see RTOL_DP_F32);
                wall times and the Fig. 2/3 rows
   fig2_vs_cpu  hybrid rows of seed 0 rerun with device="cpu" at full
-               horizon and N: the 12 energy/cost rows and the Pareto rows
-               of biases 0.5 and 0.75 (32 rows; all 72 seed-0 rows took
-               143 s on the CPU): identical paths, objectives within 1e-6
-               relative (exact equality reported)
+               horizon and N: the 12 energy/cost rows (cut from 32, with
+               the Pareto rows of biases 0.5 and 0.75, for the SSM and
+               training phases' room; all 72 seed-0 rows took 143 s on
+               the CPU): identical paths, objectives within 1e-6 relative
+               (exact equality reported)
   arrival_kernel
                the `arrival` kernel against its plain version on the card
                and on the CPU, from carries taken 40 entries into a chunk
                of 32 Table 9 cells (the short ones, first 120 s, W = 32 +
-               64, B = 128), chained over 8 blocks: C = 32 (all three
+               64, B = 128), chained over 2 blocks (8 until the SSM and
+               training phases needed the room): C = 32 (all three
                policy codes in the chunk) and C = 1 (one row per code),
                pristine and under tests/test_arrival_kernel.py's FAIL_SPEC,
                continuous and dyadic (1/8 s) times; every carry leaf
@@ -103,7 +106,8 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                plan's entries, spork_predict launches its tick entries;
                wall time and the 9 Table 9 rows
   table9_vs_cpu
-               the first 300 s of app 0 of azure-like(short) under all three
+               the first 120 s of app 0 of azure-like(short) (300 s until
+               the SSM and training phases) under all three
                dispatchers rerun with device="cpu": counters identical,
                floats within 1e-5 (bitwise-equal fields counted); the same
                cells through the serial EventSim, gap reported
@@ -226,11 +230,48 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
   serve_mla_vs_cpu
                the smoke config (1 dense and 2 MLA + MoE layers) in float32,
                card against CPU, with serve_moe_vs_cpu's checks
+  serve_ssm    SporkRouter("mamba2-2.7b") as in serve, then ServeEngine
+               over mamba2-2.7b at full width and depth in bf16 (8 slots,
+               8 requests of 128 + 64 tokens): no attention, so no
+               decode_attn launch (counted); prefill and decode wall,
+               tokens/s, ms a step, peak memory, a decode step under the
+               profiler (idle share); the cache's bytes equal at max_len
+               512 and 8192 (constant state); the interleaving regression
+               (tokens, logits, conv and ssm lanes bitwise alone =
+               interleaved); launch/serve.py --arch mamba2-2.7b once; the
+               duality in float32 at full width, 16 of 64 layers:
+               forward's chunked scan and prefill's recurrence, last
+               logits at S = 300 (two chunks and a padded third) within
+               1e-3 x max |logit|
+  serve_ssm_vs_cpu
+               mamba2-2.7b at full width in float32, n_layers cut 64 -> 4,
+               card against CPU: 2 lanes of 8 + 8 tokens (streams
+               identical, logits within 1e-4 of their largest magnitude,
+               conv and ssm state within 1e-4 of their largest) and
+               forward over 300 tokens within the same
+  train        qwen3-0.6b at full width and depth in bf16 trained with
+               launch/train.py's defaults (batch 8, seq 128, lr 3e-4,
+               warmup 10, TokenPipeline(seed=0)) for 30 steps: every loss
+               finite, the last 5 steps' mean below the first 5's; ms a
+               step (median after 2 warm steps), tokens/s, peak memory, a
+               step under the profiler; every parameter, gradient, moment
+               and residual on cuda:0; 10 steps with compress=True; one
+               step with accum_steps=4 against 1 (loss within 2e-3); no
+               decode_attn launch (counted)
+  train_vs_cpu qwen3-0.6b at full width in float32, 4 of 28 layers, the
+               same seeded weights and batches (batch 2, seq 32), 3 train
+               steps on the card and the CPU: losses within 1e-5
+               relative; parameters within
+               1e-6 + 1e-6 |p| and moments within 1e-4 of their leaf's
+               largest on 99.9 % of the entries, and everywhere within 2 %
+               of the summed learning rates and 3 % of the leaf's largest
+               (AdamW's m / sqrt(v) magnifies a rounding where m cancels)
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
                thetas (tests/test_policy_tune.py's three and a point on
-               each projection bound): value and gradient within rtol 1e-5
+               each projection bound; at K = 2161 the first two, all five
+               until the SSM and training phases): value and gradient within rtol 1e-5
                (float32) and 1e-10 (float64), and the forward's saved n,
                delta and w within the same, each over the scale its
                rounding sets (max |n|; sharp / 4 x that for w); the
@@ -281,9 +322,10 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                dispatches of 32, see CHAOS_MAX_GROUPS); arrival launches
                equal to the plan's entries, spork_predict to its tick
                entries, no table overflow; wall time and the 36 rows
-  chaos_vs_cpu crash_storm's seed-0 cells (12) on the card and the CPU from
-               the same arrival streams: counters identical, floats within
-               1e-5
+  chaos_vs_cpu crash_storm's seed-0 baseline and intensity-1 cells under
+               SporkE (2 of its 12 seed-0 cells until the SSM and
+               training phases) on the card and the CPU from the same
+               arrival streams: counters identical, floats within 1e-5
   fleet        benchmarks/fleet_suite.py in its fast mode (16, 64, 256 and
                1024 tenants x 3 admission policies, 60 s, 0.05 workers a
                tenant) through sweep_fleet on the card, every arrival slot
@@ -341,10 +383,10 @@ Every sweep of every phase runs the invariant guards of
 Every phase line carries ``phase_wall_s``, the phase's whole wall.
 
 Then the `{"kernels": [...]}` summary line (spork_predict's launches are
-the sum over its eleven paths, Table 8, Table 9, the serve router, the
+the sum over its twelve paths, Table 8, Table 9, the serve router, the
 scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
-the spork_sim grid, local and on the mesh, the hybrid's router and Fig.
-4; arrival's over Table 9, the chaos suite and the fleet suite;
+the spork_sim grid, local and on the mesh, the hybrid's router, Fig. 4
+and the SSM's router; arrival's over Table 9, the chaos suite and the fleet suite;
 decode_attn's over serve, serve_hybrid, serve_encdec, serve_vlm,
 serve_moe and serve_mla, with the kernel timed at each of those paths'
 shapes; each also given on its
@@ -403,7 +445,7 @@ FIG2_SEEDS = 10
 FIG2_HORIZON_S = 7200
 FIG2_PLATFORMS = (("hybrid", {}), ("cpu_only", {"allow_fpga": False}),
                   ("fpga_only", {"allow_cpu": False}))
-FIG2_VS_CPU_PARETO = (0.5, 0.75)  # biases whose Pareto rows rerun on the CPU
+FIG2_VS_CPU_PARETO = ()          # biases whose Pareto rows rerun on the CPU
 RTOL_DP = 1e-6                   # DP rows: exact (float64) evaluations
 # The DP's objective is a float32 sum over 720 intervals; the dense (F + T)
 # and structured (g + h) transitions round it differently, and the JAX
@@ -421,11 +463,11 @@ TABLE9_APPS = 5
 TABLE9_HORIZON_S = 3600
 TABLE9_N_MAX = 128
 TABLE9_W = (32, 64)              # w_fpga, w_cpu: the engine's default tables
-TABLE9_VS_CPU_S = 300            # table9_vs_cpu: first 300 s of app 0
+TABLE9_VS_CPU_S = 120            # table9_vs_cpu: first 120 s of app 0
 PROFILE_ENTRIES = 300            # profile: one Table 9 dispatch, cut
 ARRIVAL_MIDRUN_S = 120           # arrival_kernel: carry taken 40 entries in
 ARRIVAL_MIDRUN_ENTRIES = 40
-ARRIVAL_CHAIN = 8                # blocks chained per arrival_kernel case
+ARRIVAL_CHAIN = 2                # blocks chained per arrival_kernel case
 # tests/test_arrival_kernel.py::FAIL_SPEC
 ARRIVAL_FAIL_SPEC = dict(spinup_fail_p=0.25, crash_p=0.0625,
                          straggler_frac=0.25, straggler_factor=2.0,
@@ -466,7 +508,8 @@ SERVE_PROMPT = 128
 SERVE_NEW = 64
 SERVE_SEED = 0
 SERVE_MEAN_LENGTH = SERVE_PROMPT + SERVE_NEW // 2   # over the decode steps
-INTERLEAVE_PROMPT = 32           # the interleaving regression at full width
+INTERLEAVE_PROMPT = 16           # the interleaving regression at full width
+#                                  (32 until the SSM and training phases)
 INTERLEAVE_NEW = 8
 # launch/serve.py's router defaults
 ROUTER_MINUTES = 10.0
@@ -486,6 +529,7 @@ VS_CPU_RTOL = 1e-3               # x the step's max |logit|
 # tests/test_policy_tune.py's THETAS and a point on each projection bound,
 # both types
 RELAX_K = (1, 60, 180, 720, 2161)
+RELAX_LONG_THETAS = 2            # thetas checked at the longest K
 RELAX_THETAS = ((0.5, 0.0, 0.9), (2.3, 0.7, 0.85), (7.0, 1.5, 0.65),
                 (0.0, 0.0, 0.5), (3.0, 4.0, 1.0))
 RELAX_RTOL = {"float32": 1e-5, "float64": 1e-10}
@@ -575,6 +619,50 @@ MLA_LAUNCHES = 3 * (SERVE_PROMPT + SERVE_NEW)
 MOE_VS_CPU_PROMPT = 8
 MOE_VS_CPU_NEW = 8
 MOE_TIE_GAP = 1e-5
+# serve_ssm: mamba2-2.7b at full width and depth (2.7 B parameters fit one
+# card) in bf16, the serve phase's requests in 8 slots (the cache does not
+# depend on max_len: its bytes are checked equal at SSM_STATE_LENS); the
+# duality in float32 at full width, n_layers cut 64 -> SSM_DUAL_LAYERS (the
+# recurrence's 300 steps at full depth took 14 s), at S = SSM_DUAL_S, two
+# chunks of 128 and a padded third, last logits within SSM_DUAL_RTOL x max
+# |logit| (the reference's test holds its smoke model to 1e-3 absolute)
+SSM_ARCH = "mamba2-2.7b"
+SSM_STATE_LENS = (512, 8192)
+SSM_DUAL_LAYERS = 16
+SSM_DUAL_S = 300
+SSM_DUAL_RTOL = 1e-3
+# serve_ssm_vs_cpu: full width in float32, n_layers cut 64 -> 4, 2 lanes
+# of 8 prompt + 8 new tokens, and a forward over SSM_DUAL_S tokens
+SSM_VS_CPU_LAYERS = 4
+SSM_VS_CPU_PROMPT = 8
+SSM_VS_CPU_NEW = 8
+# train: qwen3-0.6b at full width and depth in bf16 at launch/train.py's
+# defaults (batch 8, seq 128, lr 3e-4, warmup 10, total_steps = steps,
+# TokenPipeline(seed=0)); ms a step is the median after the warm steps;
+# then steps with compress=True, and one step with accum_steps 4 against
+# 1 (tests/test_train.py's loss tolerance)
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 10
+TRAIN_STEPS = 30
+TRAIN_WARM_STEPS = 2
+TRAIN_COMPRESS_STEPS = 10
+TRAIN_ACCUM = 4
+TRAIN_ACCUM_RTOL = 2e-3
+# train_vs_cpu: full width in float32, n_layers cut 28 -> 4 (the CPU's 3
+# steps at full depth took 17 s), batch 2, seq 32, 3 steps on the card and
+# the CPU; losses within 1e-5 relative, moments 1e-4 of their leaf's
+# largest magnitude, parameters 1e-6 + 1e-6 |p|, each on all but
+# TRAIN_VS_CPU_SHARE of the entries (tests/test_torch_train.py's bounds)
+TRAIN_VS_CPU_LAYERS = 4
+TRAIN_VS_CPU_BATCH = 2
+TRAIN_VS_CPU_SEQ = 32
+TRAIN_VS_CPU_STEPS = 3
+TRAIN_VS_CPU_RTOL = 1e-5
+TRAIN_VS_CPU_MOMENT = 1e-4
+TRAIN_VS_CPU_SHARE = 1e-3
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -606,6 +694,8 @@ CHAOS_SEEDS = 6
 # dispatches to exactly one per group chunk.
 CHAOS_MAX_GROUPS = 8
 CHAOS_VS_CPU = "crash_storm"
+CHAOS_VS_CPU_TAGS = ("base", 1.0)    # its cells rerun on the CPU, under
+CHAOS_VS_CPU_POLICY = "SporkE"       # one dispatcher
 # benchmarks/fleet_suite.py in its fast mode: 16-1024 Zipf tenants x 3
 # admission policies, 60 s tenant horizons at 0.05 workers a tenant
 FLEET_SCALES = (16, 64, 256, 1024)
@@ -1013,7 +1103,8 @@ def phase_main(torch) -> dict:
 def phase_main_vs_cpu(main: dict) -> dict:
     from repro_torch.sim.sweep import sweep
     res = main["res"]
-    idx = [i for i, c in enumerate(res.cells) if c.policy == "spork"]
+    idx = [i for i, c in enumerate(res.cells)
+           if c.policy == "spork" and c.energy_weight == 1.0]
     t0 = time.perf_counter()
     cpu = sweep([res.cells[i] for i in idx], device="cpu")
     wall = time.perf_counter() - t0
@@ -1553,14 +1644,17 @@ def phase_fig2_vs_cpu(fig2: dict) -> dict:
         exact += card.objective == cpu[k].objective
     out = {"phase": "fig2_vs_cpu", "rows": len(idx), "n_levels": n_levels,
            "horizon_s": FIG2_HORIZON_S,
-           "cut": "hybrid rows of seed 0: the 12 energy/cost rows and the "
-                  "Pareto rows of biases 0.5 and 0.75 (20 of 60); all 72 "
-                  "seed-0 rows took 143 s on the CPU",
+           "cut": "hybrid rows of seed 0: the 12 energy/cost rows (and 20 "
+                  "Pareto rows of biases 0.5 and 0.75 until the SSM and "
+                  "training phases); all 72 seed-0 rows took 143 s on the "
+                  "CPU",
            "cpu_wall_s": wall, "rows_same_path": len(idx) - len(bad),
            "max_rel_objective": max_rel, "rows_objective_exactly_equal": exact,
            "path_mismatches": [list(map(str, t)) for t in bad[:10]]}
     emit(out)
-    check(len(idx) == 32, f"fig2_vs_cpu: {len(idx)} rows, expected 32")
+    want_rows = 12 + 10 * len(FIG2_VS_CPU_PARETO)
+    check(len(idx) == want_rows,
+          f"fig2_vs_cpu: {len(idx)} rows, expected {want_rows}")
     check(not bad, f"fig2_vs_cpu: {len(bad)} paths differ, first {bad[:3]}")
     check(max_rel <= RTOL_DP, f"fig2_vs_cpu: objectives differ ({max_rel})")
     return out
@@ -2642,7 +2736,9 @@ def phase_relax_kernel(torch) -> dict:
         for k in RELAX_K:
             spec = full._replace(demand=full.demand[:k].contiguous())
             consts = tuple(spec[1:])
-            for theta in RELAX_THETAS:
+            thetas = RELAX_THETAS[:RELAX_LONG_THETAS] \
+                if k == max(RELAX_K) else RELAX_THETAS
+            for theta in thetas:
                 th = torch.tensor(theta, dtype=dt, device="cuda")
                 x = th.clone().requires_grad_(True)
                 cost = tune.relaxed_cost(x, spec)
@@ -3833,6 +3929,450 @@ def phase_serve_mla_vs_cpu(torch) -> dict:
     return _moe_vs_cpu("serve_mla_vs_cpu", MLA_ARCH, torch)
 
 
+# ------------- slice 8 items 4 and 6: the SSM family and the training path
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_serve_ssm(torch) -> dict:
+    """SporkRouter("mamba2-2.7b") on the card, then ServeEngine over
+    mamba2-2.7b at full width and full depth in bf16 (8 slots, 8 requests
+    of 128 + 64 tokens): no attention, so no decode_attn launch; walls,
+    tokens/s, peak memory, a decode step under the profiler, the
+    interleaving regression (the conv and ssm lanes bitwise), constant
+    state (the cache's bytes at max_len 512 and 8192), launch/serve.py
+    --arch mamba2-2.7b once; then the duality in float32 at full width:
+    forward's chunked scan and prefill's recurrence give the same last
+    logits at S = SSM_DUAL_S (two chunks of 128 and a padded third)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    router = _serve_router(torch, SSM_ARCH)
+    cfg = get_config(SSM_ARCH, "full")
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"serve_ssm: the full config is not {SERVE_DTYPE}")
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.layers[0].ssd.a_log.dtype == torch.float32,
+          "serve_ssm: a_log is not float32")
+    eng = ServeEngine(model, SERVE_SLOTS, SERVE_MAX_LEN)
+    ops.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for rid, prompt in enumerate(prompts):
+        check(eng.add_request(Request(rid=rid, prompt=prompt,
+                                      max_new_tokens=SERVE_NEW)),
+              f"serve_ssm: request {rid} not admitted")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tokens, steps = {}, 0
+    while eng.n_active:
+        for rid, tok in eng.step():
+            tokens.setdefault(rid, []).append(tok)
+        steps += 1
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = ops.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    emitted = sum(len(t) for t in tokens.values())
+    prefilled = SERVE_REQUESTS * SERVE_PROMPT
+    check(emitted == SERVE_REQUESTS * SERVE_NEW,
+          f"serve_ssm: {emitted} tokens emitted")
+    check(all(0 <= t < cfg.vocab_size for ts in tokens.values() for t in ts),
+          "serve_ssm: a token outside the vocabulary")
+    check(launches == 0, f"serve_ssm: {launches} decode_attn launches on "
+                         f"an attention-free model")
+    check(eng.cache["ssm"].dtype == torch.float32
+          and bool(torch.isfinite(eng.cache["ssm"]).all()),
+          "serve_ssm: the ssm state is not finite float32")
+    # a decode step of the path under the profiler: every lane, once more
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device="cuda")
+    every = torch.ones(SERVE_SLOTS, dtype=torch.bool, device="cuda")
+    model.decode_step(tok, eng.cache, lanes=every)
+    prof = _device_profile(lambda: model.decode_step(tok, eng.cache,
+                                                     lanes=every),
+                           "serve_ssm_decode_step.json", [], torch)
+    state_bytes = {n: _nbytes(model.init_cache(SERVE_SLOTS, n))
+                   for n in SSM_STATE_LENS}
+    check(len(set(state_bytes.values())) == 1,
+          f"serve_ssm: the cache grows with max_len: {state_bytes}")
+    del eng
+    interleaved = _interleave_regression("serve_ssm", model, prompts,
+                                         SERVE_MAX_LEN, ("conv", "ssm"))
+    cli_args = ["--arch", SSM_ARCH, *CLI_ARGS]
+    cli = serve_main(cli_args)
+    check(cli["emitted"] == 4 * int(CLI_ARGS[CLI_ARGS.index("--new-tokens")
+                                             + 1]),
+          "serve_ssm: the CLI's engine emitted the wrong number of tokens")
+    del model
+    torch.cuda.empty_cache()
+    duality = _ssm_duality(torch)
+    out = {"phase": "serve_ssm", "router": router,
+           "engine": {"arch": SSM_ARCH, "variant": "full",
+                      "dtype": SERVE_DTYPE, "n_layers": cfg.n_layers,
+                      "params": n_params,
+                      "params_analytic": cfg.param_count(),
+                      "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                      "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
+                      "new_tokens": SERVE_NEW, "build_s": t_build,
+                      "prefill_wall_s": t2 - t1, "prefill_steps": prefilled,
+                      "decode_wall_s": t3 - t2, "decode_steps": steps,
+                      "emitted": emitted,
+                      "decode_tokens_per_s": emitted / (t3 - t2),
+                      "tokens_per_s": emitted / (t3 - t1),
+                      "ms_per_step": 1e3 * (t3 - t1) / (prefilled + steps),
+                      "ms_per_decode_step": 1e3 * (t3 - t2) / steps,
+                      "decode_attn_launches": launches,
+                      "peak_memory_bytes": peak, "live_before_bytes": live,
+                      "first_tokens": {r: t[:8] for r, t in tokens.items()}},
+           "cache_bytes_by_max_len": state_bytes,
+           "decode_step_profile": prof, "interleaved": interleaved,
+           "duality": duality,
+           "cli": {"args": cli_args, "requests": cli["requests"],
+                   "emitted": cli["emitted"],
+                   "energy_efficiency": cli["report"].energy_efficiency}}
+    emit(out)
+    return {"out": out}
+
+
+def _ssm_duality(torch) -> dict:
+    """mamba2-2.7b at full width in float32, n_layers cut to
+    SSM_DUAL_LAYERS: `forward` (the chunked scan, zero-padded to a
+    multiple of the chunk) and `prefill` (the recurrence, one decode step
+    a token) on the same seeded tokens; the last logits within
+    SSM_DUAL_RTOL x max |logit|."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(SSM_ARCH, "full").replace(dtype=torch.float32,
+                                              n_layers=SSM_DUAL_LAYERS)
+    check(SSM_DUAL_S // cfg.ssd_chunk == 2 and SSM_DUAL_S % cfg.ssd_chunk,
+          f"serve_ssm: S = {SSM_DUAL_S} is not two chunks and a part")
+    model = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 3).integers(
+        0, cfg.vocab_size, (1, SSM_DUAL_S)), device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want, _ = model.forward(toks)
+    want = want[:, -1, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = model.init_cache(1, SSM_DUAL_S)
+    got = model.prefill({"tokens": toks}, cache)[:, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= SSM_DUAL_RTOL * scale,
+          f"serve_ssm: duality gap {err} over {SSM_DUAL_RTOL} x {scale}")
+    out = {"dtype": "float32", "n_layers": SSM_DUAL_LAYERS,
+           "seq": SSM_DUAL_S, "chunk": cfg.ssd_chunk,
+           "max_abs_gap": err, "max_abs_logit": scale,
+           "gap_rel": err / scale, "tolerance_rel": SSM_DUAL_RTOL,
+           "same_argmax": bool(torch.equal(got.argmax(-1),
+                                           want.argmax(-1))),
+           "forward_s": t1 - t0, "prefill_s": t2 - t1}
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_ssm_vs_cpu(torch) -> dict:
+    """mamba2-2.7b at full width in float32, n_layers cut 64 ->
+    SSM_VS_CPU_LAYERS, on the card and, weights carried across, on the
+    CPU: VS_CPU_SLOTS lanes of SSM_VS_CPU_PROMPT + SSM_VS_CPU_NEW tokens
+    through ServeEngine (streams identical, the logits within TOL_LOGITS x
+    their largest magnitude, the conv and ssm state within TOL_LOGITS of
+    its largest), and `forward` over SSM_DUAL_S tokens (the chunked scan)
+    within the same. At full width the logits reach ~200, so the smoke
+    phases' TOL_LOGITS + TOL_LOGITS |want| would hold entries near 0 to
+    1e-4 absolute, below float32's rounding of sums of 2560 and 5120
+    such terms."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(SSM_ARCH, "full").replace(dtype=torch.float32,
+                                              n_layers=SSM_VS_CPU_LAYERS)
+    card = build_model(cfg, seed=SERVE_SEED, device="cuda")
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    prompts = np.random.default_rng(SERVE_SEED + 4).integers(
+        0, cfg.vocab_size, (VS_CPU_SLOTS, SSM_VS_CPU_PROMPT))
+    logs, streams, caches = [], [], []
+    t0 = time.perf_counter()
+    for m in (card, cpu):
+        eng = ServeEngine(m, VS_CPU_SLOTS, VS_CPU_MAX_LEN)
+        log = _recorded(eng)
+        for rid, p in enumerate(prompts):
+            eng.add_request(Request(rid=rid, prompt=p,
+                                    max_new_tokens=SSM_VS_CPU_NEW))
+        toks = {}
+        while eng.n_active:
+            for rid, tok in eng.step():
+                toks.setdefault(rid, []).append(tok)
+        streams.append(toks)
+        logs.append(torch.cat([torch.stack(log[r]["logits"]).cpu()
+                               for r in sorted(log)])[:, :cfg.vocab_size])
+        caches.append({k: eng.cache[k].cpu() for k in ("conv", "ssm")})
+    toks = torch.as_tensor(np.random.default_rng(SERVE_SEED + 5).integers(
+        0, cfg.vocab_size, (1, SSM_DUAL_S)))
+    with torch.no_grad():
+        fwd = [m.forward(toks.to(m.device))[0][0, :, :cfg.vocab_size].cpu()
+               for m in (card, cpu)]
+    wall = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    err = float((logs[0] - logs[1]).abs().max())
+    fwd_err = float((fwd[0] - fwd[1]).abs().max())
+    state_err = {k: float((caches[0][k] - caches[1][k]).abs().max()
+                          / caches[1][k].abs().max()) for k in caches[0]}
+    out = {"phase": "serve_ssm_vs_cpu", "dtype": "float32",
+           "n_layers": SSM_VS_CPU_LAYERS,
+           "n_layers_published": get_config(SSM_ARCH).n_layers,
+           "lanes": VS_CPU_SLOTS, "prompt": SSM_VS_CPU_PROMPT,
+           "new_tokens": SSM_VS_CPU_NEW, "steps": len(logs[0]),
+           "max_logit_abs_err": err, "logit_err_rel": rel(*logs),
+           "forward_seq": SSM_DUAL_S, "forward_max_abs_err": fwd_err,
+           "forward_err_rel": rel(*fwd), "state_err_rel": state_err,
+           "tolerance": TOL_LOGITS, "card_tokens": streams[0],
+           "cpu_tokens": streams[1], "wall_s": wall}
+    emit(out)
+    check(streams[0] == streams[1],
+          f"serve_ssm_vs_cpu: streams differ: {streams}")
+    check(rel(*logs) <= TOL_LOGITS,
+          f"serve_ssm_vs_cpu: logits differ by {err}")
+    check(rel(*fwd) <= TOL_LOGITS,
+          f"serve_ssm_vs_cpu: forward logits differ by {fwd_err}")
+    check(max(state_err.values()) <= TOL_LOGITS,
+          f"serve_ssm_vs_cpu: the recurrent state differs: {state_err}")
+    return out
+
+
+def _train_run(model, steps: int, torch, compress: bool = False,
+               accum: int = 1, total_steps=None) -> dict:
+    """`make_train_step` as launch/train.py builds it (warmup 10,
+    total_steps = the run's steps unless given) from `init_train_state`,
+    over TokenPipeline(seed=0) batches: each step's loss (read on the
+    host, so each wall ends with the step done) and wall."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = model.cfg
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0,
+                         device=model.device)
+    state = init_train_state(model, seed=SERVE_SEED, compress=compress)
+    step_fn = make_train_step(model, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                              total_steps=total_steps or steps,
+                              accum_steps=accum, compress=compress)
+    losses, walls, metrics = [], [], []
+    for i in range(steps):
+        batch = pipe.batch_at(i)
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in met.items()})
+    return {"state": state, "step_fn": step_fn, "pipe": pipe,
+            "losses": losses, "walls": walls, "metrics": metrics}
+
+
+def _on_card(tree) -> bool:
+    return all(t.device.type == "cuda" and t.device.index == 0
+               for t in tree.values())
+
+
+def phase_train(torch) -> dict:
+    """qwen3-0.6b at full width and depth in bf16, trained on the card at
+    launch/train.py's defaults (batch 8, seq 128, lr 3e-4, warmup 10,
+    TokenPipeline(seed=0)) for TRAIN_STEPS steps: every loss finite, the
+    last 5 steps' mean below the first 5's; ms a step (median after
+    TRAIN_WARM_STEPS), tokens/s, peak memory, a step under the profiler;
+    every parameter, gradient, moment and residual on cuda:0; then
+    TRAIN_COMPRESS_STEPS steps with compress=True, and one step with
+    accum_steps=4 against accum_steps=1 (loss within TRAIN_ACCUM_RTOL,
+    tests/test_train.py's). No kernel of the port is on this path
+    (decode_attn launches counted: none)."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import Model
+    cfg = get_config(TRAIN_ARCH, "full")
+    check(cfg.dtype == getattr(torch, SERVE_DTYPE),
+          f"train: the full config is not {SERVE_DTYPE}")
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, "cuda")
+    ops.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    run = _train_run(model, TRAIN_STEPS, torch)
+    wall = time.perf_counter() - t0
+    launches = ops.decode_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses, state = run["losses"], run["state"]
+    first, last = (statistics.mean(losses[:5]), statistics.mean(losses[-5:]))
+    check(all(math.isfinite(v) for v in losses),
+          f"train: a non-finite loss: {losses}")
+    check(last < first, f"train: the last 5 losses' mean {last} is not "
+                        f"below the first 5's {first}")
+    check(launches == 0, f"train: {launches} decode_attn launches")
+    step_s = statistics.median(run["walls"][TRAIN_WARM_STEPS:])
+    batch = run["pipe"].batch_at(TRAIN_STEPS)
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(state.params.values()))
+    grads = dict(zip(state.params, grads))
+    check(_on_card(state.params) and _on_card(grads)
+          and _on_card(state.opt.mu) and _on_card(state.opt.nu)
+          and state.opt.step.device.type == "cuda",
+          "train: a parameter, gradient or moment is off cuda:0")
+    del grads, loss
+    prof = _device_profile(lambda: run["step_fn"](state, batch),
+                           "train_step.json", [], torch)
+    n_params = sum(p.numel() for p in state.params.values())
+    walls = run["walls"]
+    del run, state
+    torch.cuda.empty_cache()
+    comp = _train_run(model, TRAIN_COMPRESS_STEPS, torch, compress=True)
+    check(all(math.isfinite(v) for v in comp["losses"]),
+          f"train: a non-finite loss with compression: {comp['losses']}")
+    check(_on_card(comp["state"].ef), "train: a residual is off cuda:0")
+    comp_losses = comp["losses"]
+    del comp
+    accum = {k: _train_run(model, 1, torch, accum=k,
+                           total_steps=TRAIN_STEPS)["metrics"][0]
+             for k in (1, TRAIN_ACCUM)}
+    torch.cuda.empty_cache()
+    accum_gap = abs(accum[TRAIN_ACCUM]["loss"] - accum[1]["loss"]) \
+        / abs(accum[1]["loss"])
+    check(accum_gap <= TRAIN_ACCUM_RTOL,
+          f"train: accum_steps={TRAIN_ACCUM} loss {accum[TRAIN_ACCUM]} "
+          f"against {accum[1]}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"phase": "train", "arch": TRAIN_ARCH, "variant": "full",
+           "dtype": SERVE_DTYPE, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS, "wall_s": wall,
+           "ms_per_step": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+           "step_walls_s": walls, "losses": losses,
+           "first5_mean": first, "last5_mean": last,
+           "peak_memory_bytes": peak, "live_before_bytes": live,
+           "decode_attn_launches": launches, "step_profile": prof,
+           "compress": {"steps": TRAIN_COMPRESS_STEPS,
+                        "losses": comp_losses},
+           "accum": {"steps": TRAIN_ACCUM, "metrics": accum[TRAIN_ACCUM],
+                     "metrics_1": accum[1], "loss_gap_rel": accum_gap,
+                     "tolerance_rel": TRAIN_ACCUM_RTOL}}
+    emit(out)
+    del model
+    torch.cuda.empty_cache()
+    return {"out": out}
+
+
+def _agree_share(got, want, tight, loose: float) -> dict:
+    """The largest gap and the share of entries beyond ``tight`` (a
+    number or a tensor like ``want``); the caller checks them against
+    ``loose`` and TRAIN_VS_CPU_SHARE."""
+    err = (got - want).abs()
+    return {"max_abs_err": float(err.max()),
+            "share_over_tight": float((err > tight).float().mean()),
+            "ok": bool(float(err.max()) <= loose
+                       and float((err > tight).float().mean())
+                       <= TRAIN_VS_CPU_SHARE)}
+
+
+def phase_train_vs_cpu(torch) -> dict:
+    """qwen3-0.6b at full width in float32, n_layers cut to
+    TRAIN_VS_CPU_LAYERS: the same seeded weights and the same TokenPipeline
+    batches (batch 2, seq 32) through TRAIN_VS_CPU_STEPS
+    train steps on the card and on the CPU. Losses within TRAIN_VS_CPU_RTOL
+    relative; every parameter entry within 2 % of the summed learning
+    rates and 99.9 % of them within 1e-6 + 1e-6 |p|; every moment within
+    TRAIN_VS_CPU_MOMENT x its leaf's largest magnitude on 99.9 % of its
+    entries and within 3 % of it everywhere (tests/test_torch_train.py's
+    bounds: AdamW's m / sqrt(v) magnifies a rounding where m cancels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optim import cosine_schedule
+    cfg = get_config(TRAIN_ARCH, "full").replace(dtype=torch.float32,
+                                                n_layers=TRAIN_VS_CPU_LAYERS)
+    card = Model(cfg, "cuda").init(SERVE_SEED)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    runs = []
+    t0 = time.perf_counter()
+    for m in (card, cpu):
+        state = init_train_state(m, seed=None)
+        step_fn = make_train_step(m, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                  total_steps=TRAIN_VS_CPU_STEPS)
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_VS_CPU_SEQ,
+                             TRAIN_VS_CPU_BATCH, seed=0, device=m.device)
+        losses = []
+        for i in range(TRAIN_VS_CPU_STEPS):
+            state, met = step_fn(state, pipe.batch_at(i))
+            losses.append(float(met["loss"]))
+        runs.append((state, losses))
+    wall = time.perf_counter() - t0
+    (cs, closs), (ps, ploss) = runs
+    lr_fn = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_VS_CPU_STEPS)
+    lr_sum = sum(float(lr_fn(s)) for s in range(TRAIN_VS_CPU_STEPS))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(closs, ploss))
+    worst = {"params": {"max_abs_err": 0.0, "share_over_tight": 0.0},
+             "mu": {"max_rel_err": 0.0, "share_over_tight": 0.0},
+             "nu": {"max_rel_err": 0.0, "share_over_tight": 0.0}}
+    bad = []
+    for name, p in cs.params.items():
+        want = ps.params[name].detach()
+        r = _agree_share(p.detach().cpu(), want, 1e-6 + 1e-6 * want.abs(),
+                         0.02 * lr_sum)
+        w = worst["params"]
+        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
+        w["share_over_tight"] = max(w["share_over_tight"],
+                                    r["share_over_tight"])
+        bad += [] if r["ok"] else [name]
+    for tree in ("mu", "nu"):
+        for name, t in getattr(cs.opt, tree).items():
+            want = getattr(ps.opt, tree)[name]
+            scale = max(float(want.abs().max()), 1e-30)
+            r = _agree_share(t.cpu(), want, TRAIN_VS_CPU_MOMENT * scale,
+                             0.03 * scale)
+            w = worst[tree]
+            w["max_rel_err"] = max(w["max_rel_err"], r["max_abs_err"] / scale)
+            w["share_over_tight"] = max(w["share_over_tight"],
+                                        r["share_over_tight"])
+            bad += [] if r["ok"] else [f"{tree}.{name}"]
+    out = {"phase": "train_vs_cpu", "arch": TRAIN_ARCH, "dtype": "float32",
+           "n_layers": TRAIN_VS_CPU_LAYERS,
+           "n_layers_published": get_config(TRAIN_ARCH).n_layers,
+           "batch": TRAIN_VS_CPU_BATCH, "seq": TRAIN_VS_CPU_SEQ,
+           "steps": TRAIN_VS_CPU_STEPS, "card_losses": closs,
+           "cpu_losses": ploss, "loss_gap_rel": loss_gap,
+           "loss_tolerance_rel": TRAIN_VS_CPU_RTOL, "lr_sum": lr_sum,
+           "worst": worst, "leaves_out_of_bounds": bad, "wall_s": wall}
+    emit(out)
+    check(loss_gap <= TRAIN_VS_CPU_RTOL,
+          f"train_vs_cpu: losses differ by {loss_gap} relative")
+    check(not bad, f"train_vs_cpu: leaves out of bounds: {bad}")
+    del card, cpu, runs, cs, ps
+    torch.cuda.empty_cache()
+    return out
+
+
 def _fig4_cells():
     """benchmarks/fig4_spork_vs_mark.py's grid at BENCH_FAST=0."""
     from repro_torch.core.workers import DEFAULT_FLEET
@@ -4183,7 +4723,8 @@ def phase_chaos_vs_cpu(chaos: dict) -> dict:
     from repro_torch.sim.sweep import sweep_events
     res = chaos["res"]
     cells = [c for c in res.cells if c.tag[0] == CHAOS_VS_CPU
-             and c.tag[3] == 0]
+             and c.tag[3] == 0 and c.tag[2] in CHAOS_VS_CPU_TAGS
+             and c.tag[1] == CHAOS_VS_CPU_POLICY]
     card = sweep_events(cells, device=CARD)
     t0 = time.perf_counter()
     cpu = sweep_events(cells, device="cpu")
@@ -4193,7 +4734,8 @@ def phase_chaos_vs_cpu(chaos: dict) -> dict:
     out = {"phase": "chaos_vs_cpu", "scenario": CHAOS_VS_CPU,
            "cells": len(cells), "cpu_wall_s": wall, **gap}
     emit(out)
-    check(len(cells) == 12, f"chaos_vs_cpu: {len(cells)} cells")
+    check(len(cells) == len(CHAOS_VS_CPU_TAGS),
+          f"chaos_vs_cpu: {len(cells)} cells")
     check(gap["ok"], f"chaos card/CPU mismatches: {gap['mismatches'][:3]}")
     return out
 
@@ -4880,6 +5422,10 @@ def main() -> int:
     phase_serve_moe_vs_cpu(torch)
     mla = phase_serve_mla(torch)
     phase_serve_mla_vs_cpu(torch)
+    ssm = phase_serve_ssm(torch)
+    phase_serve_ssm_vs_cpu(torch)
+    phase_train(torch)
+    phase_train_vs_cpu(torch)
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)
@@ -4907,7 +5453,8 @@ def main() -> int:
         "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_launches"],
         "serve_hybrid_router":
             hybrid["out"]["router"]["spork_predict_launches"],
-        "fig4": fig4["out"]["spork_predict_launches"]}
+        "fig4": fig4["out"]["spork_predict_launches"],
+        "serve_ssm_router": ssm["out"]["router"]["spork_predict_launches"]}
     phase_predict_paths(kernel, {
         "table8": main_run["out"]["spork_predict_shapes"],
         "table9": t9["out"]["spork_predict_shapes"],
@@ -4920,7 +5467,8 @@ def main() -> int:
         "spork_sim_mesh": ops["out"]["mesh"]["spork_predict_shapes"],
         "serve_hybrid_router":
             hybrid["out"]["router"]["spork_predict_shapes"],
-        "fig4": fig4["out"]["spork_predict_shapes"]},
+        "fig4": fig4["out"]["spork_predict_shapes"],
+        "serve_ssm_router": ssm["out"]["router"]["spork_predict_shapes"]},
         torch)
     arrival_paths = {"table9": t9["out"]["launches"]["arrival"],
                      "chaos": chaos["out"]["launches"]["arrival"],

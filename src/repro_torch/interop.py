@@ -13,8 +13,10 @@ same non-default fleet. `event_scalars`, `ev_carry` and `tick_state`
 carry the discrete-event engine's parameters and mid-run state across
 (nested tuples such as ``EvCarry.ws`` as nested mappings or NamedTuples),
 and `to_numpy` brings any of the port's NamedTuples back as nested dicts
-of numpy arrays. `model_params` and `model_cache` carry a dense model's
-weights (the reference's stacked parameter pytree) and its decode cache.
+of numpy arrays. `model_params` and `model_cache` carry a model's
+weights (the reference's stacked parameter pytree) and its decode cache,
+and `train_state` a training state (weights, AdamW moments and step,
+error-feedback residuals) onto a port `Model`.
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ import torch
 from repro_torch.core.breakeven import ObjectiveCoeffs
 from repro_torch.core.workers import FleetParams, WorkerSpec
 from repro_torch.device import resolve_device
+from repro_torch.models import ssd
 from repro_torch.policies import RateParams
 from repro_torch.sim.events_batched import (EvCarry, EventScalars, FailAcc,
                                             TickState, WorkerTable)
 from repro_torch.sim.ratesim import Accum, FleetScalars, SimState
+from repro_torch.train.loop import TrainState
+from repro_torch.train.optim import AdamWState
 
 _I32 = torch.int32
 _F32 = torch.float32
@@ -173,11 +178,11 @@ def _array_tensor(a, dev) -> torch.Tensor:
 
 
 # leaves the reference keeps in float32 whatever the config's type
-_F32_LEAVES = ("lam", "router")
+_F32_LEAVES = ("lam", "router", *ssd.F32_LEAVES)
 
 
-def model_params(params, cfg, device: str | torch.device | None = None
-                 ) -> dict[str, torch.Tensor]:
+def model_params(params, cfg, device: str | torch.device | None = None,
+                 dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
     """The state dict of `repro_torch.models.Model` from the reference's
     parameter pytree (nested mappings of numpy arrays): ``embed`` and
     ``final_norm``, and each stack with a leading layer axis (dense and
@@ -187,13 +192,15 @@ def model_params(params, cfg, device: str | torch.device | None = None
     ``<stack>.<i>.<name>``; only the layer axis goes, so a layer's routed
     experts stay stacked (E, fan-in, fan-out). The MTP depth's ``proj``
     and ``ln`` have no layer axis (``mtp.proj``, ``mtp.ln``). Tensors take
-    ``cfg.dtype``, except the RG-LRU's ``lam`` and the MoE ``router``,
-    which are float32 in every config, as in the reference."""
+    ``cfg.dtype``, except the RG-LRU's ``lam``, the MoE ``router`` and
+    the SSD's ``a_log``, ``dt_bias`` and ``d_skip``, which are float32 in
+    every config, as in the reference; with ``dtype`` every tensor takes
+    it (the optimizer's moments and residuals, float32)."""
     dev = resolve_device(device)
 
     def t(a, name: str) -> torch.Tensor:
-        return _array_tensor(a, dev).to(torch.float32 if name in _F32_LEAVES
-                                        else cfg.dtype)
+        want = dtype or (torch.float32 if name in _F32_LEAVES else cfg.dtype)
+        return _array_tensor(a, dev).to(want)
 
     out = {"embed": t(params["embed"], "embed"),
            "final_norm": t(params["final_norm"], "final_norm")}
@@ -225,7 +232,8 @@ def model_cache(cache, device: str | torch.device | None = None) -> dict:
     with ``k``/``v`` (L, B, S, Hkv, D); hybrid also ``conv``, ``h``,
     ``tail_conv`` and ``tail_h``; encdec also ``mem_k`` and ``mem_v``; moe
     ``dense_kv`` and ``moe_kv`` with ``k``/``v``, or with MLA ``ckv`` (L,
-    B, S, kv_lora) and ``kpe`` (L, B, S, rope_dim))."""
+    B, S, kv_lora) and ``kpe`` (L, B, S, rope_dim); ssm ``conv`` (L, B,
+    W-1, d_inner + 2N) and ``ssm`` (L, B, H, P, N) float32)."""
     dev = resolve_device(device)
 
     def walk(tree):
@@ -236,3 +244,26 @@ def model_cache(cache, device: str | torch.device | None = None) -> dict:
     out = walk(cache)
     out["length"] = out["length"].to(_I32)
     return out
+
+
+def train_state(state, model) -> TrainState:
+    """The port's `TrainState` from the reference's (``params``, ``opt``
+    with ``step``, ``mu`` and ``nu``, ``ef``; numpy leaves) on ``model``'s
+    device: the weights are loaded into ``model`` with their gradients on,
+    and the state's ``params`` are the model's own parameters; the moments
+    and residuals are float32 tensors under the same names, the step an
+    int32 scalar."""
+    dev, cfg = model.device, model.cfg
+    model.load_state_dict(model_params(state.params, cfg, dev))
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+
+    def f32(tree):
+        return model_params(tree, cfg, dev, dtype=torch.float32)
+
+    opt = AdamWState(step=torch.tensor(int(np.asarray(state.opt.step)),
+                                       dtype=_I32, device=dev),
+                     mu=f32(state.opt.mu), nu=f32(state.opt.nu))
+    return TrainState(params=params, opt=opt,
+                      ef=None if state.ef is None else f32(state.ef))

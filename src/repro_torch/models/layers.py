@@ -1,9 +1,9 @@
 """Shared layer primitives: norms, rotary embeddings, MLP variants,
-embeddings, initialization. Plain functions on tensors, in the
-reference's arithmetic (`repro.models.layers`): norms and rotary
-embeddings in float32 and cast back, swiglu's ``silu`` in float32 and
-cast before the product, logits as a product in the weights' type cast
-to float32."""
+embeddings, initialization and the training loss. Plain functions on
+tensors, in the reference's arithmetic (`repro.models.layers`): norms and
+rotary embeddings in float32 and cast back, swiglu's ``silu`` in float32
+and cast before the product, logits as a product in the weights' type
+cast to float32, the cross-entropy in float32."""
 
 from __future__ import annotations
 
@@ -28,6 +28,13 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype) -> torch.Tensor:
     """Fan-in scaled (d_in, d_out) init."""
     return truncated_normal(generator, (d_in, d_out), d_in ** -0.5, dtype)
+
+
+def init_rms(d: int, dtype: torch.dtype, device=None) -> torch.nn.Parameter:
+    """A norm scale: zeros (gain 1), frozen until training turns its
+    gradient on."""
+    return torch.nn.Parameter(torch.zeros(d, dtype=dtype, device=device),
+                              requires_grad=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -93,9 +100,18 @@ class MLP(torch.nn.Module):
                 torch.empty(a, b, dtype=dtype, device=device),
                 requires_grad=False))
 
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         for w in self.parameters():
             w.copy_(dense_init(generator, w.shape[0], w.shape[1], w.dtype))
+
+
+def init_mlp(generator: torch.Generator, d: int, ff: int, mlp_type: str,
+             dtype: torch.dtype) -> MLP:
+    """An `MLP` on the generator's device with fan-in scaled weights."""
+    mod = MLP(d, ff, mlp_type, dtype, device=generator.device)
+    mod.init(generator)
+    return mod
 
 
 def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
@@ -130,3 +146,19 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
     if valid_vocab < v:
         logits[..., valid_vocab:] = -1e30
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_weight: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy (float32) plus the z-loss ``z_weight *
+    logz^2`` against logit drift; with ``mask`` (float, the labels'
+    shape), the masked mean over at least one token."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    loss = logz - gold + z_weight * logz.square()
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / mask.sum().clamp(min=1.0)
+    return loss.mean()

@@ -1,7 +1,8 @@
-"""The dense, mixture-of-experts, hybrid, encoder-decoder and VLM families
-(port of `repro.models.model`).
+"""The six architecture families: dense, mixture-of-experts, SSM, hybrid,
+encoder-decoder and VLM (port of `repro.models.model`).
 
     build_model(cfg, seed, device)        -> Model, weights drawn from a seed
+    Model.loss(batch)                     -> (total, metrics)    [train]
     Model.forward(tokens, frontend=None)  -> (logits, aux)       [eval]
     Model.init_cache(batch, max_len)      -> cache dict          [serving]
     Model.prefill(batch, cache)           -> last_logits  (cache in place)
@@ -24,8 +25,16 @@ or with ``cfg.use_mla`` multi-head latent attention: ``w_dq``, ...,
 ``wo``), ``ln2`` and ``moe`` (``router`` (d, E) float32, ``experts.w_*``
 (E, fan-in, fan-out), ``shared.w_*``); with ``cfg.mtp`` also the
 multi-token-prediction weights ``mtp.proj``, ``mtp.block.0.*`` and
-``mtp.ln``, which no serving step reads (the MTP loss waits for
-training). The reference's scans over stacked layers are Python loops.
+``mtp.ln``, which only `loss` reads. SSM (mamba2): ``layers.<i>`` with
+``ln`` and ``ssd`` (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``,
+``dt_bias``, ``d_skip``, ``out_norm``, ``out_proj``; the three (H,)
+vectors float32). The reference's scans over stacked layers are Python
+loops.
+
+The weights are built with ``requires_grad=False``, so serving records
+no graph; `repro_torch.train.loop.init_train_state` turns their
+gradients on. `init` writes under `torch.no_grad`, and `prefill` and
+`decode_step` run under it.
 
 The stubbed frontends enter as ``frontend`` (``batch["frontend"]`` in
 `prefill`): encdec, frame embeddings (B, src_len, d) that the encoder
@@ -41,10 +50,10 @@ float32, ``kv`` with a ring of ``min(window, max_len)`` positions a
 layer, and ``tail_conv`` / ``tail_h`` for the tail; encdec ``kv`` and
 ``mem_k``/``mem_v`` (L, B, src_len, Hkv, D); moe ``dense_kv`` for the
 dense layers, then ``moe_kv`` or, with MLA, ``ckv`` (L, B, S, kv_lora)
-and ``kpe`` (L, B, S, rope_dim). Decode writes it in place, where the
+and ``kpe`` (L, B, S, rope_dim); ssm ``conv`` (L, B, W-1, d_inner + 2N)
+in ``cfg.dtype`` and ``ssm`` (L, B, H, P, N) float32, whose size does
+not depend on ``max_len``. Decode writes it in place, where the
 reference returns a new cache.
-
-The ssm family raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,12 +65,36 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, dense_init, embed, init_embed, \
-    mlp, rms_norm, unembed
+from repro_torch.models.layers import MLP, cross_entropy, dense_init, embed, \
+    init_embed, init_rms, mlp, rms_norm, unembed
 
-_NOT_PORTED = ("the {family!r} family is not ported yet: it waits for the "
-               "slice that brings the other model families (ROADMAP.md)")
+# the module lists whose layers the reference stacks on a leading axis
+STACKS = ("layers", "super", "tail", "encoder", "decoder", "dense_layers",
+          "moe_layers", "mtp.block")
+
+
+def reference_leaf(name: str) -> tuple[str, bool]:
+    """The reference's leaf of a parameter name, and whether it is
+    stacked: ``<stack>.<i>.<rest>`` is the layer i slice of the
+    reference's ``<stack>.<rest>`` (which has one more axis than the
+    port's tensor); any other name is its own leaf."""
+    for stack in STACKS:
+        if name.startswith(stack + "."):
+            index, _, rest = name[len(stack) + 1:].partition(".")
+            if index.isdigit() and rest:
+                return f"{stack}.{rest}", True
+    return name, False
+
+
+def _keep(old: torch.Tensor, new: torch.Tensor, lanes) -> None:
+    """old <- new on the active lanes (batch axis 0 of both), in place."""
+    if lanes is None:
+        old.copy_(new)
+    else:
+        m = lanes.reshape(-1, *([1] * (new.dim() - 1)))
+        old.copy_(torch.where(m, new, old))
 
 
 class Block(torch.nn.Module):
@@ -70,12 +103,10 @@ class Block(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
-        self.ln1 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
+        self.ln1 = init_rms(d, dt, device)
         self.attn = attn.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                                    dt, cfg.qk_norm, device=device)
-        self.ln2 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
+        self.ln2 = init_rms(d, dt, device)
         self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dt, device=device)
 
     def init(self, generator: torch.Generator) -> None:
@@ -93,19 +124,15 @@ class DecoderBlock(torch.nn.Module):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
 
-        def norm():
-            return torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
-
         def attention():
             return attn.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                                   dt, cfg.qk_norm, device=device)
 
-        self.ln1 = norm()
+        self.ln1 = init_rms(d, dt, device)
         self.self_attn = attention()
-        self.ln_x = norm()
+        self.ln_x = init_rms(d, dt, device)
         self.cross_attn = attention()
-        self.ln2 = norm()
+        self.ln2 = init_rms(d, dt, device)
         self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dt, device=device)
 
     def init(self, generator: torch.Generator) -> None:
@@ -125,10 +152,8 @@ class HybridLayer(torch.nn.Module):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
         self.kind = kind
-        self.ln1 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
-        self.ln2 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
+        self.ln1 = init_rms(d, dt, device)
+        self.ln2 = init_rms(d, dt, device)
         self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dt, device=device)
         if kind == "attn":
             self.attn = attn.Attention(d, cfg.n_heads, cfg.n_kv_heads,
@@ -161,13 +186,11 @@ class MoEBlock(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
-        self.ln1 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
+        self.ln1 = init_rms(d, dt, device)
         self.attn = mla_mod.MLA(cfg, device) if cfg.use_mla else \
             attn.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, dt,
                            cfg.qk_norm, device=device)
-        self.ln2 = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                      requires_grad=False)
+        self.ln2 = init_rms(d, dt, device)
         self.moe = moe_mod.MoE(cfg, device)
 
     def init(self, generator: torch.Generator) -> None:
@@ -189,8 +212,7 @@ class MTP(torch.nn.Module):
             torch.zeros(2 * d, d, dtype=dt, device=device),
             requires_grad=False)
         self.block = torch.nn.ModuleList([Block(cfg, device)])
-        self.ln = torch.nn.Parameter(torch.zeros(d, dtype=dt, device=device),
-                                     requires_grad=False)
+        self.ln = init_rms(d, dt, device)
 
     def init(self, generator: torch.Generator) -> None:
         self.proj.copy_(dense_init(generator, *self.proj.shape,
@@ -199,22 +221,38 @@ class MTP(torch.nn.Module):
         self.ln.zero_()
 
 
+class SSMBlock(torch.nn.Module):
+    """One pre-norm mamba2 layer: ``ln``, then the SSD block ``ssd``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = init_rms(cfg.d_model, cfg.dtype, device)
+        self.ssd = ssd_mod.SSD(cfg, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        self.ln.zero_()
+        self.ssd.init(generator)
+
+
 class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig,
                  device: str | torch.device | None = None):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "encdec"):
-            raise NotImplementedError(_NOT_PORTED.format(family=cfg.family))
+        if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid",
+                              "encdec"):
+            raise ValueError(cfg.family)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = torch.nn.Parameter(
             torch.zeros(cfg.padded_vocab, cfg.d_model, dtype=cfg.dtype,
                         device=dev), requires_grad=False)
-        self.final_norm = torch.nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=cfg.dtype, device=dev),
-            requires_grad=False)
+        self.final_norm = init_rms(cfg.d_model, cfg.dtype, dev)
         if cfg.family in ("dense", "vlm"):
             self.layers = torch.nn.ModuleList(Block(cfg, dev)
+                                              for _ in range(cfg.n_layers))
+            return
+        if cfg.family == "ssm":
+            self.layers = torch.nn.ModuleList(SSMBlock(cfg, dev)
                                               for _ in range(cfg.n_layers))
             return
         if cfg.family == "moe":
@@ -247,12 +285,15 @@ class Model(torch.nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    @torch.no_grad()
     def init(self, seed: int = 0) -> "Model":
         """Draw every weight from a `torch.Generator` seeded with ``seed``
         on the model's device, with the reference's init: truncated normals
         scaled by fan-in^-0.5 (the embedding unscaled), zeros for the
         norms. The draws are not the reference's (`jax.random` streams do
-        not exist in torch); tests carry the reference's weights across."""
+        not exist in torch); tests carry the reference's weights across.
+        Writes in place without recording a graph, so it also works on a
+        model whose gradients are on."""
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         self.embed.copy_(init_embed(g, *self.embed.shape, self.cfg.dtype))
@@ -292,15 +333,13 @@ class Model(torch.nn.Module):
         return self._attn_mlp(self.encoder, frontend, causal=False)
 
     # ------------------------------------------------------- full sequence
-    def forward(self, tokens: torch.Tensor, frontend=None):
-        """Logits (B, S, padded vocab) float32 for the full sequence
-        (training-style pass), and the auxiliary loss (float32: the sum
-        of the MoE layers' load-balancing losses, 0 for the other
-        families). ``frontend``: encdec, the frame embeddings the decoder
-        cross-attends to (through the encoder); vlm, patch embeddings
-        prepended to the tokens, whose logits are dropped."""
+    def _hidden(self, tokens, frontend=None):
+        """The backbone's hidden states (B, S, d) before the final norm (the
+        vlm patches' positions included), and the auxiliary loss (float32:
+        the sum of the MoE layers' load-balancing losses, 0 for the other
+        families)."""
         cfg = self.cfg
-        x = embed(self.embed, tokens.to(self.device))
+        x = embed(self.embed, torch.as_tensor(tokens, device=self.device))
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "vlm":
             x = torch.cat([self._frontend(frontend), x], dim=1)
@@ -334,12 +373,61 @@ class Model(torch.nn.Module):
                         x = x + rglru_mod.rglru_block(layer.rglru, hn, cfg)
                     x = x + mlp(layer.mlp, rms_norm(x, layer.ln2),
                                 cfg.mlp_type)
+        elif cfg.family == "ssm":
+            for block in self.layers:
+                x = x + ssd_mod.ssd_block(block.ssd, rms_norm(x, block.ln),
+                                          cfg)
         else:
             x = self._attn_mlp(self.layers, x)
-        x = rms_norm(x, self.final_norm)
-        if cfg.family == "vlm":
+        return x, aux
+
+    def _logits(self, h, frontend=None):
+        """Final norm and the tied head over hidden states; a vlm's patch
+        positions are dropped."""
+        x = rms_norm(h, self.final_norm)
+        if self.cfg.family == "vlm":
             x = x[:, frontend.shape[1]:]
-        return unembed(self.embed, x, cfg.vocab_size), aux
+        return unembed(self.embed, x, self.cfg.vocab_size)
+
+    def forward(self, tokens: torch.Tensor, frontend=None):
+        """Logits (B, S, padded vocab) float32 for the full sequence
+        (training-style pass), and the auxiliary loss (float32: the sum
+        of the MoE layers' load-balancing losses, 0 for the other
+        families). ``frontend``: encdec, the frame embeddings the decoder
+        cross-attends to (through the encoder); vlm, patch embeddings
+        prepended to the tokens, whose logits are dropped."""
+        h, aux = self._hidden(tokens, frontend)
+        return self._logits(h, frontend), aux
+
+    def loss(self, batch: dict):
+        """Next-token loss of ``batch["tokens"]`` (B, S + 1), with
+        ``batch["frontend"]`` for encdec and vlm: (total, metrics), where
+        total = ce + aux (+ ``cfg.mtp_weight`` x the MTP loss for the moe
+        family with ``cfg.mtp``) and metrics holds ``ce``, ``aux`` and
+        ``mtp`` (float32 scalars)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        frontend = batch.get("frontend")
+        h, aux = self._hidden(tokens[:, :-1], frontend)
+        ce = cross_entropy(self._logits(h, frontend), tokens[:, 1:])
+        total = ce + aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.family == "moe" and cfg.mtp:
+            mtp_loss = self._mtp_loss(h, tokens)
+            total = total + cfg.mtp_weight * mtp_loss
+            metrics["mtp"] = mtp_loss
+        return total, metrics
+
+    def _mtp_loss(self, h, tokens):
+        """DeepSeek-V3's multi-token prediction: one extra depth predicting
+        token t+2 from the shared trunk's hidden state at t and the
+        embedding of token t+1 (no final norm on its output)."""
+        cfg = self.cfg
+        nxt = embed(self.embed, tokens[:, 1:-1])
+        merged = torch.cat([rms_norm(h[:, :-1], self.mtp.ln), nxt], dim=-1)
+        x2 = self._attn_mlp(self.mtp.block, merged @ self.mtp.proj)
+        return cross_entropy(unembed(self.embed, x2, cfg.vocab_size),
+                             tokens[:, 2:])
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch_size: int, max_len: int,
@@ -375,6 +463,13 @@ class Model(torch.nn.Module):
             mem = kv(cfg.n_layers, cfg.src_len)
             cache["mem_k"], cache["mem_v"] = mem["k"], mem["v"]
             return cache
+        if cfg.family == "ssm":
+            cache["conv"] = zeros(cfg.n_layers, batch_size, cfg.ssm_conv - 1,
+                                  cfg.d_inner + 2 * cfg.ssm_state)
+            cache["ssm"] = zeros(cfg.n_layers, batch_size, cfg.ssm_heads,
+                                 cfg.ssm_headdim, cfg.ssm_state,
+                                 dtype=torch.float32)
+            return cache
         pat = cfg.block_pattern
         n_super, rem = divmod(cfg.n_layers, len(pat))
         w = cfg.lru_width or cfg.d_model
@@ -390,6 +485,7 @@ class Model(torch.nn.Module):
                                     dtype=torch.float32)
         return cache
 
+    @torch.no_grad()
     def prefill(self, batch: dict, cache: dict):
         """Sequential prefill: feed tokens (B, S) one at a time through
         `decode_step`, which updates ``cache`` in place. Returns the logits
@@ -415,6 +511,7 @@ class Model(torch.nn.Module):
             logits = self.decode_step(tokens[:, t:t + 1], cache)
         return logits
 
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor | None, cache: dict,
                     lanes: torch.Tensor | None = None,
                     embeds: torch.Tensor | None = None):
@@ -423,8 +520,8 @@ class Model(torch.nn.Module):
         Returns the logits (B, padded vocab) float32.
 
         The cache is updated in place. ``lanes`` (B,) bool,
-        when given, advances only those rows: the others' keys, values
-        and lengths stay as they were (their logits are computed and
+        when given, advances only those rows: the others' keys, values,
+        recurrent state and lengths stay as they were (their logits are computed and
         meaningless). The reference steps every row and then merges the
         old cache back on the masked rows; writing only the active rows
         gives the same cache without a copy of it per step. An encdec
@@ -440,6 +537,14 @@ class Model(torch.nn.Module):
         length = cache["length"]
         if cfg.family == "hybrid":
             x = self._decode_hybrid(x, cache, lanes)
+        elif cfg.family == "ssm":
+            for i, block in enumerate(self.layers):
+                y, conv, ssm = ssd_mod.ssd_decode_step(
+                    block.ssd, rms_norm(x, block.ln), cache["conv"][i],
+                    cache["ssm"][i], cfg)
+                _keep(cache["conv"][i], conv, lanes)
+                _keep(cache["ssm"][i], ssm, lanes)
+                x = x + y
         elif cfg.family == "moe":
             x = self._decode_moe(x, cache, lanes)
         elif cfg.family == "encdec":
@@ -505,15 +610,6 @@ class Model(torch.nn.Module):
         cfg = self.cfg
         length = cache["length"]
         ks, vs = cache["kv"]["k"], cache["kv"]["v"]
-
-        def keep(old, new):
-            """old <- new on the active lanes (batch axis 0 of both)."""
-            if lanes is None:
-                old.copy_(new)
-            else:
-                m = lanes.reshape(-1, *([1] * (new.dim() - 1)))
-                old.copy_(torch.where(m, new, old))
-
         ai = 0
         for blocks, conv, hst in ((self.super, cache["conv"], cache["h"]),
                                   (self.tail, cache.get("tail_conv"),
@@ -530,8 +626,8 @@ class Model(torch.nn.Module):
                     else:
                         t, nc, nh = rglru_mod.rglru_decode_step(
                             layer.rglru, hn, conv[s, ri], hst[s, ri], cfg)
-                        keep(conv[s, ri], nc)
-                        keep(hst[s, ri], nh)
+                        _keep(conv[s, ri], nc, lanes)
+                        _keep(hst[s, ri], nh, lanes)
                         x = x + t
                         ri += 1
                     x = x + mlp(layer.mlp, rms_norm(x, layer.ln2),

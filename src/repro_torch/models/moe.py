@@ -41,6 +41,7 @@ class Experts(torch.nn.Module):
                 torch.empty(e, a, b, dtype=dtype, device=device),
                 requires_grad=False))
 
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """Fan-in scaled, drawn one expert at a time: a whole stack drawn
         in float32 at once would take several times its own memory
@@ -67,6 +68,7 @@ class MoE(torch.nn.Module):
             self.shared = MLP(d, cfg.n_shared_experts * ffe, cfg.mlp_type,
                               cfg.dtype, device)
 
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         self.router.copy_(dense_init(generator, *self.router.shape,
                                      torch.float32))

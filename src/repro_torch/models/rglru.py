@@ -45,6 +45,7 @@ class RGLRU(torch.nn.Module):
                 torch.zeros(shape, dtype=dt, device=device),
                 requires_grad=False))
 
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
         """The reference's init in its order: fan-in scaled projections,
         a 0.1-scaled normal convolution, zero bias, lam = 3 (a ~ 0.95)."""

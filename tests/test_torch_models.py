@@ -307,10 +307,22 @@ def test_build_model_is_seeded_and_draws_the_reference_init():
         "cpu"))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b"])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(get_config(arch, "smoke"), "cpu")
+def test_ssm_family_builds_and_decodes():
+    """The ssm family, ported: the smoke config builds in its own bfloat16
+    (the SSD's a_log, dt_bias and d_skip float32), and prefill + a decode
+    step give finite logits and advance every lane
+    (tests/test_torch_ssd.py holds it against the reference)."""
+    cfg = get_config("mamba2-2.7b", "smoke")
+    m = Model(cfg, "cpu").init(0)
+    assert m.layers[0].ssd.a_log.dtype == torch.float32
+    assert m.embed.dtype == torch.bfloat16
+    cache = m.init_cache(2, 8)
+    assert cache["ssm"].dtype == torch.float32
+    m.prefill({"tokens": torch.tensor([[3, 1, 4], [1, 5, 9]])}, cache)
+    logits = m.decode_step(torch.tensor([[2], [6]]), cache)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert torch.isfinite(logits[:, :cfg.vocab_size]).all()
+    assert cache["length"].tolist() == [4, 4]
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])

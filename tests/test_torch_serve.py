@@ -453,3 +453,64 @@ def test_serve_main_runs_the_moe_family_on_the_cpu(arch, capsys):
                 "--device", "cpu"])
     assert out["emitted"] == 6 and out["requests"] > 0
     assert "[engine] decoded 6 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ SSM family
+
+SSM = "mamba2-2.7b"
+
+
+def test_ssm_engine_streams_and_cache_match_reference():
+    """mamba2-2.7b (smoke) under tests/test_serve.py's schedule: the same
+    token streams as the reference engine, and every cache leaf (``conv``,
+    ``ssm``, ``length``) within 1e-5 after both finished; the recurrent
+    leaves' batch axis is 1."""
+    rm, params, m = _family_models(SSM)
+    ref = RefEngine(rm, params, batch_slots=3, max_len=32)
+    want = _interleaved(ref, RefRequest)
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    got = _interleaved(eng, Request)
+    assert got == want
+    assert eng._axes == {"length": 0, "conv": 1, "ssm": 1}
+    ref_leaves = dict(_leaves(jax.tree.map(np.asarray, ref.cache)))
+    port_leaves = dict(_leaves(eng.cache))
+    assert sorted(port_leaves) == sorted(ref_leaves)
+    for name, leaf in port_leaves.items():
+        np.testing.assert_allclose(leaf.numpy(), ref_leaves[name],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_ssm_interleaved_admission_and_slot_reuse():
+    """B's prefill leaves A's recurrent lanes bitwise, both streams equal
+    their run-alone streams, and a freed slot admits a request with blank
+    state (tests/test_serve.py's slot-reuse case, on the ssm family)."""
+    m = _family_models(SSM)[2]
+    eng = ServeEngine(m, batch_slots=3, max_len=32)
+    assert eng.add_request(Request(rid=0, prompt=PA, max_new_tokens=6))
+    got = {0: [], 1: []}
+    for _ in range(2):
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    a_lane = _lane(eng.cache, eng._axes, 0)
+    assert eng.add_request(Request(rid=1, prompt=PB, max_new_tokens=4))
+    for (name, before), (_, after) in zip(
+            _leaves(a_lane), _leaves(_lane(eng.cache, eng._axes, 0))):
+        assert torch.equal(before, after), name
+    while eng.n_active:
+        for rid, tok in eng.step():
+            got[rid].append(tok)
+    assert got[0] == _alone(ServeEngine(m, 3, 32), PA, 6)
+    assert got[1] == _alone(ServeEngine(m, 3, 32), PB, 4)
+    one = ServeEngine(m, batch_slots=1, max_len=32)
+    assert one.add_request(Request(rid=0, prompt=PA, max_new_tokens=2))
+    while one.n_active:
+        one.step()
+    assert _alone(one, PB, 3) == _alone(ServeEngine(m, 1, 32), PB, 3)
+
+
+def test_serve_main_runs_the_ssm_on_the_cpu(capsys):
+    out = main(["--arch", SSM, "--minutes", "0.5", "--rate", "5",
+                "--engine-requests", "2", "--new-tokens", "3",
+                "--device", "cpu"])
+    assert out["emitted"] == 6 and out["requests"] > 0
+    assert "[engine] decoded 6 tokens" in capsys.readouterr().out
