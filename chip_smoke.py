@@ -266,6 +266,37 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                largest on 99.9 % of the entries, and everywhere within 2 %
                of the summed learning rates and 3 % of the leaf's largest
                (AdamW's m / sqrt(v) magnifies a rounding where m cancels)
+  distributed  a one-rank NCCL process group (FileStore) and a (1, 1)
+               (data, model) DeviceMesh on cuda; qwen3-0.6b at full width
+               in float32, 4 of 28 layers, 2 steps of
+               make_sharded_train_step (DTensor parameters and ZeRO
+               moments placed by param_shardings) against make_train_step
+               on the same weights and batches, both under
+               torch.use_deterministic_algorithms: losses, parameters and
+               moments bitwise, else within train_vs_cpu's bounds (the
+               line's "equality" says which); the placements census and
+               FALLBACK_LOG's entries; hierarchical_psum and
+               ring_all_gather against the identity and pipeline_forward
+               against the one stage, bitwise; no decode_attn launch; no
+               multi-card number (one card)
+  train_resume python -m repro_torch.launch.train --variant full, float32,
+               2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
+               --deterministic with CUBLAS_WORKSPACE_CONFIG=:4096:8, as a
+               child process SIGKILLed once LATEST names a checkpoint
+               (exit -9, before its last save), then started again: it
+               resumes from that checkpoint, and its last checkpoint is
+               bitwise an in-process deterministic run of the reference's
+               batch order 0..k, k..3 (batch k twice); the checkpoint's
+               bytes, the children's walls. While the children run, a
+               thread does the CPU halves of the next two phases
+  distributed_vs_cpu
+               the distributed phase's sharded steps on a one-rank gloo
+               mesh on the CPU from the same weights: within
+               train_vs_cpu's bounds
+  train_resume_vs_cpu
+               train_resume's batch order on the CPU from the card's
+               initial weights: the card's last checkpoint within
+               train_vs_cpu's bounds, the step count equal
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -663,6 +694,26 @@ TRAIN_VS_CPU_STEPS = 3
 TRAIN_VS_CPU_RTOL = 1e-5
 TRAIN_VS_CPU_MOMENT = 1e-4
 TRAIN_VS_CPU_SHARE = 1e-3
+# distributed: make_sharded_train_step on a one-rank NCCL mesh of
+# DIST_MESH (data, model), qwen3-0.6b at full width in float32 cut as
+# train_vs_cpu cuts it, train_vs_cpu's batch and schedule, DIST_STEPS
+# steps against make_train_step on the same weights and batches (both
+# under torch.use_deterministic_algorithms); distributed_vs_cpu reruns
+# the sharded steps on a one-rank gloo mesh on the CPU
+DIST_MESH = (1, 1)
+DIST_STEPS = 2
+# train_resume: python -m repro_torch.launch.train at full width, float32,
+# cut to RESUME_LAYERS layers (a checkpoint is then ~2.3 GB, the
+# embedding most of it), RESUME_STEPS steps saving every RESUME_EVERY,
+# SIGKILLed once its first checkpoint lands and started again; its last
+# checkpoint bitwise an in-process run of the same batch order (both
+# deterministic); train_resume_vs_cpu replays that order on the CPU from
+# the card's initial weights (train_vs_cpu's bounds)
+RESUME_LAYERS = 2
+RESUME_STEPS = 4
+RESUME_EVERY = 2
+RESUME_TIMEOUT_S = 300
+CUBLAS_DETERMINISTIC = ":4096:8"
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -4294,6 +4345,51 @@ def _agree_share(got, want, tight, loose: float) -> dict:
                        <= TRAIN_VS_CPU_SHARE)}
 
 
+def _state_trees(state, device="cpu") -> dict:
+    """A train state's parameters and moments as tensors on ``device`` by
+    name (DTensors gathered to full tensors)."""
+    def full(t):
+        t = t.detach()
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).to(
+            device)
+    return {"params": {n: full(t) for n, t in state.params.items()},
+            "mu": {n: full(t) for n, t in state.opt.mu.items()},
+            "nu": {n: full(t) for n, t in state.opt.nu.items()}}
+
+
+def _train_state_gap(got: dict, want: dict, lr_sum: float):
+    """train_vs_cpu's bounds between two `_state_trees`: every parameter
+    entry within 2 % of the summed learning rates and 99.9 % within 1e-6
+    + 1e-6 |p|; every moment within 3 % of its leaf's largest magnitude
+    and 99.9 % within TRAIN_VS_CPU_MOMENT of it. Returns (the worst gaps
+    by tree, the leaves out of bounds)."""
+    worst = {"params": {"max_abs_err": 0.0, "share_over_tight": 0.0},
+             "mu": {"max_rel_err": 0.0, "share_over_tight": 0.0},
+             "nu": {"max_rel_err": 0.0, "share_over_tight": 0.0}}
+    bad = []
+    for name, p in got["params"].items():
+        want_p = want["params"][name]
+        r = _agree_share(p, want_p, 1e-6 + 1e-6 * want_p.abs(),
+                         0.02 * lr_sum)
+        w = worst["params"]
+        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
+        w["share_over_tight"] = max(w["share_over_tight"],
+                                    r["share_over_tight"])
+        bad += [] if r["ok"] else [name]
+    for tree in ("mu", "nu"):
+        for name, t in got[tree].items():
+            want_t = want[tree][name]
+            scale = max(float(want_t.abs().max()), 1e-30)
+            r = _agree_share(t, want_t, TRAIN_VS_CPU_MOMENT * scale,
+                             0.03 * scale)
+            w = worst[tree]
+            w["max_rel_err"] = max(w["max_rel_err"], r["max_abs_err"] / scale)
+            w["share_over_tight"] = max(w["share_over_tight"],
+                                        r["share_over_tight"])
+            bad += [] if r["ok"] else [f"{tree}.{name}"]
+    return worst, bad
+
+
 def phase_train_vs_cpu(torch) -> dict:
     """qwen3-0.6b at full width in float32, n_layers cut to
     TRAIN_VS_CPU_LAYERS: the same seeded weights and the same TokenPipeline
@@ -4332,30 +4428,7 @@ def phase_train_vs_cpu(torch) -> dict:
     lr_fn = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_VS_CPU_STEPS)
     lr_sum = sum(float(lr_fn(s)) for s in range(TRAIN_VS_CPU_STEPS))
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(closs, ploss))
-    worst = {"params": {"max_abs_err": 0.0, "share_over_tight": 0.0},
-             "mu": {"max_rel_err": 0.0, "share_over_tight": 0.0},
-             "nu": {"max_rel_err": 0.0, "share_over_tight": 0.0}}
-    bad = []
-    for name, p in cs.params.items():
-        want = ps.params[name].detach()
-        r = _agree_share(p.detach().cpu(), want, 1e-6 + 1e-6 * want.abs(),
-                         0.02 * lr_sum)
-        w = worst["params"]
-        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
-        w["share_over_tight"] = max(w["share_over_tight"],
-                                    r["share_over_tight"])
-        bad += [] if r["ok"] else [name]
-    for tree in ("mu", "nu"):
-        for name, t in getattr(cs.opt, tree).items():
-            want = getattr(ps.opt, tree)[name]
-            scale = max(float(want.abs().max()), 1e-30)
-            r = _agree_share(t.cpu(), want, TRAIN_VS_CPU_MOMENT * scale,
-                             0.03 * scale)
-            w = worst[tree]
-            w["max_rel_err"] = max(w["max_rel_err"], r["max_abs_err"] / scale)
-            w["share_over_tight"] = max(w["share_over_tight"],
-                                        r["share_over_tight"])
-            bad += [] if r["ok"] else [f"{tree}.{name}"]
+    worst, bad = _train_state_gap(_state_trees(cs), _state_trees(ps), lr_sum)
     out = {"phase": "train_vs_cpu", "arch": TRAIN_ARCH, "dtype": "float32",
            "n_layers": TRAIN_VS_CPU_LAYERS,
            "n_layers_published": get_config(TRAIN_ARCH).n_layers,
@@ -4369,6 +4442,423 @@ def phase_train_vs_cpu(torch) -> dict:
           f"train_vs_cpu: losses differ by {loss_gap} relative")
     check(not bad, f"train_vs_cpu: leaves out of bounds: {bad}")
     del card, cpu, runs, cs, ps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_group(torch, backend: str, work: Path):
+    """A one-rank process group over a FileStore in ``work`` and a
+    DIST_MESH (data, model) DeviceMesh on its device type."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import MeshSpec, device_mesh
+    store = dist.FileStore(str(work / f"store_{backend}"), 1)
+    kw = {"device_id": torch.device("cuda:0")} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                            **kw)
+    return device_mesh(MeshSpec(("data", "model"), DIST_MESH),
+                       "cuda" if backend == "nccl" else "cpu")
+
+
+def _sharded_run(model, mesh, batches) -> dict:
+    """DIST_STEPS of make_sharded_train_step from init_sharded_train_state
+    on ``model``'s own weights: the state, the losses and each step's
+    wall."""
+    from repro_torch.train.loop import (init_sharded_train_state,
+                                        make_sharded_train_step)
+    state = init_sharded_train_state(model, mesh, seed=None)
+    step = make_sharded_train_step(model, mesh, base_lr=TRAIN_LR,
+                                   warmup=TRAIN_WARMUP,
+                                   total_steps=TRAIN_VS_CPU_STEPS)
+    losses, walls = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        walls.append(time.perf_counter() - t0)
+    return {"state": state, "losses": losses, "walls": walls}
+
+
+def _census(state, log) -> dict:
+    """Shard / Replicate placements over every mesh dim of the parameters
+    and the moments, and the fallback log's entries."""
+    out = {}
+    for tree, src in (("params", state.params), ("moments", state.opt.mu)):
+        kinds = [type(p).__name__ for t in src.values() for p in t.placements]
+        out[tree] = {k: kinds.count(k) for k in ("Shard", "Replicate")}
+    out["fallback_log"] = len(log)
+    out["layer_axis"] = sum("on the layer axis" in line for line in log)
+    return out
+
+
+def _dist_config(torch):
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH, "full").replace(
+        dtype=torch.float32, n_layers=TRAIN_VS_CPU_LAYERS)
+
+
+def _dist_batches(cfg, device: str) -> list:
+    from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_VS_CPU_SEQ, TRAIN_VS_CPU_BATCH,
+                         seed=0, device=device)
+    return [pipe.batch_at(i) for i in range(DIST_STEPS)]
+
+
+def _dist_lr_sum() -> float:
+    from repro_torch.train.optim import cosine_schedule
+    lr_fn = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_VS_CPU_STEPS)
+    return sum(float(lr_fn(s)) for s in range(DIST_STEPS))
+
+
+def phase_distributed(torch) -> dict:
+    """The distributed layer on the card: a one-rank NCCL process group
+    and a DIST_MESH DeviceMesh on cuda; qwen3-0.6b at full width in
+    float32, cut to TRAIN_VS_CPU_LAYERS layers, DIST_STEPS steps of
+    make_sharded_train_step against make_train_step on the same weights
+    and TokenPipeline batches (train_vs_cpu's batch and schedule), both
+    deterministic: the losses, the gathered parameters and the moments
+    bitwise, else within train_vs_cpu's bounds (the line says which); the
+    placements census; hierarchical_psum, ring_all_gather and
+    pipeline_forward on the one-rank mesh against the identity and the
+    sequential stage, bitwise. One card: no multi-card number."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.collectives import (hierarchical_psum,
+                                                     ring_all_gather)
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import Model
+    from repro_torch.train.loop import init_train_state, make_train_step
+    work = ROOT / "build" / "distributed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mesh = _dist_group(torch, "nccl", work)
+    setup_s = time.perf_counter() - t0
+    try:
+        cfg = _dist_config(torch)
+        plain_model = Model(cfg, CARD).init(SERVE_SEED)
+        init = {k: v.detach().cpu().clone()
+                for k, v in plain_model.state_dict().items()}
+        batches = _dist_batches(cfg, CARD)
+        torch.use_deterministic_algorithms(True)
+        try:
+            state = init_train_state(plain_model, seed=None)
+            step = make_train_step(plain_model, base_lr=TRAIN_LR,
+                                   warmup=TRAIN_WARMUP,
+                                   total_steps=TRAIN_VS_CPU_STEPS)
+            plain_losses = []
+            for batch in batches:
+                state, met = step(state, batch)
+                plain_losses.append(float(met["loss"]))
+            plain = _state_trees(state, CARD)
+            del state, step, plain_model
+            model = Model(cfg, CARD)
+            model.load_state_dict(init)
+            sharding.FALLBACK_LOG.clear()
+            sharding.set_mesh(mesh)
+            ops.decode_attention.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run = _sharded_run(model, mesh, batches)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t1
+            launches = ops.decode_attention.launches
+        finally:
+            torch.use_deterministic_algorithms(False)
+        census = _census(run["state"], sharding.FALLBACK_LOG)
+        got = _state_trees(run["state"], CARD)
+        bitwise = run["losses"] == plain_losses and all(
+            torch.equal(got[tree][n], plain[tree][n])
+            for tree in got for n in got[tree])
+        worst, bad = _train_state_gap(got, plain, _dist_lr_sum())
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(run["losses"], plain_losses))
+        gen = torch.Generator(device=CARD).manual_seed(1)
+        x = torch.randn(8, 1024, device=CARD, generator=gen)
+        w = torch.randn(1, 64, 64, device=CARD, generator=gen) * 0.1
+        micro = torch.randn(6, 2, 64, device=CARD, generator=gen)
+
+        def stage(p, v):
+            return torch.tanh(v @ p["w"])
+
+        collectives = {
+            "hierarchical_psum_identity": torch.equal(
+                hierarchical_psum(x, mesh, "data", "model"), x),
+            "ring_all_gather_identity": torch.equal(
+                ring_all_gather(x, mesh, "data"), x),
+            "pipeline_forward_sequential": torch.equal(
+                pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
+                stage({"w": w[0]}, micro))}
+        out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
+               "n_layers": TRAIN_VS_CPU_LAYERS, "mesh": list(DIST_MESH),
+               "mesh_dim_names": ["data", "model"], "backend": "nccl",
+               "world_size": dist.get_world_size(),
+               "batch": TRAIN_VS_CPU_BATCH, "seq": TRAIN_VS_CPU_SEQ,
+               "steps": DIST_STEPS, "deterministic": True,
+               "setup_s": setup_s, "sharded_wall_s": sharded_s,
+               "sharded_step_walls_s": run["walls"],
+               "losses": run["losses"], "plain_losses": plain_losses,
+               "equality": "bitwise" if bitwise else "train_vs_cpu bounds",
+               "loss_gap_rel": loss_gap, "worst": worst,
+               "leaves_out_of_bounds": bad, "census": census,
+               "collectives": collectives,
+               "decode_attn_launches": launches,
+               "multi_card": "not measured: one card"}
+        emit(out)
+        check(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL and not bad),
+              f"distributed: sharded != plain: losses {run['losses']} "
+              f"against {plain_losses}, out of bounds {bad}")
+        check(all(collectives.values()),
+              f"distributed: a collective on one rank: {collectives}")
+        check(launches == 0, f"distributed: {launches} decode_attn launches")
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()
+    del run, model, plain
+    torch.cuda.empty_cache()
+    return {"out": out, "init": init, "sharded": got, "work": work}
+
+
+def _distributed_cpu(dist_run: dict, torch) -> dict:
+    """distributed_vs_cpu's CPU half: the sharded steps on a one-rank gloo
+    mesh on the CPU from the distributed phase's initial weights."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    work = dist_run["work"]
+    mesh = _dist_group(torch, "gloo", work)
+    try:
+        cfg = _dist_config(torch)
+        model = Model(cfg, "cpu")
+        model.load_state_dict(dist_run["init"])
+        sharding.set_mesh(mesh)
+        return _sharded_run(model, mesh, _dist_batches(cfg, "cpu"))
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_distributed_vs_cpu(dist_run: dict, cpu_run: dict, torch) -> dict:
+    """The distributed phase's sharded steps rerun on the CPU (a one-rank
+    gloo mesh; run in a thread while train_resume's children run, so this
+    line's wall is the comparison's): losses, parameters and moments
+    against the card's sharded run within train_vs_cpu's bounds (the
+    gaps taken on the card)."""
+    card = dist_run["out"]["losses"]
+    cpu = cpu_run["losses"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    worst, bad = _train_state_gap(dist_run["sharded"],
+                                  _state_trees(cpu_run["state"], CARD),
+                                  _dist_lr_sum())
+    out = {"phase": "distributed_vs_cpu", "backend": "gloo",
+           "mesh": list(DIST_MESH), "card_losses": card, "cpu_losses": cpu,
+           "loss_gap_rel": loss_gap, "loss_tolerance_rel": TRAIN_VS_CPU_RTOL,
+           "worst": worst, "leaves_out_of_bounds": bad,
+           "cpu_step_walls_s": cpu_run["walls"],
+           "cpu_wall_s": cpu_run["wall_s"], "overlapped_with": "train_resume"}
+    emit(out)
+    check(loss_gap <= TRAIN_VS_CPU_RTOL,
+          f"distributed_vs_cpu: losses differ by {loss_gap} relative")
+    check(not bad, f"distributed_vs_cpu: leaves out of bounds: {bad}")
+    return out
+
+
+def _resume_cmd(ckpt: Path) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.train",
+            "--arch", TRAIN_ARCH, "--variant", "full",
+            "--n-layers", str(RESUME_LAYERS), "--dtype", "float32",
+            "--steps", str(RESUME_STEPS), "--ckpt-every", str(RESUME_EVERY),
+            "--batch", str(TRAIN_VS_CPU_BATCH),
+            "--seq", str(TRAIN_VS_CPU_SEQ), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--ckpt-dir", str(ckpt), "--device", CARD,
+            "--deterministic"]
+
+
+def _resume_build(torch, device: str):
+    from repro_torch.launch.train import build
+    return build(TRAIN_ARCH, "full", TRAIN_VS_CPU_SEQ, TRAIN_VS_CPU_BATCH,
+                 RESUME_STEPS, False, TRAIN_LR, device=device,
+                 n_layers=RESUME_LAYERS, dtype=torch.float32)
+
+
+def _resume_cpu(init: dict, order: list, torch) -> dict:
+    """train_resume_vs_cpu's CPU half: the batch order through
+    launch/train.py's build on the CPU from the card's initial weights."""
+    from repro_torch.train.loop import init_train_state
+    _, model, pipe, step_fn = _resume_build(torch, "cpu")
+    model.load_state_dict(init)
+    state = init_train_state(model, seed=None)
+    for step in order:
+        state, _ = step_fn(state, pipe.batch_at(step))
+    return {"state": state}
+
+
+def _cpu_twins(dist_run: dict, init: dict, order: list, torch) -> dict:
+    """Both CPU halves, one after the other (run in a thread)."""
+    t0 = time.perf_counter()
+    dist_cpu = _distributed_cpu(dist_run, torch)
+    dist_cpu["wall_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    resume_cpu = _resume_cpu(init, order, torch)
+    resume_cpu["wall_s"] = time.perf_counter() - t1
+    return {"distributed": dist_cpu, "train_resume": resume_cpu}
+
+
+def _labelled(state) -> list[tuple[str, str | None]]:
+    """The (tree, name) of each leaf of ``(state,)`` in the checkpoint's
+    order."""
+    return ([("params", n) for n in sorted(state.params)] + [("step", None)]
+            + [(t, n) for t in ("mu", "nu")
+               for n in sorted(getattr(state.opt, t))])
+
+
+def phase_train_resume(dist_run: dict, torch) -> dict:
+    """launch/train.py end to end on the card: the CLI as a child process
+    (RESUME_* settings, deterministic, CUBLAS_WORKSPACE_CONFIG set),
+    SIGKILLed once LATEST names its first checkpoint (step RESUME_EVERY),
+    then started again with the same arguments; it must have been killed
+    (exit -9) before its last save, and resume from that checkpoint. Its
+    last checkpoint bitwise an in-process run (deterministic, the same
+    build and seed) of the reference's batch order: 0..k, then k..N-1.
+    The checkpoint's bytes; the children's walls. While the children run,
+    a thread reruns the distributed phase's sharded steps and this batch
+    order on the CPU (the two *_vs_cpu phases compare them)."""
+    import os
+    import re
+    import shutil
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from repro_torch.checkpoint.store import (_flatten, _host, latest_step,
+                                              restore_named)
+    from repro_torch.train.loop import init_train_state
+    work = ROOT / "build" / "train_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt = work / "ckpt"
+    k = RESUME_EVERY                 # the first save, where the kill lands
+    order = list(range(0, k + 1)) + list(range(k, RESUME_STEPS))
+    _, model, pipe, step_fn = _resume_build(torch, CARD)
+    state = init_train_state(model, seed=0)  # the child's weights
+    init = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+    pool = ThreadPoolExecutor(max_workers=1)
+    twins = pool.submit(_cpu_twins, dist_run, init, order, torch)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": CUBLAS_DETERMINISTIC}
+    log = work / "first.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        child = subprocess.Popen(_resume_cmd(ckpt), cwd=ROOT, env=env,
+                                 stdout=fh, stderr=subprocess.STDOUT)
+        try:
+            while latest_step(ckpt) is None:     # LATEST names a manifest
+                check(child.poll() is None,
+                      f"train_resume: the child exited ({child.returncode}) "
+                      f"before any checkpoint: {log.read_text()[-2000:]}")
+                check(time.perf_counter() - t0 < RESUME_TIMEOUT_S,
+                      "train_resume: no checkpoint within "
+                      f"{RESUME_TIMEOUT_S} s")
+                time.sleep(0.01)
+            child.send_signal(signal.SIGKILL)
+        finally:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+    first_s = time.perf_counter() - t0
+    killed_rc = child.returncode
+    check(killed_rc == -signal.SIGKILL,
+          f"train_resume: the child was not killed (exit {killed_rc})")
+    check(latest_step(ckpt) == k,
+          f"train_resume: the killed run left LATEST at "
+          f"{latest_step(ckpt)}, not {k}")
+    ckpt_bytes = sum(f.stat().st_size for f in (ckpt / f"step_{k}").iterdir())
+    t1 = time.perf_counter()
+    second = subprocess.run(_resume_cmd(ckpt), cwd=ROOT, env=env,
+                            capture_output=True, text=True,
+                            timeout=RESUME_TIMEOUT_S)
+    second_s = time.perf_counter() - t1
+    check(second.returncode == 0,
+          f"train_resume: the resumed run failed: {second.stderr[-3000:]}")
+    found = re.search(r"\[resume\] restored step (\d+)", second.stdout)
+    check(found is not None and int(found.group(1)) == k,
+          f"train_resume: the second run did not resume from step {k}: "
+          f"{second.stdout[-2000:]}")
+    cpu = twins.result()             # the CPU halves, run meanwhile
+    pool.shutdown()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t2 = time.perf_counter()
+        for step in order:
+            state, _ = step_fn(state, pipe.batch_at(step))
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t2
+    finally:
+        torch.use_deterministic_algorithms(False)
+    stored, manifest = restore_named(ckpt, f"step_{RESUME_STEPS}")
+    mine = [_host(x)[0] for x in _flatten((state,))]
+    labels = _labelled(state)
+    differ = [f"{t}.{n}" for (t, n), a, b in zip(labels, mine, stored)
+              if a.shape != b.shape or not np.array_equal(a, b)]
+    out = {"phase": "train_resume", "arch": TRAIN_ARCH, "variant": "full",
+           "dtype": "float32", "n_layers": RESUME_LAYERS,
+           "params": sum(t.numel() for t in init.values()),
+           "steps": RESUME_STEPS, "ckpt_every": RESUME_EVERY,
+           "batch": TRAIN_VS_CPU_BATCH, "seq": TRAIN_VS_CPU_SEQ,
+           "deterministic": True,
+           "cublas_workspace_config": CUBLAS_DETERMINISTIC,
+           "killed_exit": killed_rc, "killed_at_latest": k,
+           "checkpoint_bytes": ckpt_bytes, "leaves": len(stored),
+           "batch_order": order, "first_child_s": first_s,
+           "second_child_s": second_s, "replay_s": replay_s,
+           "equality": "bitwise" if not differ else "differs",
+           "leaves_differing": differ,
+           "manifest_metadata": manifest["metadata"],
+           "cpu_twins_s": {name: run["wall_s"]
+                           for name, run in cpu.items()}}
+    emit(out)
+    check(len(mine) == len(stored),
+          f"train_resume: {len(stored)} leaves stored, {len(mine)} replayed")
+    check(not differ, f"train_resume: the resumed checkpoint differs from "
+                      f"the replay at {differ[:8]}")
+    del state, model, step_fn, mine
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"out": out, "order": order, "stored": stored, "labels": labels,
+            "cpu": cpu}
+
+
+def phase_train_resume_vs_cpu(resume: dict, torch) -> dict:
+    """train_resume's batch order replayed on the CPU (launch/train.py's
+    build, float32) from the card's initial weights (in a thread while
+    the children ran): the card's resumed last checkpoint against it
+    within train_vs_cpu's bounds (the gaps taken on the card), the step
+    count equal."""
+    from repro_torch.train.optim import cosine_schedule
+    cpu = resume["cpu"]["train_resume"]
+    card = {"params": {}, "mu": {}, "nu": {}}
+    step_count = None
+    for (tree, name), a in zip(resume["labels"], resume["stored"]):
+        if tree == "step":
+            step_count = int(a)
+        else:
+            card[tree][name] = torch.from_numpy(a).to(CARD)
+    lr_fn = cosine_schedule(TRAIN_LR, 10, RESUME_STEPS)
+    lr_sum = sum(float(lr_fn(s)) for s in range(len(resume["order"])))
+    state = cpu["state"]
+    worst, bad = _train_state_gap(card, _state_trees(state, CARD), lr_sum)
+    out = {"phase": "train_resume_vs_cpu", "batch_order": resume["order"],
+           "card_step": step_count, "cpu_step": int(state.opt.step),
+           "worst": worst, "leaves_out_of_bounds": bad,
+           "cpu_wall_s": cpu["wall_s"], "overlapped_with": "train_resume"}
+    emit(out)
+    check(step_count == int(state.opt.step),
+          f"train_resume_vs_cpu: step {step_count} against "
+          f"{int(state.opt.step)}")
+    check(not bad, f"train_resume_vs_cpu: leaves out of bounds: {bad}")
+    del card
     torch.cuda.empty_cache()
     return out
 
@@ -5385,6 +5875,11 @@ def phase_profile(main: dict, fig2: dict, t9: dict, serve: dict,
 
 
 def main() -> int:
+    import os
+    # the chip's own default on sm_90, fixed so that the deterministic
+    # phases (distributed, train_resume) may run cuBLAS in deterministic
+    # mode; set before the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5426,6 +5921,11 @@ def main() -> int:
     phase_serve_ssm_vs_cpu(torch)
     phase_train(torch)
     phase_train_vs_cpu(torch)
+    dist_run = phase_distributed(torch)
+    resume = phase_train_resume(dist_run, torch)
+    phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
+    phase_train_resume_vs_cpu(resume, torch)
+    del dist_run, resume
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)

@@ -193,7 +193,8 @@ def restore_checkpoint(directory: str | Path, tree_like,
         raise ValueError(
             f"checkpoint has {len(arrays)} leaves, expected {len(refs)}")
     dev = resolve_device(device)
-    out = [torch.from_numpy(np.ascontiguousarray(a)).to(
+    # ascontiguousarray makes a 0-d array 1-d; the reshape keeps its shape
+    out = [torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(
                dev, dtype=_torch_dtype(ref.dtype))
            if hasattr(ref, "dtype") else a
            for ref, a in zip(refs, arrays)]

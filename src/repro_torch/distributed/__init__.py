@@ -1,2 +1,3 @@
-"""Distributed training helpers (port of `repro.distributed`): so far the
-error-feedback int8 gradient compression."""
+"""Distribution substrate (port of `repro.distributed`): sharding rules,
+pipeline parallelism, gradient compression, and collective helpers, on
+`torch.distributed` process groups, `DeviceMesh` and DTensor."""

@@ -1,8 +1,12 @@
-"""Cell mesh for sharded sweeps, and the card's roofline constants.
+"""Production meshes, the cell mesh for sharded sweeps, and the card's
+roofline constants.
 
-`make_cell_mesh` names the devices a `repro_torch.sim.exec.MeshBackend`
-splits the cell axis of a sweep chunk over. The reference's
-(data, model) production meshes wait for the distributed layer.
+`make_production_mesh` and `make_host_mesh` describe the reference's
+(data, model) meshes as `MeshSpec`s (no devices needed);
+`repro_torch.distributed.sharding.device_mesh` turns one into a
+`DeviceMesh` once a process group spans its ranks. `make_cell_mesh`
+names the devices a `repro_torch.sim.exec.MeshBackend` splits the cell
+axis of a sweep chunk over.
 
 The constants are spec-sheet figures of one NVIDIA H100 SXM (NVIDIA's
 data sheet, dense rates, at the full 700 W power limit)."""
@@ -14,9 +18,27 @@ from typing import Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.mesh import MeshSpec
 
 PEAK_FLOPS_BF16 = 989e12         # FLOP/s, dense bf16 tensor cores
 HBM_BW = 3.35e12                 # bytes/s, device memory
+NVLINK_BW = 900e9                # bytes/s, NVLink 4 per GPU (18 links,
+                                 # both directions together)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The reference's production mesh: (16, 16) over ('data', 'model'),
+    or with ``multi_pod`` (2, 16, 16) with a leading 'pod' axis (outer
+    data parallelism, or the pipeline's stages)."""
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
+
+
+def make_host_mesh() -> MeshSpec:
+    """A (1, 1) ('data', 'model') mesh for one-device runs of the
+    mesh-aware paths."""
+    return MeshSpec(("data", "model"), (1, 1))
 
 
 def make_cell_mesh(devices: Sequence | None = None) -> list[torch.device]:

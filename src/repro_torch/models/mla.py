@@ -48,6 +48,12 @@ class MLA(torch.nn.Module):
         self.kv_norm.zero_()
 
 
+def init_mla(generator: torch.Generator, cfg) -> MLA:
+    mod = MLA(cfg, device=generator.device)
+    mod.init(generator)
+    return mod
+
+
 def _latents(p, x, cfg, positions):
     """The compressed KV latent (normed) and the rotary key shared across
     heads: (B, S, kv_lora), (B, S, dr)."""

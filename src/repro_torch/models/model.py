@@ -15,7 +15,9 @@ reference's pytree across). Dense and VLM: ``embed``, ``final_norm``,
 Hybrid (recurrentgemma): super-blocks ``super.<i>.b<j>_<kind>`` over
 ``cfg.block_pattern`` (``kind`` "rglru" or "attn", each with ``ln1``,
 ``ln2``, ``mlp`` and its ``rglru`` or ``attn``), and a tail
-``tail.0.b<j>_rglru`` of the ``n_layers % len(pattern)`` layers left.
+``tail.0.b<j>_<kind>`` of the ``n_layers % len(pattern)`` layers left
+(`decode_step` refuses a tail that holds an attention layer, as the
+reference's tail decode does).
 Encoder-decoder (whisper): ``encoder.<i>`` layers like the dense ones
 (non-causal, no final norm) and ``decoder.<i>`` with ``ln1``,
 ``self_attn``, ``ln_x``, ``cross_attn``, ``ln2`` and ``mlp``. MoE
@@ -47,7 +49,8 @@ The cache keeps the reference's layout: ``length`` (B,) int32; dense and
 vlm ``kv`` with ``k``/``v`` leaves (L, B, S, Hkv, D); hybrid ``conv``
 (n_super, n_rec, B, 3, W) in ``cfg.dtype``, ``h`` (n_super, n_rec, B, W)
 float32, ``kv`` with a ring of ``min(window, max_len)`` positions a
-layer, and ``tail_conv`` / ``tail_h`` for the tail; encdec ``kv`` and
+super-block attention layer, and ``tail_conv`` / ``tail_h`` for the
+tail's recurrent layers; encdec ``kv`` and
 ``mem_k``/``mem_v`` (L, B, src_len, Hkv, D); moe ``dense_kv`` for the
 dense layers, then ``moe_kv`` or, with MLA, ``ckv`` (L, B, S, kv_lora)
 and ``kpe`` (L, B, S, rope_dim); ssm ``conv`` (L, B, W-1, d_inner + 2N)
@@ -75,17 +78,26 @@ STACKS = ("layers", "super", "tail", "encoder", "decoder", "dense_layers",
           "moe_layers", "mtp.block")
 
 
-def reference_leaf(name: str) -> tuple[str, bool]:
-    """The reference's leaf of a parameter name, and whether it is
-    stacked: ``<stack>.<i>.<rest>`` is the layer i slice of the
-    reference's ``<stack>.<rest>`` (which has one more axis than the
-    port's tensor); any other name is its own leaf."""
+def stacked_leaf(name: str) -> tuple[str, int, str] | None:
+    """(stack, layer index, rest) of a parameter name ``<stack>.<i>.<rest>``
+    that is the layer i slice of the reference's stacked ``<stack>.<rest>``
+    (which has one more axis than the port's tensor); None for any other
+    name."""
     for stack in STACKS:
         if name.startswith(stack + "."):
             index, _, rest = name[len(stack) + 1:].partition(".")
             if index.isdigit() and rest:
-                return f"{stack}.{rest}", True
-    return name, False
+                return stack, int(index), rest
+    return None
+
+
+def reference_leaf(name: str) -> tuple[str, bool]:
+    """The reference's leaf of a parameter name, and whether it is
+    stacked (`stacked_leaf`); an unstacked name is its own leaf."""
+    leaf = stacked_leaf(name)
+    if leaf is None:
+        return name, False
+    return f"{leaf[0]}.{leaf[2]}", True
 
 
 def _keep(old: torch.Tensor, new: torch.Tensor, lanes) -> None:
@@ -272,10 +284,6 @@ class Model(torch.nn.Module):
             return
         pat = cfg.block_pattern
         n_super, rem = divmod(cfg.n_layers, len(pat))
-        if any(kind == "attn" for kind in pat[:rem]):
-            raise NotImplementedError("hybrid: an attention layer in the "
-                                      "tail (the reference's tail decode "
-                                      "runs recurrent layers only)")
         self.super = torch.nn.ModuleList(SuperBlock(cfg, pat, dev)
                                          for _ in range(n_super))
         self.tail = torch.nn.ModuleList(
@@ -479,9 +487,10 @@ class Model(torch.nn.Module):
         cache["h"] = zeros(n_super, n_rec, batch_size, w,
                            dtype=torch.float32)
         cache["kv"] = kv(n_super * (len(pat) - n_rec), win)
-        if rem:
-            cache["tail_conv"] = zeros(1, rem, batch_size, 3, w)
-            cache["tail_h"] = zeros(1, rem, batch_size, w,
+        if rem:                     # the tail's recurrent layers; no tail KV
+            n_tail = sum(1 for kind in pat[:rem] if kind != "attn")
+            cache["tail_conv"] = zeros(1, n_tail, batch_size, 3, w)
+            cache["tail_h"] = zeros(1, n_tail, batch_size, w,
                                     dtype=torch.float32)
         return cache
 
@@ -606,8 +615,17 @@ class Model(torch.nn.Module):
         (the `decode_attn` kernel on the card) and write their ring slot
         on ``lanes``; the recurrent layers' ``conv`` and ``h`` state moves
         only on ``lanes`` too (an idle lane's state would otherwise advance
-        for good)."""
+        for good). A tail that holds an attention layer raises
+        NotImplementedError: the cache keeps no KV for it, and the
+        reference's tail decode runs recurrent layers only (it raises
+        KeyError there)."""
         cfg = self.cfg
+        if any(layer.kind == "attn" for sb in self.tail
+               for layer in sb.values()):
+            raise NotImplementedError(
+                "hybrid decode: the tail holds an attention layer, which "
+                "has no KV cache (the reference's tail decode runs "
+                "recurrent layers only)")
         length = cache["length"]
         ks, vs = cache["kv"]["k"], cache["kv"]["v"]
         ai = 0

@@ -77,6 +77,12 @@ class MoE(torch.nn.Module):
             self.shared.init(generator)
 
 
+def init_moe(generator: torch.Generator, cfg) -> MoE:
+    mod = MoE(cfg, device=generator.device)
+    mod.init(generator)
+    return mod
+
+
 def _expert_ffn(w, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """x: (E, C, d) -> (E, C, d) with per-expert weights (E, d, ff)."""
     if mlp_type == "swiglu":

@@ -67,6 +67,12 @@ class SSD(torch.nn.Module):
         self.d_skip.fill_(1.0)
 
 
+def init_ssd(generator: torch.Generator, cfg) -> SSD:
+    mod = SSD(cfg, device=generator.device)
+    mod.init(generator)
+    return mod
+
+
 def _split_proj(p, x: torch.Tensor, cfg):
     """(z, xbc, dt) of the input projection."""
     di, n = cfg.d_inner, cfg.ssm_state

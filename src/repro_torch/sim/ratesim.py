@@ -38,8 +38,18 @@ from repro_torch.core.breakeven import ObjectiveCoeffs
 from repro_torch.core.metrics import RunTotals
 from repro_torch.core.workers import FleetParams
 from repro_torch.device import resolve_device
-from repro_torch.policies import RateCtx, RateParams, get_rate_policy
+from repro_torch.policies import (RateCtx, RateParams, get_rate_policy,
+                                  rate_policies, rate_policy_names)
 from repro_torch.policies.rate import needed_fpgas
+
+#: Registered rate-policy names (registration order), for the benchmarks
+#: and tests that enumerate policies.
+POLICIES = rate_policy_names()
+
+#: Policies that read Alg. 2's per-level lifetime statistics and
+#: conditional histogram; every other policy carries placeholders.
+PREDICTOR_POLICIES = tuple(p.name for p in rate_policies()
+                           if p.uses_predictor)
 
 
 class FleetScalars(NamedTuple):

@@ -51,10 +51,13 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
                                    for x in tree.values()]).sum())
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None):
     """(grads scaled to a global norm of at most ``max_norm``, each in its
-    own type, and the norm before clipping)."""
-    norm = global_norm(grads)
+    own type, and the norm before clipping). ``norm`` gives the global
+    norm where ``grads`` hold only shards of the gradients."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: (g.float() * scale).to(g.dtype)
             for n, g in grads.items()}, norm

@@ -66,6 +66,17 @@ def test_save_restore_roundtrip_bf16(tmp_path):
         assert torch.equal(x, y)
 
 
+def test_restore_keeps_a_0d_leaf_0d(tmp_path):
+    """A scalar leaf (the optimizer's step counter) comes back with shape
+    (), not (1,)."""
+    tree = {"step": torch.tensor(5, dtype=torch.int32),
+            "x": torch.tensor(0.5, dtype=torch.bfloat16)}
+    save_checkpoint(tmp_path, 1, tree)
+    restored, _ = restore_checkpoint(tmp_path, tree, device=CPU)
+    for name, t in tree.items():
+        assert restored[name].shape == () and torch.equal(restored[name], t)
+
+
 def test_atomicity_latest_pointer(tmp_path):
     tree = {"a": torch.zeros(2)}
     save_checkpoint(tmp_path, 1, tree)

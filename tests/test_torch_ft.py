@@ -1,13 +1,14 @@
 """Port host-level fault tolerance (`repro_torch.ft`: `HeartbeatMonitor`,
-`FailureEvent` / `FailureInjector`, `StragglerPolicy`) vs the reference
-`repro.ft`, on the inputs of tests/test_ft.py: every answer identical,
-every injected event the same (step, host, kind, factor)."""
+`FailureEvent` / `FailureInjector`, `StragglerPolicy`, `shrink_mesh`) vs
+the reference `repro.ft`, on the inputs of tests/test_ft.py: every answer
+identical, every injected event the same (step, host, kind, factor),
+every shrunken mesh the same shape, names and dropped count."""
 
 import pytest
 
 from repro.ft import elastic as ref_elastic
 from repro.ft import failures as ref_failures
-from repro_torch.ft.elastic import StragglerPolicy
+from repro_torch.ft.elastic import StragglerPolicy, shrink_mesh
 from repro_torch.ft.failures import (FailureEvent, FailureInjector,
                                      HeartbeatMonitor)
 
@@ -119,3 +120,32 @@ def test_straggler_window_forgets_old_slowness():
                                          for h, t in pol.times.items()}]
 
     assert _both(run)[:2] == [[2], []]
+
+
+@pytest.mark.parametrize("model_width", [1, 2, 4, 8])
+def test_shrink_mesh_equals_reference(model_width):
+    """Every survivor count from 1 to 16: the mesh's device array shape,
+    its axis names, the devices in order, and the count left out."""
+    for n in range(1, 17):
+        ids = list(range(100, 100 + n))
+        mesh, dropped = shrink_mesh(ids, model_width)
+        want, want_dropped = ref_elastic.shrink_mesh(ids, model_width)
+        assert mesh.devices.shape == want.devices.shape, n
+        assert mesh.axis_names == tuple(want.axis_names)
+        assert dropped == want_dropped
+        assert mesh.devices.tolist() == want.devices.tolist()
+    mesh, _ = shrink_mesh([f"cuda:{i}" for i in range(3)], 2)
+    assert mesh.devices.tolist() == [["cuda:0", "cuda:1"]]
+
+
+@pytest.mark.parametrize("devices,width,match", [
+    ([], 2, "no surviving devices"), ([0, 1], 0, "model_width"),
+    ([0], -3, "model_width")])
+def test_shrink_mesh_rejects_degenerate_inputs_as_the_reference(devices,
+                                                                 width,
+                                                                 match):
+    with pytest.raises(ValueError, match=match) as got:
+        shrink_mesh(devices, width)
+    with pytest.raises(ValueError, match=match) as want:
+        ref_elastic.shrink_mesh(devices, width)
+    assert str(got.value) == str(want.value)

@@ -166,3 +166,36 @@ def test_launcher_main_on_the_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and lines[0].startswith("point 0: bias=")
     assert np.all(np.isfinite(eff)) and np.all(cost > 0)
+
+
+def test_production_and_host_meshes_equal_reference():
+    """`make_production_mesh` (both values of ``multi_pod``) and
+    `make_host_mesh`: shapes and axis names equal the reference's, which
+    a subprocess builds over 512 fabricated host devices."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.mesh import (NVLINK_BW, make_host_mesh,
+                                         make_production_mesh)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = ("import json\n"
+              "from repro.launch.mesh import make_host_mesh, "
+              "make_production_mesh\n"
+              "ms = [make_production_mesh(), "
+              "make_production_mesh(multi_pod=True), make_host_mesh()]\n"
+              "print(json.dumps([[list(m.devices.shape), list(m.axis_names)]"
+              " for m in ms]))\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = json.loads(out.stdout.strip().splitlines()[-1])
+    got = [make_production_mesh(), make_production_mesh(multi_pod=True),
+           make_host_mesh()]
+    assert [[list(m.devices.shape), list(m.axis_names)] for m in got] == want
+    assert got[1].shape == {"pod": 2, "data": 16, "model": 16}
+    assert NVLINK_BW == 900e9

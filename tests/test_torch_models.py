@@ -471,3 +471,75 @@ def test_hybrid_full_config_builds_on_meta_shapes():
     assert cache["h"].dtype == torch.float32
     assert tuple(m.init_cache(8, 1024, device="meta")["kv"]["k"].shape) == \
         (8, 8, 1024, 1, 256)
+
+
+def test_hybrid_tail_with_an_attention_layer_matches_reference():
+    """A pattern (rglru, attn, rglru) over 5 layers leaves the tail
+    (rglru, attn). The reference builds it and runs forward, loss and
+    init_cache; so does the port: logits within TOL32 from carried
+    weights, the loss on ones within test_torch_train.py's 1e-5, every
+    cache leaf shaped as the reference's (``tail_conv`` / ``tail_h`` over
+    the tail's one recurrent layer, no tail KV). Only decode raises: the
+    reference's tail decode reads ``rglru`` weights on every layer
+    (KeyError), the port's refuses the tail (NotImplementedError)."""
+    kw = dict(block_pattern=("rglru", "attn", "rglru"), n_layers=5)
+    rcfg = ref_config(HYBRID, "smoke").replace(dtype=jnp.float32, **kw)
+    cfg = get_config(HYBRID, "smoke").replace(dtype=torch.float32, **kw)
+    rm = ref_build(rcfg)
+    params = rm.init(KEY)
+    m = Model(cfg, "cpu")
+    m.load_state_dict(interop.model_params(_np(params), cfg, "cpu"))
+    assert list(m.tail[0]) == ["b0_rglru", "b1_attn"]
+    toks = np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want, _ = rm.forward(params, jnp.asarray(toks))
+    got, _ = m.forward(torch.from_numpy(toks))
+    assert tuple(got.shape) == np.asarray(want).shape == (2, 16, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL32,
+                               atol=TOL32)
+    ones = np.ones((2, 17), np.int32)
+    want_loss, _ = rm.loss(params, {"tokens": jnp.asarray(ones)})
+    got_loss, _ = m.loss({"tokens": torch.from_numpy(ones)})
+    np.testing.assert_allclose(float(got_loss), float(want_loss), rtol=1e-5)
+    rc, pc = rm.init_cache(2, 32), m.init_cache(2, 32)
+    want_shapes = jax.tree.map(lambda a: (a.shape, a.dtype.name), rc)
+    got_shapes = {k: ({kk: (tuple(vv.shape), str(vv.dtype)[6:])
+                       for kk, vv in v.items()} if isinstance(v, dict)
+                      else (tuple(v.shape), str(v.dtype)[6:]))
+                  for k, v in pc.items()}
+    assert got_shapes == want_shapes
+    assert tuple(pc["tail_h"].shape) == (1, 1, 2, cfg.lru_width or
+                                         cfg.d_model)
+    tok = np.array([[3], [5]], np.int32)
+    with pytest.raises(KeyError):
+        rm.decode_step(params, jnp.asarray(tok), rc)
+    with pytest.raises((KeyError, NotImplementedError), match="tail"):
+        m.decode_step(torch.from_numpy(tok), pc)
+
+
+@pytest.mark.parametrize("family,arch", [("ssd", "mamba2-2.7b"),
+                                         ("moe", "dbrx-132b"),
+                                         ("moe", "deepseek-v3-671b"),
+                                         ("mla", "deepseek-v3-671b")])
+def test_init_functions_give_the_reference_leaves(family, arch):
+    """`init_ssd`, `init_moe` and `init_mla`, shaped like `init_rglru`: a
+    module on the generator's device whose parameters are the reference's
+    `init_*` leaves by name, shape and type; the float32 leaves stay
+    float32 in a bfloat16 config."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.models.{family}")
+    ref_mod = importlib.import_module(f"repro.models.{family}")
+    cfg, rcfg = get_config(arch, "smoke"), ref_config(arch, "smoke")
+    got = getattr(mod, f"init_{family}")(torch.Generator().manual_seed(0),
+                                         cfg)
+    want = jax.eval_shape(lambda: getattr(ref_mod, f"init_{family}")(KEY,
+                                                                     rcfg))
+    flat = {".".join(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    params = dict(got.named_parameters())
+    assert {n: (tuple(p.shape), str(p.dtype)[6:]) for n, p in
+            params.items()} == {n: (leaf.shape, leaf.dtype.name)
+                                for n, leaf in flat.items()}
+    assert all(p.device.type == "cpu" and not p.requires_grad
+               for p in params.values())
+    assert any(float(p.float().abs().max()) > 0 for p in params.values())

@@ -200,3 +200,11 @@ def test_entry_points_device_none_raise_without_cuda(monkeypatch):
         pr.tune_fpga_dynamic(counts, 0.05, DEFAULT_FLEET)
     with pytest.raises(RuntimeError, match="CUDA"):
         pr.FleetScalars.from_fleet(DEFAULT_FLEET)
+
+
+def test_policy_name_lists_equal_reference():
+    """`POLICIES` (registration order) and `PREDICTOR_POLICIES` (the
+    policies that read Alg. 2's statistics), as the reference lists them."""
+    assert pr.POLICIES == rr.POLICIES
+    assert pr.PREDICTOR_POLICIES == rr.PREDICTOR_POLICIES
+    assert set(pr.PREDICTOR_POLICIES) < set(pr.POLICIES)

@@ -421,3 +421,127 @@ def test_serve_and_prefill_steps_match_reference():
     np.testing.assert_allclose(log.numpy(), np.asarray(rlog), rtol=1e-4,
                                atol=1e-4)
     assert cache["length"].tolist() == [1, 1]
+
+
+# ---------------------------------------------------------- launch.train
+
+LAUNCH = ["--arch", "qwen3-0.6b", "--batch", "2", "--seq", "16",
+          "--ckpt-every", "2"]
+
+
+def _labels(ckpt):
+    """Step label -> the manifest's metadata, of every entry in ``ckpt``."""
+    import json
+    return {int(p.name.split("_")[1]):
+            json.loads((p / "manifest.json").read_text())["metadata"]
+            for p in ckpt.glob("step_*")}
+
+
+def _replay(order, ckpt_args=LAUNCH):
+    """An in-process run of the launcher's build and step over the batch
+    order given: its state."""
+    from repro_torch.launch import train
+    _, model, pipe, step_fn = train.build("qwen3-0.6b", "smoke", 16, 2, 6,
+                                          False, 3e-4, device="cpu")
+    state = loop.init_train_state(model, seed=0)
+    for step in order:
+        state, _ = step_fn(state, pipe.batch_at(step))
+    return state
+
+
+def _same_as_entry(state, entry):
+    """Every leaf of ``(state,)`` bitwise the stored one of ``entry``."""
+    from repro_torch.checkpoint.store import _flatten, _host, restore_named
+    arrays, _ = restore_named(entry.parent, entry.name)
+    leaves = [_host(x)[0] for x in _flatten((state,))]
+    assert len(leaves) == len(arrays)
+    for a, b in zip(leaves, arrays):
+        assert a.shape == b.shape and np.array_equal(a, b)
+
+
+def test_launch_train_cli_resumes_as_the_reference_does(tmp_path):
+    """Both CLIs in subprocesses, to --steps 4 and then --steps 6 over the
+    same directory: the same step labels (2, 4, 6) and manifest metadata;
+    the port's last entry bitwise an in-process run of batches 0..3 (the
+    first run) then 4..5 (the resumed one, from the step-4 save)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"),
+           "JAX_PLATFORMS": "cpu"}
+    for pkg, extra in (("repro", []), ("repro_torch", ["--device", "cpu"])):
+        for steps in ("4", "6"):
+            out = subprocess.run(
+                [sys.executable, "-m", f"{pkg}.launch.train", *LAUNCH,
+                 "--steps", steps, "--ckpt-dir", str(tmp_path / pkg),
+                 *extra], capture_output=True, text=True, env=env, cwd=root,
+                timeout=300)
+            assert out.returncode == 0, out.stderr[-3000:]
+        assert "[resume] restored step 4" in out.stdout
+    want = _labels(tmp_path / "repro")
+    assert sorted(want) == [2, 4, 6]
+    assert _labels(tmp_path / "repro_torch") == want
+    assert want[6] == {"step": 6, "arch": "qwen3-0.6b"}
+    _same_as_entry(_replay([0, 1, 2, 3, 4, 5]),
+                   tmp_path / "repro_torch" / "step_6")
+
+
+def _flaky(build_fn, calls, fail_at):
+    """``build_fn`` whose step function records each batch's token sum and
+    raises on call ``fail_at`` (0-based)."""
+    def build(*args, **kwargs):
+        cfg, model, pipe, step_fn = build_fn(*args, **kwargs)
+
+        def step(state, batch):
+            calls.append(int(np.asarray(batch["tokens"]).sum()))
+            if len(calls) == fail_at + 1:
+                raise RuntimeError("injected step failure")
+            return step_fn(state, batch)
+
+        return cfg, model, pipe, step
+
+    return build
+
+
+def test_launch_train_elastic_path_matches_reference(tmp_path, monkeypatch,
+                                                     capsys):
+    """A step function that raises once, at step 3: each driver shrinks the
+    mesh over its visible devices to (1, 1), restores the step-2 save and
+    goes on with step 4 (the for loop does not rewind, so batch 3 is never
+    trained); the same batches in the same order, the same labels and
+    metadata; the port's last entry bitwise an in-process run of batches
+    0, 1, 2, 4, 5."""
+    import sys
+
+    from repro.distributed import sharding as ref_shd
+    from repro.launch import train as ref_train
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    args = [*LAUNCH, "--steps", "6"]
+    ref_calls, calls = [], []
+    monkeypatch.setattr(ref_train, "build", _flaky(ref_train.build,
+                                                   ref_calls, 3))
+    monkeypatch.setattr(train, "build", _flaky(train.build, calls, 3))
+    monkeypatch.setattr(sys, "argv", ["train", *args, "--ckpt-dir",
+                                      str(tmp_path / "repro")])
+    try:
+        ref_train.main()
+        ref_mesh = ref_shd.active_mesh()
+        assert dict(ref_mesh.shape) == {"data": 1, "model": 1}
+        out = train.main([*args, "--ckpt-dir", str(tmp_path / "repro_torch"),
+                          "--device", "cpu"])
+        mesh = sharding.active_mesh()
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert mesh.devices.tolist() == [["cpu"]]
+    finally:
+        ref_shd.clear_mesh()
+        sharding.clear_mesh()
+    printed = capsys.readouterr().out
+    assert printed.count("[elastic] step 3 failed (RuntimeError)") == 2
+    assert out["failed_steps"] == [3]
+    assert calls == ref_calls and len(calls) == 6
+    assert calls[3] != calls[4]                       # batch 3, then 4
+    assert _labels(tmp_path / "repro_torch") == _labels(tmp_path / "repro")
+    _same_as_entry(_replay([0, 1, 2, 4, 5]),
+                   tmp_path / "repro_torch" / "step_6")
