@@ -297,6 +297,25 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                train_resume's batch order on the CPU from the card's
                initial weights: the card's last checkpoint within
                train_vs_cpu's bounds, the step count equal
+  dryrun       python -m repro_torch.launch.dryrun --arch qwen3-0.6b
+               --shape decode_32k --mesh single in a child with no card
+               visible (rank 0's sharded decode step on meta tensors over
+               a fake 256-rank process group): an ok record whose
+               argument bytes equal launch.specs' sum here; meanwhile
+               that rank's compute on the card, qwen3-0.6b at full width
+               and depth in bf16 decoding 8 rows against a 32768-position
+               cache, every row at 32767 valid positions: the step's time
+               (median of 5, once the child has ended), its FLOPs (FlopCounterMode + decode_attn
+               launches x decode_attention_cost) equal to the record's
+               hlo_flops exactly, its peak memory within 10 % + 256 MiB of
+               the record's compute_peak_bytes, the last layer's
+               decode_attn call at (8, 16, 8, 128, 32768) against the
+               plain version (decode_attn_kernel's tolerances) and timed
+               beside SDPA, the record's roofline bounds (the model
+               call's at most 1.05 of the step); the router's service
+               model reads the record. No *_vs_cpu twin: the dry run
+               touches no device, and serve_vs_cpu holds the decode
+               step's numerics
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -419,8 +438,8 @@ scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
 the spork_sim grid, local and on the mesh, the hybrid's router, Fig. 4
 and the SSM's router; arrival's over Table 9, the chaos suite and the fleet suite;
 decode_attn's over serve, serve_hybrid, serve_encdec, serve_vlm,
-serve_moe and serve_mla, with the kernel timed at each of those paths'
-shapes; each also given on its
+serve_moe, serve_mla and dryrun, with the kernel timed at each of those
+paths' shapes; each also given on its
 own;
 relax_forward's and relax_backward's on the tune path), the raw
 nvidia-smi line, and
@@ -714,6 +733,22 @@ RESUME_STEPS = 4
 RESUME_EVERY = 2
 RESUME_TIMEOUT_S = 300
 CUBLAS_DETERMINISTIC = ":4096:8"
+# dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of
+# qwen3-0.6b decode_32k on the (16, 16) mesh in a child with no card
+# visible; the card runs that rank's compute (its 8 of 128 rows against
+# the full 32768-position cache, every row at 32767 valid positions) and
+# holds it to the record: FLOPs exactly, the peak within 10 % + 256 MiB
+# (allocator rounding, cuBLAS's workspace), the model call's roofline
+# bound at most 1.05 of the measured step
+DRYRUN_ARCH = "qwen3-0.6b"
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
+DRYRUN_SEED = 0
+DRYRUN_REPS = 5                  # timed steps after one warm-up
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_PEAK_SLACK = 256 * 2 ** 20
+DRYRUN_MAX_SHARE = 1.05
+DRYRUN_TIMEOUT_S = 300
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -2266,15 +2301,14 @@ def _decode_inputs(shape, seed: int, torch):
 
 
 def _decode_bound(shape, lengths, itemsize: int) -> dict:
-    """Least time for one call: q and out once, the valid K/V prefix of
-    each row once (bytes); the dot products and the weighted sum, a
-    multiply-add per element and query head each, in float32 (ops)."""
-    b, hq, hkv, d, s = shape
-    valid = int(sum(min(max(int(n), 0), s) for n in lengths))
-    nbytes = 2 * b * hq * d * itemsize + 4 * b + 2 * valid * hkv * d * itemsize
-    flops = 4 * valid * hq * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+    """Least time for one call: its bytes and FLOPs as
+    `decode_attention_cost` counts them (the dry run's count too), the
+    bytes at the memory rate and the FLOPs at the float32 rate."""
+    from repro_torch.kernels.decode_attn.ops import decode_attention_cost
+    cost = decode_attention_cost(shape, lengths, itemsize)
+    t_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = cost["flops"] / FP32_FLOPS * 1e3
+    return {**cost, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -4863,6 +4897,207 @@ def phase_train_resume_vs_cpu(resume: dict, torch) -> dict:
     return out
 
 
+def phase_dryrun(torch) -> dict:
+    """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
+    qwen3-0.6b decode_32k on the (16, 16) mesh, in a child with no card
+    visible (the fake process group must not meet the NCCL group of the
+    distributed phase), while the card runs the untimed part of (b); its
+    argument bytes are `launch.specs`' sum, computed here. (b) That
+    rank's compute on the card: qwen3-0.6b at full width and depth in
+    bf16, seeded, decoding 8 rows against a 32768-position cache with
+    every row at 32767 valid positions (what the sharded step hands
+    `Model.decode_step`): one step's time (CUDA events, the median of 5
+    after a warm-up, taken once the child has ended), its peak
+    memory with the inputs resident, FlopCounterMode's count plus the
+    decode_attn launches x `decode_attention_cost`'s FLOPs, which must
+    equal the record's hlo_flops exactly (the sharded step counts no
+    FLOPs outside the model call: remainder 0); the peak within 10 % +
+    256 MiB of the record's compute_peak_bytes; the last layer's
+    decode_attn call against the plain version and timed beside SDPA;
+    the step's roofline bounds, the model call's at most 1.05 of the
+    measured step. (c) The router's service model reads the record."""
+    import os
+    import statistics
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_production_mesh)
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serve import router
+    out_dir = tempfile.TemporaryDirectory()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out",
+         out_dir.name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        spec = get_config(DRYRUN_ARCH, "full")
+        s = 32768
+        base = torch.cuda.memory_allocated()
+        model = Model(spec, CARD).init(DRYRUN_SEED)
+        cache = model.init_cache(DRYRUN_ROWS, s)
+        g = torch.Generator(device=CARD)
+        g.manual_seed(DRYRUN_SEED)
+        for leaf in cache["kv"].values():
+            leaf.normal_(generator=g)
+        tokens = torch.randint(0, spec.vocab_size, (DRYRUN_ROWS, 1),
+                               generator=g, device=CARD, dtype=torch.int32)
+
+        def step():
+            cache["length"].fill_(s - 1)
+            return model.decode_step(tokens, cache)
+
+        ops.decode_attention.launches = 0
+        kept, by_len, restore = _decode_capture(attn_mod, 1)
+        try:
+            step()                                   # warm-up
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = FlopCounterMode(display=False)
+        before = ops.decode_attention.launches
+        with counter:
+            logits = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        step_launches = ops.decode_attention.launches - before
+        check(bool(torch.isfinite(logits[:, :spec.vocab_size]).all()),
+              "dryrun: the card's step gave non-finite logits")
+        attn_cost = ops.decode_attention_cost(
+            (DRYRUN_ROWS, spec.n_heads, spec.n_kv_heads, spec.d_head, s),
+            [s] * DRYRUN_ROWS, 2)
+        card_flops = int(counter.get_total_flops()) + \
+            step_launches * attn_cost["flops"]
+        del logits
+        # the CPU child ends before anything is timed: the step is
+        # host-bound, and a loaded host would slow it
+        stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0, f"dryrun: the CLI exited "
+                                     f"{child.returncode}: {stderr[-2000:]}")
+        times = []
+        for _ in range(DRYRUN_REPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            cache["length"].fill_(s - 1)
+            torch.cuda.synchronize()
+            start.record()
+            model.decode_step(tokens, cache)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        launches = ops.decode_attention.launches
+        call = kept[-1]
+        q, k, v, lengths = call
+        got = ops.decode_attention(q, k, v, lengths)
+        want = decode_attention_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        tol = DECODE_TOL[SERVE_DTYPE]
+        top = float(want.float().abs().max())
+        worst = float(err.max())
+        check(float((err - tol * want.float().abs()).max()) <= tol,
+              f"dryrun: decode_attn differs from the plain version by "
+              f"{worst}")
+        lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
+        check(worst <= lim, f"dryrun: decode_attn error {worst} over {lim}")
+        timing = _decode_timing(call, launches, torch)
+        del got, want, err
+        del kept, call, q, k, v, lengths
+        del model, cache, tokens
+        torch.cuda.empty_cache()
+        _, args = specs.cell_lowerable(DRYRUN_ARCH, DRYRUN_SHAPE,
+                                       make_production_mesh())
+        sharding.clear_mesh()
+        sharding.set_fsdp(False)
+        arg_bytes = specs.argument_bytes(args)
+        rec = json.loads((Path(out_dir.name) /
+                          f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__single.json"
+                          ).read_text())
+        served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
+        roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        out_dir.cleanup()
+    ms = statistics.median(times)
+    step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["hlo_bytes"] / HBM_BW) * 1e3
+    call_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["compute_bytes"] / HBM_BW) * 1e3
+    peak_lim = DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"] + \
+        DRYRUN_PEAK_SLACK
+    out = {"phase": "dryrun", "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE,
+           "mesh": "single", "record": {k: rec[k] for k in rec
+                                        if k != "collectives"},
+           "collectives": rec["collectives"], "child_wall_s": child_s,
+           "child_stdout": stdout.strip().splitlines()[-1:],
+           "argument_bytes_here": arg_bytes,
+           "rows": DRYRUN_ROWS, "max_len": s, "valid": s - 1,
+           "step_ms": ms, "step_ms_all": times,
+           "card_peak_bytes": peak, "peak_gap_bytes":
+               peak - rec["compute_peak_bytes"], "peak_tolerance": peak_lim,
+           "card_flops": card_flops,
+           "flop_counter_flops": int(counter.get_total_flops()),
+           "decode_attn_cost": attn_cost,
+           "step_decode_attn_launches": step_launches,
+           "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
+           "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
+           "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
+                             >= rec["hlo_flops"] / PEAK_FLOPS_BF16
+                             else "operations"),
+           "decode_attn": timing, "max_abs_err": worst,
+           "max_abs_want": top, "decode_attn_launches": launches,
+           "decode_attn_by_length": by_len,
+           "router": {"token_s_accel": served.token_s_accel,
+                      "roofline_token_latency": roofline,
+                      "analytic_token_latency":
+                          router.analytic_token_latency(DRYRUN_ARCH)},
+           "timing": "step_ms: CUDA events around Model.decode_step, the "
+                     "median of 5 after a warm-up, once the CPU child has "
+                     "ended; step_bound_ms: the record's hlo_flops and "
+                     "hlo_bytes (the sharded step, its gathers and "
+                     "write-back included); call_bound_ms: its hlo_flops "
+                     "(the step's FLOPs are all the model call's) and "
+                     "compute_bytes (the model call this card runs); "
+                     "decode_attn: as serve_* phases"}
+    emit(out)
+    check(rec["ok"] is True, "dryrun: the record is not ok")
+    check(rec["argument_size_in_bytes"] == arg_bytes,
+          f"dryrun: argument bytes {rec['argument_size_in_bytes']} against "
+          f"launch.specs' {arg_bytes}")
+    check(rec["decode_attention_calls"] == step_launches == spec.n_layers,
+          f"dryrun: {step_launches} decode_attn launches a step, the record "
+          f"{rec['decode_attention_calls']}")
+    check(launches == (DRYRUN_REPS + 2) * spec.n_layers,
+          f"dryrun: {launches} decode_attn launches on the path")
+    check(card_flops == rec["hlo_flops"],
+          f"dryrun: card FLOPs {card_flops} against the record's "
+          f"{rec['hlo_flops']}")
+    check(abs(peak - rec["compute_peak_bytes"]) <= peak_lim,
+          f"dryrun: card peak {peak} B against the record's "
+          f"{rec['compute_peak_bytes']} B (tolerance {peak_lim})")
+    check(call_bound / ms <= DRYRUN_MAX_SHARE,
+          f"dryrun: bound share {call_bound / ms} over {DRYRUN_MAX_SHARE}")
+    check(roofline is not None and served.token_s_accel == roofline ==
+          max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+              rec["hlo_bytes"] / HBM_BW) / 128,
+          "dryrun: the router did not read the record")
+    return out
+
+
 def _fig4_cells():
     """benchmarks/fig4_spork_vs_mark.py's grid at BENCH_FAST=0."""
     from repro_torch.core.workers import DEFAULT_FLEET
@@ -5926,6 +6161,7 @@ def main() -> int:
     phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
     phase_train_resume_vs_cpu(resume, torch)
     del dist_run, resume
+    dryrun = phase_dryrun(torch)
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)
@@ -5979,7 +6215,8 @@ def main() -> int:
         "serve_encdec": encdec["out"]["engine"]["decode_attn_launches"],
         "serve_vlm": vlm["out"]["engine"]["decode_attn_launches"],
         "serve_moe": moe["out"]["engine"]["decode_attn_launches"],
-        "serve_mla": mla["out"]["engine"]["decode_attn_launches"]}
+        "serve_mla": mla["out"]["engine"]["decode_attn_launches"],
+        "dryrun": dryrun["decode_attn_launches"]}
     path_shapes = {"serve_hybrid_shape": hybrid["out"]["decode_attn"],
                    "serve_encdec_self_shape":
                        encdec["out"]["decode_attn"]["self"],
@@ -5987,7 +6224,8 @@ def main() -> int:
                        encdec["out"]["decode_attn"]["cross"],
                    "serve_vlm_shape": vlm["out"]["decode_attn"],
                    "serve_moe_shape": moe["out"]["decode_attn"],
-                   "serve_mla_shape": mla["out"]["decode_attn"]}
+                   "serve_mla_shape": mla["out"]["decode_attn"],
+                   "dryrun_shape": dryrun["decode_attn"]}
     relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
                       "relax_backward":
                           tune_run["out"]["relax_backward_launches"]}

@@ -276,6 +276,17 @@ def batch_pspec(shape: tuple[int, ...], seq_axis_fallback: bool = True
     return (None,) * len(shape)
 
 
+def cache_batch_dim(leafname: str, ndim: int) -> int:
+    """The batch dim of a decode-cache leaf, by its name: ``length`` (B,),
+    ``conv`` / ``tail_conv`` (..., B, W, C), ``h`` / ``tail_h`` (..., B,
+    W), every other leaf (L, B, ...)."""
+    if leafname in ("conv", "tail_conv"):
+        return ndim - 3
+    if leafname in ("h", "tail_h"):
+        return ndim - 2
+    return 0 if leafname == "length" else 1
+
+
 def cache_shardings(cache: dict, mesh=None):
     """Decode-cache shardings, nested as ``cache`` (a dict of tensors or
     anything with a ``shape``), as the reference lays them out: KV-like
@@ -295,21 +306,19 @@ def cache_shardings(cache: dict, mesh=None):
                 return True
             return False
 
+        batch = cache_batch_dim(leafname, len(shape))
         if leafname in ("k", "v", "ckv", "kpe", "mem_k", "mem_v") \
                 and len(shape) >= 4:
-            assign(1, data) or assign(2, data)      # batch, else sequence
+            assign(batch, data) or assign(2, data)  # batch, else sequence
             if len(shape) >= 5:
                 assign(3, "model") or assign(2, "model")
             else:
                 assign(2, "model")
         elif leafname == "ssm" and len(shape) >= 4:  # (L, B, H, P, N)
-            assign(1, data)
+            assign(batch, data)
             assign(2, "model")
-        elif leafname in ("conv", "tail_conv"):     # (..., B, W, C)
-            assign(len(shape) - 3, data)
-            assign(len(shape) - 1, "model")
-        elif leafname in ("h", "tail_h"):           # (..., B, W)
-            assign(len(shape) - 2, data)
+        elif leafname in ("conv", "tail_conv", "h", "tail_h"):
+            assign(batch, data)
             assign(len(shape) - 1, "model")
         return tuple(s)
 

@@ -1,3 +1,3 @@
 """GQA flash-decode attention kernel (CUDA); see ``csrc/decode_attn.cu``."""
 
-from .ops import decode_attention  # noqa: F401
+from .ops import decode_attention, decode_attention_cost  # noqa: F401

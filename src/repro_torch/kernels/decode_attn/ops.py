@@ -10,6 +10,12 @@ raises. ``decode_attention.launches`` counts the calls that launched and
 nothing else. A call whose cache is longer than one block's chunk of
 positions (`chunk_positions`, 1024) issues two CUDA kernels, the
 split-sequence pass and the combine, and counts once.
+
+A meta tensor (the dry run, `repro_torch.launch.dryrun`) computes
+nothing: the call returns an empty output of the kernel's shape and type
+on the meta device and adds its `decode_attention_cost` to
+``decode_attention.meta`` (calls, flops, bytes), every row counted full,
+since lengths have no values there.
 """
 
 from __future__ import annotations
@@ -52,6 +58,20 @@ def chunk_positions() -> int:
     return fn()
 
 
+def decode_attention_cost(shape, lengths, itemsize: int) -> dict:
+    """FLOPs and bytes of one call at ``shape`` (B, Hq, Hkv, D, S) with
+    ``lengths`` (B valid lengths, each clipped to [0, S]) in a type of
+    ``itemsize`` bytes: q and the output once, the lengths (int32), and
+    the valid K/V prefix of each row once (bytes); a multiply-add per
+    valid element and query head for the scores and again for the
+    weighted sum (flops)."""
+    b, hq, hkv, d, s = shape
+    valid = int(sum(min(max(int(n), 0), s) for n in lengths))
+    return {"flops": 4 * valid * hq * d,
+            "bytes": (2 * b * hq * d * itemsize + 4 * b
+                      + 2 * valid * hkv * d * itemsize)}
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid cache
@@ -59,6 +79,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths)
+    if q.device.type == "meta":
+        b, hq, d = q.shape
+        _, s, hkv, _ = k.shape
+        cost = decode_attention_cost((b, hq, hkv, d, s), [s] * b,
+                                     q.element_size())
+        meta = decode_attention.meta
+        meta["calls"] += 1
+        meta["flops"] += cost["flops"]
+        meta["bytes"] += cost["bytes"]
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -108,3 +138,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+decode_attention.meta = {"calls": 0, "flops": 0, "bytes": 0}

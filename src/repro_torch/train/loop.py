@@ -12,7 +12,21 @@ step and full-sequence forward.
 
 `make_sharded_train_step` is the twin of the reference's SPMD step (its
 jitted `make_train_step` over parameters placed by `param_shardings` and
-a batch split over 'data'), on a `DeviceMesh` with DTensor state.
+a batch split over 'data'), on a `DeviceMesh` with DTensor state;
+`make_sharded_prefill_step` and `make_sharded_serve_step` are the twins
+of its jitted `make_prefill_step` and `make_serve_step` under the
+shardings of `repro_torch.launch.specs` (the production dry run's).
+
+The three sharded steps work alike: each parameter DTensor is gathered
+to a full tensor and written into the model's own parameter; the batch's
+rows are split over the data axes, pod-major (a batch entry may be a
+plain global tensor, the same on every rank, or a DTensor); the model's
+unchanged `Model.loss`, `Model.forward` or `Model.decode_step` runs on
+plain tensors; the 'model' ranks compute redundantly. This shards
+storage, not compute: XLA splits the matmuls over 'model' and the decode
+attention over a sequence-sharded cache (a partial softmax and an
+all-reduce), where the port gathers; tensor-parallel compute is left for
+later.
 """
 
 from __future__ import annotations
@@ -24,7 +38,8 @@ import torch
 
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
-from repro_torch.distributed.sharding import param_shardings
+from repro_torch.distributed.sharding import (cache_batch_dim,
+                                              param_shardings)
 from repro_torch.models.model import Model
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_schedule)
@@ -141,14 +156,53 @@ def _data_rank(mesh) -> tuple[int, int, list]:
     return idx, n, [mesh.get_group(ax) for ax in axes]
 
 
+def _rows_layout(mesh, dim: int, whole: bool) -> list:
+    """Placements that split a tensor's dim ``dim`` over the data axes
+    (pod-major), or replicate it when ``whole``, and replicate it over
+    every other axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(dim) if name in ("pod", "data") and not whole
+            else Replicate() for name in mesh.mesh_dim_names]
+
+
+def _local_rows(v, mesh, idx: int, rows: int, whole: bool) -> torch.Tensor:
+    """This rank's rows of a batch-leading tensor: a plain global tensor
+    is sliced, a DTensor redistributed to rows over the data axes; with
+    ``whole`` every row."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(v, DTensor):
+        return v.redistribute(mesh, _rows_layout(mesh, 0, whole)
+                              ).to_local()
+    return v if whole else v[idx * rows:(idx + 1) * rows]
+
+
+def _placed_rows(local: torch.Tensor, mesh, n_rows: int, whole: bool):
+    """A DTensor of ``n_rows`` global rows from this rank's ``local``
+    rows (split over the data axes, or every row when ``whole``)."""
+    from torch.distributed.tensor import DTensor
+    shape = (n_rows, *local.shape[1:])
+    return DTensor.from_local(local, mesh,
+                              _rows_layout(mesh, 0, whole),
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _load_params(params: dict[str, torch.Tensor], placed: dict) -> None:
+    """Gather each DTensor of ``placed`` into the model's own parameter."""
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(placed[name].full_tensor())
+
+
 def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
                             warmup: int = 100, total_steps: int = 10_000,
                             clip_norm: float = 1.0):
     """Returns train_step(state, batch) -> (state, metrics) over a state
     from `init_sharded_train_state` on ``mesh`` (a `DeviceMesh` over the
     default process group, with a 'data' axis and optionally 'pod' and
-    'model'). Every rank passes the same global ``batch``, whose rows the
-    data axes must divide (ValueError otherwise: no row is dropped);
+    'model'). Every rank passes the same global ``batch`` (its entries
+    plain tensors, or DTensors), whose rows the data axes must divide
+    (ValueError otherwise: no row is dropped);
     metrics as `make_train_step`'s with ``accum_steps`` 1, averaged over
     'data'. The layouts are `param_shardings`' under the active
     `set_fsdp` mode.
@@ -198,11 +252,9 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
         if n_rows % n_data:
             raise ValueError(f"make_sharded_train_step: a batch of {n_rows} "
                              f"rows on {n_data} data ranks")
-        rows = n_rows // n_data
-        with torch.no_grad():
-            for name, p in params.items():
-                p.copy_(state.params[name].full_tensor())
-        local = {k: v[idx * rows:(idx + 1) * rows] for k, v in batch.items()}
+        _load_params(params, state.params)
+        local = {k: _local_rows(v, mesh, idx, n_rows // n_data, False)
+                 for k, v in batch.items()}
         loss, metrics = model.loss(local)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
@@ -261,5 +313,87 @@ def make_prefill_step(model: Model):
         logits, _ = model.forward(batch["tokens"],
                                   frontend=batch.get("frontend"))
         return logits[:, -1]
+
+    return prefill_step
+
+
+def make_sharded_serve_step(model: Model, mesh):
+    """Returns serve_step(params, cache, tokens (B, 1)) -> (cache,
+    logits), the twin of the reference's jitted `make_serve_step` on
+    ``mesh`` (a `DeviceMesh` with a 'data' axis and optionally 'pod' and
+    'model'): ``params`` DTensors by name (`param_shardings`' layout),
+    ``cache`` a nested dict of DTensors (`cache_shardings`' layout),
+    ``tokens`` a DTensor or a plain global tensor. ``logits`` is a (B,
+    padded vocab) float32 DTensor, rows over the data axes.
+
+    One step: the parameters are gathered into the model (see the module
+    docstring); each cache leaf is redistributed to this rank's rows
+    (its shard over 'model', and over the data axes where the cache puts
+    them on the sequence, gathered); the model's unchanged `decode_step`
+    updates those rows in place; each leaf's updated rows are
+    redistributed back to the cache's layout and written into its local
+    shard, so the cache is updated in place. Where the data axes do not
+    divide the rows (batch 1), every data rank computes every row, as
+    the reference's batch spec falls back to replication."""
+    from torch.distributed.tensor import DTensor
+    idx, n_data, _ = _data_rank(mesh)
+    params = dict(model.named_parameters())
+
+    def walk(tree, fn, *others):
+        """``fn(name, leaf, *the others' leaves)`` over a nested dict."""
+        return {k: walk(v, fn, *(o[k] for o in others))
+                if isinstance(v, dict) else fn(k, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+
+    @torch.no_grad()
+    def serve_step(placed: dict, cache: dict, tokens):
+        n_rows = tokens.shape[0]
+        whole = n_rows % n_data != 0
+        _load_params(params, placed)
+        tok = _local_rows(tokens, mesh, idx, n_rows // n_data, whole)
+
+        def layout(name, leaf):
+            return _rows_layout(mesh, cache_batch_dim(name, leaf.dim()),
+                                whole)
+
+        local = walk(cache, lambda name, leaf: leaf.redistribute(
+            mesh, layout(name, leaf)).to_local())
+        logits = model.decode_step(tok, local)
+
+        def write_back(name, leaf, rows):
+            new = DTensor.from_local(rows, mesh, layout(name, leaf),
+                                     shape=leaf.shape, stride=leaf.stride())
+            new = new.redistribute(mesh, leaf.placements).to_local()
+            if new is not leaf.to_local():
+                leaf.to_local().copy_(new)
+
+        walk(cache, write_back, local)
+        return cache, _placed_rows(logits, mesh, n_rows, whole)
+
+    return serve_step
+
+
+def make_sharded_prefill_step(model: Model, mesh):
+    """Returns prefill_step(params, batch) -> the last position's logits
+    (B, padded vocab) float32 as a DTensor, rows over the data axes: the
+    twin of the reference's jitted `make_prefill_step` on ``mesh``, with
+    ``params`` as `make_sharded_serve_step`'s and ``batch`` holding
+    ``tokens`` (B, S) and, for encdec and vlm, ``frontend``, each a
+    DTensor or a plain global tensor. The model's unchanged `forward`
+    runs on this rank's rows (every row where the data axes do not
+    divide them)."""
+    idx, n_data, _ = _data_rank(mesh)
+    params = dict(model.named_parameters())
+
+    @torch.no_grad()
+    def prefill_step(placed: dict, batch: dict):
+        n_rows = batch["tokens"].shape[0]
+        whole = n_rows % n_data != 0
+        _load_params(params, placed)
+        local = {k: _local_rows(v, mesh, idx, n_rows // n_data, whole)
+                 for k, v in batch.items()}
+        logits, _ = model.forward(local["tokens"],
+                                  frontend=local.get("frontend"))
+        return _placed_rows(logits[:, -1].contiguous(), mesh, n_rows, whole)
 
     return prefill_step

@@ -177,11 +177,16 @@ def test_head_dims_cover_every_decoding_config(variant):
 
 
 def test_cuda_wrapper_rejects_other_devices():
-    q = torch.zeros(1, 2, 64, device="meta")
+    """A tensor on neither the CPU, the card nor the meta device (the dry
+    run's: tests/test_torch_dryrun.py) is refused. Only its device is
+    read, so a stand-in on "mps" serves where no such device exists."""
+    class OnMps:
+        device = torch.device("mps")
+
     k = torch.zeros(1, 8, 2, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.decode_attention(q, k, k, torch.zeros(1, dtype=torch.int32,
-                                                  device="meta"))
+        ops.decode_attention(OnMps(), k, k, torch.zeros(1, dtype=torch.int32,
+                                                        device="meta"))
 
 
 def test_cuda_kernel_matches_plain_version():

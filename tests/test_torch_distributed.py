@@ -1,7 +1,8 @@
 """Port distribution substrate (`repro_torch.distributed`: sharding
-rules, collectives, pipeline; `repro_torch.train.loop.
-make_sharded_train_step`) vs the reference `repro.distributed` and the
-one-process train step, on the CPU.
+rules, collectives, pipeline; `repro_torch.train.loop`'s sharded train,
+prefill and serve steps) vs the reference `repro.distributed`, the
+one-process steps and the reference's jitted prefill and serve steps, on
+the CPU.
 
 The rules are pure functions of path, shape and axis sizes: the port's
 specs on a `MeshSpec` equal the reference's on an `AbstractMesh` exactly,
@@ -10,11 +11,15 @@ and so do their fallback logs. The collectives, the pipeline and the
 sharded step run on gloo process groups of 4 and 8 CPU ranks
 (`torch_dist_workers`, spawned once per group); tolerances are the
 reference tests': the two-hop sum rtol 1e-6 of a flat all_reduce, the
-pipeline rtol and atol 2e-5 of the sequential stages, the sharded step
-test_torch_train.py's bounds against the one-process step.
+pipeline rtol and atol 2e-5 of the sequential stages, the sharded train
+step test_torch_train.py's bounds against the one-process step, the
+sharded prefill and serve steps test_torch_serve.py's (1e-5) against the
+one-process steps and against the reference's on weights carried across
+by `interop.model_params`.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -26,6 +31,8 @@ from repro.configs import list_archs
 from repro.distributed import pipeline as ref_pipeline
 from repro.distributed import sharding as ref_shd
 from repro.models import build_model as ref_build
+from repro.train import loop as ref_loop
+from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.distributed import pipeline, sharding
 from repro_torch.models import Model
@@ -395,3 +402,116 @@ def test_sharded_train_step_refuses_a_batch_the_data_axes_do_not_divide(
     collective, instead of training on 4 rows and dropping 2."""
     assert sharded8["refused"] == ("make_sharded_train_step: a batch of 6 "
                                    "rows on 4 data ranks")
+
+
+# ------------------------------ (g) the sharded prefill and serve steps
+
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)     # tests/test_torch_serve.py's
+SERVE_ROWS = [workers.SERVE["batch"], workers.SERVE["odd_batch"]]
+
+
+@pytest.fixture(scope="module")
+def serve_weights(tmp_path_factory):
+    """The reference's qwen3 smoke model in float32 with weights drawn
+    from SERVE's seed, and the directory whose weights.pt holds them as
+    the port's state dict (`interop.model_params`)."""
+    rm = ref_build(ref_config(workers.SERVE["arch"], "smoke")
+                   .replace(dtype=jnp.float32))
+    params = rm.init(jax.random.PRNGKey(workers.SERVE["seed"]))
+    out = tmp_path_factory.mktemp("serve4")
+    cfg = get_config(workers.SERVE["arch"], "smoke").replace(
+        dtype=torch.float32)
+    torch.save(interop.model_params(jax.tree.map(np.asarray, params), cfg,
+                                    "cpu"), out / "weights.pt")
+    return rm, params, out
+
+
+@pytest.fixture(scope="module")
+def sharded_serve4(serve_weights):
+    """One 4-rank (data 2, model 2) gloo group runs the sharded prefill
+    and serve steps; rank 0's results by batch rows."""
+    out = serve_weights[2]
+    workers.spawn(workers.sharded_serve_worker, 4, str(out))
+    return torch.load(out / "serve.pt", weights_only=False)
+
+
+def _one_process(weights, rows):
+    """The one-process prefill logits, each decode step's logits and the
+    cache after them, on the same weights and tokens."""
+    model = workers.serve_model(weights)
+    tokens = workers.serve_tokens(rows)
+    prefill = loop.make_prefill_step(model)({"tokens": tokens})
+    cache = model.init_cache(rows, workers.SERVE["max_len"])
+    step = loop.make_serve_step(model)
+    logits = []
+    for t in range(workers.SERVE["steps"]):
+        cache, out = step(cache, tokens[:, t:t + 1])
+        logits.append(out)
+    return prefill, logits, cache
+
+
+def _reference(rm, params, rows):
+    """The reference's jitted `make_prefill_step` and `make_serve_step`
+    on the same weights and tokens: the prefill logits, each decode
+    step's logits and the cache after them (as the port's tensors)."""
+    tokens = jnp.asarray(workers.serve_tokens(rows).numpy())
+    prefill = jax.jit(ref_loop.make_prefill_step(rm))(params,
+                                                      {"tokens": tokens})
+    step = jax.jit(ref_loop.make_serve_step(rm))
+    cache = rm.init_cache(rows, workers.SERVE["max_len"])
+    logits = []
+    for t in range(workers.SERVE["steps"]):
+        cache, out = step(params, cache, tokens[:, t:t + 1])
+        logits.append(torch.from_numpy(np.array(out)))
+    return (torch.from_numpy(np.array(prefill)), logits,
+            interop.model_cache(jax.tree.map(np.asarray, cache), "cpu"))
+
+
+def _assert_cache(got, want, path=""):
+    assert set(got) == set(want), path
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _assert_cache(got[k], w, f"{path}{k}/")
+        else:
+            assert got[k].dtype == w.dtype and got[k].shape == w.shape
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(),
+                                       err_msg=path + k, **SERVE_TOL)
+
+
+def _assert_steps(got, prefill, logits, cache):
+    np.testing.assert_allclose(got["prefill"].numpy(), prefill.numpy(),
+                               **SERVE_TOL)
+    assert len(got["logits"]) == len(logits) == workers.SERVE["steps"]
+    for g, w in zip(got["logits"], logits):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **SERVE_TOL)
+    _assert_cache(got["cache"], cache)
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+def test_sharded_prefill_and_serve_steps_equal_one_process(
+        serve_weights, sharded_serve4, rows):
+    """qwen3-0.6b smoke, float32, on 4 gloo ranks as (data 2, model 2):
+    the prefill's last logits, both decode steps' logits and every cache
+    leaf reassembled from its shards equal the one-process
+    `make_prefill_step` / `make_serve_step` within test_torch_serve.py's
+    bounds. 4 rows split over 'data' (the K/V heads over 'model'); 3 rows
+    do not divide it, so every data rank computes all 3 and the cache
+    puts its sequence over 'data'."""
+    got = sharded_serve4[rows]
+    _assert_steps(got, *_one_process(serve_weights[2] / "weights.pt", rows))
+    want = (["S(1)", "S(3)"] if rows == workers.SERVE["batch"]
+            else ["S(2)", "S(3)"])
+    assert got["placements"]["kv"]["k"] == want
+    assert got["placements"]["length"] == ["R", "R"]
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+def test_sharded_prefill_and_serve_steps_equal_reference(
+        serve_weights, sharded_serve4, rows):
+    """The same 4-rank run against the reference's jitted prefill and
+    serve steps on the same weights and tokens: the gathered prefill
+    logits, each decode step's logits and every cache leaf reassembled
+    from its shards, within test_torch_serve.py's bounds."""
+    rm, params, _ = serve_weights
+    _assert_steps(sharded_serve4[rows], *_reference(rm, params, rows))

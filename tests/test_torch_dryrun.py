@@ -1,0 +1,290 @@
+"""The port's production-mesh dry run (`repro_torch.launch.dryrun`) on the
+CPU: rank 0's step of a cell on meta tensors over a fake process group
+of 256 or 512 ranks.
+
+Each cell runs in a subprocess through the CLI at ``--layers 2`` (as
+tests/test_distributed.py runs its fabricated-device bodies), a few at a
+time: one ``decode_32k`` single-mesh cell per family, qwen3-0.6b's
+``train_4k`` and ``prefill_32k``, dbrx-132b's ``decode_32k`` on the
+multi-pod mesh and mamba2-2.7b's ``long_500k``. Every record must be
+``ok`` with the keys the module docstring lists, and its argument bytes
+exactly `launch.specs`' sum; qwen3-0.6b's decode FLOPs a closed form,
+its train step's collectives those its layouts imply; the census is
+exact on a hand-built DTensor program; the router reads a record the
+CLI wrote; `decode_attention` on meta returns the kernel's output shape
+and counts its cost, which is the call's own FLOPs and bytes and the
+one chip_smoke.py's bound reads.
+"""
+
+import importlib.util
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import SHAPES, get_config
+from repro_torch.distributed import sharding
+from repro_torch.kernels.decode_attn import (decode_attention,
+                                             decode_attention_cost)
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                     make_production_mesh)
+from repro_torch.models import Model
+from repro_torch.serve import router
+
+ROOT = Path(__file__).resolve().parent.parent
+LAYERS = 2
+# (arch, shape, mesh) and the record's decode_attention calls at 2 layers
+CELLS = {
+    ("qwen3-0.6b", "decode_32k", "single"): 2,
+    ("recurrentgemma-2b", "decode_32k", "single"): 1,   # 3 layers, 1 attn
+    ("whisper-base", "decode_32k", "single"): 4,        # self + cross
+    ("internvl2-76b", "decode_32k", "single"): 2,
+    ("deepseek-v3-671b", "decode_32k", "single"): 1,    # MLA launches none
+    ("mamba2-2.7b", "decode_32k", "single"): 0,
+    ("qwen3-0.6b", "train_4k", "single"): 0,
+    ("qwen3-0.6b", "prefill_32k", "single"): 0,
+    ("dbrx-132b", "decode_32k", "multi"): 2,
+    ("mamba2-2.7b", "long_500k", "single"): 0,
+}
+KEYS = {"ok", "arch", "shape", "mesh", "devices", "n_layers_override",
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes", "device_bytes_total", "compute_peak_bytes",
+        "compute_bytes", "hlo_flops", "hlo_bytes",
+        "collectives", "trace_s", "total_s", "decode_attention_calls",
+        "rank_rows"}
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def _env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
+    return env
+
+
+def _run_cell(out: Path, cell) -> dict:
+    arch, shape, mesh = cell
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--layers", str(LAYERS),
+         "--out", str(out)],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=300)
+    assert proc.returncode == 0, (cell, proc.stdout[-2000:],
+                                  proc.stderr[-3000:])
+    return json.loads((out / f"{arch}__{shape}__{mesh}__L{LAYERS}.json"
+                       ).read_text())
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda c: _run_cell(out, c), CELLS))
+    return dict(zip(CELLS, got)), out
+
+
+def _mesh(kind: str):
+    return make_production_mesh(multi_pod=kind == "multi")
+
+
+@pytest.mark.parametrize("cell", list(CELLS), ids=["-".join(c) for c in CELLS])
+def test_record_is_ok_with_its_keys_and_argument_bytes(records, cell):
+    rec = records[0][cell]
+    arch, shape, mesh = cell
+    assert rec["ok"] is True and set(rec) == KEYS
+    assert (rec["arch"], rec["shape"], rec["mesh"]) == cell
+    assert rec["devices"] == (512 if mesh == "multi" else 256)
+    assert rec["n_layers_override"] == LAYERS
+    _, args = specs.cell_lowerable(arch, shape, _mesh(mesh), LAYERS)
+    sharding.clear_mesh()
+    sharding.set_fsdp(False)
+    assert rec["argument_size_in_bytes"] == specs.argument_bytes(args)
+    assert rec["device_bytes_total"] == (rec["argument_size_in_bytes"]
+                                         + rec["temp_size_in_bytes"])
+    assert rec["output_size_in_bytes"] > 0 and rec["temp_size_in_bytes"] > 0
+    assert 0 < rec["compute_bytes"] <= rec["hlo_bytes"]
+    assert 0 < rec["compute_peak_bytes"] <= rec["device_bytes_total"]
+    assert rec["decode_attention_calls"] == CELLS[cell]
+    b = SHAPES[shape]["global_batch"]
+    n_data = 32 if mesh == "multi" else 16
+    assert rec["rank_rows"] == (b // n_data if b % n_data == 0 else b)
+    census = rec["collectives"]
+    assert census["total_bytes"] == sum(census[k]["bytes"]
+                                        for k in COLLECTIVES)
+
+
+def test_qwen3_decode_flops_are_the_closed_form(records):
+    """2 x rows x the matmul parameters (attention and MLP projections of
+    each layer, and the tied unembedding over the padded vocabulary),
+    plus the attention: 4 x rows x S x Hq x D a layer, every row full."""
+    rec = records[0][("qwen3-0.6b", "decode_32k", "single")]
+    cfg = get_config("qwen3-0.6b", "full")
+    d, hq, hkv, dh, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.d_head, cfg.d_ff)
+    rows, s = 128 // 16, SHAPES["decode_32k"]["seq_len"]
+    per_layer = d * hq * dh + 2 * d * hkv * dh + hq * dh * d + 3 * d * ff
+    matmul = LAYERS * per_layer + cfg.padded_vocab * d
+    want = 2 * rows * matmul + LAYERS * 4 * rows * s * hq * dh
+    assert rec["hlo_flops"] == want
+
+
+def test_train_collectives_follow_the_layouts(records):
+    """One all-gather per sharded mesh dim of each parameter (gathered for
+    the model), one per mesh dim the ZeRO layout shards and the
+    parameter layout does not (the update redistributed back); one
+    all-reduce per gradient over 'data', one for the global norm and one
+    for each of loss, ce and aux."""
+    rec = records[0][("qwen3-0.6b", "train_4k", "single")]
+    cfg = specs._reduce_layers(get_config("qwen3-0.6b", "full"), LAYERS)
+    mesh = _mesh("single")
+    model = Model(cfg, "meta")
+    p_sh = sharding.param_shardings(model, mesh)
+    z_sh = sharding.param_shardings(model, mesh, zero=True)
+    sharding.FALLBACK_LOG.clear()
+    gathers = sum(pl.is_shard() for sh in p_sh.values()
+                  for pl in sh.placements)
+    gathers += sum(z.is_shard() and not p.is_shard()
+                   for n in p_sh for z, p in zip(z_sh[n].placements,
+                                                 p_sh[n].placements))
+    census = rec["collectives"]
+    assert census["all-gather"]["count"] == gathers
+    assert census["all-reduce"]["count"] == len(p_sh) + 1 + 3
+    for kind in ("reduce-scatter", "all-to-all", "collective-permute"):
+        assert census[kind] == {"count": 0, "bytes": 0}
+
+
+def test_decode_records_show_the_cache_gather(records):
+    """qwen3-0.6b's cache puts the sequence over 'model' (8 KV heads on
+    16): each step gathers the rank's rows of k and v, L x 8 x 32768 x 8
+    x 128 bf16 each, and gathers the lengths back over 'data'."""
+    rec = records[0][("qwen3-0.6b", "decode_32k", "single")]
+    cache = LAYERS * 8 * 32768 * 8 * 128 * 2
+    gathered = rec["collectives"]["all-gather"]["bytes"]
+    assert gathered >= 2 * cache
+    assert rec["temp_size_in_bytes"] >= 2 * cache
+
+
+def test_collective_census_on_a_dtensor_program():
+    """A (64, 64) float32 meta DTensor, Shard(0) over 'model' of the
+    (16, 16) mesh, gathered whole: one all-gather of 64 x 64 x 4 bytes
+    out, nothing else."""
+    script = textwrap.dedent("""
+        import json, torch
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_production_mesh
+        dryrun._fake_group(256)
+        mesh = sharding.device_mesh(make_production_mesh(), "cpu")
+        x = DTensor.from_local(torch.empty(4, 64, device="meta"), mesh,
+                               [Replicate(), Shard(0)],
+                               shape=torch.Size((64, 64)), stride=(64, 1))
+        counter = dryrun.OpCounter()
+        with counter:
+            y = x.full_tensor()
+        assert tuple(y.shape) == (64, 64) and y.device.type == "meta"
+        print(json.dumps(dryrun.collective_census(counter.collectives)))
+        torch.distributed.destroy_process_group()
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, cwd=ROOT, env=_env(), timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    census = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert census["all-gather"] == {"count": 1, "bytes": 64 * 64 * 4}
+    for kind in COLLECTIVES[1:]:
+        assert census[kind] == {"count": 0, "bytes": 0}
+    assert census["total_bytes"] == 64 * 64 * 4
+
+
+def test_router_reads_a_record_the_cli_wrote(records, tmp_path):
+    """`roofline_token_latency` reads `{arch}__decode_32k__single.json`:
+    max(flops / PEAK, bytes / HBM) / 128 from the record."""
+    recs, out = records
+    rec = recs[("qwen3-0.6b", "decode_32k", "single")]
+    shutil.copy(out / f"qwen3-0.6b__decode_32k__single__L{LAYERS}.json",
+                tmp_path / "qwen3-0.6b__decode_32k__single.json")
+    want = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+               rec["hlo_bytes"] / HBM_BW) / 128
+    assert router.roofline_token_latency("qwen3-0.6b", tmp_path) == want
+    model = router.service_model("qwen3-0.6b", dryrun_dir=tmp_path)
+    assert model.token_s_accel == want != router.analytic_token_latency(
+        "qwen3-0.6b")
+
+
+def test_decode_attention_on_meta_counts_its_cost():
+    """The meta branch returns an empty (B, Hq, D) output in q's type on
+    the meta device, launches nothing and adds the cost of a call with
+    every row full; that cost, over the card's memory rate, is the bound
+    chip_smoke.py printed for this shape."""
+    shape = (8, 16, 8, 128, 32768)
+    b, hq, hkv, d, s = shape
+    q = torch.empty(b, hq, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, hkv, d, dtype=torch.bfloat16, device="meta")
+    lengths = torch.empty(b, dtype=torch.int32, device="meta")
+    before = dict(decode_attention.meta)
+    launches = decode_attention.launches
+    out = decode_attention(q, k, k, lengths)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.device.type == "meta"
+    assert decode_attention.launches == launches
+    cost = decode_attention_cost(shape, [s] * b, 2)
+    assert {key: decode_attention.meta[key] - before[key]
+            for key in before} == {"calls": 1, **cost}
+    assert math.isclose(cost["bytes"] / HBM_BW * 1e3, 0.32053951999999997,
+                        rel_tol=1e-12)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it runs nothing on import)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 16, 24), (3, 8, 1, 8, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cost_is_the_calls_own(shape, dtype):
+    """With every row full, the cost's FLOPs are FlopCounterMode's count
+    of the plain version on the CPU (its two batched products) and its
+    bytes those of q, k, v, the lengths and the output, each once. A
+    ragged call costs what its rows cost as full calls of their own
+    lengths (clipped to [0, S]). chip_smoke.py's bound takes its bytes
+    and FLOPs from the cost."""
+    from torch.utils.flop_counter import FlopCounterMode
+    b, hq, hkv, d, s = shape
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(b, hq, d, generator=g).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=g).to(dtype)
+            for _ in range(2))
+    lengths = torch.full((b,), s, dtype=torch.int32)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = decode_attention(q, k, v, lengths)
+    size = dtype.itemsize
+    assert decode_attention_cost(shape, [s] * b, size) == {
+        "flops": counter.get_total_flops(),
+        "bytes": sum(t.numel() * t.element_size()
+                     for t in (q, k, v, lengths, out))}
+    lens = [0, s + 5, 7][:b] + [s // 2] * max(0, b - 3)
+    rows = [decode_attention_cost((1, hq, hkv, d, min(max(n, 0), s)),
+                                  [min(max(n, 0), s)], size) for n in lens]
+    assert decode_attention_cost(shape, lens, size) == {
+        key: sum(r[key] for r in rows) for key in ("flops", "bytes")}
+    chip = _chip_smoke()
+    bound = chip._decode_bound(shape, lens, size)
+    cost = decode_attention_cost(shape, lens, size)
+    assert {key: bound[key] for key in cost} == cost
+    assert bound["bound_ms"] == max(cost["bytes"] / chip.HBM_BYTES_PER_S,
+                                    cost["flops"] / chip.FP32_FLOPS) * 1e3

@@ -73,6 +73,16 @@ def ref_spec(spec: ScenarioSpec):
            else RefFailureSpec(**dataclasses.asdict(f))})
 
 
+@pytest.fixture(autouse=True)
+def _forget_reference_batches():
+    """The reference's `realize` keeps each realized batch for the life of
+    the process; one left from here would turn the reference's own
+    cache-miss test (tests/test_workloads.py) into a hit whenever both
+    files run in one process, so each test here empties it after."""
+    yield
+    ref_scenarios.realize.cache_clear()
+
+
 @pytest.fixture
 def reference_realize(monkeypatch):
     """The port's resolvers realize through the REFERENCE's `realize`:

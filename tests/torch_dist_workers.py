@@ -166,3 +166,91 @@ def sharded_train_worker(rank: int, world: int, init: str, out_dir: str,
                    os.path.join(out_dir, "train.pt"))
     sharding.clear_mesh()
     dist.destroy_process_group()
+
+
+SERVE = dict(arch="qwen3-0.6b", seed=5, batch=4, odd_batch=3, prompt=6,
+             max_len=16, steps=2)
+
+
+def serve_model(weights: str):
+    """The sharded serving test's model: SERVE's arch at smoke width,
+    float32, on the CPU, its state dict read from ``weights`` (the
+    reference's weights carried across by the test)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(SERVE["arch"], "smoke").replace(dtype=torch.float32)
+    model = Model(cfg, "cpu")
+    model.load_state_dict(torch.load(weights))
+    return model
+
+
+def serve_tokens(rows: int) -> torch.Tensor:
+    """(rows, prompt) int32 tokens from numpy, seeded by SERVE and rows."""
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(SERVE["seed"] + rows)
+    vocab = get_config(SERVE["arch"], "smoke").vocab_size
+    return torch.from_numpy(rng.integers(0, vocab, (rows, SERVE["prompt"])
+                                         ).astype(np.int32))
+
+
+def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str):
+    """make_sharded_prefill_step and make_sharded_serve_step on a (data 2,
+    model 2) mesh: for SERVE's batch (rows over 'data') and its odd batch
+    (3 rows: computed whole on every data rank, the cache's sequence
+    over 'data'), the prefill's last logits (plain global tokens), then
+    SERVE's decode steps from a fresh cache in `cache_shardings`' layout
+    (the tokens as DTensors in `batch_pspec`'s layout); rank 0 writes
+    each step's logits and every cache leaf reassembled, with the
+    leaves' placements. The weights are ``out_dir``'s weights.pt."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.train.loop import (make_sharded_prefill_step,
+                                        make_sharded_serve_step)
+    _init(rank, world, init)
+    mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), (2, 2)),
+                                "cpu")
+    sharding.set_mesh(mesh)
+    model = serve_model(os.path.join(out_dir, "weights.pt"))
+    p_sh = sharding.param_shardings(model, mesh)
+    params = {n: distribute_tensor(p.detach().clone(), mesh,
+                                   p_sh[n].placements, src_data_rank=None)
+              for n, p in model.named_parameters()}
+    prefill = make_sharded_prefill_step(model, mesh)
+    serve = make_sharded_serve_step(model, mesh)
+
+    def placed(tree, shardings):
+        return {k: placed(v, shardings[k]) if isinstance(v, dict) else
+                distribute_tensor(v, mesh, shardings[k].placements,
+                                  src_data_rank=None)
+                for k, v in tree.items()}
+
+    def full(tree):
+        return {k: full(v) if isinstance(v, dict) else v.full_tensor()
+                for k, v in tree.items()}
+
+    def census(tree):
+        return {k: census(v) if isinstance(v, dict) else
+                [str(p) for p in v.placements] for k, v in tree.items()}
+
+    out = {}
+    for rows in (SERVE["batch"], SERVE["odd_batch"]):
+        tokens = serve_tokens(rows)
+        res = {"prefill": prefill(params, {"tokens": tokens}).full_tensor()}
+        cache = model.init_cache(rows, SERVE["max_len"])
+        cache = placed(cache, sharding.cache_shardings(cache, mesh))
+        res["placements"] = census(cache)
+        res["logits"] = []
+        for t in range(SERVE["steps"]):
+            tok = tokens[:, t:t + 1]
+            tok = distribute_tensor(tok, mesh, sharding.placements(
+                sharding.batch_pspec(tuple(tok.shape)), mesh),
+                src_data_rank=None)
+            cache, logits = serve(params, cache, tok)
+            res["logits"].append(logits.full_tensor())
+        res["cache"] = full(cache)
+        out[rows] = res
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "serve.pt"))
+    sharding.clear_mesh()
+    dist.destroy_process_group()
