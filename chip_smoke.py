@@ -122,10 +122,17 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                max|want|, with ragged lengths (0, 1, S, above S, and the
                kernel's chunk and one past it where S spans several
                chunks, then random) and full rows; rows of length 0 exactly
-               0; kernel, plain-version and SDPA (enable_gqa, boolean
+               0; the log-sum-exp output (return_lse) against the plain
+               version's at (8, 16, 8, 128, 2048), (4, 4, 2, 16, 128) and
+               (8, 16, 8, 128, 1024), both types, ragged and full (-inf
+               exactly on empty rows, the output unchanged), and the S =
+               32768 cache cut into 16 pieces of 2048, combined by
+               tensor_parallel.combine, against the unsplit call;
+               kernel, plain-version and SDPA (enable_gqa, boolean
                length mask) times beside the byte bound and its share at
-               the serve shape (length 160), S = 4096, S = 32768 and D =
-               256 at S = 2048
+               the tensor-parallel shard (8, 16, 8, 128, 2048) with the
+               log-sum-exp, the serve shape (length 160), S = 4096, S =
+               32768 and D = 256 at S = 2048
   serve        SporkRouter("qwen3-0.6b") on the card with launch/serve.py's
                defaults (10 minutes, rate 40, burstiness 0.65, energy):
                report, and one spork_predict launch per allocator tick;
@@ -277,8 +284,15 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                line's "equality" says which); the placements census and
                FALLBACK_LOG's entries; hierarchical_psum and
                ring_all_gather against the identity and pipeline_forward
-               against the one stage, bitwise; no decode_attn launch; no
-               multi-card number (one card)
+               against the one stage, bitwise; no decode_attn launch in
+               training; then the tensor-parallel make_sharded_serve_step
+               on that mesh (4 rows, 8 steps of a 64-position cache) in
+               two K/V layouts, the KV heads over 'model' and the
+               sequence over 'model' (the log-sum-exp combine and its
+               NCCL all-reduces), each against Model.decode_step: logits
+               and K/V within 1e-3 of their largest, lengths equal (the
+               line says whether bitwise), 32 decode_attn launches each;
+               no multi-card number (one card)
   train_resume python -m repro_torch.launch.train --variant full, float32,
                2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
                --deterministic with CUBLAS_WORKSPACE_CONFIG=:4096:8, as a
@@ -301,19 +315,23 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                --shape decode_32k --mesh single in a child with no card
                visible (rank 0's sharded decode step on meta tensors over
                a fake 256-rank process group): an ok record whose
-               argument bytes equal launch.specs' sum here; meanwhile
-               that rank's compute on the card, qwen3-0.6b at full width
-               and depth in bf16 decoding 8 rows against a 32768-position
-               cache, every row at 32767 valid positions: the step's time
-               (median of 5, once the child has ended), its FLOPs (FlopCounterMode + decode_attn
-               launches x decode_attention_cost) equal to the record's
-               hlo_flops exactly, its peak memory within 10 % + 256 MiB of
-               the record's compute_peak_bytes, the last layer's
-               decode_attn call at (8, 16, 8, 128, 32768) against the
-               plain version (decode_attn_kernel's tolerances) and timed
-               beside SDPA, the record's roofline bounds (the model
-               call's at most 1.05 of the step); the router's service
-               model reads the record. No *_vs_cpu twin: the dry run
+               argument bytes equal launch.specs' sum here and its
+               all-gathers below 32 MiB; meanwhile that rank's
+               tensor-parallel make_sharded_serve_step on the card over
+               a fake 256-rank group (its collectives move nothing),
+               qwen3-0.6b at full width and depth in bf16, the record's
+               arguments made real: 8 rows x 2048 of the 32768
+               positions, every row at 32767 valid positions: the step's
+               time (median of 5, once the child has ended), its FLOPs
+               (FlopCounterMode + decode_attn launches x
+               decode_attention_cost) equal to the record's hlo_flops
+               exactly, its peak memory within 10 % + 256 MiB of the
+               record's compute_peak_bytes, the last layer's decode_attn
+               call at (8, 16, 8, 128, 2048) (a seeded q) against the
+               plain version with its log-sum-exp (decode_attn_kernel's
+               tolerances) and timed beside SDPA, the record's roofline
+               bounds (the model call's at most 1.05 of the step); the
+               router's service model reads the record. No *_vs_cpu twin: the dry run
                touches no device, and serve_vs_cpu holds the decode
                step's numerics
   relax_kernel the relax kernels (forward and reverse of the gradient
@@ -438,8 +456,8 @@ scenario, chaos and fleet suites, the fleet oracle with TenantRouter,
 the spork_sim grid, local and on the mesh, the hybrid's router, Fig. 4
 and the SSM's router; arrival's over Table 9, the chaos suite and the fleet suite;
 decode_attn's over serve, serve_hybrid, serve_encdec, serve_vlm,
-serve_moe, serve_mla and dryrun, with the kernel timed at each of those
-paths' shapes; each also given on its
+serve_moe, serve_mla, distributed and dryrun, with the kernel timed at
+each of those paths' shapes but distributed's; each also given on its
 own;
 relax_forward's and relax_backward's on the tune path), the raw
 nvidia-smi line, and
@@ -546,6 +564,18 @@ DECODE_SHAPES = ((2, 8, 8, 64, 256), (2, 16, 8, 64, 300), (1, 10, 1, 128, 512),
                  DECODE_LONG, DECODE_D256, (6, 10, 1, 256, 5000),
                  (6, 8, 8, 56, 1500))
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+# rank 0's shard of qwen3-0.6b decode_32k's cache on the (16, 16) mesh: 8
+# of 128 rows, 2048 of 32768 positions (8 KV heads do not divide 16); the
+# kernel's log-sum-exp output is checked there and at two one-chunk
+# shapes, and DECODE_LONG's cache cut into DECODE_SHARDS pieces is
+# combined by it against the unsplit call
+DECODE_SHARD = (8, 16, 8, 128, 2048)
+DECODE_LSE_SHAPES = (DECODE_SHARD, DECODE_SMOKE, DECODE_MAIN)
+# the log-sum-exp is float32 from float32 scores in both types: held at
+# tests/test_torch_decode_attn.py's 2e-5 (absolute plus relative), not at
+# DECODE_TOL's bf16 output bound
+DECODE_LSE_TOL = 2e-5
+DECODE_SHARDS = 16
 DECODE_BF16_STEPS = 4            # bf16 also within 4 x 2^-8 x max|want|
 # serve: qwen3-0.6b at full width in bf16, 8 requests of 128 prompt tokens
 # and 64 new tokens each, in 8 slots of 1024 positions
@@ -721,6 +751,12 @@ TRAIN_VS_CPU_SHARE = 1e-3
 # the sharded steps on a one-rank gloo mesh on the CPU
 DIST_MESH = (1, 1)
 DIST_STEPS = 2
+# and the tensor-parallel make_sharded_serve_step on that mesh against
+# Model.decode_step, with the K/V heads and then the K/V sequence over
+# 'model': DIST_SERVE_STEPS tokens on DIST_SERVE_ROWS rows of a
+# VS_CPU_MAX_LEN cache, serve_vs_cpu's bounds
+DIST_SERVE_ROWS = 4
+DIST_SERVE_STEPS = 8
 # train_resume: python -m repro_torch.launch.train at full width, float32,
 # cut to RESUME_LAYERS layers (a checkpoint is then ~2.3 GB, the
 # embedding most of it), RESUME_STEPS steps saving every RESUME_EVERY,
@@ -735,11 +771,13 @@ RESUME_TIMEOUT_S = 300
 CUBLAS_DETERMINISTIC = ":4096:8"
 # dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of
 # qwen3-0.6b decode_32k on the (16, 16) mesh in a child with no card
-# visible; the card runs that rank's compute (its 8 of 128 rows against
-# the full 32768-position cache, every row at 32767 valid positions) and
-# holds it to the record: FLOPs exactly, the peak within 10 % + 256 MiB
-# (allocator rounding, cuBLAS's workspace), the model call's roofline
-# bound at most 1.05 of the measured step
+# visible; the card runs that rank's tensor-parallel step (its 8 of 128
+# rows, its 2048 of the 32768 positions, every row at 32767 valid
+# positions) over a fake 256-rank group and holds it to the record: FLOPs
+# exactly, the peak within 10 % + 256 MiB (allocator rounding, cuBLAS's
+# workspace), the model call's roofline bound at most 1.05 of the
+# measured step; the record's all-gathers below 32 MiB (the gathering
+# step moved 31257131520 B, its cache rows)
 DRYRUN_ARCH = "qwen3-0.6b"
 DRYRUN_SHAPE = "decode_32k"
 DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
@@ -749,6 +787,7 @@ DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PEAK_SLACK = 256 * 2 ** 20
 DRYRUN_MAX_SHARE = 1.05
 DRYRUN_TIMEOUT_S = 300
+DRYRUN_MAX_GATHER = 32 * 2 ** 20
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -2312,6 +2351,109 @@ def _decode_bound(shape, lengths, itemsize: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _decode_lse_checks(chunk: int, torch):
+    """The kernel's log-sum-exp output (``return_lse``) against the plain
+    version's at DECODE_LSE_SHAPES in both types, ragged and full
+    lengths: within DECODE_LSE_TOL (absolute plus the same relative part),
+    -inf exactly on the rows of length 0 and finite elsewhere, and the
+    output bitwise the call's without it. Returns the cases and the
+    largest error by type."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    cases, worst = [], {}
+    for shape in DECODE_LSE_SHAPES:
+        b, hq, hkv, d, s = shape
+        data = _decode_inputs(shape, sum(shape) + 1, torch)
+        for name in DECODE_TOL:
+            tol = DECODE_LSE_TOL
+            q, k, v = (x.to(getattr(torch, name)) for x in data)
+            for lcase, lens in _decode_lengths(b, s, s + b + 1,
+                                               chunk).items():
+                lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                out, lse = ops.decode_attention(q, k, v, lengths,
+                                                return_lse=True)
+                _, want = decode_attention_ref(q, k, v, lengths,
+                                               return_lse=True)
+                same = torch.equal(out, ops.decode_attention(q, k, v,
+                                                             lengths))
+                torch.cuda.synchronize()
+                empty = torch.tensor(lens == 0, device="cuda")
+                ends = (bool(torch.isneginf(lse[empty]).all())
+                        and bool(torch.isfinite(lse[~empty]).all()))
+                err = (lse[~empty] - want[~empty]).abs()
+                over = float((err - tol * want[~empty].abs()).max())
+                top = float(err.max())
+                worst[name] = max(worst.get(name, 0.0), top)
+                cases.append({"shape": list(shape), "dtype": name,
+                              "lengths": lcase, "chunks": -(-s // chunk),
+                              "max_abs_err": top, "empty_rows":
+                                  int(empty.sum()),
+                              "empty_rows_neg_inf": ends,
+                              "output_unchanged": same})
+                check(over <= tol, f"decode_attn lse {shape} {name} "
+                                   f"{lcase}: error {top} over {tol} + "
+                                   f"{tol}|want|")
+                check(ends, f"decode_attn lse {shape} {name} {lcase}: not "
+                            f"-inf exactly on the empty rows")
+                check(same, f"decode_attn {shape} {name} {lcase}: the "
+                            f"output changed with return_lse")
+            del q, k, v
+        del data
+    return cases, worst
+
+
+def _decode_shard_checks(chunk: int, torch) -> list[dict]:
+    """DECODE_LONG's cache cut into DECODE_SHARDS pieces of 2048
+    positions, each piece through the kernel with ``return_lse`` at its
+    local lengths (clip(length - offset, 0, 2048)), combined by
+    `tensor_parallel.combine` as the tensor-parallel step combines its
+    ranks' (`reduce_pieces` here: one process holds every piece),
+    against the unsplit kernel call: within DECODE_TOL (bf16 also
+    within DECODE_BF16_STEPS x 2^-8 x max|want|), rows of length 0
+    exactly 0."""
+    from repro_torch.distributed.tensor_parallel import combine, reduce_pieces
+    from repro_torch.kernels.decode_attn import ops
+    b, hq, hkv, d, s = DECODE_LONG
+    size = s // DECODE_SHARDS
+    data = _decode_inputs(DECODE_LONG, 5, torch)
+    cases = []
+    for name, tol in DECODE_TOL.items():
+        q, k, v = (x.to(getattr(torch, name)) for x in data)
+        for lcase, lens in _decode_lengths(b, s, s + 3, chunk).items():
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            want = ops.decode_attention(q, k, v, lengths).float()
+            parts = [ops.decode_attention(
+                q, k[:, a:a + size], v[:, a:a + size],
+                (lengths - a).clamp(0, size), return_lse=True)
+                for a in range(0, s, size)]
+            got = combine(torch.stack([o for o, _ in parts]),
+                          torch.stack([lse for _, lse in parts]),
+                          reduce_pieces)[0]
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            over = float((err - tol * want.abs()).max())
+            worst, top = float(err.max()), float(want.abs().max())
+            zero = torch.tensor(lens == 0, device="cuda")
+            zeros_exact = bool((got[zero] == 0).all())
+            cases.append({"shape": list(DECODE_LONG), "dtype": name,
+                          "lengths": lcase, "pieces": DECODE_SHARDS,
+                          "max_abs_err": worst, "max_abs_want": top,
+                          "zero_rows_exact": zeros_exact})
+            check(over <= tol, f"decode_attn {DECODE_SHARDS} pieces {name} "
+                               f"{lcase}: combined error {worst} against "
+                               f"the unsplit call")
+            if name == "bfloat16":
+                lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
+                check(worst <= lim, f"decode_attn {DECODE_SHARDS} pieces "
+                                    f"{name} {lcase}: error {worst} over "
+                                    f"{lim}")
+            check(zeros_exact, f"decode_attn {DECODE_SHARDS} pieces {name}: "
+                               f"a row of length 0 is not exactly 0")
+            del parts, got, want, err
+        del q, k, v
+    return cases
+
+
 def phase_decode_attn_kernel(torch) -> dict:
     import numpy as np
     from repro_torch.kernels.decode_attn import ops
@@ -2358,8 +2500,12 @@ def phase_decode_attn_kernel(torch) -> dict:
                                    f"length 0 is not exactly 0")
             del q, k, v
         del data
+    lse_cases, lse_err = _decode_lse_checks(chunk, torch)
+    shard_cases = _decode_shard_checks(chunk, torch)
     timed = {}
     for label, shape, lens in (
+            ("shard", DECODE_SHARD, np.full(DECODE_SHARD[0],
+                                            DECODE_SHARD[-1])),
             ("main", DECODE_MAIN, np.full(DECODE_MAIN[0], SERVE_MEAN_LENGTH)),
             ("s4096", DECODE_MID, np.full(DECODE_MID[0], DECODE_MID[-1])),
             ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1])),
@@ -2371,20 +2517,19 @@ def phase_decode_attn_kernel(torch) -> dict:
         qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
+        lse = label == "shard"            # as the tensor-parallel step
         timed[label] = {
             "shape": list(shape), "dtype": SERVE_DTYPE,
-            "lengths": int(lens[0]),
-            "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths), 50,
-                           torch),
-            "plain_ms": graph_ms(lambda: decode_attention_ref(q, k, v,
-                                                              lengths),
-                                 5, torch),
+            "lengths": int(lens[0]), "return_lse": lse,
+            "ms": graph_ms(lambda: ops.decode_attention(
+                q, k, v, lengths, return_lse=lse), 50, torch),
+            "plain_ms": graph_ms(lambda: decode_attention_ref(
+                q, k, v, lengths, return_lse=lse), 5, torch),
             # one library call on the same inputs: GQA, boolean length mask
             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
-            "eager_ms": cuda_ms(lambda: ops.decode_attention(q, k, v,
-                                                             lengths),
-                                50, torch),
+            "eager_ms": cuda_ms(lambda: ops.decode_attention(
+                q, k, v, lengths, return_lse=lse), 50, torch),
             **_decode_bound(shape, lens, q.element_size())}
         t = timed[label]
         t["bound_share"] = t["bound_ms"] / t["ms"]
@@ -2393,6 +2538,9 @@ def phase_decode_attn_kernel(torch) -> dict:
     out = {"phase": "decode_attn_kernel", "cases": cases,
            "max_abs_err": max(max_err.values()),
            "max_abs_err_by_dtype": max_err, "tolerance": DECODE_TOL,
+           "lse_cases": lse_cases, "lse_max_abs_err": lse_err,
+           "lse_tolerance": DECODE_LSE_TOL,
+           "shard_combine": shard_cases,
            "bf16_scaled_tolerance": f"{DECODE_BF16_STEPS} x 2^-8 x max|want| "
                                     f"+ 1e-6",
            "timed": timed, **{key: timed["main"][key] for key in
@@ -2402,10 +2550,13 @@ def phase_decode_attn_kernel(torch) -> dict:
            "timing": "ms, plain_ms, library_ms: CUDA-graph replay (device "
                      "time per call); eager_ms: CUDA events over 50 eager "
                      "calls; bound_share: bound_ms / ms; vs_library: "
-                     "library_ms / ms; main: the serve phase's shape at its "
-                     "mean decode length; s4096, long: S = 4096, 32768, "
-                     "every row full; d256: recurrentgemma-2b's attention "
-                     "at its full 2048-position window"}
+                     "library_ms / ms; shard: rank 0's shard of the "
+                     "dryrun cell's cache, every position valid, with the "
+                     "log-sum-exp output as the tensor-parallel step asks "
+                     "(plain_ms likewise); main: the serve phase's shape at "
+                     "its mean decode length; s4096, long: S = 4096, "
+                     "32768, every row full; d256: recurrentgemma-2b's "
+                     "attention at its full 2048-position window"}
     emit(out)
     return out
 
@@ -3106,17 +3257,18 @@ def phase_tune_vs_cpu(tune_run: dict) -> dict:
 
 def _decode_capture(attn_mod, n_calls: int):
     """Wrap the attention module's `decode_attention` so the arguments of
-    the last ``n_calls`` calls are kept (the path's own tensors) and the
-    calls are tallied by cache length S; returns (the list they go to,
-    the tally {S: calls}, a function that restores the module)."""
+    the last ``n_calls`` calls are kept (the path's own tensors; a
+    tensor-parallel step's ``return_lse`` is passed on, not kept) and
+    the calls are tallied by cache length S; returns (the list they go
+    to, the tally {S: calls}, a function that restores the module)."""
     kept, by_len = [], {}
     fn = attn_mod.decode_attention
 
-    def recorder(q, k, v, lengths):
+    def recorder(q, k, v, lengths, **kw):
         kept.append((q, k, v, lengths))
         del kept[:-n_calls]
         by_len[k.shape[1]] = by_len.get(k.shape[1], 0) + 1
-        return fn(q, k, v, lengths)
+        return fn(q, k, v, lengths, **kw)
 
     attn_mod.decode_attention = recorder
 
@@ -3145,11 +3297,13 @@ def _check_calls(kept, tag: str, torch) -> list[float]:
     return errs
 
 
-def _decode_timing(call, launches: int, torch) -> dict:
+def _decode_timing(call, launches: int, torch,
+                   return_lse: bool = False) -> dict:
     """One decode_attn call of a path on its own tensors: the kernel, the
     plain version and SDPA (GQA, boolean length mask) timed by CUDA-graph
     replay beside the bound and its share; loss_s = launches x (ms -
-    bound)."""
+    bound). ``return_lse`` as the path calls the kernel (the
+    tensor-parallel step over a sequence-sharded cache)."""
     from repro_torch.kernels.decode_attn import ops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     F = torch.nn.functional
@@ -3162,11 +3316,11 @@ def _decode_timing(call, launches: int, torch) -> dict:
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     out = {"shape": [b, hq, hkv, d, s],
            "dtype": str(q.dtype).removeprefix("torch."),
-           "lengths": lens.tolist(),
-           "ms": graph_ms(lambda: ops.decode_attention(q, k, v, lengths),
-                          50, torch),
+           "lengths": lens.tolist(), "return_lse": return_lse,
+           "ms": graph_ms(lambda: ops.decode_attention(
+               q, k, v, lengths, return_lse=return_lse), 50, torch),
            "plain_ms": graph_ms(lambda: decode_attention_ref(
-               q, k, v, lengths), 5, torch),
+               q, k, v, lengths, return_lse=return_lse), 5, torch),
            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, torch),
            **_decode_bound((b, hq, hkv, d, s), lens, q.element_size())}
@@ -4543,6 +4697,98 @@ def _dist_lr_sum() -> float:
     return sum(float(lr_fn(s)) for s in range(DIST_STEPS))
 
 
+def _distributed_serve(mesh, init: dict, cfg, torch) -> dict:
+    """The tensor-parallel `make_sharded_serve_step` on the one-rank mesh
+    (parameters placed by param_shardings; every parameter the fan-out
+    rule splits, the norm scales among them, goes through its shard's
+    path) against the plain `Model.decode_step` on the same weights and
+    tokens, in two cache layouts: cache_shardings' ("kv_heads": the KV
+    heads over 'model') and the K/V sequence over 'model' ("sequence":
+    Shard(2), the production mesh's layout for 8 KV heads on 16 ranks,
+    so each attention takes the kernel's log-sum-exp, `combine` and its
+    NCCL all-reduces of the max and the sum). Each layout runs
+    DIST_SERVE_STEPS steps of DIST_SERVE_ROWS rows: each step's logits
+    within serve_vs_cpu's bound (VS_CPU_RTOL x the step's max |logit|)
+    and the cache's K/V within the same of their largest; decode_attn's
+    launches in the sharded steps alone."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import Model
+    from repro_torch.train.loop import make_sharded_serve_step
+    model = Model(cfg, CARD)
+    model.load_state_dict(init)
+    p_sh = sharding.param_shardings(model, mesh)
+    params = {n: distribute_tensor(p.detach(), mesh, p_sh[n].placements,
+                                   src_data_rank=None)
+              for n, p in model.named_parameters()}
+    gen = torch.Generator(device=CARD).manual_seed(SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (DIST_SERVE_ROWS, DIST_SERVE_STEPS), generator=gen,
+                           device=CARD, dtype=torch.int32)
+    c_sh = sharding.cache_shardings(
+        model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN), mesh)
+    m_dim = mesh.mesh_dim_names.index("model")
+
+    def kv_layout(kind):
+        """The K/V placements: cache_shardings', or with 'model' on the
+        sequence."""
+        pl = list(c_sh["kv"]["k"].placements)
+        if kind == "sequence":
+            pl[m_dim] = Shard(2)
+        return pl
+
+    step = make_sharded_serve_step(model, mesh)
+    runs = {}
+    for kind in ("kv_heads", "sequence"):
+        cache = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
+        sharded = {"length": distribute_tensor(
+                       cache["length"], mesh, c_sh["length"].placements,
+                       src_data_rank=None),
+                   "kv": {k: distribute_tensor(v, mesh, kv_layout(kind),
+                                               src_data_rank=None)
+                          for k, v in cache["kv"].items()}}
+        ops.decode_attention.launches = 0
+        got = []
+        for t in range(DIST_SERVE_STEPS):
+            sharded, logits = step(params, sharded, tokens[:, t:t + 1])
+            got.append(logits.to_local())
+        torch.cuda.synchronize()
+        runs[kind] = (sharded, got, ops.decode_attention.launches)
+        del cache
+    plain = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
+    want = [model.decode_step(tokens[:, t:t + 1], plain)
+            for t in range(DIST_SERVE_STEPS)]
+    layouts = {}
+    for kind, (sharded, got, launches) in runs.items():
+        gaps = [float((g - w).abs().max()) / float(w.abs().max())
+                for g, w in zip(got, want)]
+        kv_gap = max(float((sharded["kv"][k].full_tensor() - plain["kv"][k]
+                            ).abs().max()) / float(plain["kv"][k].abs().max())
+                     for k in ("k", "v"))
+        lengths = bool(torch.equal(sharded["length"].full_tensor(),
+                                   plain["length"]))
+        layouts[kind] = {
+            "kv_placements": [str(pl) for pl in
+                              sharded["kv"]["k"].placements],
+            "logit_gap_rel": gaps, "kv_gap_rel": kv_gap,
+            "lengths_equal": lengths,
+            "bitwise": max(gaps) == 0.0 == kv_gap,
+            "decode_attn_launches": launches}
+        check(max(gaps) <= VS_CPU_RTOL and kv_gap <= VS_CPU_RTOL and lengths,
+              f"distributed: the tensor-parallel serve step ({kind}) "
+              f"against decode_step: {layouts[kind]}")
+        check(launches == DIST_SERVE_STEPS * cfg.n_layers,
+              f"distributed: {launches} decode_attn launches in the "
+              f"tensor-parallel serve steps ({kind})")
+    return {"rows": DIST_SERVE_ROWS, "steps": DIST_SERVE_STEPS,
+            "max_len": VS_CPU_MAX_LEN, "layouts": layouts,
+            "tolerance_rel": VS_CPU_RTOL,
+            "decode_attn_launches": sum(r["decode_attn_launches"]
+                                        for r in layouts.values())}
+
+
 def phase_distributed(torch) -> dict:
     """The distributed layer on the card: a one-rank NCCL process group
     and a DIST_MESH DeviceMesh on cuda; qwen3-0.6b at full width in
@@ -4624,6 +4870,7 @@ def phase_distributed(torch) -> dict:
             "pipeline_forward_sequential": torch.equal(
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
+        serve = _distributed_serve(mesh, init, cfg, torch)
         out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
                "n_layers": TRAIN_VS_CPU_LAYERS, "mesh": list(DIST_MESH),
                "mesh_dim_names": ["data", "model"], "backend": "nccl",
@@ -4637,7 +4884,7 @@ def phase_distributed(torch) -> dict:
                "loss_gap_rel": loss_gap, "worst": worst,
                "leaves_out_of_bounds": bad, "census": census,
                "collectives": collectives,
-               "decode_attn_launches": launches,
+               "decode_attn_launches": launches, "serve": serve,
                "multi_card": "not measured: one card"}
         emit(out)
         check(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL and not bad),
@@ -4897,38 +5144,69 @@ def phase_train_resume_vs_cpu(resume: dict, torch) -> dict:
     return out
 
 
+def _card_args(args, mesh, gen, torch):
+    """The dry run's step arguments (meta DTensors of rank 0's shards)
+    as DTensors of the same layouts on ``mesh`` whose shards lie on the
+    card: floating shards drawn from ``gen`` (standard normal, the
+    parameters scaled by 0.02), integer ones zero."""
+    from torch.distributed.tensor import DTensor
+
+    def real(leaf, scale):
+        local = leaf.to_local()
+        t = torch.zeros(local.shape, dtype=local.dtype, device=CARD)
+        if t.is_floating_point():
+            t.normal_(generator=gen).mul_(scale)
+        return DTensor.from_local(t, mesh, leaf.placements, shape=leaf.shape,
+                                  stride=leaf.stride())
+
+    def walk(tree, scale):
+        return ({k: walk(v, scale) for k, v in tree.items()}
+                if isinstance(tree, dict) else real(tree, scale))
+
+    params, cache, tokens = args
+    return walk(params, 0.02), walk(cache, 1.0), real(tokens, 1.0)
+
+
 def phase_dryrun(torch) -> dict:
     """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
     qwen3-0.6b decode_32k on the (16, 16) mesh, in a child with no card
-    visible (the fake process group must not meet the NCCL group of the
-    distributed phase), while the card runs the untimed part of (b); its
-    argument bytes are `launch.specs`' sum, computed here. (b) That
-    rank's compute on the card: qwen3-0.6b at full width and depth in
-    bf16, seeded, decoding 8 rows against a 32768-position cache with
-    every row at 32767 valid positions (what the sharded step hands
-    `Model.decode_step`): one step's time (CUDA events, the median of 5
-    after a warm-up, taken once the child has ended), its peak
-    memory with the inputs resident, FlopCounterMode's count plus the
-    decode_attn launches x `decode_attention_cost`'s FLOPs, which must
-    equal the record's hlo_flops exactly (the sharded step counts no
-    FLOPs outside the model call: remainder 0); the peak within 10 % +
-    256 MiB of the record's compute_peak_bytes; the last layer's
-    decode_attn call against the plain version and timed beside SDPA;
-    the step's roofline bounds, the model call's at most 1.05 of the
-    measured step. (c) The router's service model reads the record."""
+    visible, while the card runs the untimed part of (b); its argument
+    bytes are `launch.specs`' sum, computed here. (b) The same rank's
+    tensor-parallel step on the card: `make_sharded_serve_step` over a
+    fake process group of 256 ranks in this process (the distributed
+    phase has destroyed its NCCL group), on a cuda `DeviceMesh` of the
+    production shape, with the record's arguments made real on the card
+    (qwen3-0.6b at full width and depth in bf16, rank 0's shards of the
+    parameters and of the 32768-position cache: 8 rows, 2048 positions,
+    every row at 32767 valid positions, seeded): the collectives move
+    nothing, so the step computes what rank 0 computes and its values
+    are not the model's (the distributed phase holds the step's
+    numerics). One step's time (CUDA events, the median of 5 after a
+    warm-up, taken once the child has ended), its peak memory with the
+    arguments resident, FlopCounterMode's count plus the decode_attn
+    launches x `decode_attention_cost`'s FLOPs at the shard's shape,
+    which must equal the record's hlo_flops exactly (the step counts no
+    FLOPs outside the model call); the peak within 10 % + 256 MiB of the
+    record's compute_peak_bytes; the last layer's decode_attn call (its
+    cache shard and lengths, a seeded q) against the plain version, the
+    log-sum-exp too, and timed beside SDPA; the step's roofline bounds,
+    the model call's at most 1.05 of the measured step; the record's
+    all-gathers below 32 MiB. (c) The router's service model reads the
+    record."""
     import os
     import statistics
     import tempfile
+    import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding
     from repro_torch.kernels.decode_attn import ops
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
                                          make_production_mesh)
-    from repro_torch.models import Model
     from repro_torch.models import attention as attn_mod
     from repro_torch.serve import router
     out_dir = tempfile.TemporaryDirectory()
@@ -4943,24 +5221,26 @@ def phase_dryrun(torch) -> dict:
     try:
         spec = get_config(DRYRUN_ARCH, "full")
         s = 32768
+        dryrun_mod._fake_group(256)
+        mesh = sharding.device_mesh(make_production_mesh(), "cuda")
         base = torch.cuda.memory_allocated()
-        model = Model(spec, CARD).init(DRYRUN_SEED)
-        cache = model.init_cache(DRYRUN_ROWS, s)
+        _, step, meta_args = specs.build_cell(DRYRUN_ARCH, DRYRUN_SHAPE,
+                                              mesh)
         g = torch.Generator(device=CARD)
         g.manual_seed(DRYRUN_SEED)
-        for leaf in cache["kv"].values():
-            leaf.normal_(generator=g)
-        tokens = torch.randint(0, spec.vocab_size, (DRYRUN_ROWS, 1),
-                               generator=g, device=CARD, dtype=torch.int32)
+        params, cache, tokens = _card_args(meta_args, mesh, g, torch)
+        del meta_args
+        tokens.to_local().random_(0, spec.vocab_size, generator=g)
+        shard = tuple(cache["kv"]["k"].to_local().shape)   # (L, B, S, H, D)
 
-        def step():
-            cache["length"].fill_(s - 1)
-            return model.decode_step(tokens, cache)
+        def run():
+            cache["length"].to_local().fill_(s - 1)
+            return step(params, cache, tokens)
 
         ops.decode_attention.launches = 0
         kept, by_len, restore = _decode_capture(attn_mod, 1)
         try:
-            step()                                   # warm-up
+            run()                                    # warm-up
         finally:
             restore()
         torch.cuda.synchronize()
@@ -4968,15 +5248,14 @@ def phase_dryrun(torch) -> dict:
         counter = FlopCounterMode(display=False)
         before = ops.decode_attention.launches
         with counter:
-            logits = step()
+            _, logits = run()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
         step_launches = ops.decode_attention.launches - before
-        check(bool(torch.isfinite(logits[:, :spec.vocab_size]).all()),
-              "dryrun: the card's step gave non-finite logits")
+        logits_shape = list(logits.to_local().shape)
         attn_cost = ops.decode_attention_cost(
-            (DRYRUN_ROWS, spec.n_heads, spec.n_kv_heads, spec.d_head, s),
-            [s] * DRYRUN_ROWS, 2)
+            (DRYRUN_ROWS, spec.n_heads, shard[3], spec.d_head, shard[2]),
+            [shard[2]] * DRYRUN_ROWS, 2)
         card_flops = int(counter.get_total_flops()) + \
             step_launches * attn_cost["flops"]
         del logits
@@ -4990,37 +5269,40 @@ def phase_dryrun(torch) -> dict:
         for _ in range(DRYRUN_REPS):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
-            cache["length"].fill_(s - 1)
             torch.cuda.synchronize()
             start.record()
-            model.decode_step(tokens, cache)
+            run()
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         launches = ops.decode_attention.launches
-        call = kept[-1]
-        q, k, v, lengths = call
-        got = ops.decode_attention(q, k, v, lengths)
-        want = decode_attention_ref(q, k, v, lengths)
+        _, k, v, lengths = kept[-1]
+        q = torch.randn(DRYRUN_ROWS, spec.n_heads, spec.d_head, generator=g,
+                        device=CARD).to(k.dtype)
+        call = (q, k, v, lengths)
+        got, got_lse = ops.decode_attention(*call, return_lse=True)
+        want, want_lse = decode_attention_ref(*call, return_lse=True)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         tol = DECODE_TOL[SERVE_DTYPE]
         top = float(want.float().abs().max())
         worst = float(err.max())
+        lse_err = float((got_lse - want_lse).abs().max())
         check(float((err - tol * want.float().abs()).max()) <= tol,
               f"dryrun: decode_attn differs from the plain version by "
               f"{worst}")
         lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
         check(worst <= lim, f"dryrun: decode_attn error {worst} over {lim}")
-        timing = _decode_timing(call, launches, torch)
-        del got, want, err
+        check(float(((got_lse - want_lse).abs()
+                     - tol * want_lse.abs()).max()) <= tol,
+              f"dryrun: decode_attn's log-sum-exp differs by {lse_err}")
+        timing = _decode_timing(call, launches, torch, return_lse=True)
+        del got, want, err, got_lse, want_lse
         del kept, call, q, k, v, lengths
-        del model, cache, tokens
+        del params, cache, tokens, step
         torch.cuda.empty_cache()
         _, args = specs.cell_lowerable(DRYRUN_ARCH, DRYRUN_SHAPE,
                                        make_production_mesh())
-        sharding.clear_mesh()
-        sharding.set_fsdp(False)
         arg_bytes = specs.argument_bytes(args)
         rec = json.loads((Path(out_dir.name) /
                           f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__single.json"
@@ -5028,6 +5310,10 @@ def phase_dryrun(torch) -> dict:
         served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
         roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
     finally:
+        sharding.clear_mesh()
+        sharding.set_fsdp(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
         if child.poll() is None:
             child.kill()
             child.wait()
@@ -5039,13 +5325,17 @@ def phase_dryrun(torch) -> dict:
                      rec["compute_bytes"] / HBM_BW) * 1e3
     peak_lim = DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"] + \
         DRYRUN_PEAK_SLACK
+    gathered = rec["collectives"]["all-gather"]["bytes"]
     out = {"phase": "dryrun", "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE,
            "mesh": "single", "record": {k: rec[k] for k in rec
                                         if k != "collectives"},
            "collectives": rec["collectives"], "child_wall_s": child_s,
            "child_stdout": stdout.strip().splitlines()[-1:],
            "argument_bytes_here": arg_bytes,
+           "card_step": "make_sharded_serve_step (tensor parallel) over a "
+                        "fake 256-rank group on a cuda DeviceMesh",
            "rows": DRYRUN_ROWS, "max_len": s, "valid": s - 1,
+           "kv_shard": list(shard), "logits_shape": logits_shape,
            "step_ms": ms, "step_ms_all": times,
            "card_peak_bytes": peak, "peak_gap_bytes":
                peak - rec["compute_peak_bytes"], "peak_tolerance": peak_lim,
@@ -5059,20 +5349,23 @@ def phase_dryrun(torch) -> dict:
                              >= rec["hlo_flops"] / PEAK_FLOPS_BF16
                              else "operations"),
            "decode_attn": timing, "max_abs_err": worst,
-           "max_abs_want": top, "decode_attn_launches": launches,
+           "max_abs_want": top, "lse_max_abs_err": lse_err,
+           "decode_attn_launches": launches,
            "decode_attn_by_length": by_len,
            "router": {"token_s_accel": served.token_s_accel,
                       "roofline_token_latency": roofline,
                       "analytic_token_latency":
                           router.analytic_token_latency(DRYRUN_ARCH)},
-           "timing": "step_ms: CUDA events around Model.decode_step, the "
-                     "median of 5 after a warm-up, once the CPU child has "
-                     "ended; step_bound_ms: the record's hlo_flops and "
-                     "hlo_bytes (the sharded step, its gathers and "
-                     "write-back included); call_bound_ms: its hlo_flops "
-                     "(the step's FLOPs are all the model call's) and "
-                     "compute_bytes (the model call this card runs); "
-                     "decode_attn: as serve_* phases"}
+           "timing": "step_ms: CUDA events around the tensor-parallel "
+                     "make_sharded_serve_step on the card (fake "
+                     "collectives: they move nothing), the median of 5 "
+                     "after a warm-up, once the CPU child has ended; "
+                     "step_bound_ms: the record's hlo_flops and hlo_bytes "
+                     "(the whole sharded step); call_bound_ms: its "
+                     "hlo_flops (the step's FLOPs are all the model "
+                     "call's) and compute_bytes (the model call on the "
+                     "rank's shards); decode_attn: as serve_* phases, with "
+                     "the log-sum-exp output the step asks for"}
     emit(out)
     check(rec["ok"] is True, "dryrun: the record is not ok")
     check(rec["argument_size_in_bytes"] == arg_bytes,
@@ -5091,6 +5384,8 @@ def phase_dryrun(torch) -> dict:
           f"{rec['compute_peak_bytes']} B (tolerance {peak_lim})")
     check(call_bound / ms <= DRYRUN_MAX_SHARE,
           f"dryrun: bound share {call_bound / ms} over {DRYRUN_MAX_SHARE}")
+    check(gathered < DRYRUN_MAX_GATHER,
+          f"dryrun: the record all-gathers {gathered} B a step")
     check(roofline is not None and served.token_s_accel == roofline ==
           max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
               rec["hlo_bytes"] / HBM_BW) / 128,
@@ -6157,6 +6452,7 @@ def main() -> int:
     phase_train(torch)
     phase_train_vs_cpu(torch)
     dist_run = phase_distributed(torch)
+    dist_serve_launches = dist_run["out"]["serve"]["decode_attn_launches"]
     resume = phase_train_resume(dist_run, torch)
     phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
     phase_train_resume_vs_cpu(resume, torch)
@@ -6216,6 +6512,7 @@ def main() -> int:
         "serve_vlm": vlm["out"]["engine"]["decode_attn_launches"],
         "serve_moe": moe["out"]["engine"]["decode_attn_launches"],
         "serve_mla": mla["out"]["engine"]["decode_attn_launches"],
+        "distributed": dist_serve_launches,
         "dryrun": dryrun["decode_attn_launches"]}
     path_shapes = {"serve_hybrid_shape": hybrid["out"]["decode_attn"],
                    "serve_encdec_self_shape":

@@ -287,6 +287,26 @@ def cache_batch_dim(leafname: str, ndim: int) -> int:
     return 0 if leafname == "length" else 1
 
 
+def shard_offset(mesh, placements, dim: int, length: int
+                 ) -> tuple[int, tuple[str, ...]]:
+    """This rank's first index along tensor dim ``dim`` (of global
+    ``length``) of a tensor placed by ``placements`` on the `DeviceMesh`
+    ``mesh``, and the names of the mesh dims that split that dim, major
+    first (DTensor's order: the first such mesh dim outermost). For a
+    decode-cache leaf (L, B, S, ...) in `cache_shardings`' layout, dim 2
+    gives the offset of the rank's positions in the sequence, which the
+    tensor-parallel decode writes and attends by
+    (`repro_torch.distributed.tensor_parallel.KVShard`)."""
+    names = mesh.mesh_dim_names
+    idx, n, axes = 0, 1, []
+    for i, pl in enumerate(placements):
+        if pl.is_shard(dim):
+            size = mesh.size(i)
+            idx, n = idx * size + mesh.get_local_rank(i), n * size
+            axes.append(names[i])
+    return idx * (length // n), tuple(axes)
+
+
 def cache_shardings(cache: dict, mesh=None):
     """Decode-cache shardings, nested as ``cache`` (a dict of tensors or
     anything with a ``shape``), as the reference lays them out: KV-like

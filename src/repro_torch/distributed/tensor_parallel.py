@@ -1,0 +1,208 @@
+"""Tensor-parallel decode: the sharded serve step of the dense-branch
+families computes on the rank's own shards of the parameters and the KV
+cache, as XLA partitions the reference's decode under the fan-out layout
+of `repro.distributed.sharding` (parameters Shard(last) over 'model', the
+embedding Shard(0); the cache's KV heads over 'model' where they divide
+it, else its sequence).
+
+At decode the activations are a few rows, so they move, and the weights
+and the cache never do:
+
+  * a product ``x @ w`` with ``w`` a 'model' shard of its columns
+    multiplies by the rank's columns, then an all-gather over 'model'
+    rebuilds the full output (`matmul`); a weight that the layout
+    replicates is multiplied whole;
+  * a norm whose scale is a 'model' shard (a stacked norm scale of 128
+    or more features, which the fan-out rule splits) scales the rank's
+    slice of the normalised activation, the slices then all-gathered
+    (`repro_torch.models.layers.rms_norm`);
+  * the embedding is a masked lookup of the rank's vocab rows, summed
+    over 'model' (`layers.embed`); the unembedding
+    takes logits from the rank's vocab rows, the padded ids masked, and
+    all-gathers them over 'model' (`layers.unembed`);
+  * decode attention runs on the rank's shard of the cache (`KVShard`):
+    with the KV heads over 'model', on the q heads of the rank's KV heads,
+    the outputs then all-gathered; with the sequence over one or more
+    axes, on the local positions, the ranks' outputs then combined by
+    their log-sum-exps (`combine`).
+
+Norms, rope, activations and the residual run on the gathered activations
+of the rank's rows, redundantly over 'model'.
+
+The sites consult the `TensorParallel` context that `active` installs
+(`repro_torch.train.loop.make_sharded_serve_step` does, around the
+model's `decode_step`); with none installed each computes what the
+one-process model computes. The collectives are the `_c10d_functional`
+ops, so they run alike on NCCL, on gloo and on the dry run's fake process
+group over meta tensors, whose census counts them
+(`repro_torch.launch.dryrun`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass
+
+import torch
+
+#: The families whose decode runs tensor-parallel: those of `Model`'s
+#: dense branch. The others keep the gathered step until their slice.
+FAMILIES = ("dense", "vlm")
+
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar(
+    "tensor_parallel", default=None)
+
+
+def applies(cfg) -> bool:
+    """Whether the sharded serve step of ``cfg``'s family is tensor
+    parallel."""
+    return cfg.family in FAMILIES
+
+
+def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """``x`` concatenated along ``dim`` over the ranks of ``groups`` (the
+    process groups of the mesh dims that split it, major first)."""
+    import torch.distributed as dist
+    c10d = torch.ops._c10d_functional
+    dim = dim % x.dim()
+    for group in reversed(groups):          # the minor axis first
+        n = dist.get_world_size(group)
+        out = c10d.wait_tensor(c10d.all_gather_into_tensor(
+            x.contiguous(), n, group.group_name))
+        x = out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+    return x
+
+
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``x`` reduced (``op`` "sum" or "max") over the ranks of
+    ``groups``; a new tensor."""
+    c10d = torch.ops._c10d_functional
+    for group in groups:
+        x = c10d.wait_tensor(c10d.all_reduce(x.contiguous(), op,
+                                             group.group_name))
+    return x
+
+
+def combine(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
+    """The attention output over a whole sequence from the outputs
+    ``out`` (..., B, H, D) over its pieces and the pieces' log-sum-exps
+    ``lse`` (..., B, H) float32 (`decode_attention(..., return_lse=True)`):
+    with M the maximum of the pieces' ``lse``, sum_r exp(lse_r - M) out_r
+    / sum_r exp(lse_r - M), in float32 and returned in ``out``'s type.
+    ``reduce(x, op)`` ("max" or "sum") reduces over the pieces: an
+    all-reduce over the ranks that hold them (one max, then one sum of
+    the weighted outputs beside their weights), or `reduce_pieces` over
+    a leading dim of pieces held in one process. A piece with no valid
+    position (lse -inf) weighs exactly 0; a row with none anywhere gives
+    zeros."""
+    m = reduce(lse, "max")
+    m = torch.where(torch.isfinite(m), m, 0.0)         # rows empty everywhere
+    w = torch.exp(lse - m)[..., None]
+    part = reduce(torch.cat([out.float() * w, w], dim=-1), "sum")
+    num, den = part[..., :-1], part[..., -1:]
+    return (num / den.clamp(min=1e-30)).to(out.dtype)
+
+
+def reduce_pieces(x: torch.Tensor, op: str) -> torch.Tensor:
+    """`combine`'s reduction over pieces stacked on dim 0 in one process
+    (the result keeps that dim, of size 1)."""
+    return x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+
+
+@dataclass(frozen=True)
+class KVShard:
+    """Where this rank's shard of a KV cache (L, B, S, Hkv, D) lies: the
+    first of its positions and the groups that split the sequence, the
+    first of its KV heads, how many, and the groups that split the heads
+    (empty tuples where that dim is whole)."""
+
+    seq_offset: int
+    seq_groups: tuple
+    head_offset: int
+    heads: int
+    head_groups: tuple
+
+    @classmethod
+    def of(cls, leaf) -> "KVShard":
+        """The shard of a cache leaf DTensor (L, B, S, Hkv, D)."""
+        from repro_torch.distributed.sharding import shard_offset
+        mesh, placements = leaf.device_mesh, leaf.placements
+        seq, seq_axes = shard_offset(mesh, placements, 2, leaf.shape[2])
+        head, head_axes = shard_offset(mesh, placements, 3, leaf.shape[3])
+        return cls(seq, tuple(mesh.get_group(a) for a in seq_axes), head,
+                   leaf.to_local().shape[3],
+                   tuple(mesh.get_group(a) for a in head_axes))
+
+    def local_heads(self, q, k, v):
+        """q (B, 1, Hq, D) and the new k, v (B, 1, Hkv, D) cut to this
+        shard's KV heads and the q heads that share them."""
+        g = q.shape[2] // k.shape[2]
+        lo, n = self.head_offset, self.heads
+        return (q[:, :, lo * g:(lo + n) * g], k[:, :, lo:lo + n],
+                v[:, :, lo:lo + n])
+
+    def finish(self, out, lse=None) -> torch.Tensor:
+        """The full (B, Hq, D) output from this shard's (B, Hq_local, D):
+        combined over the sequence's groups by ``lse``, then gathered
+        over the heads' groups."""
+        if self.seq_groups:
+            out = combine(out, lse, lambda x, op: _all_reduce(
+                x, op, self.seq_groups))
+        return _gather(out, 1, self.head_groups)
+
+
+class TensorParallel:
+    """The context of one tensor-parallel step: the 'model' axis of
+    ``mesh`` (its group and this rank's index on it), the local parameter
+    tensors that are 'model' shards and the dim each is split on
+    (``shards``, by tensor identity), and the KV cache's `KVShard`."""
+
+    def __init__(self, mesh, shards: dict[int, int], kv: KVShard):
+        on_model = "model" in mesh.mesh_dim_names
+        self.groups = (mesh.get_group("model"),) if on_model else ()
+        self.rank = mesh.get_local_rank("model") if on_model else 0
+        self.shards = shards
+        self.kv = kv
+
+    def model_shard(self, w: torch.Tensor) -> int | None:
+        """The dim of ``w`` split over 'model', or None (a whole
+        tensor)."""
+        return self.shards.get(id(w))
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` all-gathered over 'model' along ``dim``."""
+        return _gather(x, dim, self.groups)
+
+    def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        return _all_reduce(x, op, self.groups)
+
+
+def current() -> TensorParallel | None:
+    """The installed context, None outside a tensor-parallel step."""
+    return _CURRENT.get()
+
+
+@contextlib.contextmanager
+def active(ctx: TensorParallel):
+    """Install ``ctx`` for the sites while the block runs (in this thread
+    and context only)."""
+    token = _CURRENT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CURRENT.reset(token)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; in a tensor-parallel step where ``w`` is a 'model' shard
+    of its columns, the full product, all-gathered over 'model'."""
+    y = x @ w
+    ctx = _CURRENT.get()
+    dim = None if ctx is None else ctx.model_shard(w)
+    if dim is None:
+        return y
+    if dim != w.dim() - 1:
+        raise ValueError(f"tensor parallel: a product's weight {tuple(w.shape)}"
+                         f" split on dim {dim}, not its columns")
+    return ctx.gather(y, -1)

@@ -8,7 +8,13 @@
 //                     @ v[b, s, h],     over the positions s < lengths[b]
 //
 // in float32 whatever the storage type, written back in q's type. A row of
-// length 0 gives exact zeros; lengths above S count as S.
+// length 0 gives exact zeros; lengths above S count as S. When the caller
+// passes an lse buffer (B, Hq) float32, the kernel that finishes a row also
+// writes lse[b, h*G + g] = m + log(l), the log-sum-exp of the row's scaled
+// scores (its running max m and normalizer l), or -inf for a row of length
+// 0: the weight by which the tensor-parallel decode combines the outputs of
+// the pieces of a sequence-sharded cache. It costs one float per row and
+// head; with a null lse nothing else changes.
 //
 // Design (split-sequence flash-decoding). The TPU kernel walks a
 // sequential grid axis over sequence blocks and carries the running max,
@@ -191,9 +197,10 @@ template <typename T, int D, int GB>
 __global__ void __launch_bounds__(Layout<T, D>::kThreads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ lengths,
-                   T* __restrict__ out, float* __restrict__ ws_acc,
-                   float* __restrict__ ws_ml, int s_len, int hkv, int g_size,
-                   int n_chunks, float scale) {
+                   T* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                   int s_len, int hkv, int g_size, int n_chunks,
+                   float scale) {
   using L = Layout<T, D>;
   constexpr int DV = L::kDV;
   constexpr int kWarps = L::kWarps;
@@ -365,6 +372,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (n_chunks == 1) {
       store(out + q0 + idx, num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[q0 / D + g] = den > 0.0f ? mx + logf(den) : -CUDART_INF_F;
     } else {                              // this chunk's partial result
       const size_t part =
           (static_cast<size_t>(b) * hq + h * g_size + g0 + g) * n_chunks
@@ -385,7 +394,8 @@ __global__ void __launch_bounds__(kCombineThreads)
 decode_attn_combine(const float* __restrict__ ws_acc,
                     const float* __restrict__ ws_ml,
                     const int* __restrict__ lengths, T* __restrict__ out,
-                    int hq, int d, int s_len, int n_chunks, int total) {
+                    float* __restrict__ lse, int hq, int d, int s_len,
+                    int n_chunks, int total) {
   const int idx = blockIdx.x * kCombineThreads + threadIdx.x;
   if (idx >= total) return;
   const int bh = idx / d;
@@ -403,13 +413,15 @@ decode_attn_combine(const float* __restrict__ ws_acc,
     num = fmaf(acc[static_cast<size_t>(c) * d], f, num);
   }
   store(out + idx, num / fmaxf(den, 1e-30f));
+  if (lse != nullptr && e == 0)
+    lse[bh] = den > 0.0f ? mx + logf(den) : -CUDART_INF_F;
 }
 
 template <typename T, int D, int GB>
 cudaError_t launch_gb(const T* q, const T* k, const T* v, const int* lengths,
-                      T* out, float* ws_acc, float* ws_ml, int batch,
-                      int s_len, int hkv, int g_size, int n_chunks,
-                      float scale, cudaStream_t stream) {
+                      T* out, float* lse, float* ws_acc, float* ws_ml,
+                      int batch, int s_len, int hkv, int g_size,
+                      int n_chunks, float scale, cudaStream_t stream) {
   constexpr int smem = Layout<T, D>::kSmem;
   const auto kernel = decode_attn_kernel<T, D, GB>;
   // the ring beside the static arrays may pass the default 48 KB
@@ -419,16 +431,16 @@ cudaError_t launch_gb(const T* q, const T* k, const T* v, const int* lengths,
   kernel<<<dim3(batch * hkv, n_chunks, (g_size + GB - 1) / GB),
            Layout<T, D>::kThreads,
            smem, stream>>>(
-      q, k, v, lengths, out, ws_acc, ws_ml, s_len, hkv, g_size, n_chunks,
-      scale);
+      q, k, v, lengths, out, lse, ws_acc, ws_ml, s_len, hkv, g_size,
+      n_chunks, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const int* lengths, void* out, float* ws_acc,
-                     float* ws_ml, int batch, int s_len, int hkv, int g_size,
-                     float scale, cudaStream_t stream) {
+                     const int* lengths, void* out, float* lse,
+                     float* ws_acc, float* ws_ml, int batch, int s_len,
+                     int hkv, int g_size, float scale, cudaStream_t stream) {
   const int n_chunks = s_len > kChunk ? (s_len + kChunk - 1) / kChunk : 1;
   if (n_chunks > 1 && (ws_acc == nullptr || ws_ml == nullptr))
     return cudaErrorInvalidValue;
@@ -438,32 +450,36 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   T* ot = static_cast<T*>(out);
   cudaError_t rc;
   if (g_size == 1)
-    rc = launch_gb<T, D, 1>(qt, kt, vt, lengths, ot, ws_acc, ws_ml, batch,
-                            s_len, hkv, g_size, n_chunks, scale, stream);
+    rc = launch_gb<T, D, 1>(qt, kt, vt, lengths, ot, lse, ws_acc, ws_ml,
+                            batch, s_len, hkv, g_size, n_chunks, scale,
+                            stream);
   else if (g_size == 2)
-    rc = launch_gb<T, D, 2>(qt, kt, vt, lengths, ot, ws_acc, ws_ml, batch,
-                            s_len, hkv, g_size, n_chunks, scale, stream);
+    rc = launch_gb<T, D, 2>(qt, kt, vt, lengths, ot, lse, ws_acc, ws_ml,
+                            batch, s_len, hkv, g_size, n_chunks, scale,
+                            stream);
   else
-    rc = launch_gb<T, D, 4>(qt, kt, vt, lengths, ot, ws_acc, ws_ml, batch,
-                            s_len, hkv, g_size, n_chunks, scale, stream);
+    rc = launch_gb<T, D, 4>(qt, kt, vt, lengths, ot, lse, ws_acc, ws_ml,
+                            batch, s_len, hkv, g_size, n_chunks, scale,
+                            stream);
   if (rc != cudaSuccess || n_chunks == 1) return rc;
   const int total = batch * hkv * g_size * D;
   decode_attn_combine<T>
       <<<(total + kCombineThreads - 1) / kCombineThreads, kCombineThreads, 0,
-         stream>>>(ws_acc, ws_ml, lengths, ot, hkv * g_size, D, s_len,
+         stream>>>(ws_acc, ws_ml, lengths, ot, lse, hkv * g_size, D, s_len,
                    n_chunks, total);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const int* lengths, void* out, float* ws_acc,
-                     float* ws_ml, int batch, int s_len, int hkv, int g_size,
-                     int d, float scale, cudaStream_t stream) {
+                     const int* lengths, void* out, float* lse,
+                     float* ws_acc, float* ws_ml, int batch, int s_len,
+                     int hkv, int g_size, int d, float scale,
+                     cudaStream_t stream) {
 #define DECODE_ATTN_D(D)                                                     \
   if (d == D)                                                                \
-    return launch_d<T, D>(q, k, v, lengths, out, ws_acc, ws_ml, batch, s_len, \
-                          hkv, g_size, scale, stream);
+    return launch_d<T, D>(q, k, v, lengths, out, lse, ws_acc, ws_ml, batch,  \
+                          s_len, hkv, g_size, scale, stream);
   DECODE_ATTN_D(16)
   DECODE_ATTN_D(56)
   DECODE_ATTN_D(64)
@@ -482,25 +498,27 @@ extern "C" int decode_attn_chunk(void) { return kChunk; }
 // q, out: (batch, hkv * g_size, d); k, v: (batch, s_len, hkv, d), all
 // row-major on the device in one type (dtype 0: float32, 1: bfloat16),
 // 16-byte aligned; lengths: (batch,) int32; d in {16, 56, 64, 128, 256}.
+// lse: null, or (batch, hkv * g_size) float32 for each row's log-sum-exp.
 // ws_acc (batch, hkv * g_size, C, d) and ws_ml (batch, hkv * g_size, C, 2)
 // float32, C = ceil(s_len / decode_attn_chunk()): the workspace, used (and
 // required) only when C > 1. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int decode_attn_launch(const void* q, const void* k, const void* v,
                                   const int* lengths, void* out,
-                                  float* ws_acc, float* ws_ml, int batch,
-                                  int s_len, int hkv, int g_size, int d,
-                                  int dtype, float scale, void* stream) {
+                                  float* lse, float* ws_acc, float* ws_ml,
+                                  int batch, int s_len, int hkv, int g_size,
+                                  int d, int dtype, float scale,
+                                  void* stream) {
   if (batch <= 0 || s_len < 0 || hkv <= 0 || g_size <= 0
       || s_len > 65535 * kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc = cudaErrorInvalidValue;
   if (dtype == 0)
-    rc = launch_t<float>(q, k, v, lengths, out, ws_acc, ws_ml, batch, s_len,
-                         hkv, g_size, d, scale, st);
+    rc = launch_t<float>(q, k, v, lengths, out, lse, ws_acc, ws_ml, batch,
+                         s_len, hkv, g_size, d, scale, st);
   else if (dtype == 1)
-    rc = launch_t<__nv_bfloat16>(q, k, v, lengths, out, ws_acc, ws_ml, batch,
-                                 s_len, hkv, g_size, d, scale, st);
+    rc = launch_t<__nv_bfloat16>(q, k, v, lengths, out, lse, ws_acc, ws_ml,
+                                 batch, s_len, hkv, g_size, d, scale, st);
   return static_cast<int>(rc);
 }

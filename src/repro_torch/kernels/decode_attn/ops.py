@@ -2,8 +2,11 @@
 
 `decode_attention(q, k, v, lengths)` computes the reference's
 ``decode_attention_ref``: q (B, Hq, D), k/v (B, S, Hkv, D) in float32 or
-bfloat16, lengths (B,) -> (B, Hq, D) in q's type. Unlike the reference
-wrapper it has no length threshold and no switch: the tensor's device
+bfloat16, lengths (B,) -> (B, Hq, D) in q's type; with ``return_lse``
+also each (row, query head)'s log-sum-exp of its scaled scores, (B, Hq)
+float32 (-inf for a row of length 0), which the tensor-parallel decode
+over a sequence-sharded cache combines partial outputs by. Unlike the
+reference wrapper it has no length threshold and no switch: the tensor's device
 decides the route. A CPU tensor goes to the plain PyTorch version
 (`ref.decode_attention_ref`); a CUDA tensor launches the kernel, or this
 raises. ``decode_attention.launches`` counts the calls that launched and
@@ -13,7 +16,8 @@ split-sequence pass and the combine, and counts once.
 
 A meta tensor (the dry run, `repro_torch.launch.dryrun`) computes
 nothing: the call returns an empty output of the kernel's shape and type
-on the meta device and adds its `decode_attention_cost` to
+(and, with ``return_lse``, an empty (B, Hq) float32 one) on the meta
+device and adds its `decode_attention_cost` to
 ``decode_attention.meta`` (calls, flops, bytes), every row counted full,
 since lengths have no values there.
 """
@@ -41,7 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.cache
 def _launcher():
     fn = load_library("decode_attn", SOURCES).decode_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -73,12 +77,13 @@ def decode_attention_cost(shape, lengths, itemsize: int) -> dict:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid cache
     length (0 gives zeros, above S counts as S). Returns (B, Hq, D) in
-    q's dtype."""
+    q's dtype, and with ``return_lse`` also the (B, Hq) float32
+    log-sum-exp (-inf where the length is 0)."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, return_lse=return_lse)
     if q.device.type == "meta":
         b, hq, d = q.shape
         _, s, hkv, _ = k.shape
@@ -88,7 +93,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         meta["calls"] += 1
         meta["flops"] += cost["flops"]
         meta["bytes"] += cost["bytes"]
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, q.new_empty((b, hq), dtype=torch.float32)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn: unsupported device {q.device}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -115,8 +123,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = v.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("decode_attn: q, k, v must be 16-byte aligned")
     with torch.cuda.device(q.device):
@@ -128,13 +138,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 device=q.device) for n in (d, 2)))
         rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          lens.data_ptr(), out.data_ptr(),
+                         None if lse is None else lse.data_ptr(),
                          *(w if w is None else w.data_ptr() for w in ws),
                          b, s, hkv, hq // hkv, d, _DTYPES[q.dtype], d ** -0.5,
                          torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attn launch failed: CUDA error {rc}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

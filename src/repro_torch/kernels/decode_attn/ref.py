@@ -15,12 +15,16 @@ def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid cache length.
 
     Hq must be a multiple of Hkv (grouped queries). Returns (B, Hq, D) in
     q's dtype; softmax/accumulation in float32. A row of length 0 gives
-    zeros; lengths above S count as S.
+    zeros; lengths above S count as S. With ``return_lse`` also the
+    (B, Hq) float32 log-sum-exp of each row's scaled scores over its valid
+    positions (-inf for a row of length 0): the weight of this output
+    when partial outputs over pieces of one cache are combined
+    (`repro_torch.distributed.tensor_parallel.combine`).
     """
     b, hq, d = q.shape
     _, s, hkv, _ = k.shape
@@ -32,5 +36,7 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pos = torch.arange(s, device=q.device)
     mask = pos[None, None, None, :] < lengths.to(q.device)[:, None, None, None]
     scores = scores.masked_fill(~mask, float("-inf"))
-    out = _masked_softmax(scores) @ vf                    # (B, Hkv, G, D)
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = (_masked_softmax(scores) @ vf).reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, hq)

@@ -36,16 +36,19 @@ with the reference's keys where their meaning carries over:
       rank 0's local bytes of the step's outputs.
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
-      full parameters, which the step gathers into, included).
+      full parameters included where the step gathers into them; the
+      tensor-parallel decode step of the dense-branch families computes
+      on the argument shards and holds no full parameter).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)
       MemTracker's peak, and the bytes counted as for ``hlo_bytes``,
       over the model call alone (`decode_step`, the prefill's `forward`,
       or the train step's `loss`, whose gradients the step takes after
-      it), with the model and the call's inputs (the rank's gathered
-      rows) resident: the work one card runs for the rank, without the
-      gathers and the write-back of the sharded step around it. Both are
+      it), with the model (the rank's parameter shards in the
+      tensor-parallel decode) and the call's inputs (the rank's rows, or
+      its cache shard) resident: the work one card runs for the rank,
+      without what the sharded step does around the call. Both are
       taken within the step's one run: the model's method is wrapped for
       the cell. A decode or prefill cell's model-call FLOPs are its
       ``hlo_flops``: those steps compute no FLOPs outside the call.
@@ -283,7 +286,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
                       for t in leaves(args)]
         flops = FlopCounterMode(display=False)
         counter = OpCounter(keep_log=save_hlo is not None)
-        tracker = _tracked([model, *local_args])
+        tracker = _tracked([model] * step.reads_model_params + local_args)
         decode_attention.meta.update(calls=0, flops=0, bytes=0)
         t1 = time.perf_counter()
         with _model_call_window(model, SHAPES[shape]["kind"]) as call:

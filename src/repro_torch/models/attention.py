@@ -14,12 +14,19 @@ cross-attention against an encoder memory (whisper). The reference's
 decode-time cross-attention calls its plain `decode_attention_ref`
 directly; the port's goes through `decode_attention` like every other
 decode call, so on the card the memory is read by the kernel.
+
+The projections and `decode_attention_step` consult the tensor-parallel
+context (`repro_torch.distributed.tensor_parallel`): inside the sharded
+serve step the products run on the rank's weight shards and the decode
+attends over the rank's shard of the cache (its KV heads, or its
+positions, combined across ranks by log-sum-exp).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.decode_attn import decode_attention
 from repro_torch.models.layers import dense_init, rms_norm, rope
 
@@ -71,9 +78,9 @@ def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
     b, s, _ = x.shape
     xkv = x if xkv is None else xkv
     skv = xkv.shape[1]
-    q = (x @ p.wq).reshape(b, s, n_heads, d_head)
-    k = (xkv @ p.wk).reshape(b, skv, n_kv_heads, d_head)
-    v = (xkv @ p.wv).reshape(b, skv, n_kv_heads, d_head)
+    q = tp.matmul(x, p.wq).reshape(b, s, n_heads, d_head)
+    k = tp.matmul(xkv, p.wk).reshape(b, skv, n_kv_heads, d_head)
+    v = tp.matmul(xkv, p.wv).reshape(b, skv, n_kv_heads, d_head)
     if qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -140,10 +147,11 @@ def _write_slot(cache: torch.Tensor, slot: torch.Tensor, write: torch.Tensor,
     """cache[b, slot[b]] = new[b] where write[b], in place; elsewhere
     ``old[b]`` (the values already there when ``old`` is None). A row whose
     slot lies at or past the cache's end is left as it was, like the
-    reference's one-hot write, which matches no position there. Returns
-    the values the slots held before the write."""
+    reference's one-hot write, which matches no position there; so is a
+    row whose slot lies before it (a slot held by another rank's shard of
+    the sequence). Returns the values the slots held before the write."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    at = slot.clamp(max=cache.shape[1] - 1)
+    at = slot.clamp(0, cache.shape[1] - 1)
     before = cache[rows, at]
     keep = before if old is None else old
     mask = write.reshape(-1, *([1] * (new.dim() - 1)))
@@ -190,7 +198,15 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     is true when it is given. ``every_row`` (the moe family) lets the rows
     outside ``lanes`` attend with their new key and value too before they
     are taken back out (`write_step`). Returns the attention output (B, 1,
-    d)."""
+    d).
+
+    In a tensor-parallel step (`tensor_parallel.current()` with a
+    `KVShard`) the caches are the rank's shard: its KV heads take the q
+    heads that share them; the new key and value are written only where
+    the shard holds slot ``length`` (the slot less the shard's offset);
+    the kernel attends over the shard's valid positions, ``length`` less
+    the offset, clipped to [0, S_local], and `KVShard.finish` combines the
+    ranks' outputs by their log-sum-exps and gathers the heads."""
     b = x.shape[0]
     lengths = torch.as_tensor(length, device=x.device).expand(b)
     pos = lengths[:, None]                                  # absolute (B, 1)
@@ -201,12 +217,24 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     k_new = rope(k_new, pos, cfg.rope_theta)
     s = cache_k.shape[1]
     slot = lengths % s if ring else lengths
-    restore = write_step(((cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])),
-                         slot, slot < s, lanes, every_row)
     new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
-    out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
+    ctx = tp.current()
+    shard = None if ctx is None else ctx.kv
+    if shard is not None:
+        q, k_new, v_new = shard.local_heads(q, k_new, v_new)
+        slot = slot - shard.seq_offset
+        new_len = (new_len - shard.seq_offset).clamp(0, s)
+    restore = write_step(((cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])),
+                         slot, (slot >= 0) & (slot < s), lanes, every_row)
+    if shard is not None and shard.seq_groups:
+        out = shard.finish(*decode_attention(q[:, 0], cache_k, cache_v,
+                                             new_len, return_lse=True))
+    else:
+        out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
+        if shard is not None:
+            out = shard.finish(out)
     restore()
-    return out.reshape(b, 1, -1) @ p.wo
+    return tp.matmul(out.reshape(b, 1, -1), p.wo)
 
 
 def cross_attention_decode(p, x, mem_k, mem_v, cfg):

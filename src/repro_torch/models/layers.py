@@ -3,7 +3,12 @@ embeddings, initialization and the training loss. Plain functions on
 tensors, in the reference's arithmetic (`repro.models.layers`): norms and
 rotary embeddings in float32 and cast back, swiglu's ``silu`` in float32
 and cast before the product, logits as a product in the weights' type
-cast to float32, the cross-entropy in float32."""
+cast to float32, the cross-entropy in float32.
+
+`rms_norm`, the MLP's products, `embed` and `unembed` consult the
+tensor-parallel context (`repro_torch.distributed.tensor_parallel`):
+inside the sharded serve step they compute on the rank's shards of the
+weights; elsewhere exactly as written."""
 
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as tp
 
 _F32 = torch.float32
 
@@ -39,11 +46,20 @@ def init_rms(d: int, dtype: torch.dtype, device=None) -> torch.nn.Parameter:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim, gain ``1 + scale``. Where ``scale`` is
+    a 'model' shard (a stacked norm scale the fan-out rule splits), the
+    rank scales its slice of the normalised ``x`` and the slices are
+    all-gathered: the scale never moves."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(dt)
+    ctx = tp.current()
+    if ctx is None or ctx.model_shard(scale) is None:
+        return (out * (1.0 + scale.float())).to(dt)
+    n = scale.shape[-1]
+    part = out[..., ctx.rank * n:(ctx.rank + 1) * n]
+    return ctx.gather((part * (1.0 + scale.float())).to(dt), -1)
 
 
 @functools.cache
@@ -116,16 +132,17 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, mlp_type: str,
 
 def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     if mlp_type == "swiglu":
-        g = x @ p.w_gate
-        u = x @ p.w_up
+        g = tp.matmul(x, p.w_gate)
+        u = tp.matmul(x, p.w_up)
         h = F.silu(g.float()).to(x.dtype) * u
     elif mlp_type == "gelu":
-        h = F.gelu((x @ p.w_in).float(), approximate="tanh").to(x.dtype)
+        h = F.gelu(tp.matmul(x, p.w_in).float(),
+                   approximate="tanh").to(x.dtype)
     elif mlp_type == "relu2":  # squared ReLU (nemotron-4)
-        h = F.relu((x @ p.w_in).float()).square().to(x.dtype)
+        h = F.relu(tp.matmul(x, p.w_in).float()).square().to(x.dtype)
     else:
         raise ValueError(mlp_type)
-    return h @ p.w_down
+    return tp.matmul(h, p.w_down)
 
 
 # ----------------------------------------------------------- embeddings
@@ -134,18 +151,42 @@ def init_embed(generator: torch.Generator, vocab: int, d: int,
     return truncated_normal(generator, (vocab, d), 1.0, dtype)
 
 
+def _vocab_shard(table: torch.Tensor):
+    """The tensor-parallel context when ``table`` is its rank's 'model'
+    shard of the vocabulary rows, else None."""
+    ctx = tp.current()
+    dim = None if ctx is None else ctx.model_shard(table)
+    if dim not in (None, 0):
+        raise ValueError(f"tensor parallel: the embedding split on dim {dim}")
+    return None if dim is None else ctx
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    """Rows of ``table`` by id. On a vocab shard: the rank's rows, zeros
+    for the ids other ranks hold, summed over 'model' (exactly the
+    lookup: one term is not zero)."""
+    ctx = _vocab_shard(table)
+    if ctx is None:
+        return F.embedding(tokens, table)
+    rows = table.shape[0]
+    local = tokens - ctx.rank * rows
+    hit = ((local >= 0) & (local < rows))[..., None]
+    out = torch.where(hit, F.embedding(local.clamp(0, rows - 1), table), 0.0)
+    return ctx.all_reduce(out, "sum")
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,
             valid_vocab: int) -> torch.Tensor:
-    """Tied output head; padded vocab ids masked to -1e30."""
+    """Tied output head; padded vocab ids masked to -1e30. On a vocab
+    shard: the logits of the rank's rows, masked, all-gathered over
+    'model'."""
+    ctx = _vocab_shard(table)
     logits = (x @ table.T).float()
     v = table.shape[0]
-    if valid_vocab < v:
-        logits[..., valid_vocab:] = -1e30
-    return logits
+    lo = 0 if ctx is None else ctx.rank * v
+    if valid_vocab < lo + v:
+        logits[..., max(valid_vocab - lo, 0):] = -1e30
+    return logits if ctx is None else ctx.gather(logits, -1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -17,25 +17,35 @@ a batch split over 'data'), on a `DeviceMesh` with DTensor state;
 of its jitted `make_prefill_step` and `make_serve_step` under the
 shardings of `repro_torch.launch.specs` (the production dry run's).
 
-The three sharded steps work alike: each parameter DTensor is gathered
-to a full tensor and written into the model's own parameter; the batch's
-rows are split over the data axes, pod-major (a batch entry may be a
-plain global tensor, the same on every rank, or a DTensor); the model's
-unchanged `Model.loss`, `Model.forward` or `Model.decode_step` runs on
-plain tensors; the 'model' ranks compute redundantly. This shards
-storage, not compute: XLA splits the matmuls over 'model' and the decode
-attention over a sequence-sharded cache (a partial softmax and an
-all-reduce), where the port gathers; tensor-parallel compute is left for
-later.
+In every sharded step the batch's rows are split over the data axes,
+pod-major (a batch entry may be a plain global tensor, the same on every
+rank, or a DTensor). The serve step of the dense-branch families
+(`tensor_parallel.FAMILIES`) is tensor parallel, as XLA partitions the
+reference's: `Model.decode_step` runs on the rank's own shards of the
+parameters (standing in for the model's own) and of the cache, with
+the products, the embedding, the unembedding and the decode attention
+exchanging activations over 'model' (`repro_torch.distributed.
+tensor_parallel`); no parameter and no cache row moves. The train and
+prefill steps, and the serve step of the other families, gather each
+parameter DTensor to a full tensor and write it into the model's own
+parameter, and the model's unchanged `Model.loss`, `Model.forward` or
+`Model.decode_step` runs on plain tensors, the 'model' ranks computing
+redundantly: those shard storage, not compute (tensor-parallel compute
+for them is later work). Each sharded step's ``reads_model_params``
+says which of the two it is: True where it gathers into the model's own
+parameters, False where it never reads them (the dry run counts the
+model's parameters among a rank's bytes only when True).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
 from repro_torch.distributed.sharding import (cache_batch_dim,
@@ -181,10 +191,12 @@ def _placed_rows(local: torch.Tensor, mesh, n_rows: int, whole: bool):
     rows (split over the data axes, or every row when ``whole``)."""
     from torch.distributed.tensor import DTensor
     shape = (n_rows, *local.shape[1:])
+    stride = [1]                 # row-major, without allocating the shape
+    for n in reversed(shape[1:]):
+        stride.insert(0, stride[0] * n)
     return DTensor.from_local(local, mesh,
                               _rows_layout(mesh, 0, whole),
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def _load_params(params: dict[str, torch.Tensor], placed: dict) -> None:
@@ -291,6 +303,7 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
                                for k, v in metrics.items()}}
         return TrainState(params=new_params, opt=opt, ef=None), out
 
+    train_step.reads_model_params = True
     return train_step
 
 
@@ -324,17 +337,21 @@ def make_sharded_serve_step(model: Model, mesh):
     'model'): ``params`` DTensors by name (`param_shardings`' layout),
     ``cache`` a nested dict of DTensors (`cache_shardings`' layout),
     ``tokens`` a DTensor or a plain global tensor. ``logits`` is a (B,
-    padded vocab) float32 DTensor, rows over the data axes.
+    padded vocab) float32 DTensor, rows over the data axes. The cache is
+    updated in place. Where the data axes do not divide the rows (batch
+    1), every data rank computes every row, as the reference's batch spec
+    falls back to replication.
 
-    One step: the parameters are gathered into the model (see the module
-    docstring); each cache leaf is redistributed to this rank's rows
-    (its shard over 'model', and over the data axes where the cache puts
-    them on the sequence, gathered); the model's unchanged `decode_step`
-    updates those rows in place; each leaf's updated rows are
-    redistributed back to the cache's layout and written into its local
-    shard, so the cache is updated in place. Where the data axes do not
-    divide the rows (batch 1), every data rank computes every row, as
-    the reference's batch spec falls back to replication."""
+    For the dense-branch families the step is tensor parallel
+    (`_tensor_parallel_serve_step`). For the others it gathers: the
+    parameters are gathered into the model (see the module docstring);
+    each cache leaf is redistributed to this rank's rows (its shard over
+    'model', and over the data axes where the cache puts them on the
+    sequence, gathered); the model's unchanged `decode_step` updates
+    those rows in place; each leaf's updated rows are redistributed back
+    to the cache's layout and written into its local shard."""
+    if tp.applies(model.cfg):
+        return _tensor_parallel_serve_step(model, mesh)
     from torch.distributed.tensor import DTensor
     idx, n_data, _ = _data_rank(mesh)
     params = dict(model.named_parameters())
@@ -370,6 +387,81 @@ def make_sharded_serve_step(model: Model, mesh):
         walk(cache, write_back, local)
         return cache, _placed_rows(logits, mesh, n_rows, whole)
 
+    serve_step.reads_model_params = True
+    return serve_step
+
+
+@contextlib.contextmanager
+def _parameters_replaced(model: Model, tensors: dict[str, torch.Tensor]):
+    """``model``'s parameters replaced by ``tensors`` (plain tensors, by
+    parameter name) while the block runs, as `torch.func.functional_call`
+    replaces them, but around a method call rather than a call of the
+    module (whose hooks, the dry run's MemTracker among them, would take
+    the tensors for trainable parameters)."""
+    saved = []
+    try:
+        for name, t in tensors.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner)
+            saved.append((mod, leaf, mod._parameters[leaf]))
+            mod._parameters[leaf] = t
+        yield model
+    finally:
+        for mod, leaf, p in reversed(saved):
+            mod._parameters[leaf] = p
+
+
+def _tensor_parallel_serve_step(model: Model, mesh):
+    """`make_sharded_serve_step` for the dense-branch families: one step
+    on this rank's shards, as `repro_torch.distributed.tensor_parallel`
+    describes. Each parameter's local shard (gathered over the data axes
+    first where FSDP storage splits it there; serving never does) stands
+    in for the model's own parameter (`_parameters_replaced`), so the
+    model's parameters are never read and may live on the meta device.
+    The KV cache's local shards are updated in place: this rank's rows
+    (every row where the data axes do not divide them), its KV heads or
+    its positions. ``length``, replicated, advances on this rank's rows
+    and is all-gathered back over the data axes."""
+    from torch.distributed.tensor import Replicate
+    idx, n_data, _ = _data_rank(mesh)
+    names = mesh.mesh_dim_names
+    on_data = [name in ("pod", "data") for name in names]
+    m_dim = names.index("model") if "model" in names else None
+
+    def local_param(t):
+        """This rank's shard of a parameter DTensor, whole over the data
+        axes, and the dim 'model' splits (None where it does not)."""
+        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
+            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
+                                      in zip(on_data, t.placements)])
+        pl = None if m_dim is None else t.placements[m_dim]
+        return t.to_local(), (pl.dim if pl is not None and pl.is_shard()
+                              else None)
+
+    @torch.no_grad()
+    def serve_step(placed: dict, cache: dict, tokens):
+        n_rows = tokens.shape[0]
+        whole = n_rows % n_data != 0
+        rows = n_rows // n_data
+        tok = _local_rows(tokens, mesh, idx, rows, whole)
+        params, shards = {}, {}
+        for name, t in placed.items():
+            local, dim = local_param(t)
+            params[name] = local
+            if dim is not None:
+                shards[id(local)] = dim
+        length = cache["length"].to_local()
+        mine = length if whole else length[idx * rows:(idx + 1) * rows]
+        kv = {k: leaf.to_local() for k, leaf in cache["kv"].items()}
+        ctx = tp.TensorParallel(mesh, shards, tp.KVShard.of(cache["kv"]["k"]))
+        with tp.active(ctx), _parameters_replaced(model, params):
+            logits = model.decode_step(tok, {"length": mine, "kv": kv})
+        if not whole:
+            length.copy_(_placed_rows(mine, mesh, n_rows, False).redistribute(
+                mesh, cache["length"].placements).to_local())
+        return cache, _placed_rows(logits, mesh, n_rows, whole)
+
+    serve_step.reads_model_params = False
     return serve_step
 
 
@@ -396,4 +488,5 @@ def make_sharded_prefill_step(model: Model, mesh):
                                   frontend=local.get("frontend"))
         return _placed_rows(logits[:, -1].contiguous(), mesh, n_rows, whole)
 
+    prefill_step.reads_model_params = True
     return prefill_step

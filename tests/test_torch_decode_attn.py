@@ -150,6 +150,91 @@ def test_split_sequence_combine_matches_reference(s, chunk):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_lse_is_the_float64_logsumexp(shape):
+    """``return_lse``: the output is the call's without it, and the
+    (B, Hq) float32 log-sum-exp is that of the scaled scores over each
+    row's valid positions in float64 within 2e-5 (the float32 scores'
+    rounding); -inf for a row of length 0. On meta tensors an empty
+    float32 (B, Hq)."""
+    q, k, v, lengths = _inputs(shape, 11, lo=0)
+    lengths[0] = 0
+    _, (tq, tk, tv, tl) = _both((q, k, v, lengths), "float32")
+    out, lse = ops.decode_attention(tq, tk, tv, tl, return_lse=True)
+    assert torch.equal(out, ops.decode_attention(tq, tk, tv, tl))
+    b, hq, hkv, d, s = shape
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    g = hq // hkv
+    qd = q.astype(np.float64).reshape(b, hkv, g, d) * d ** -0.5
+    want = np.full((b, hkv, g), -np.inf)
+    for row in range(b):
+        n = min(int(lengths[row]), s)
+        if n:
+            sc = np.einsum("hgd,shd->hgs", qd[row],
+                           k[row, :n].astype(np.float64))
+            top = sc.max(axis=-1, keepdims=True)
+            want[row] = (top[..., 0]
+                         + np.log(np.exp(sc - top).sum(axis=-1)))
+    want = want.reshape(b, hq)
+    assert np.isneginf(lse[0].numpy()).all()
+    np.testing.assert_allclose(lse[1:].numpy(), want[1:], rtol=2e-5,
+                               atol=2e-5)
+    meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in (tq, tk, tv, tl)]
+    m_out, m_lse = ops.decode_attention(*meta, return_lse=True)
+    assert m_out.shape == tq.shape and m_lse.shape == (b, hq)
+    assert m_lse.dtype == torch.float32 and m_lse.device.type == "meta"
+
+
+def _pieces(k, v, lengths, cuts):
+    """The cache cut at positions ``cuts`` (ascending, inside (0, S)) into
+    pieces, each with its rows' local lengths: the valid positions that
+    fall in it, clip(length - start, 0, piece length)."""
+    s = k.shape[1]
+    bounds = [0, *cuts, s]
+    return [(k[:, a:e], v[:, a:e], (lengths - a).clamp(0, e - a))
+            for a, e in zip(bounds[:-1], bounds[1:])]
+
+
+@pytest.mark.parametrize("n_pieces", [2, 4, 16])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_sharded_cache_combined_by_lse_equals_unsplit(n_pieces, dtype):
+    """A cache of 64 positions cut at random offsets into 2, 4 and 16
+    pieces (empty ones among them: the rows' random lengths, 0 and S
+    among them, leave pieces with no valid position), each piece's
+    output and log-sum-exp from the wrapper, combined by
+    `tensor_parallel.combine` (`reduce_pieces`), against the unsplit
+    plain version and the JAX reference's, within the file's bounds; a
+    row of length 0 exactly 0, and a piece with no valid position
+    weighs exactly 0 (any finite output in its place changes nothing,
+    bitwise)."""
+    from repro_torch.distributed.tensor_parallel import combine, reduce_pieces
+    shape = (6, 8, 2, 16, 64)
+    s = shape[-1]
+    rng = np.random.default_rng(n_pieces)
+    q, k, v, _ = _inputs(shape, 3 + n_pieces)
+    lengths = np.array([0, s, *rng.integers(1, s + 1, shape[0] - 2)],
+                       np.int32)
+    cuts = sorted(rng.choice(np.arange(1, s), n_pieces - 1, replace=False))
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _both((q, k, v, lengths), dtype)
+    parts = [ops.decode_attention(tq, pk, pv, pl, return_lse=True)
+             for pk, pv, pl in _pieces(tk, tv, tl, cuts)]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([lse for _, lse in parts])
+    got = combine(outs, lses, reduce_pieces)[0]
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = DTYPES[dtype][2]
+    for want in (decode_attention_ref(tq, tk, tv, tl).float().numpy(),
+                 np.asarray(jax_ref(jq, jk, jv, jl), np.float32)):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    empty = torch.isneginf(lses)                          # (pieces, B, Hq)
+    assert bool(empty.any())
+    noise = torch.where(empty[..., None], 1e3, outs.float()).to(outs.dtype)
+    assert torch.equal(combine(noise, lses, reduce_pieces)[0], got)
+
+
 def _decode_head_dims(cfg) -> set[int]:
     """Head dimensions a config's decode step sends through
     `decode_attention` (the reference's `Model.decode_step`): the
@@ -194,7 +279,9 @@ def test_cuda_kernel_matches_plain_version():
     the smoke configs' head dimension 16, deepseek-v3's 56 and
     recurrentgemma-2b's 256 too, caches longer than one chunk (the
     split-sequence pass and the combine), both types, ragged lengths
-    including 0, 1, a multiple of the chunk and S."""
+    including 0, 1, a multiple of the chunk and S; with ``return_lse``
+    the same output and the plain version's log-sum-exp (-inf at length
+    0) within 2e-5 (float32 scores in both types)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU build)")
     extra = [(4, 4, 2, 16, 128), (8, 16, 8, 128, 1024), (3, 4, 4, 56, 1500),
@@ -217,3 +304,7 @@ def test_cuda_kernel_matches_plain_version():
                                        atol=tol)
             if lengths[0] == 0:
                 assert torch.equal(got[0], torch.zeros_like(got[0]))
+            out, lse = ops.decode_attention(*args, return_lse=True)
+            _, want_lse = decode_attention_ref(*args, return_lse=True)
+            assert torch.equal(out, got)
+            torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)

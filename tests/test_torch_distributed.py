@@ -18,6 +18,13 @@ one-process steps and against the reference's on weights carried across
 by `interop.model_params`.
 """
 
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +45,7 @@ from repro_torch.distributed import pipeline, sharding
 from repro_torch.models import Model
 from repro_torch.train import loop, optim
 
+ROOT = Path(__file__).resolve().parent.parent
 KEY = jax.random.PRNGKey(0)
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
@@ -412,36 +420,60 @@ SERVE_ROWS = [workers.SERVE["batch"], workers.SERVE["odd_batch"]]
 
 @pytest.fixture(scope="module")
 def serve_weights(tmp_path_factory):
-    """The reference's qwen3 smoke model in float32 with weights drawn
-    from SERVE's seed, and the directory whose weights.pt holds them as
-    the port's state dict (`interop.model_params`)."""
-    rm = ref_build(ref_config(workers.SERVE["arch"], "smoke")
-                   .replace(dtype=jnp.float32))
-    params = rm.init(jax.random.PRNGKey(workers.SERVE["seed"]))
+    """The reference's qwen3 models in float32 at smoke width and at
+    SERVE_WIDE's, and the GATHERED archs' at smoke width, weights drawn
+    from SERVE's seed: {wide, or the arch: (model, params)}, and the
+    directory whose weights.pt, weights_wide.pt and weights_{arch}.pt
+    hold them as the port's state dicts (`interop.model_params`)."""
     out = tmp_path_factory.mktemp("serve4")
-    cfg = get_config(workers.SERVE["arch"], "smoke").replace(
-        dtype=torch.float32)
-    torch.save(interop.model_params(jax.tree.map(np.asarray, params), cfg,
-                                    "cpu"), out / "weights.pt")
-    return rm, params, out
+    refs = {}
+    runs = [(False, None, "weights.pt"), (True, None, "weights_wide.pt")]
+    runs += [(arch, arch, f"weights_{arch}.pt") for arch in workers.GATHERED]
+    for key, arch, name in runs:
+        cfg = ref_config(arch or workers.SERVE["arch"], "smoke").replace(
+            dtype=jnp.float32)
+        wide = key is True
+        rm = ref_build(cfg.replace(**workers.SERVE_WIDE) if wide else cfg)
+        params = rm.init(jax.random.PRNGKey(workers.SERVE["seed"]))
+        torch.save(interop.model_params(jax.tree.map(np.asarray, params),
+                                        workers.serve_config(wide, arch),
+                                        "cpu"),
+                   out / name)
+        refs[key] = (rm, params)
+    return refs, out
 
 
 @pytest.fixture(scope="module")
 def sharded_serve4(serve_weights):
     """One 4-rank (data 2, model 2) gloo group runs the sharded prefill
-    and serve steps; rank 0's results by batch rows."""
-    out = serve_weights[2]
-    workers.spawn(workers.sharded_serve_worker, 4, str(out))
-    return torch.load(out / "serve.pt", weights_only=False)
+    and serve steps (`torch_dist_workers.sharded_serve_worker`); rank 0's
+    results by run ("smoke", "wide", "fsdp") and batch rows."""
+    out = serve_weights[1]
+    workers.spawn(workers.sharded_serve_worker, 4, str(out), (2, 2))
+    return torch.load(out / "serve4.pt", weights_only=False)
 
 
-def _one_process(weights, rows):
-    """The one-process prefill logits, each decode step's logits and the
-    cache after them, on the same weights and tokens."""
-    model = workers.serve_model(weights)
-    tokens = workers.serve_tokens(rows)
-    prefill = loop.make_prefill_step(model)({"tokens": tokens})
-    cache = model.init_cache(rows, workers.SERVE["max_len"])
+@pytest.fixture(scope="module")
+def sharded_serve8(serve_weights):
+    """One 8-rank (data 2, model 4) gloo group runs the wide model's
+    serve steps; rank 0's results by batch rows."""
+    out = serve_weights[1] / "mesh24"
+    out.mkdir()
+    for name in ("weights.pt", "weights_wide.pt"):
+        shutil.copy(serve_weights[1] / name, out / name)
+    workers.spawn(workers.sharded_serve_worker, 8, str(out), (2, 4))
+    return torch.load(out / "serve8.pt", weights_only=False)
+
+
+def _one_process(weights, rows, wide=False, arch=None):
+    """The one-process prefill logits (None for the wide model and the
+    GATHERED archs), each decode step's logits and the cache after them,
+    on the same weights, tokens and first cache."""
+    model = workers.serve_model(weights, wide, arch)
+    tokens = workers.serve_tokens(rows, arch)
+    prefill = None if wide or arch else loop.make_prefill_step(model)(
+        {"tokens": tokens})
+    cache = workers.serve_cache(model, rows, arch is not None)
     step = loop.make_serve_step(model)
     logits = []
     for t in range(workers.SERVE["steps"]):
@@ -450,20 +482,26 @@ def _one_process(weights, rows):
     return prefill, logits, cache
 
 
-def _reference(rm, params, rows):
-    """The reference's jitted `make_prefill_step` and `make_serve_step`
-    on the same weights and tokens: the prefill logits, each decode
-    step's logits and the cache after them (as the port's tensors)."""
-    tokens = jnp.asarray(workers.serve_tokens(rows).numpy())
-    prefill = jax.jit(ref_loop.make_prefill_step(rm))(params,
-                                                      {"tokens": tokens})
+def _reference(rm, params, rows, arch=None):
+    """The reference's jitted `make_prefill_step` (not for the GATHERED
+    archs: None) and `make_serve_step` on the same weights, tokens and
+    first cache: the prefill logits, each decode step's logits and the
+    cache after them (as the port's tensors)."""
+    tokens = jnp.asarray(workers.serve_tokens(rows, arch).numpy())
+    prefill = None if arch else torch.from_numpy(np.array(jax.jit(
+        ref_loop.make_prefill_step(rm))(params, {"tokens": tokens})))
     step = jax.jit(ref_loop.make_serve_step(rm))
-    cache = rm.init_cache(rows, workers.SERVE["max_len"])
+    if arch is None:
+        cache = rm.init_cache(rows, workers.SERVE["max_len"])
+    else:                                # the port's random first cache
+        first = workers.serve_cache(
+            Model(workers.serve_config(arch=arch), "cpu"), rows, True)
+        cache = jax.tree.map(lambda t: jnp.asarray(t.numpy()), first)
     logits = []
     for t in range(workers.SERVE["steps"]):
         cache, out = step(params, cache, tokens[:, t:t + 1])
         logits.append(torch.from_numpy(np.array(out)))
-    return (torch.from_numpy(np.array(prefill)), logits,
+    return (prefill, logits,
             interop.model_cache(jax.tree.map(np.asarray, cache), "cpu"))
 
 
@@ -479,8 +517,11 @@ def _assert_cache(got, want, path=""):
 
 
 def _assert_steps(got, prefill, logits, cache):
-    np.testing.assert_allclose(got["prefill"].numpy(), prefill.numpy(),
-                               **SERVE_TOL)
+    """A sharded run's logits and cache against another's (its prefill
+    logits too where the run has them)."""
+    if "prefill" in got:
+        np.testing.assert_allclose(got["prefill"].numpy(), prefill.numpy(),
+                                   **SERVE_TOL)
     assert len(got["logits"]) == len(logits) == workers.SERVE["steps"]
     for g, w in zip(got["logits"], logits):
         assert g.shape == w.shape
@@ -498,8 +539,8 @@ def test_sharded_prefill_and_serve_steps_equal_one_process(
     bounds. 4 rows split over 'data' (the K/V heads over 'model'); 3 rows
     do not divide it, so every data rank computes all 3 and the cache
     puts its sequence over 'data'."""
-    got = sharded_serve4[rows]
-    _assert_steps(got, *_one_process(serve_weights[2] / "weights.pt", rows))
+    got = sharded_serve4["smoke"][rows]
+    _assert_steps(got, *_one_process(serve_weights[1] / "weights.pt", rows))
     want = (["S(1)", "S(3)"] if rows == workers.SERVE["batch"]
             else ["S(2)", "S(3)"])
     assert got["placements"]["kv"]["k"] == want
@@ -513,5 +554,156 @@ def test_sharded_prefill_and_serve_steps_equal_reference(
     serve steps on the same weights and tokens: the gathered prefill
     logits, each decode step's logits and every cache leaf reassembled
     from its shards, within test_torch_serve.py's bounds."""
-    rm, params, _ = serve_weights
-    _assert_steps(sharded_serve4[rows], *_reference(rm, params, rows))
+    rm, params = serve_weights[0][False]
+    _assert_steps(sharded_serve4["smoke"][rows],
+                  *_reference(rm, params, rows))
+
+
+# the wide model's cache layouts: (mesh, rows) -> k's placements
+WIDE_CACHE = {((2, 2), 4): ["S(1)", "S(3)"],   # rows over 'data', KV heads
+              ((2, 2), 3): ["S(2)", "S(3)"],   # + the sequence over 'data'
+              ((2, 4), 4): ["S(1)", "S(2)"],   # the sequence over 'model'
+              ((2, 4), 3): ["S(2)", "R"]}      # over 'data'; 'model' whole
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_tensor_parallel_serve_step_equals_reference_and_one_process(
+        serve_weights, sharded_serve4, sharded_serve8, shape, rows):
+    """SERVE_WIDE's model (every parameter rule fires: wq, wo, the MLP
+    and the embedding split over 'model', wk and wv replicated) on 4 gloo
+    ranks as (data 2, model 2) and on 8 as (data 2, model 4): both decode
+    steps' logits and every cache leaf reassembled from its shards equal
+    the reference's jitted `make_serve_step` on the same weights and the
+    one-process port step, within test_torch_serve.py's 1e-5. The four
+    cache layouts cover the KV heads over 'model', the sequence over
+    'model' (the log-sum-exp combine over 'model') and, for the 3 rows,
+    over 'data' (the combine over 'data')."""
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)["wide"][rows]
+    assert got["reads_model_params"] is False
+    assert got["placements"]["kv"]["k"] == WIDE_CACHE[shape, rows]
+    placed = got["param_placements"]
+    assert placed["layers.0.attn.wq"] == placed["layers.1.mlp.w_down"] == \
+        ["R", "S(1)"]
+    assert placed["layers.0.attn.wk"] == ["R", "R"]
+    assert placed["embed"] == ["R", "S(0)"]
+    rm, params = serve_weights[0][True]
+    _, logits, cache = _reference(rm, params, rows)
+    _assert_steps(got, None, logits, cache)
+    _assert_steps(got, *_one_process(serve_weights[1] / "weights_wide.pt",
+                                     rows, wide=True))
+
+
+def test_tensor_parallel_serve_step_with_fsdp_parameters(serve_weights,
+                                                         sharded_serve4):
+    """The wide model's parameters in the FSDP layout (fan-in over
+    'data', the embedding's width too) on (data 2, model 2): the step
+    gathers each over 'data' and computes on its 'model' shard; logits
+    and cache equal the one-process step within 1e-5."""
+    got = sharded_serve4["fsdp"][workers.SERVE["batch"]]
+    placed = got["param_placements"]
+    assert placed["layers.0.attn.wq"] == ["S(0)", "S(1)"]
+    assert placed["embed"] == ["S(1)", "S(0)"]
+    _assert_steps(got, *_one_process(serve_weights[1] / "weights_wide.pt",
+                                     workers.SERVE["batch"], wide=True))
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+@pytest.mark.parametrize("arch", workers.GATHERED)
+def test_gathered_serve_step_equals_reference_and_one_process(
+        serve_weights, sharded_serve4, arch, rows):
+    """The families whose sharded serve step still gathers (whisper-base,
+    encoder-decoder; mamba2-2.7b, SSM), at smoke width in float32 on 4
+    gloo ranks as (data 2, model 2), from a random first cache (the
+    encoder memory and the recurrent state not zeros): both decode steps'
+    logits and every cache leaf reassembled from its shards equal the
+    reference's jitted `make_serve_step` on the same weights and cache
+    and the one-process port step, within test_torch_serve.py's 1e-5.
+    The step says it reads the model's own parameters."""
+    got = sharded_serve4[arch][rows]
+    assert got["reads_model_params"] is True
+    rm, params = serve_weights[0][arch]
+    _assert_steps(got, *_reference(rm, params, rows, arch))
+    _assert_steps(got, *_one_process(serve_weights[1] / f"weights_{arch}.pt",
+                                     rows, arch=arch))
+
+
+CENSUS_SCRIPT = """
+import json, torch
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import Model
+from repro_torch.train.loop import make_sharded_serve_step
+import torch_dist_workers as workers
+dryrun._fake_group(256)
+mesh = sharding.device_mesh(make_production_mesh(), "cpu")
+sharding.set_mesh(mesh)
+model = Model(workers.serve_config(True), "meta")
+rows, max_len = {rows}, {max_len}
+
+def placed(t, sh):
+    return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+
+p_sh = sharding.param_shardings(model, mesh)
+params = {{n: placed(p.detach(), p_sh[n])
+          for n, p in model.named_parameters()}}
+cache = model.init_cache(rows, max_len, device="meta")
+c_sh = sharding.cache_shardings(cache, mesh)
+cache = {{"length": placed(cache["length"], c_sh["length"]),
+         "kv": {{k: placed(v, c_sh["kv"][k])
+                for k, v in cache["kv"].items()}}}}
+tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
+counter = dryrun.OpCounter()
+with counter:
+    make_sharded_serve_step(model, mesh)(params, cache, tokens)
+full = {{n: p.numel() * p.element_size() for n, p in params.items()
+        if any(pl.is_shard() for pl in p.placements)}}
+k = cache["kv"]["k"]
+local = k.to_local()
+print(json.dumps({{"gathers": [b for kind, b in counter.collectives
+                              if kind == "all-gather"],
+                  "kinds": sorted({{kind for kind, _ in counter.collectives}}),
+                  "full_params": full,
+                  "cache_rows": k.numel() * k.element_size() * local.shape[1]
+                                // k.shape[1],
+                  "kv_local": list(local.shape)}}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_tensor_parallel_serve_step_gathers_no_parameter_or_cache_row():
+    """The census on a fake (16, 16) group of 256 ranks (no data moves),
+    SERVE_WIDE's model on meta tensors, 32 rows of a 64-position cache
+    (2 rows a data rank; 2 KV heads do not divide 16, so 4 positions a
+    'model' rank): the all-gathers of the step (`launch.dryrun.OpCounter`)
+    are exactly the activations' (a layer's two norms, whose scales
+    'model' splits, q, the attention's output product and the MLP's
+    three, then the logits, float32 rows of the rank's 2 rows; the 32
+    lengths over 'data'), each smaller than the full tensor of every
+    matrix that 'model' splits and than the rank's rows of a cache leaf
+    (what the gathering step moved), and of no parameter's full size;
+    the only other collective is the all-reduce (the embedding's sum and
+    the log-sum-exp combine)."""
+    script = CENSUS_SCRIPT.format(rows=32, max_len=64)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests"),
+         *filter(None, [env.get("PYTHONPATH")])])
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = workers.serve_config(True)
+    rows, f32 = 2, 4
+    assert got["kv_local"] == [cfg.n_layers, rows, 4, 2, cfg.d_head]
+    assert got["kinds"] == ["all-gather", "all-reduce"]
+    layer = [rows * cfg.d_model * f32] * 5 + [rows * cfg.d_ff * f32] * 2
+    want = layer * cfg.n_layers + [rows * cfg.padded_vocab * f32, 32 * 4]
+    assert sorted(got["gathers"]) == sorted(want)
+    # wq, wo and the MLP's three a layer, the two norm scales, the embedding
+    assert len(got["full_params"]) == cfg.n_layers * 7 + 1
+    matrices = [b for n, b in got["full_params"].items() if "ln" not in n]
+    assert max(want) < min(min(matrices), got["cache_rows"])
+    assert not set(want) & set(got["full_params"].values())

@@ -170,53 +170,88 @@ def sharded_train_worker(rank: int, world: int, init: str, out_dir: str,
 
 SERVE = dict(arch="qwen3-0.6b", seed=5, batch=4, odd_batch=3, prompt=6,
              max_len=16, steps=2)
+# SERVE's arch widened until every `param_pspec` rule fires on a 'model'
+# axis of 2 or 4: wq, wo, the MLP and the embedding split, wk and wv (32
+# columns) replicated by the divisibility fallback
+SERVE_WIDE = dict(d_model=128, n_heads=8, n_kv_heads=2, d_head=16, d_ff=256,
+                  vocab_size=512, n_layers=2)
 
 
-def serve_model(weights: str):
-    """The sharded serving test's model: SERVE's arch at smoke width,
-    float32, on the CPU, its state dict read from ``weights`` (the
-    reference's weights carried across by the test)."""
+# families whose sharded serve step still gathers (the encoder-decoder
+# and the SSM), at smoke width, float32, from a random cache (`serve_cache`)
+GATHERED = ("whisper-base", "mamba2-2.7b")
+
+
+def serve_config(wide: bool = False, arch: str | None = None):
+    """SERVE's arch (or ``arch``) at smoke width (``wide``: SERVE_WIDE's),
+    float32."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch or SERVE["arch"], "smoke").replace(
+        dtype=torch.float32)
+    return cfg.replace(**SERVE_WIDE) if wide else cfg
+
+
+def serve_model(weights: str, wide: bool = False, arch: str | None = None):
+    """The sharded serving tests' model (`serve_config`) on the CPU, its
+    state dict read from ``weights`` (the reference's weights carried
+    across by the test)."""
     from repro_torch.models import Model
-    cfg = get_config(SERVE["arch"], "smoke").replace(dtype=torch.float32)
-    model = Model(cfg, "cpu")
+    model = Model(serve_config(wide, arch), "cpu")
     model.load_state_dict(torch.load(weights))
     return model
 
 
-def serve_tokens(rows: int) -> torch.Tensor:
+def serve_tokens(rows: int, arch: str | None = None) -> torch.Tensor:
     """(rows, prompt) int32 tokens from numpy, seeded by SERVE and rows."""
-    from repro_torch.configs import get_config
     rng = np.random.default_rng(SERVE["seed"] + rows)
-    vocab = get_config(SERVE["arch"], "smoke").vocab_size
+    vocab = serve_config(arch=arch).vocab_size
     return torch.from_numpy(rng.integers(0, vocab, (rows, SERVE["prompt"])
                                          ).astype(np.int32))
 
 
-def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str):
-    """make_sharded_prefill_step and make_sharded_serve_step on a (data 2,
-    model 2) mesh: for SERVE's batch (rows over 'data') and its odd batch
-    (3 rows: computed whole on every data rank, the cache's sequence
-    over 'data'), the prefill's last logits (plain global tokens), then
-    SERVE's decode steps from a fresh cache in `cache_shardings`' layout
-    (the tokens as DTensors in `batch_pspec`'s layout); rank 0 writes
-    each step's logits and every cache leaf reassembled, with the
-    leaves' placements. The weights are ``out_dir``'s weights.pt."""
+def serve_cache(model, rows: int, random: bool) -> dict:
+    """``model``'s decode cache of ``rows`` rows and SERVE's max_len:
+    zeros, or with ``random`` every leaf but ``length`` drawn from numpy
+    (seeded by SERVE and rows), so that an encoder memory or a recurrent
+    state the steps read is not zeros."""
+    cache = model.init_cache(rows, SERVE["max_len"])
+    if random:
+        rng = np.random.default_rng(SERVE["seed"] + 100 + rows)
+
+        def fill(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    fill(v)
+                elif k != "length":
+                    v.copy_(torch.from_numpy(
+                        0.5 * rng.standard_normal(tuple(v.shape))))
+
+        fill(cache)
+    return cache
+
+
+def _serve_runs(mesh, weights: str, wide: bool, prefill: bool,
+                fsdp: bool = False, rows_cases=None,
+                arch: str | None = None) -> dict:
+    """For each row count (SERVE's batch, whose rows 'data' splits, and
+    its odd batch, which every data rank computes whole): the sharded
+    prefill's last logits (plain global tokens; with ``prefill``), then
+    SERVE's decode steps of `make_sharded_serve_step` from the cache of
+    `serve_cache` (random where ``arch`` is given) in `cache_shardings`'
+    layout (the tokens as DTensors in `batch_pspec`'s layout): each
+    step's logits and every cache leaf reassembled, with the leaves'
+    placements and the step's ``reads_model_params``. ``fsdp`` places
+    the parameters in the FSDP layout (fan-in over 'data')."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.distributed import sharding
     from repro_torch.train.loop import (make_sharded_prefill_step,
                                         make_sharded_serve_step)
-    _init(rank, world, init)
-    mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), (2, 2)),
-                                "cpu")
-    sharding.set_mesh(mesh)
-    model = serve_model(os.path.join(out_dir, "weights.pt"))
-    p_sh = sharding.param_shardings(model, mesh)
+    model = serve_model(weights, wide, arch)
+    p_sh = sharding.param_shardings(model, mesh, fsdp=fsdp)
     params = {n: distribute_tensor(p.detach().clone(), mesh,
                                    p_sh[n].placements, src_data_rank=None)
               for n, p in model.named_parameters()}
-    prefill = make_sharded_prefill_step(model, mesh)
     serve = make_sharded_serve_step(model, mesh)
 
     def placed(tree, shardings):
@@ -234,12 +269,17 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str):
                 [str(p) for p in v.placements] for k, v in tree.items()}
 
     out = {}
-    for rows in (SERVE["batch"], SERVE["odd_batch"]):
-        tokens = serve_tokens(rows)
-        res = {"prefill": prefill(params, {"tokens": tokens}).full_tensor()}
-        cache = model.init_cache(rows, SERVE["max_len"])
+    for rows in rows_cases or (SERVE["batch"], SERVE["odd_batch"]):
+        tokens = serve_tokens(rows, arch)
+        res = {"reads_model_params": serve.reads_model_params}
+        if prefill:
+            res["prefill"] = make_sharded_prefill_step(model, mesh)(
+                params, {"tokens": tokens}).full_tensor()
+        cache = serve_cache(model, rows, arch is not None)
         cache = placed(cache, sharding.cache_shardings(cache, mesh))
         res["placements"] = census(cache)
+        res["param_placements"] = {n: [str(p) for p in t.placements]
+                                   for n, t in params.items()}
         res["logits"] = []
         for t in range(SERVE["steps"]):
             tok = tokens[:, t:t + 1]
@@ -250,7 +290,37 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str):
             res["logits"].append(logits.full_tensor())
         res["cache"] = full(cache)
         out[rows] = res
+    return out
+
+
+def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
+                         shape: tuple):
+    """The sharded prefill and serve steps on a (data, model) mesh of
+    ``shape`` (`_serve_runs`): on (2, 2) SERVE's smoke model with the
+    prefill ("smoke", the KV heads over 'model'), the wide model with
+    its parameters in the FSDP layout ("fsdp", SERVE's batch only) and
+    each GATHERED arch (by its name); on every shape the wide model
+    ("wide"; on (2, 4) its 2 KV heads do not divide 'model', so the cache
+    puts its sequence there). Rank 0 writes the results by run and rows
+    to serve{world}.pt. The weights are ``out_dir``'s weights.pt,
+    weights_wide.pt and weights_{arch}.pt."""
+    from repro_torch.distributed import sharding
+    _init(rank, world, init)
+    mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), shape),
+                                "cpu")
+    sharding.set_mesh(mesh)
+    small = os.path.join(out_dir, "weights.pt")
+    wide = os.path.join(out_dir, "weights_wide.pt")
+    out = {"wide": _serve_runs(mesh, wide, True, False)}
+    if tuple(shape) == (2, 2):
+        out["smoke"] = _serve_runs(mesh, small, False, True)
+        out["fsdp"] = _serve_runs(mesh, wide, True, False, fsdp=True,
+                                  rows_cases=(SERVE["batch"],))
+        for arch in GATHERED:
+            out[arch] = _serve_runs(
+                mesh, os.path.join(out_dir, f"weights_{arch}.pt"), False,
+                False, arch=arch)
     if rank == 0:
-        torch.save(out, os.path.join(out_dir, "serve.pt"))
+        torch.save(out, os.path.join(out_dir, f"serve{world}.pt"))
     sharding.clear_mesh()
     dist.destroy_process_group()
