@@ -123,16 +123,19 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                kernel's chunk and one past it where S spans several
                chunks, then random) and full rows; rows of length 0 exactly
                0; the log-sum-exp output (return_lse) against the plain
-               version's at (8, 16, 8, 128, 2048), (4, 4, 2, 16, 128) and
-               (8, 16, 8, 128, 1024), both types, ragged and full (-inf
-               exactly on empty rows, the output unchanged), and the S =
-               32768 cache cut into 16 pieces of 2048, combined by
-               tensor_parallel.combine, against the unsplit call;
-               kernel, plain-version and SDPA (enable_gqa, boolean
-               length mask) times beside the byte bound and its share at
-               the tensor-parallel shard (8, 16, 8, 128, 2048) with the
-               log-sum-exp, the serve shape (length 160), S = 4096, S =
-               32768 and D = 256 at S = 2048
+               version's at (8, 16, 8, 128, 2048), (4, 4, 2, 16, 128),
+               (8, 16, 8, 128, 1024) and the moe family's tensor-parallel
+               shards (8, 48, 8, 128, 2048) (dbrx-132b) and (8, 8, 8, 56,
+               32768) (deepseek-v3-671b's dense layers), both types,
+               ragged and full (-inf exactly on empty rows, the output
+               unchanged), and the S = 32768 cache cut into 16 pieces of
+               2048, combined by tensor_parallel.combine, against the
+               unsplit call; kernel, plain-version and SDPA (enable_gqa,
+               boolean length mask) times beside the byte bound and its
+               share at the tensor-parallel shards (8, 16, 8, 128, 2048)
+               and (8, 48, 8, 128, 2048) with the log-sum-exp and (8, 8,
+               8, 56, 32768) without, the serve shape (length 160), S =
+               4096, S = 32768 and D = 256 at S = 2048
   serve        SporkRouter("qwen3-0.6b") on the card with launch/serve.py's
                defaults (10 minutes, rate 40, burstiness 0.65, energy):
                report, and one spork_predict launch per allocator tick;
@@ -238,7 +241,8 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                the smoke config (1 dense and 2 MLA + MoE layers) in float32,
                card against CPU, with serve_moe_vs_cpu's checks
   serve_ssm    SporkRouter("mamba2-2.7b") as in serve, then ServeEngine
-               over mamba2-2.7b at full width and depth in bf16 (8 slots,
+               over mamba2-2.7b at full width in bf16, cut in depth to 32
+               of 64 layers for the wall (8 slots,
                8 requests of 128 + 64 tokens): no attention, so no
                decode_attn launch (counted); prefill and decode wall,
                tokens/s, ms a step, peak memory, a decode step under the
@@ -292,6 +296,15 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                NCCL all-reduces), each against Model.decode_step: logits
                and K/V within 1e-3 of their largest, lengths equal (the
                line says whether bitwise), 32 decode_attn launches each;
+               then the moe family's tensor-parallel serve step there, in
+               bf16 at full width from seeded weights: dbrx-132b, 2 of 40
+               layers, its K/V sequence over 'model' (expert parallel,
+               the log-sum-exp combine), and deepseek-v3-671b, 3 dense +
+               1 MLA/MoE layer (dense K/V heads and the latent sequence
+               over 'model', MLA's heads and combine), 8 steps of 4 rows
+               each against Model.decode_step: bitwise, else within
+               serve_vs_cpu's bound (the line says which), every cache
+               leaf and the lengths too, 16 and 24 decode_attn launches;
                no multi-card number (one card)
   train_resume python -m repro_torch.launch.train --variant full, float32,
                2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
@@ -311,29 +324,37 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                train_resume's batch order on the CPU from the card's
                initial weights: the card's last checkpoint within
                train_vs_cpu's bounds, the step count equal
-  dryrun       python -m repro_torch.launch.dryrun --arch qwen3-0.6b
-               --shape decode_32k --mesh single in a child with no card
-               visible (rank 0's sharded decode step on meta tensors over
-               a fake 256-rank process group): an ok record whose
-               argument bytes equal launch.specs' sum here and its
-               all-gathers below 32 MiB; meanwhile that rank's
-               tensor-parallel make_sharded_serve_step on the card over
-               a fake 256-rank group (its collectives move nothing),
-               qwen3-0.6b at full width and depth in bf16, the record's
-               arguments made real: 8 rows x 2048 of the 32768
-               positions, every row at 32767 valid positions: the step's
-               time (median of 5, once the child has ended), its FLOPs
-               (FlopCounterMode + decode_attn launches x
-               decode_attention_cost) equal to the record's hlo_flops
-               exactly, its peak memory within 10 % + 256 MiB of the
-               record's compute_peak_bytes, the last layer's decode_attn
-               call at (8, 16, 8, 128, 2048) (a seeded q) against the
-               plain version with its log-sum-exp (decode_attn_kernel's
+  dryrun       python -m repro_torch.launch.dryrun --shape decode_32k
+               --mesh single for qwen3-0.6b and dbrx-132b at full depth
+               and deepseek-v3-671b cut to 1 dense + 4 MLA/MoE layers
+               (--layers 5, the reference's depth rule), three children
+               at once with
+               no card visible (rank 0's sharded decode step on meta
+               tensors over a fake 256-rank process group): ok records
+               whose argument bytes equal launch.specs' sum here and
+               whose all-gathers lie below 32 MiB, 64 MiB and 512 MiB;
+               meanwhile each cell's rank-0 tensor-parallel
+               make_sharded_serve_step on the card over a fake 256-rank
+               group (its collectives move nothing), at full width in
+               bf16, the record's arguments made real: 8 rows and the
+               rank's shard of the 32768 positions, every row at 32767
+               valid positions (dbrx-132b: 19072098848 B of arguments, 1
+               of 16 experts a layer; deepseek-v3-671b: 16 of 256): the
+               step's time (median of 5, once the children have ended),
+               its FLOPs (FlopCounterMode + each decode_attn call's
+               decode_attention_cost at its shard) equal to the record's
+               hlo_flops exactly, its peak memory within 10 % + 256 MiB
+               of the record's compute_peak_bytes, the last layer's
+               decode_attn call at its shard, (8, 16, 8, 128, 2048), (8,
+               48, 8, 128, 2048) and (8, 8, 8, 56, 32768) (a seeded q),
+               against the plain version (with its log-sum-exp where the
+               path takes it: the first two; decode_attn_kernel's
                tolerances) and timed beside SDPA, the record's roofline
                bounds (the model call's at most 1.05 of the step); the
-               router's service model reads the record. No *_vs_cpu twin: the dry run
-               touches no device, and serve_vs_cpu holds the decode
-               step's numerics
+               router's service model reads qwen3-0.6b's record. No
+               *_vs_cpu twin: the dry run touches no device, and
+               serve_vs_cpu and distributed hold the decode step's
+               numerics
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -570,7 +591,13 @@ DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # shapes, and DECODE_LONG's cache cut into DECODE_SHARDS pieces is
 # combined by it against the unsplit call
 DECODE_SHARD = (8, 16, 8, 128, 2048)
-DECODE_LSE_SHAPES = (DECODE_SHARD, DECODE_SMOKE, DECODE_MAIN)
+# the moe family's shards on the same mesh: dbrx-132b's (8 KV heads over
+# the sequence, 48 q heads, the log-sum-exp) and deepseek-v3-671b's dense
+# layers' (128 KV heads of 56 over 'model': 8 a rank, every position)
+DECODE_MOE_SHARD = (8, 48, 8, 128, 2048)
+DECODE_DENSE_SHARD = (8, 8, 8, 56, 32768)
+DECODE_LSE_SHAPES = (DECODE_SHARD, DECODE_SMOKE, DECODE_MAIN,
+                     DECODE_MOE_SHARD, DECODE_DENSE_SHARD)
 # the log-sum-exp is float32 from float32 scores in both types: held at
 # tests/test_torch_decode_attn.py's 2e-5 (absolute plus relative), not at
 # DECODE_TOL's bf16 output bound
@@ -699,14 +726,18 @@ MLA_LAUNCHES = 3 * (SERVE_PROMPT + SERVE_NEW)
 MOE_VS_CPU_PROMPT = 8
 MOE_VS_CPU_NEW = 8
 MOE_TIE_GAP = 1e-5
-# serve_ssm: mamba2-2.7b at full width and depth (2.7 B parameters fit one
-# card) in bf16, the serve phase's requests in 8 slots (the cache does not
+# serve_ssm: mamba2-2.7b at full width in bf16, cut in depth to
+# SSM_LAYERS of 64 for the wall (the phase is host-bound: ~130 s at full
+# depth, the largest; the moe family's tensor-parallel checks in
+# decode_attn_kernel, distributed and dryrun take the room), the serve
+# phase's requests in 8 slots (the cache does not
 # depend on max_len: its bytes are checked equal at SSM_STATE_LENS); the
 # duality in float32 at full width, n_layers cut 64 -> SSM_DUAL_LAYERS (the
 # recurrence's 300 steps at full depth took 14 s), at S = SSM_DUAL_S, two
 # chunks of 128 and a padded third, last logits within SSM_DUAL_RTOL x max
 # |logit| (the reference's test holds its smoke model to 1e-3 absolute)
 SSM_ARCH = "mamba2-2.7b"
+SSM_LAYERS = 32
 SSM_STATE_LENS = (512, 8192)
 SSM_DUAL_LAYERS = 16
 SSM_DUAL_S = 300
@@ -757,6 +788,13 @@ DIST_STEPS = 2
 # VS_CPU_MAX_LEN cache, serve_vs_cpu's bounds
 DIST_SERVE_ROWS = 4
 DIST_SERVE_STEPS = 8
+# and the moe family's tensor-parallel serve step there, in bf16 at full
+# width from seeded weights: dbrx-132b cut to 2 of 40 layers (its K/V
+# sequence over 'model', as 8 KV heads lie on the production mesh's 16)
+# and deepseek-v3-671b to 3 dense + 1 MLA/MoE of 61 (cache_shardings'
+# layout: dense K/V heads and the latent sequence over 'model'): (arch,
+# layers, dense layers, whether 'model' takes the K/V sequence)
+DIST_MOE = (("dbrx-132b", 2, 0, True), ("deepseek-v3-671b", 4, 3, False))
 # train_resume: python -m repro_torch.launch.train at full width, float32,
 # cut to RESUME_LAYERS layers (a checkpoint is then ~2.3 GB, the
 # embedding most of it), RESUME_STEPS steps saving every RESUME_EVERY,
@@ -770,15 +808,25 @@ RESUME_EVERY = 2
 RESUME_TIMEOUT_S = 300
 CUBLAS_DETERMINISTIC = ":4096:8"
 # dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of
-# qwen3-0.6b decode_32k on the (16, 16) mesh in a child with no card
-# visible; the card runs that rank's tensor-parallel step (its 8 of 128
-# rows, its 2048 of the 32768 positions, every row at 32767 valid
-# positions) over a fake 256-rank group and holds it to the record: FLOPs
-# exactly, the peak within 10 % + 256 MiB (allocator rounding, cuBLAS's
-# workspace), the model call's roofline bound at most 1.05 of the
-# measured step; the record's all-gathers below 32 MiB (the gathering
-# step moved 31257131520 B, its cache rows)
-DRYRUN_ARCH = "qwen3-0.6b"
+# each DRYRUN_CELLS cell's decode_32k on the (16, 16) mesh in a child with
+# no card visible (the three children at once); the card runs that
+# rank's tensor-parallel step (its 8 of 128 rows, its shard of the 32768
+# positions, every row at 32767 valid positions) over a fake 256-rank
+# group and holds it to the record: FLOPs exactly, the peak within 10 % +
+# 256 MiB (allocator rounding, cuBLAS's workspace), the model call's
+# roofline bound at most 1.05 of the measured step; the record's
+# all-gathers below the cell's limit (the gathering steps moved
+# 31257131520 B (qwen3-0.6b) and 304901718528 B (dbrx-132b), their cache
+# rows and experts). Per cell: the arch, --layers (None: full depth), the
+# all-gather limit, whether the path's decode_attn calls take the
+# log-sum-exp (a sequence-sharded KV cache), and the phase line's key for
+# the cell. deepseek-v3-671b is cut in depth by --layers 5, which keeps 1
+# dense + 4 MLA/MoE layers under the dry run's depth rule: rank 0's
+# 86375013920 B of arguments at full depth do not fit one card
+DRYRUN_CELLS = (("qwen3-0.6b", None, 32 * 2 ** 20, True, None),
+                ("dbrx-132b", None, 64 * 2 ** 20, True, "dbrx"),
+                ("deepseek-v3-671b", 5, 512 * 2 ** 20, False, "deepseek"))
+DRYRUN_ARCH = DRYRUN_CELLS[0][0]           # the cell the router reads
 DRYRUN_SHAPE = "decode_32k"
 DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
 DRYRUN_SEED = 0
@@ -787,7 +835,6 @@ DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PEAK_SLACK = 256 * 2 ** 20
 DRYRUN_MAX_SHARE = 1.05
 DRYRUN_TIMEOUT_S = 300
-DRYRUN_MAX_GATHER = 32 * 2 ** 20
 # fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
@@ -2506,6 +2553,10 @@ def phase_decode_attn_kernel(torch) -> dict:
     for label, shape, lens in (
             ("shard", DECODE_SHARD, np.full(DECODE_SHARD[0],
                                             DECODE_SHARD[-1])),
+            ("moe_shard", DECODE_MOE_SHARD,
+             np.full(DECODE_MOE_SHARD[0], DECODE_MOE_SHARD[-1])),
+            ("dense_shard", DECODE_DENSE_SHARD,
+             np.full(DECODE_DENSE_SHARD[0], DECODE_DENSE_SHARD[-1])),
             ("main", DECODE_MAIN, np.full(DECODE_MAIN[0], SERVE_MEAN_LENGTH)),
             ("s4096", DECODE_MID, np.full(DECODE_MID[0], DECODE_MID[-1])),
             ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1])),
@@ -2517,7 +2568,8 @@ def phase_decode_attn_kernel(torch) -> dict:
         qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
-        lse = label == "shard"            # as the tensor-parallel step
+        # as the tensor-parallel step calls it over a sequence shard
+        lse = label in ("shard", "moe_shard")
         timed[label] = {
             "shape": list(shape), "dtype": SERVE_DTYPE,
             "lengths": int(lens[0]), "return_lse": lse,
@@ -2553,7 +2605,9 @@ def phase_decode_attn_kernel(torch) -> dict:
                      "library_ms / ms; shard: rank 0's shard of the "
                      "dryrun cell's cache, every position valid, with the "
                      "log-sum-exp output as the tensor-parallel step asks "
-                     "(plain_ms likewise); main: the serve phase's shape at "
+                     "(plain_ms likewise); moe_shard: dbrx-132b's, likewise; "
+                     "dense_shard: deepseek-v3-671b's dense layers' (its "
+                     "KV heads split, no log-sum-exp); main: the serve phase's shape at "
                      "its mean decode length; s4096, long: S = 4096, "
                      "32768, every row full; d256: recurrentgemma-2b's "
                      "attention at its full 2048-position window"}
@@ -4178,7 +4232,8 @@ def _nbytes(tree) -> int:
 
 def phase_serve_ssm(torch) -> dict:
     """SporkRouter("mamba2-2.7b") on the card, then ServeEngine over
-    mamba2-2.7b at full width and full depth in bf16 (8 slots, 8 requests
+    mamba2-2.7b at full width in bf16, SSM_LAYERS of its 64 layers (8
+    slots, 8 requests
     of 128 + 64 tokens): no attention, so no decode_attn launch; walls,
     tokens/s, peak memory, a decode step under the profiler, the
     interleaving regression (the conv and ssm lanes bitwise), constant
@@ -4193,7 +4248,7 @@ def phase_serve_ssm(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     router = _serve_router(torch, SSM_ARCH)
-    cfg = get_config(SSM_ARCH, "full")
+    cfg = get_config(SSM_ARCH, "full").replace(n_layers=SSM_LAYERS)
     check(cfg.dtype == getattr(torch, SERVE_DTYPE),
           f"serve_ssm: the full config is not {SERVE_DTYPE}")
     rng = np.random.default_rng(SERVE_SEED)
@@ -4262,6 +4317,7 @@ def phase_serve_ssm(torch) -> dict:
     out = {"phase": "serve_ssm", "router": router,
            "engine": {"arch": SSM_ARCH, "variant": "full",
                       "dtype": SERVE_DTYPE, "n_layers": cfg.n_layers,
+                      "n_layers_published": get_config(SSM_ARCH).n_layers,
                       "params": n_params,
                       "params_analytic": cfg.param_count(),
                       "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
@@ -4789,6 +4845,113 @@ def _distributed_serve(mesh, init: dict, cfg, torch) -> dict:
                                         for r in layouts.values())}
 
 
+def _distributed_moe_serve(mesh, torch) -> dict:
+    """The moe family's tensor-parallel `make_sharded_serve_step` on the
+    one-rank mesh (DIST_MOE: full width, bf16, weights drawn from a
+    seeded generator, fan-in scaled; every parameter placed by
+    param_shardings on its own storage), DIST_SERVE_STEPS steps of
+    DIST_SERVE_ROWS rows of a VS_CPU_MAX_LEN cache, against
+    `Model.decode_step` on the same weights, tokens and a cache of its
+    own: the expert-parallel block, the router's product, MLA on its
+    heads and latent shard and the log-sum-exp combines (NCCL
+    all-reduces on one rank) run the one-process arithmetic, so each
+    step's logits and every cache leaf are held bitwise, else within
+    serve_vs_cpu's bound (VS_CPU_RTOL x the largest |value|; the line
+    says which), lengths equal; decode_attn's launches in the sharded
+    steps alone (GQA layers x steps)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import Model
+    from repro_torch.train.loop import make_sharded_serve_step
+    m_dim = mesh.mesh_dim_names.index("model")
+    runs = {}
+    for arch, layers, dense, seq in DIST_MOE:
+        cfg = get_config(arch, "full").replace(n_layers=layers,
+                                               n_dense_layers=dense)
+        model = Model(cfg, CARD)
+        gen = torch.Generator(device=CARD).manual_seed(SERVE_SEED)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() >= 2:
+                    p.normal_(generator=gen).mul_(p.shape[-2] ** -0.5)
+        p_sh = sharding.param_shardings(model, mesh)
+        params = {n: DTensor.from_local(p, mesh, p_sh[n].placements,
+                                        shape=p.shape, stride=p.stride())
+                  for n, p in model.named_parameters()}
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (DIST_SERVE_ROWS, DIST_SERVE_STEPS),
+                               generator=gen, device=CARD, dtype=torch.int32)
+        cache = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
+        c_sh = sharding.cache_shardings(cache, mesh)
+
+        def place(t, sh, name):
+            pl = list(sh.placements)
+            if seq and name in ("k", "v"):
+                pl[m_dim] = Shard(2)
+            return DTensor.from_local(t, mesh, pl, shape=t.shape,
+                                      stride=t.stride())
+
+        sharded = {k: ({n: place(t, c_sh[k][n], n) for n, t in v.items()}
+                       if isinstance(v, dict) else place(v, c_sh[k], k))
+                   for k, v in cache.items()}
+        step = make_sharded_serve_step(model, mesh)
+        ops.decode_attention.launches = 0
+        got = []
+        for t in range(DIST_SERVE_STEPS):
+            sharded, logits = step(params, sharded, tokens[:, t:t + 1])
+            got.append(logits.to_local())
+        torch.cuda.synchronize()
+        launches = ops.decode_attention.launches
+        plain = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
+        want = [model.decode_step(tokens[:, t:t + 1], plain)
+                for t in range(DIST_SERVE_STEPS)]
+        gaps = [float((g.float() - w.float()).abs().max())
+                / float(w.float().abs().max()) for g, w in zip(got, want)]
+        leaves = {}
+        for k, v in sharded.items():
+            if k == "length":
+                continue
+            for n, t in (v.items() if isinstance(v, dict) else [(k, v)]):
+                ref = plain[k][n] if isinstance(v, dict) else plain[k]
+                name = f"{k}/{n}" if isinstance(v, dict) else k
+                leaves[name] = float((t.to_local().float() - ref.float()
+                                      ).abs().max()) \
+                    / float(ref.float().abs().max())
+        lengths = bool(torch.equal(sharded["length"].to_local(),
+                                   plain["length"]))
+        n_gqa = cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
+        line = {"n_layers": layers, "n_dense_layers": dense,
+                "dtype": str(cfg.dtype).removeprefix("torch."),
+                "params": sum(p.numel() for p in model.parameters()),
+                "kv_placements": {
+                    name: [str(pl) for pl in leaf.placements]
+                    for name, leaf in (
+                        (k, v["k"] if isinstance(v, dict) else v)
+                        for k, v in sharded.items() if k != "length")},
+                "logit_gap_rel": gaps, "leaf_gap_rel": leaves,
+                "lengths_equal": lengths,
+                "bitwise": max(gaps) == 0.0 == max(leaves.values()),
+                "decode_attn_launches": launches}
+        line["equality"] = ("bitwise" if line["bitwise"]
+                            else "serve_vs_cpu bound")
+        runs[arch] = line
+        del model, params, sharded, cache, plain, step, got, want
+        torch.cuda.empty_cache()
+        check(max(gaps) <= VS_CPU_RTOL and max(leaves.values()) <= VS_CPU_RTOL
+              and lengths, f"distributed: the tensor-parallel serve step of "
+                           f"{arch} against decode_step: {line}")
+        check(launches == DIST_SERVE_STEPS * n_gqa,
+              f"distributed: {launches} decode_attn launches in {arch}'s "
+              f"tensor-parallel serve steps")
+    return {"rows": DIST_SERVE_ROWS, "steps": DIST_SERVE_STEPS,
+            "max_len": VS_CPU_MAX_LEN, "tolerance_rel": VS_CPU_RTOL,
+            "archs": runs, "decode_attn_launches": sum(
+                r["decode_attn_launches"] for r in runs.values())}
+
+
 def phase_distributed(torch) -> dict:
     """The distributed layer on the card: a one-rank NCCL process group
     and a DIST_MESH DeviceMesh on cuda; qwen3-0.6b at full width in
@@ -4871,6 +5034,7 @@ def phase_distributed(torch) -> dict:
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
         serve = _distributed_serve(mesh, init, cfg, torch)
+        serve_moe = _distributed_moe_serve(mesh, torch)
         out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
                "n_layers": TRAIN_VS_CPU_LAYERS, "mesh": list(DIST_MESH),
                "mesh_dim_names": ["data", "model"], "backend": "nccl",
@@ -4885,6 +5049,7 @@ def phase_distributed(torch) -> dict:
                "leaves_out_of_bounds": bad, "census": census,
                "collectives": collectives,
                "decode_attn_launches": launches, "serve": serve,
+               "serve_moe": serve_moe,
                "multi_card": "not measured: one card"}
         emit(out)
         check(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL and not bad),
@@ -5167,157 +5332,148 @@ def _card_args(args, mesh, gen, torch):
     return walk(params, 0.02), walk(cache, 1.0), real(tokens, 1.0)
 
 
-def phase_dryrun(torch) -> dict:
-    """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
-    qwen3-0.6b decode_32k on the (16, 16) mesh, in a child with no card
-    visible, while the card runs the untimed part of (b); its argument
-    bytes are `launch.specs`' sum, computed here. (b) The same rank's
-    tensor-parallel step on the card: `make_sharded_serve_step` over a
-    fake process group of 256 ranks in this process (the distributed
-    phase has destroyed its NCCL group), on a cuda `DeviceMesh` of the
-    production shape, with the record's arguments made real on the card
-    (qwen3-0.6b at full width and depth in bf16, rank 0's shards of the
-    parameters and of the 32768-position cache: 8 rows, 2048 positions,
-    every row at 32767 valid positions, seeded): the collectives move
-    nothing, so the step computes what rank 0 computes and its values
-    are not the model's (the distributed phase holds the step's
-    numerics). One step's time (CUDA events, the median of 5 after a
-    warm-up, taken once the child has ended), its peak memory with the
-    arguments resident, FlopCounterMode's count plus the decode_attn
-    launches x `decode_attention_cost`'s FLOPs at the shard's shape,
-    which must equal the record's hlo_flops exactly (the step counts no
-    FLOPs outside the model call); the peak within 10 % + 256 MiB of the
-    record's compute_peak_bytes; the last layer's decode_attn call (its
-    cache shard and lengths, a seeded q) against the plain version, the
-    log-sum-exp too, and timed beside SDPA; the step's roofline bounds,
-    the model call's at most 1.05 of the measured step; the record's
-    all-gathers below 32 MiB. (c) The router's service model reads the
-    record."""
-    import os
-    import statistics
-    import tempfile
-    import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
+def _dryrun_tag(arch: str, layers) -> str:
+    """The dry-run CLI's record name of a DRYRUN_CELLS cell."""
+    tag = f"{arch}__{DRYRUN_SHAPE}__single"
+    return tag + (f"__L{layers}" if layers else "")
 
-    from repro_torch.configs import get_config
-    from repro_torch.distributed import sharding
-    from repro_torch.kernels.decode_attn import ops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
-    from repro_torch.launch import dryrun as dryrun_mod
-    from repro_torch.launch import specs
-    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
-                                         make_production_mesh)
-    from repro_torch.models import attention as attn_mod
-    from repro_torch.serve import router
-    out_dir = tempfile.TemporaryDirectory()
+
+def _dryrun_child(arch: str, layers, out_dir: str):
+    """The dry-run CLI writing one DRYRUN_CELLS cell's record into
+    ``out_dir``, in a child with no card visible."""
+    import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
-    t0 = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out",
-         out_dir.name], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out", out_dir]
+    if layers:
+        cmd += ["--layers", str(layers)]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_prepare(arch: str, layers, mesh, torch) -> dict:
+    """The untimed half of a dryrun cell on the card: rank 0's
+    tensor-parallel step of the cell (`launch.specs.build_cell` on the
+    cuda DeviceMesh over the fake group), the record's arguments made
+    real (`_card_args`), one warm-up, then one step under
+    FlopCounterMode with the peak memory taken over it (arguments
+    resident), the decode_attn launches of the warm-up and of that step,
+    each counted, and their FLOPs at each call's shard shape (every row
+    full, as the record counts them)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import attention as attn_mod
+    base = torch.cuda.memory_allocated()
+    model, step, meta_args = specs.build_cell(arch, DRYRUN_SHAPE, mesh,
+                                              layers)
+    cfg = model.cfg
+    n_attn = cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
+    g = torch.Generator(device=CARD)
+    g.manual_seed(DRYRUN_SEED)
+    params, cache, tokens = _card_args(meta_args, mesh, g, torch)
+    del meta_args
+    tokens.to_local().random_(0, cfg.vocab_size, generator=g)
+    s = 32768
+
+    def run():
+        cache["length"].to_local().fill_(s - 1)
+        return step(params, cache, tokens)
+
+    kept, by_len, restore = _decode_capture(attn_mod, n_attn)
+    first = ops.decode_attention.launches
     try:
-        spec = get_config(DRYRUN_ARCH, "full")
-        s = 32768
-        dryrun_mod._fake_group(256)
-        mesh = sharding.device_mesh(make_production_mesh(), "cuda")
-        base = torch.cuda.memory_allocated()
-        _, step, meta_args = specs.build_cell(DRYRUN_ARCH, DRYRUN_SHAPE,
-                                              mesh)
-        g = torch.Generator(device=CARD)
-        g.manual_seed(DRYRUN_SEED)
-        params, cache, tokens = _card_args(meta_args, mesh, g, torch)
-        del meta_args
-        tokens.to_local().random_(0, spec.vocab_size, generator=g)
-        shard = tuple(cache["kv"]["k"].to_local().shape)   # (L, B, S, H, D)
-
-        def run():
-            cache["length"].to_local().fill_(s - 1)
-            return step(params, cache, tokens)
-
-        ops.decode_attention.launches = 0
-        kept, by_len, restore = _decode_capture(attn_mod, 1)
-        try:
-            run()                                    # warm-up
-        finally:
-            restore()
+        run()                                        # warm-up
         torch.cuda.synchronize()
+        warm_launches = ops.decode_attention.launches - first
         torch.cuda.reset_peak_memory_stats()
         counter = FlopCounterMode(display=False)
         before = ops.decode_attention.launches
         with counter:
             _, logits = run()
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        step_launches = ops.decode_attention.launches - before
-        logits_shape = list(logits.to_local().shape)
-        attn_cost = ops.decode_attention_cost(
-            (DRYRUN_ROWS, spec.n_heads, shard[3], spec.d_head, shard[2]),
-            [shard[2]] * DRYRUN_ROWS, 2)
-        card_flops = int(counter.get_total_flops()) + \
-            step_launches * attn_cost["flops"]
-        del logits
-        # the CPU child ends before anything is timed: the step is
-        # host-bound, and a loaded host would slow it
-        stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
-        child_s = time.perf_counter() - t0
-        check(child.returncode == 0, f"dryrun: the CLI exited "
-                                     f"{child.returncode}: {stderr[-2000:]}")
-        times = []
-        for _ in range(DRYRUN_REPS):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            torch.cuda.synchronize()
-            start.record()
-            run()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        launches = ops.decode_attention.launches
-        _, k, v, lengths = kept[-1]
-        q = torch.randn(DRYRUN_ROWS, spec.n_heads, spec.d_head, generator=g,
-                        device=CARD).to(k.dtype)
-        call = (q, k, v, lengths)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() - base
+    step_launches = ops.decode_attention.launches - before
+    shapes = [(q.shape[0], q.shape[1], k.shape[2], q.shape[2], k.shape[1])
+              for q, k, _, _ in kept]
+    attn_flops = sum(ops.decode_attention_cost(
+        shp, [shp[-1]] * shp[0], 2)["flops"] for shp in shapes)
+    return {"arch": arch, "cfg": cfg, "n_attn": n_attn, "run": run,
+            "step": step, "args": (params, cache, tokens), "gen": g,
+            "peak": peak, "warm_launches": warm_launches,
+            "step_launches": step_launches,
+            "flop_counter": int(counter.get_total_flops()),
+            "attn_flops": attn_flops, "shapes": [list(x) for x in shapes],
+            "logits_shape": list(logits.to_local().shape),
+            "last_call": kept[-1], "by_len": by_len}
+
+
+def _dryrun_finish(cell: dict, rec: dict, lse: bool, max_gather: int,
+                   torch) -> dict:
+    """The timed half of a dryrun cell, once the CPU children have ended:
+    DRYRUN_REPS steps by CUDA events; the last layer's decode_attn call of
+    the step (its shard, a seeded q) against the plain version (with its
+    log-sum-exp where the path takes it) and timed beside SDPA; the
+    checks against the record. Frees the cell's tensors."""
+    import statistics
+
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_production_mesh)
+    arch, cfg, n_attn = cell["arch"], cell["cfg"], cell["n_attn"]
+    before = ops.decode_attention.launches
+    times = []
+    for _ in range(DRYRUN_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        cell["run"]()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rep_launches = ops.decode_attention.launches - before
+    launches = cell["warm_launches"] + cell["step_launches"] + rep_launches
+    _, k, v, lengths = cell["last_call"]
+    _, hq, _, d, _ = cell["shapes"][-1]
+    q = torch.randn(DRYRUN_ROWS, hq, d, generator=cell["gen"],
+                    device=CARD).to(k.dtype)
+    call = (q, k, v, lengths)
+    tol = DECODE_TOL[SERVE_DTYPE]
+    if lse:
         got, got_lse = ops.decode_attention(*call, return_lse=True)
         want, want_lse = decode_attention_ref(*call, return_lse=True)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = DECODE_TOL[SERVE_DTYPE]
-        top = float(want.float().abs().max())
-        worst = float(err.max())
         lse_err = float((got_lse - want_lse).abs().max())
-        check(float((err - tol * want.float().abs()).max()) <= tol,
-              f"dryrun: decode_attn differs from the plain version by "
-              f"{worst}")
-        lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
-        check(worst <= lim, f"dryrun: decode_attn error {worst} over {lim}")
         check(float(((got_lse - want_lse).abs()
                      - tol * want_lse.abs()).max()) <= tol,
-              f"dryrun: decode_attn's log-sum-exp differs by {lse_err}")
-        timing = _decode_timing(call, launches, torch, return_lse=True)
-        del got, want, err, got_lse, want_lse
-        del kept, call, q, k, v, lengths
-        del params, cache, tokens, step
-        torch.cuda.empty_cache()
-        _, args = specs.cell_lowerable(DRYRUN_ARCH, DRYRUN_SHAPE,
-                                       make_production_mesh())
-        arg_bytes = specs.argument_bytes(args)
-        rec = json.loads((Path(out_dir.name) /
-                          f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__single.json"
-                          ).read_text())
-        served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
-        roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
-    finally:
-        sharding.clear_mesh()
-        sharding.set_fsdp(False)
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        if child.poll() is None:
-            child.kill()
-            child.wait()
-        out_dir.cleanup()
+              f"dryrun {arch}: decode_attn's log-sum-exp differs by "
+              f"{lse_err}")
+    else:
+        got, want = ops.decode_attention(*call), decode_attention_ref(*call)
+        lse_err = None
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    worst = float(err.max())
+    check(float((err - tol * want.float().abs()).max()) <= tol,
+          f"dryrun {arch}: decode_attn differs from the plain version by "
+          f"{worst}")
+    lim = DECODE_BF16_STEPS * 2.0 ** -8 * top + 1e-6
+    check(worst <= lim, f"dryrun {arch}: decode_attn error {worst} over "
+                        f"{lim}")
+    timing = _decode_timing(call, launches, torch, return_lse=lse)
+    del got, want, err, call, q, k, v, lengths
+    for key in ("run", "step", "args", "gen", "last_call"):
+        del cell[key]
+    torch.cuda.empty_cache()
+    _, args = specs.cell_lowerable(arch, DRYRUN_SHAPE, make_production_mesh(),
+                                   rec["n_layers_override"])
+    arg_bytes = specs.argument_bytes(args)
     ms = statistics.median(times)
     step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
                      rec["hlo_bytes"] / HBM_BW) * 1e3
@@ -5326,32 +5482,162 @@ def phase_dryrun(torch) -> dict:
     peak_lim = DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"] + \
         DRYRUN_PEAK_SLACK
     gathered = rec["collectives"]["all-gather"]["bytes"]
-    out = {"phase": "dryrun", "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE,
-           "mesh": "single", "record": {k: rec[k] for k in rec
-                                        if k != "collectives"},
-           "collectives": rec["collectives"], "child_wall_s": child_s,
-           "child_stdout": stdout.strip().splitlines()[-1:],
-           "argument_bytes_here": arg_bytes,
+    return {"arch": arch, "record": {k: rec[k] for k in rec
+                                     if k != "collectives"},
+            "collectives": rec["collectives"],
+            "argument_bytes_here": arg_bytes,
+            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
+            "rows": DRYRUN_ROWS, "max_len": 32768, "valid": 32767,
+            "decode_attn_shapes": cell["shapes"][-1:],
+            "logits_shape": cell["logits_shape"],
+            "step_ms": ms, "step_ms_all": times,
+            "card_peak_bytes": cell["peak"],
+            "peak_gap_bytes": cell["peak"] - rec["compute_peak_bytes"],
+            "peak_tolerance": peak_lim,
+            "card_flops": cell["flop_counter"] + cell["attn_flops"],
+            "flop_counter_flops": cell["flop_counter"],
+            "decode_attn_flops": cell["attn_flops"],
+            "warmup_decode_attn_launches": cell["warm_launches"],
+            "step_decode_attn_launches": cell["step_launches"],
+            "reps_decode_attn_launches": rep_launches,
+            "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
+            "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
+            "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
+                              >= rec["hlo_flops"] / PEAK_FLOPS_BF16
+                              else "operations"),
+            "all_gather_limit": max_gather,
+            "decode_attn": timing, "max_abs_err": worst,
+            "max_abs_want": top, "lse_max_abs_err": lse_err,
+            "decode_attn_launches": launches,
+            "decode_attn_by_length": cell.get("by_len"),
+            "n_attn": n_attn}
+
+
+def _dryrun_checks(out: dict) -> None:
+    """A dryrun cell's line against its record."""
+    arch, rec = out["arch"], out["record"]
+    n_attn = out["n_attn"]
+    check(rec["ok"] is True, f"dryrun {arch}: the record is not ok")
+    check(rec["argument_size_in_bytes"] == out["argument_bytes_here"],
+          f"dryrun {arch}: argument bytes {rec['argument_size_in_bytes']} "
+          f"against launch.specs' {out['argument_bytes_here']}")
+    check(rec["decode_attention_calls"] == out["step_decode_attn_launches"]
+          == n_attn, f"dryrun {arch}: {out['step_decode_attn_launches']} "
+                     f"decode_attn launches a step, the record "
+                     f"{rec['decode_attention_calls']}")
+    check(out["warmup_decode_attn_launches"] == n_attn
+          and out["reps_decode_attn_launches"] == DRYRUN_REPS * n_attn
+          and out["decode_attn_launches"] == (DRYRUN_REPS + 2) * n_attn,
+          f"dryrun {arch}: {out['warmup_decode_attn_launches']} + "
+          f"{out['step_decode_attn_launches']} + "
+          f"{out['reps_decode_attn_launches']} decode_attn launches on the "
+          f"path (warm-up, counted step, timed steps)")
+    check(out["card_flops"] == rec["hlo_flops"],
+          f"dryrun {arch}: card FLOPs {out['card_flops']} against the "
+          f"record's {rec['hlo_flops']}")
+    check(abs(out["peak_gap_bytes"]) <= out["peak_tolerance"],
+          f"dryrun {arch}: card peak {out['card_peak_bytes']} B against the "
+          f"record's {rec['compute_peak_bytes']} B (tolerance "
+          f"{out['peak_tolerance']})")
+    check(out["call_bound_share"] <= DRYRUN_MAX_SHARE,
+          f"dryrun {arch}: bound share {out['call_bound_share']} over "
+          f"{DRYRUN_MAX_SHARE}")
+    gathered = out["collectives"]["all-gather"]["bytes"]
+    check(gathered < out["all_gather_limit"],
+          f"dryrun {arch}: the record all-gathers {gathered} B a step")
+
+
+def phase_dryrun(torch) -> dict:
+    """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
+    each DRYRUN_CELLS cell (qwen3-0.6b and dbrx-132b decode_32k at full
+    depth, deepseek-v3-671b's cut to 1 dense + 4 MLA/MoE layers) on the
+    (16, 16) mesh, in children with no card visible, while the card runs
+    the untimed part of (b); argument bytes are `launch.specs`' sum,
+    computed here. (b) The same rank's tensor-parallel step on the card:
+    `make_sharded_serve_step` over a fake process group of 256 ranks in
+    this process (the distributed phase has destroyed its NCCL group), on
+    a cuda `DeviceMesh` of the production shape, with the record's
+    arguments made real on the card (full width in bf16, rank 0's shards
+    of the parameters and of the 32768-position cache: 8 rows, every row
+    at 32767 valid positions, seeded; dbrx's experts 1 of 16 a rank,
+    deepseek's 16 of 256): the collectives move nothing, so the step
+    computes what rank 0 computes and its values are not the model's
+    (the distributed phase holds the step's numerics). One step's time
+    (CUDA events, the median of 5 after a warm-up, taken once the
+    children have ended), its peak memory with the arguments resident,
+    FlopCounterMode's count plus each decode_attn call's FLOPs
+    (`decode_attention_cost` at its shard's shape), which must equal the
+    record's hlo_flops exactly (the step counts no FLOPs outside the
+    model call); the peak within 10 % + 256 MiB of the record's
+    compute_peak_bytes; the last layer's decode_attn call (its cache
+    shard and lengths, a seeded q) against the plain version, the
+    log-sum-exp too where the path takes it, and timed beside SDPA; the
+    step's roofline bounds, the model call's at most 1.05 of the measured
+    step; the record's all-gathers below the cell's limit. (c) The
+    router's service model reads qwen3-0.6b's record. The line keeps
+    qwen3-0.6b's keys at its top level, the moe cells under their keys."""
+    import tempfile
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_production_mesh)
+    from repro_torch.serve import router
+    out_dir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    children = [_dryrun_child(arch, layers, out_dir.name)
+                for arch, layers, *_ in DRYRUN_CELLS]
+    lines, child_s, child_out = [], {}, {}
+    try:
+        dryrun_mod._fake_group(256)
+        mesh = sharding.device_mesh(make_production_mesh(), "cuda")
+        ops.decode_attention.launches = 0
+        cells = [_dryrun_prepare(arch, layers, mesh, torch)
+                 for arch, layers, *_ in DRYRUN_CELLS]
+        # the CPU children end before anything is timed: the steps are
+        # host-bound, and a loaded host would slow them
+        for (arch, *_), child in zip(DRYRUN_CELLS, children):
+            stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+            child_s[arch] = time.perf_counter() - t0
+            child_out[arch] = stdout.strip().splitlines()[-1:]
+            check(child.returncode == 0,
+                  f"dryrun {arch}: the CLI exited {child.returncode}: "
+                  f"{stderr[-2000:]}")
+        records = [json.loads((Path(out_dir.name) / (_dryrun_tag(
+            arch, layers) + ".json")).read_text())
+            for arch, layers, *_ in DRYRUN_CELLS]
+        for cell, rec, (_, _, max_gather, lse, _) in zip(
+                cells, records, DRYRUN_CELLS):
+            lines.append(_dryrun_finish(cell, rec, lse, max_gather, torch))
+        del cells
+        served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
+        roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
+    finally:
+        sharding.clear_mesh()
+        sharding.set_fsdp(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        out_dir.cleanup()
+    for line in lines:
+        line["child_wall_s"] = child_s[line["arch"]]
+        line["child_stdout"] = child_out[line["arch"]]
+    top = lines[0]
+    rec = top["record"]
+    out = {"phase": "dryrun", "shape": DRYRUN_SHAPE, "mesh": "single",
+           **{k: v for k, v in top.items() if k != "n_attn"},
+           "kv_shard": top["decode_attn"]["shape"],
            "card_step": "make_sharded_serve_step (tensor parallel) over a "
                         "fake 256-rank group on a cuda DeviceMesh",
-           "rows": DRYRUN_ROWS, "max_len": s, "valid": s - 1,
-           "kv_shard": list(shard), "logits_shape": logits_shape,
-           "step_ms": ms, "step_ms_all": times,
-           "card_peak_bytes": peak, "peak_gap_bytes":
-               peak - rec["compute_peak_bytes"], "peak_tolerance": peak_lim,
-           "card_flops": card_flops,
-           "flop_counter_flops": int(counter.get_total_flops()),
-           "decode_attn_cost": attn_cost,
-           "step_decode_attn_launches": step_launches,
-           "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
-           "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
-           "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
-                             >= rec["hlo_flops"] / PEAK_FLOPS_BF16
-                             else "operations"),
-           "decode_attn": timing, "max_abs_err": worst,
-           "max_abs_want": top, "lse_max_abs_err": lse_err,
-           "decode_attn_launches": launches,
-           "decode_attn_by_length": by_len,
+           **{key: {k: v for k, v in line.items() if k != "n_attn"}
+              for (*_, key), line in zip(DRYRUN_CELLS, lines) if key},
+           "decode_attn_launches_all": sum(line["decode_attn_launches"]
+                                           for line in lines),
            "router": {"token_s_accel": served.token_s_accel,
                       "roofline_token_latency": roofline,
                       "analytic_token_latency":
@@ -5359,33 +5645,16 @@ def phase_dryrun(torch) -> dict:
            "timing": "step_ms: CUDA events around the tensor-parallel "
                      "make_sharded_serve_step on the card (fake "
                      "collectives: they move nothing), the median of 5 "
-                     "after a warm-up, once the CPU child has ended; "
+                     "after a warm-up, once the CPU children have ended; "
                      "step_bound_ms: the record's hlo_flops and hlo_bytes "
                      "(the whole sharded step); call_bound_ms: its "
                      "hlo_flops (the step's FLOPs are all the model "
                      "call's) and compute_bytes (the model call on the "
                      "rank's shards); decode_attn: as serve_* phases, with "
-                     "the log-sum-exp output the step asks for"}
+                     "the log-sum-exp output where the step asks for it"}
     emit(out)
-    check(rec["ok"] is True, "dryrun: the record is not ok")
-    check(rec["argument_size_in_bytes"] == arg_bytes,
-          f"dryrun: argument bytes {rec['argument_size_in_bytes']} against "
-          f"launch.specs' {arg_bytes}")
-    check(rec["decode_attention_calls"] == step_launches == spec.n_layers,
-          f"dryrun: {step_launches} decode_attn launches a step, the record "
-          f"{rec['decode_attention_calls']}")
-    check(launches == (DRYRUN_REPS + 2) * spec.n_layers,
-          f"dryrun: {launches} decode_attn launches on the path")
-    check(card_flops == rec["hlo_flops"],
-          f"dryrun: card FLOPs {card_flops} against the record's "
-          f"{rec['hlo_flops']}")
-    check(abs(peak - rec["compute_peak_bytes"]) <= peak_lim,
-          f"dryrun: card peak {peak} B against the record's "
-          f"{rec['compute_peak_bytes']} B (tolerance {peak_lim})")
-    check(call_bound / ms <= DRYRUN_MAX_SHARE,
-          f"dryrun: bound share {call_bound / ms} over {DRYRUN_MAX_SHARE}")
-    check(gathered < DRYRUN_MAX_GATHER,
-          f"dryrun: the record all-gathers {gathered} B a step")
+    for line in lines:
+        _dryrun_checks(line)
     check(roofline is not None and served.token_s_accel == roofline ==
           max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
               rec["hlo_bytes"] / HBM_BW) / 128,
@@ -6452,7 +6721,9 @@ def main() -> int:
     phase_train(torch)
     phase_train_vs_cpu(torch)
     dist_run = phase_distributed(torch)
-    dist_serve_launches = dist_run["out"]["serve"]["decode_attn_launches"]
+    dist_serve_launches = (
+        dist_run["out"]["serve"]["decode_attn_launches"]
+        + dist_run["out"]["serve_moe"]["decode_attn_launches"])
     resume = phase_train_resume(dist_run, torch)
     phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
     phase_train_resume_vs_cpu(resume, torch)
@@ -6513,7 +6784,7 @@ def main() -> int:
         "serve_moe": moe["out"]["engine"]["decode_attn_launches"],
         "serve_mla": mla["out"]["engine"]["decode_attn_launches"],
         "distributed": dist_serve_launches,
-        "dryrun": dryrun["decode_attn_launches"]}
+        "dryrun": dryrun["decode_attn_launches_all"]}
     path_shapes = {"serve_hybrid_shape": hybrid["out"]["decode_attn"],
                    "serve_encdec_self_shape":
                        encdec["out"]["decode_attn"]["self"],
@@ -6522,7 +6793,10 @@ def main() -> int:
                    "serve_vlm_shape": vlm["out"]["decode_attn"],
                    "serve_moe_shape": moe["out"]["decode_attn"],
                    "serve_mla_shape": mla["out"]["decode_attn"],
-                   "dryrun_shape": dryrun["decode_attn"]}
+                   "dryrun_shape": dryrun["decode_attn"],
+                   "dryrun_dbrx_shape": dryrun["dbrx"]["decode_attn"],
+                   "dryrun_deepseek_shape":
+                       dryrun["deepseek"]["decode_attn"]}
     relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
                       "relax_backward":
                           tune_run["out"]["relax_backward_launches"]}

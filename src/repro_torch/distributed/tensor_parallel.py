@@ -1,9 +1,11 @@
-"""Tensor-parallel decode: the sharded serve step of the dense-branch
-families computes on the rank's own shards of the parameters and the KV
-cache, as XLA partitions the reference's decode under the fan-out layout
-of `repro.distributed.sharding` (parameters Shard(last) over 'model', the
-embedding Shard(0); the cache's KV heads over 'model' where they divide
-it, else its sequence).
+"""Tensor-parallel decode: the sharded serve step of the dense-branch and
+mixture-of-experts families computes on the rank's own shards of the
+parameters and of every cache leaf, as XLA partitions the reference's
+decode under the fan-out layout of `repro.distributed.sharding`
+(parameters Shard(last) over 'model', the embedding Shard(0), the routed
+experts Shard(0), their expert dim; the cache's KV heads over 'model'
+where they divide it, else its sequence; MLA's latent caches ``ckv`` and
+``kpe`` their sequence).
 
 At decode the activations are a few rows, so they move, and the weights
 and the cache never do:
@@ -20,11 +22,23 @@ and the cache never do:
     over 'model' (`layers.embed`); the unembedding
     takes logits from the rank's vocab rows, the padded ids masked, and
     all-gathers them over 'model' (`layers.unembed`);
-  * decode attention runs on the rank's shard of the cache (`KVShard`):
-    with the KV heads over 'model', on the q heads of the rank's KV heads,
-    the outputs then all-gathered; with the sequence over one or more
-    axes, on the local positions, the ranks' outputs then combined by
-    their log-sum-exps (`combine`).
+  * decode attention runs on the rank's shard of the cache it reads
+    (`KVShard`, one a cache group: ``kv``, ``dense_kv``, ``moe_kv``,
+    ``ckv``): with the KV heads over 'model', on the q heads of the
+    rank's KV heads, the outputs then all-gathered; with the sequence
+    over one or more axes, on the local positions, the ranks' outputs
+    then combined by their log-sum-exps (`combine`);
+  * a mixture-of-experts layer routes every row on every 'model' rank
+    alike (the router's product gathered where its columns are split),
+    runs the rank's own experts on the choices they were given, and sums
+    the choices' expert outputs over 'model' before weighting them:
+    each kept choice's output is not zero on exactly one rank
+    (`repro_torch.models.moe.moe_block`);
+  * MLA's absorbed decode forms the absorbed query of the rank's heads
+    of ``w_ukv`` and gathers it, scores every head over the rank's
+    positions of the latent cache, combines the ranks' contexts by their
+    log-sum-exps, and gathers the rank's heads' outputs
+    (`repro_torch.models.mla.mla_decode_step`).
 
 Norms, rope, activations and the residual run on the gathered activations
 of the rank's rows, redundantly over 'model'.
@@ -47,8 +61,9 @@ from dataclasses import dataclass
 import torch
 
 #: The families whose decode runs tensor-parallel: those of `Model`'s
-#: dense branch. The others keep the gathered step until their slice.
-FAMILIES = ("dense", "vlm")
+#: dense branch and the mixture-of-experts family (GQA or MLA). The
+#: others keep the gathered step until their slice.
+FAMILIES = ("dense", "vlm", "moe")
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
@@ -125,14 +140,27 @@ class KVShard:
 
     @classmethod
     def of(cls, leaf) -> "KVShard":
-        """The shard of a cache leaf DTensor (L, B, S, Hkv, D)."""
+        """The shard of a cache leaf DTensor: K or V (L, B, S, Hkv, D),
+        or a latent cache (L, B, S, R) with no head dim (one whole
+        "head")."""
         from repro_torch.distributed.sharding import shard_offset
         mesh, placements = leaf.device_mesh, leaf.placements
         seq, seq_axes = shard_offset(mesh, placements, 2, leaf.shape[2])
-        head, head_axes = shard_offset(mesh, placements, 3, leaf.shape[3])
+        if leaf.dim() < 5:
+            head, head_axes, heads = 0, (), 1
+        else:
+            head, head_axes = shard_offset(mesh, placements, 3,
+                                           leaf.shape[3])
+            heads = leaf.to_local().shape[3]
         return cls(seq, tuple(mesh.get_group(a) for a in seq_axes), head,
-                   leaf.to_local().shape[3],
-                   tuple(mesh.get_group(a) for a in head_axes))
+                   heads, tuple(mesh.get_group(a) for a in head_axes))
+
+    def positions(self, slot, new_len, s: int):
+        """A write slot and valid lengths (B,), global, as this shard's:
+        less the offset of its positions, the lengths clipped to [0,
+        ``s``] (its positions)."""
+        return (slot - self.seq_offset,
+                (new_len - self.seq_offset).clamp(0, s))
 
     def local_heads(self, q, k, v):
         """q (B, 1, Hq, D) and the new k, v (B, 1, Hkv, D) cut to this
@@ -142,23 +170,31 @@ class KVShard:
         return (q[:, :, lo * g:(lo + n) * g], k[:, :, lo:lo + n],
                 v[:, :, lo:lo + n])
 
+    def merge(self, out, lse) -> torch.Tensor:
+        """This shard's attention output over its positions combined with
+        the other sequence pieces' by ``lse`` (`combine` over the
+        sequence's groups)."""
+        return combine(out, lse, lambda x, op: _all_reduce(
+            x, op, self.seq_groups))
+
     def finish(self, out, lse=None) -> torch.Tensor:
         """The full (B, Hq, D) output from this shard's (B, Hq_local, D):
         combined over the sequence's groups by ``lse``, then gathered
         over the heads' groups."""
         if self.seq_groups:
-            out = combine(out, lse, lambda x, op: _all_reduce(
-                x, op, self.seq_groups))
+            out = self.merge(out, lse)
         return _gather(out, 1, self.head_groups)
 
 
 class TensorParallel:
     """The context of one tensor-parallel step: the 'model' axis of
-    ``mesh`` (its group and this rank's index on it), the local parameter
-    tensors that are 'model' shards and the dim each is split on
-    (``shards``, by tensor identity), and the KV cache's `KVShard`."""
+    ``mesh`` (its group and this rank's index on it), the local
+    parameter tensors that are 'model' shards and the dim each is split
+    on (``shards``, by tensor identity), and the `KVShard` of each cache
+    group by name (``kv``: ``kv``, ``dense_kv``, ``moe_kv``, ``ckv``)."""
 
-    def __init__(self, mesh, shards: dict[int, int], kv: KVShard):
+    def __init__(self, mesh, shards: dict[int, int],
+                 kv: dict[str, KVShard]):
         on_model = "model" in mesh.mesh_dim_names
         self.groups = (mesh.get_group("model"),) if on_model else ()
         self.rank = mesh.get_local_rank("model") if on_model else 0
@@ -169,6 +205,21 @@ class TensorParallel:
         """The dim of ``w`` split over 'model', or None (a whole
         tensor)."""
         return self.shards.get(id(w))
+
+    def local_block(self, w: torch.Tensor, dim: int,
+                    unit: int = 1) -> tuple[int, int] | None:
+        """(the first, the count) of the blocks of ``unit`` along ``dim``
+        that this rank holds of ``w``, a 'model' shard split on ``dim``
+        in whole blocks; None where ``w`` is whole."""
+        split = self.model_shard(w)
+        if split is None:
+            return None
+        if split != dim or w.shape[dim] % unit:
+            raise ValueError(f"tensor parallel: {tuple(w.shape)} split on "
+                             f"dim {split}, not on {dim} in whole blocks "
+                             f"of {unit}")
+        n = w.shape[dim] // unit
+        return self.rank * n, n
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """``x`` all-gathered over 'model' along ``dim``."""
@@ -183,6 +234,13 @@ def current() -> TensorParallel | None:
     return _CURRENT.get()
 
 
+def kv_shard(cache: str) -> KVShard | None:
+    """The installed context's shard of the cache group ``cache``, None
+    outside a tensor-parallel step."""
+    ctx = _CURRENT.get()
+    return None if ctx is None else ctx.kv[cache]
+
+
 @contextlib.contextmanager
 def active(ctx: TensorParallel):
     """Install ``ctx`` for the sites while the block runs (in this thread
@@ -194,10 +252,12 @@ def active(ctx: TensorParallel):
         _CURRENT.reset(token)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w``; in a tensor-parallel step where ``w`` is a 'model' shard
-    of its columns, the full product, all-gathered over 'model'."""
-    y = x @ w
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w`` (``w`` cast to ``dtype`` first where it is given); in a
+    tensor-parallel step where ``w`` is a 'model' shard of its columns,
+    the full product, all-gathered over 'model'."""
+    y = x @ (w if dtype is None else w.to(dtype))
     ctx = _CURRENT.get()
     dim = None if ctx is None else ctx.model_shard(w)
     if dim is None:

@@ -184,7 +184,7 @@ def write_step(caches, slot: torch.Tensor, in_range: torch.Tensor, lanes,
 
 def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
                           ring: bool = False, lanes=None,
-                          every_row: bool = False):
+                          every_row: bool = False, cache: str = "kv"):
     """One-token decode. x: (B, 1, d); cache_k/v: (B, S, Hkv, D) holding
     `length` previously written tokens (scalar or (B,)).
 
@@ -200,8 +200,9 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     are taken back out (`write_step`). Returns the attention output (B, 1,
     d).
 
-    In a tensor-parallel step (`tensor_parallel.current()` with a
-    `KVShard`) the caches are the rank's shard: its KV heads take the q
+    In a tensor-parallel step (`tensor_parallel.kv_shard` of the cache
+    group ``cache``, the name of ``cache_k``'s group in the model's
+    cache) the caches are the rank's shard: its KV heads take the q
     heads that share them; the new key and value are written only where
     the shard holds slot ``length`` (the slot less the shard's offset);
     the kernel attends over the shard's valid positions, ``length`` less
@@ -218,12 +219,10 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     s = cache_k.shape[1]
     slot = lengths % s if ring else lengths
     new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
-    ctx = tp.current()
-    shard = None if ctx is None else ctx.kv
+    shard = tp.kv_shard(cache)
     if shard is not None:
         q, k_new, v_new = shard.local_heads(q, k_new, v_new)
-        slot = slot - shard.seq_offset
-        new_len = (new_len - shard.seq_offset).clamp(0, s)
+        slot, new_len = shard.positions(slot, new_len, s)
     restore = write_step(((cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])),
                          slot, (slot >= 0) & (slot < s), lanes, every_row)
     if shard is not None and shard.seq_groups:

@@ -8,12 +8,18 @@ absorbed form, in float32: W_uk folded into the query and W_uv into the
 output, so the per-token cache is the (kv_lora + rope) latent alone. Like
 the reference's, the decode is plain tensor products, not a kernel: it
 launches no `decode_attn`.
+
+The products and the norms consult the tensor-parallel context
+(`repro_torch.distributed.tensor_parallel`); in the sharded serve step
+the decode runs on the rank's shards: its heads of ``w_ukv`` (whole
+heads of nope + v columns), its positions of ``ckv`` / ``kpe``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.attention import NEG, sdpa_chunked, write_step
 from repro_torch.models.layers import dense_init, rms_norm, rope
 
@@ -58,7 +64,7 @@ def _latents(p, x, cfg, positions):
     """The compressed KV latent (normed) and the rotary key shared across
     heads: (B, S, kv_lora), (B, S, dr)."""
     kvr = cfg.kv_lora_rank
-    ckv = x @ p.w_dkv
+    ckv = tp.matmul(x, p.w_dkv)
     c_kv, k_pe = ckv[..., :kvr], ckv[..., kvr:]
     c_kv = rms_norm(c_kv, p.kv_norm)
     k_pe = rope(k_pe, positions, cfg.rope_theta, has_head_axis=False)
@@ -69,8 +75,8 @@ def _queries(p, x, cfg, positions):
     """q_nope (B, S, H, dn) and the roped q_pe (B, S, H, dr)."""
     b, s, _ = x.shape
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = rms_norm(x @ p.w_dq, p.q_norm)
-    q = (cq @ p.w_uq).reshape(b, s, h, dn + dr)
+    cq = rms_norm(tp.matmul(x, p.w_dq), p.q_norm)
+    q = tp.matmul(cq, p.w_uq).reshape(b, s, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = rope(q_pe, positions, cfg.rope_theta, has_head_axis=True)
     return q_nope, q_pe
@@ -102,7 +108,16 @@ def mla_decode_step(p, x, cache_ckv, cache_kpe, length, cfg, lanes=None,
     ``every_row`` lets the other rows attend with theirs too before they
     are taken back out (`attention.write_step`). Scores, softmax and both
     absorbed products in float32, scaled by (dn + dr) ** -0.5. Returns the
-    output (B, 1, d)."""
+    output (B, 1, d).
+
+    In a tensor-parallel step the caches are the rank's shard of the
+    cache group ``ckv`` (`tensor_parallel.kv_shard`): the latent and key
+    are written only where the shard holds slot ``length``; the absorbed
+    query of the rank's heads of ``w_ukv`` is all-gathered over 'model';
+    every head is scored over the shard's positions, and where the
+    sequence is split the ranks' contexts are combined by their
+    log-sum-exps (`tensor_parallel.combine`); the rank's heads' outputs
+    are all-gathered before ``wo``."""
     b = x.shape[0]
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
@@ -114,15 +129,25 @@ def mla_decode_step(p, x, cache_ckv, cache_kpe, length, cfg, lanes=None,
     c_kv, k_pe = _latents(p, x, cfg, pos)                 # (B,1,kvr),(B,1,dr)
 
     s = cache_ckv.shape[1]
+    slot, new_len = lengths, lengths + 1
+    shard = tp.kv_shard("ckv")
+    if shard is not None:
+        slot, new_len = shard.positions(slot, new_len, s)
     restore = write_step(((cache_ckv, c_kv[:, 0]), (cache_kpe, k_pe[:, 0])),
-                         lengths, lengths < s, lanes, every_row)
-    new_len = lengths + 1
+                         slot, (slot >= 0) & (slot < s), lanes, every_row)
 
-    # absorb W_uk into the query: q_abs (B, H, kvr)
-    w = p.w_ukv.reshape(kvr, h, dn + dv).float()
+    # absorb W_uk into the query: q_abs (B, H, kvr), from the rank's
+    # heads [h0, h0 + hl) of w_ukv
+    ctx = tp.current()
+    block = ctx and ctx.local_block(p.w_ukv, 1, dn + dv)
+    h0, hl = block or (0, h)
+    w = p.w_ukv.reshape(kvr, hl, dn + dv).float()
     w_uk, w_uv = w[..., :dn], w[..., dn:]
     ckv = cache_ckv.float()
-    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0, h0:h0 + hl].float(),
+                         w_uk)
+    if block:
+        q_abs = ctx.gather(q_abs, 1)
     scale = (dn + dr) ** -0.5
     scores = (torch.einsum("bhr,bsr->bhs", q_abs, ckv)
               + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(),
@@ -130,8 +155,15 @@ def mla_decode_step(p, x, cache_ckv, cache_kpe, length, cfg, lanes=None,
     mask = torch.arange(s, device=x.device) < new_len[:, None, None]
     scores = torch.where(mask, scores, NEG)
     wts = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhs,bsr->bhr", wts, ckv)
+    att = torch.einsum("bhs,bsr->bhr", wts, ckv)
+    if shard is not None and shard.seq_groups:
+        # this shard's log-sum-exp, -inf where it holds no valid position
+        lse = torch.where(new_len[:, None] > 0,
+                          torch.logsumexp(scores, dim=-1), -torch.inf)
+        att = shard.merge(att, lse)
     restore()
-    out = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
-    out = out.reshape(b, 1, h * dv).to(x.dtype)
-    return out @ p.wo
+    out = torch.einsum("bhr,rhd->bhd", att[:, h0:h0 + hl], w_uv)
+    out = out.to(x.dtype)
+    if block:
+        out = ctx.gather(out, 1)
+    return tp.matmul(out.reshape(b, 1, h * dv), p.wo)

@@ -591,7 +591,7 @@ class Model(torch.nn.Module):
             for i, block in enumerate(self.dense_layers):
                 x = x + attn.decode_attention_step(
                     block.attn, rms_norm(x, block.ln1), ks[i], vs[i], length,
-                    cfg, lanes=lanes, every_row=True)
+                    cfg, lanes=lanes, every_row=True, cache="dense_kv")
                 x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
         if not cfg.use_mla:
             ks, vs = cache["moe_kv"]["k"], cache["moe_kv"]["v"]
@@ -604,7 +604,7 @@ class Model(torch.nn.Module):
             else:
                 x = x + attn.decode_attention_step(
                     block.attn, hn, ks[i], vs[i], length, cfg, lanes=lanes,
-                    every_row=True)
+                    every_row=True, cache="moe_kv")
             m, _ = moe_mod.moe_block(block.moe, rms_norm(x, block.ln2), cfg)
             x = x + m
         return x

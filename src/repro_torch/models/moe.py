@@ -14,6 +14,15 @@ reference's einsums, outside any kernel.
 
 Covers dbrx (16 routed, top-4) and deepseek-v3 (1 shared + 256 routed,
 top-8, d_ff 2048), with the switch-style load-balancing auxiliary loss.
+
+In a tensor-parallel step (`repro_torch.distributed.tensor_parallel`)
+the block is expert parallel: every 'model' rank routes the same rows
+alike (the router's product gathered where 'model' splits its columns;
+softmax, top-k, capacity and slots as above, over all E experts), fills
+dispatch buffers for its own experts alone (the 'model' shard of the
+stacked weights, E / n of them) and runs them, and the choices' expert
+outputs, exact zeros on every rank but their expert's, are summed over
+'model' before the top-k weighting. No expert weight moves.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import MLP, dense_init, mlp
 
 
@@ -112,7 +122,8 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+    """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar). Expert
+    parallel in a tensor-parallel step (see the module docstring)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -122,7 +133,7 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
 
     # router matmul in the model dtype; softmax, top-k and the
     # renormalisation in float32
-    logits = (xr @ p.router.to(xr.dtype)).float()
+    logits = tp.matmul(xr, p.router, dtype=xr.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k(probs, k)                              # (r, tl, k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -150,25 +161,37 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     keep = slot < cap
     tok_of = torch.arange(n, device=x.device) // k              # (n,) local
 
-    # local token ids into (r, e*cap) dispatch buffers; the e*cap column
-    # takes the dropped choices and is thrown away
-    dest = torch.where(keep, flat_e * cap + slot, e * cap)      # (r, n)
-    buf = torch.full((r, e * cap + 1), tl, dtype=torch.int64,
+    # the rank's experts [lo, lo + el) (all E outside expert parallelism)
+    # and the kept choices they take
+    ctx = tp.current()
+    block = ctx and ctx.local_block(p.experts.w_down, 0)
+    lo, el = block or (0, e)
+    mine = keep & (flat_e >= lo) & (flat_e < lo + el)
+    local_e = flat_e - lo
+
+    # local token ids into (r, el*cap) dispatch buffers; the el*cap column
+    # takes the dropped choices and the other ranks' and is thrown away
+    dest = torch.where(mine, local_e * cap + slot, el * cap)    # (r, n)
+    buf = torch.full((r, el * cap + 1), tl, dtype=torch.int64,
                      device=x.device)
     buf.scatter_(1, dest, tok_of.expand(r, n))
-    gather_ids = buf[:, :e * cap]                               # (r, e*cap)
+    gather_ids = buf[:, :el * cap]                              # (r, el*cap)
 
     xpad = torch.cat([xr, xr.new_zeros(r, 1, d)], dim=1)
-    xe = xpad.gather(1, gather_ids[..., None].expand(r, e * cap, d))
-    xe = xe.reshape(r, e, cap, d).transpose(0, 1).reshape(e, r * cap, d)
+    xe = xpad.gather(1, gather_ids[..., None].expand(r, el * cap, d))
+    xe = xe.reshape(r, el, cap, d).transpose(0, 1).reshape(el, r * cap, d)
     ye = _expert_ffn(p.experts, xe, cfg.mlp_type)
-    ye = ye.reshape(e, r, cap, d).transpose(0, 1)               # (r, e, cap, d)
+    ye = ye.reshape(el, r, cap, d).transpose(0, 1)             # (r, el, cap, d)
 
-    # combine: each token's k slots, weighted, summed in the model dtype
-    y_flat = ye.reshape(r, e * cap, d)
+    # combine: each token's k slots, weighted, summed in the model dtype;
+    # under expert parallelism a slot is the sum over 'model' of one
+    # rank's output and exact zeros
+    y_flat = ye.reshape(r, el * cap, d)
     y_slot = y_flat.gather(
-        1, dest.clamp(max=e * cap - 1)[..., None].expand(r, n, d))
-    y_slot = torch.where(keep[..., None], y_slot, 0)            # (r, n, d)
+        1, dest.clamp(max=el * cap - 1)[..., None].expand(r, n, d))
+    y_slot = torch.where(mine[..., None], y_slot, 0)            # (r, n, d)
+    if block:
+        y_slot = ctx.all_reduce(y_slot, "sum")
     w_flat = (top_p.reshape(r, n) * keep).to(y_slot.dtype)
     contrib = (y_slot * w_flat[..., None]).reshape(r, tl, k, d)
     out = contrib.sum(dim=2)                                    # (r, tl, d)

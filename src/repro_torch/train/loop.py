@@ -19,13 +19,14 @@ shardings of `repro_torch.launch.specs` (the production dry run's).
 
 In every sharded step the batch's rows are split over the data axes,
 pod-major (a batch entry may be a plain global tensor, the same on every
-rank, or a DTensor). The serve step of the dense-branch families
-(`tensor_parallel.FAMILIES`) is tensor parallel, as XLA partitions the
-reference's: `Model.decode_step` runs on the rank's own shards of the
-parameters (standing in for the model's own) and of the cache, with
-the products, the embedding, the unembedding and the decode attention
-exchanging activations over 'model' (`repro_torch.distributed.
-tensor_parallel`); no parameter and no cache row moves. The train and
+rank, or a DTensor). The serve step of the dense-branch and moe
+families (`tensor_parallel.FAMILIES`) is tensor parallel, as XLA
+partitions the reference's: `Model.decode_step` runs on the rank's own
+shards of the parameters (standing in for the model's own) and of the
+cache, with the products, the embedding, the unembedding, the decode
+attention and the experts' outputs exchanging activations over 'model'
+(`repro_torch.distributed.tensor_parallel`); no parameter and no cache
+row moves. The train and
 prefill steps, and the serve step of the other families, gather each
 parameter DTensor to a full tensor and write it into the model's own
 parameter, and the model's unchanged `Model.loss`, `Model.forward` or
@@ -342,8 +343,13 @@ def make_sharded_serve_step(model: Model, mesh):
     1), every data rank computes every row, as the reference's batch spec
     falls back to replication.
 
-    For the dense-branch families the step is tensor parallel
-    (`_tensor_parallel_serve_step`). For the others it gathers: the
+    For the dense-branch and moe families (`tensor_parallel.FAMILIES`)
+    the step is tensor parallel (`_tensor_parallel_serve_step`): the
+    dense and VLM layers' products, norms, embedding and attention as
+    `tensor_parallel` describes; a moe layer expert parallel (every
+    'model' rank routes its rows alike and runs its own experts, whose
+    outputs are summed over 'model'); MLA on its heads of ``w_ukv`` and
+    its positions of ``ckv``/``kpe``. For the others it gathers: the
     parameters are gathered into the model (see the module docstring);
     each cache leaf is redistributed to this rank's rows (its shard over
     'model', and over the data axes where the cache puts them on the
@@ -412,16 +418,19 @@ def _parameters_replaced(model: Model, tensors: dict[str, torch.Tensor]):
 
 
 def _tensor_parallel_serve_step(model: Model, mesh):
-    """`make_sharded_serve_step` for the dense-branch families: one step
-    on this rank's shards, as `repro_torch.distributed.tensor_parallel`
-    describes. Each parameter's local shard (gathered over the data axes
-    first where FSDP storage splits it there; serving never does) stands
-    in for the model's own parameter (`_parameters_replaced`), so the
-    model's parameters are never read and may live on the meta device.
-    The KV cache's local shards are updated in place: this rank's rows
-    (every row where the data axes do not divide them), its KV heads or
-    its positions. ``length``, replicated, advances on this rank's rows
-    and is all-gathered back over the data axes."""
+    """`make_sharded_serve_step` for the dense-branch and moe families:
+    one step on this rank's shards, as `repro_torch.distributed.
+    tensor_parallel` describes. Each parameter's local shard (gathered
+    over the data axes first where FSDP storage splits it there; serving
+    never does) stands in for the model's own parameter
+    (`_parameters_replaced`), so the model's parameters are never read
+    and may live on the meta device. Each cache group (``kv``; moe
+    ``dense_kv`` and ``moe_kv``, or ``dense_kv``, ``ckv`` and ``kpe``)
+    gets the `KVShard` of its own leaf, and its local shards are updated
+    in place: this rank's rows (every row where the data axes do not
+    divide them), its KV heads or its positions. ``length``, replicated,
+    advances on this rank's rows and is all-gathered back over the data
+    axes."""
     from torch.distributed.tensor import Replicate
     idx, n_data, _ = _data_rank(mesh)
     names = mesh.mesh_dim_names
@@ -452,10 +461,15 @@ def _tensor_parallel_serve_step(model: Model, mesh):
                 shards[id(local)] = dim
         length = cache["length"].to_local()
         mine = length if whole else length[idx * rows:(idx + 1) * rows]
-        kv = {k: leaf.to_local() for k, leaf in cache["kv"].items()}
-        ctx = tp.TensorParallel(mesh, shards, tp.KVShard.of(cache["kv"]["k"]))
+        groups = {k: v for k, v in cache.items() if k != "length"}
+        local = {k: ({n: leaf.to_local() for n, leaf in v.items()}
+                     if isinstance(v, dict) else v.to_local())
+                 for k, v in groups.items()}
+        kv = {k: tp.KVShard.of(v["k"] if isinstance(v, dict) else v)
+              for k, v in groups.items()}
+        ctx = tp.TensorParallel(mesh, shards, kv)
         with tp.active(ctx), _parameters_replaced(model, params):
-            logits = model.decode_step(tok, {"length": mine, "kv": kv})
+            logits = model.decode_step(tok, {"length": mine, **local})
         if not whole:
             length.copy_(_placed_rows(mine, mesh, n_rows, False).redistribute(
                 mesh, cache["length"].placements).to_local())

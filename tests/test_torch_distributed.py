@@ -421,19 +421,26 @@ SERVE_ROWS = [workers.SERVE["batch"], workers.SERVE["odd_batch"]]
 @pytest.fixture(scope="module")
 def serve_weights(tmp_path_factory):
     """The reference's qwen3 models in float32 at smoke width and at
-    SERVE_WIDE's, and the GATHERED archs' at smoke width, weights drawn
-    from SERVE's seed: {wide, or the arch: (model, params)}, and the
-    directory whose weights.pt, weights_wide.pt and weights_{arch}.pt
-    hold them as the port's state dicts (`interop.model_params`)."""
+    SERVE_WIDE's, the GATHERED archs' at smoke width and the MOE_WIDE
+    archs' widened, weights drawn from SERVE's seed: {wide, the arch, or
+    ("wide", arch): (model, params)}, and the directory whose
+    weights.pt, weights_wide.pt, weights_{arch}.pt and
+    weights_wide_{arch}.pt hold them as the port's state dicts
+    (`interop.model_params`)."""
     out = tmp_path_factory.mktemp("serve4")
     refs = {}
     runs = [(False, None, "weights.pt"), (True, None, "weights_wide.pt")]
     runs += [(arch, arch, f"weights_{arch}.pt") for arch in workers.GATHERED]
+    runs += [(("wide", arch), arch, f"weights_wide_{arch}.pt")
+             for arch in workers.MOE_WIDE]
     for key, arch, name in runs:
         cfg = ref_config(arch or workers.SERVE["arch"], "smoke").replace(
             dtype=jnp.float32)
-        wide = key is True
-        rm = ref_build(cfg.replace(**workers.SERVE_WIDE) if wide else cfg)
+        wide = key is True or isinstance(key, tuple)
+        if wide:
+            cfg = cfg.replace(**(workers.MOE_WIDE[arch] if arch
+                                 else workers.SERVE_WIDE))
+        rm = ref_build(cfg)
         params = rm.init(jax.random.PRNGKey(workers.SERVE["seed"]))
         torch.save(interop.model_params(jax.tree.map(np.asarray, params),
                                         workers.serve_config(wide, arch),
@@ -455,11 +462,12 @@ def sharded_serve4(serve_weights):
 
 @pytest.fixture(scope="module")
 def sharded_serve8(serve_weights):
-    """One 8-rank (data 2, model 4) gloo group runs the wide model's
-    serve steps; rank 0's results by batch rows."""
+    """One 8-rank (data 2, model 4) gloo group runs the wide models'
+    serve steps; rank 0's results by run and batch rows."""
     out = serve_weights[1] / "mesh24"
     out.mkdir()
-    for name in ("weights.pt", "weights_wide.pt"):
+    for name in ("weights.pt", "weights_wide.pt",
+                 *(f"weights_wide_{arch}.pt" for arch in workers.MOE_WIDE)):
         shutil.copy(serve_weights[1] / name, out / name)
     workers.spawn(workers.sharded_serve_worker, 8, str(out), (2, 4))
     return torch.load(out / "serve8.pt", weights_only=False)
@@ -482,11 +490,11 @@ def _one_process(weights, rows, wide=False, arch=None):
     return prefill, logits, cache
 
 
-def _reference(rm, params, rows, arch=None):
+def _reference(rm, params, rows, arch=None, wide=False):
     """The reference's jitted `make_prefill_step` (not for the GATHERED
-    archs: None) and `make_serve_step` on the same weights, tokens and
-    first cache: the prefill logits, each decode step's logits and the
-    cache after them (as the port's tensors)."""
+    and MOE_WIDE archs: None) and `make_serve_step` on the same weights,
+    tokens and first cache: the prefill logits, each decode step's
+    logits and the cache after them (as the port's tensors)."""
     tokens = jnp.asarray(workers.serve_tokens(rows, arch).numpy())
     prefill = None if arch else torch.from_numpy(np.array(jax.jit(
         ref_loop.make_prefill_step(rm))(params, {"tokens": tokens})))
@@ -495,7 +503,7 @@ def _reference(rm, params, rows, arch=None):
         cache = rm.init_cache(rows, workers.SERVE["max_len"])
     else:                                # the port's random first cache
         first = workers.serve_cache(
-            Model(workers.serve_config(arch=arch), "cpu"), rows, True)
+            Model(workers.serve_config(wide, arch), "cpu"), rows, True)
         cache = jax.tree.map(lambda t: jnp.asarray(t.numpy()), first)
     logits = []
     for t in range(workers.SERVE["steps"]):
@@ -628,6 +636,94 @@ def test_gathered_serve_step_equals_reference_and_one_process(
                                      rows, arch=arch))
 
 
+# the moe runs' cache layouts: (arch, mesh, rows) -> each leaf's placements
+MOE_CACHE = {
+    ("dbrx-132b", (2, 2), 4): {"moe_kv": ["S(1)", "S(3)"]},   # KV heads
+    ("dbrx-132b", (2, 2), 3): {"moe_kv": ["S(2)", "S(3)"]},
+    ("dbrx-132b", (2, 4), 4): {"moe_kv": ["S(1)", "S(2)"]},   # sequence
+    ("dbrx-132b", (2, 4), 3): {"moe_kv": ["S(2)", "R"]},
+    ("deepseek-v3-671b", (2, 2), 4): {"dense_kv": ["S(1)", "S(3)"],
+                                      "ckv": ["S(1)", "S(2)"]},
+    ("deepseek-v3-671b", (2, 2), 3): {"dense_kv": ["S(2)", "S(3)"],
+                                      "ckv": ["S(2)", "R"]},
+    ("deepseek-v3-671b", (2, 4), 4): {"dense_kv": ["S(1)", "S(3)"],
+                                      "ckv": ["S(1)", "S(2)"]},
+    ("deepseek-v3-671b", (2, 4), 3): {"dense_kv": ["S(2)", "S(3)"],
+                                      "ckv": ["S(2)", "R"]}}
+# parameters whose placement shows each rule of the moe layout
+MOE_PARAMS = {
+    "dbrx-132b": {"moe_layers.0.moe.experts.w_gate": ["R", "S(0)"],
+                  "moe_layers.1.moe.experts.w_down": ["R", "S(0)"],
+                  "moe_layers.0.moe.router": ["R", "R"],
+                  "moe_layers.0.attn.wq": ["R", "S(1)"],
+                  "moe_layers.0.attn.wk": ["R", "R"]},
+    "deepseek-v3-671b": {"moe_layers.0.moe.experts.w_up": ["R", "S(0)"],
+                         "moe_layers.0.moe.router": ["R", "S(1)"],
+                         "moe_layers.0.moe.shared.w_down": ["R", "S(1)"],
+                         "moe_layers.1.attn.w_dq": ["R", "S(1)"],
+                         "moe_layers.0.attn.w_dkv": ["R", "S(1)"],
+                         "moe_layers.0.attn.w_ukv": ["R", "S(1)"],
+                         "moe_layers.0.attn.q_norm": ["R", "S(0)"],
+                         "moe_layers.0.attn.kv_norm": ["R", "S(0)"],
+                         "moe_layers.0.attn.wo": ["R", "S(1)"],
+                         "dense_layers.0.attn.wk": ["R", "S(1)"]}}
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+@pytest.mark.parametrize("arch", list(workers.MOE_WIDE))
+def test_tensor_parallel_moe_serve_step_equals_reference_and_one_process(
+        serve_weights, sharded_serve4, sharded_serve8, arch, shape, rows):
+    """The moe family's tensor-parallel serve step: dbrx's smoke widened
+    (GQA; 4 experts over 'model', expert parallel) and deepseek's (1
+    dense + 2 MLA/MoE layers, 128 experts, the router's columns split)
+    on 4 gloo ranks as (data 2, model 2) and on 8 as (data 2, model 4),
+    from a random first cache and random lengths (so that a sequence
+    split over several ranks is attended over several of them): both
+    decode steps' logits and every cache leaf (``moe_kv``; ``dense_kv``,
+    ``ckv``, ``kpe``) and ``length`` reassembled from its shards equal
+    the reference's jitted `make_serve_step` on the same weights and
+    the one-process port step, within test_torch_serve.py's 1e-5. The
+    layouts cover dbrx's KV heads and its sequence over 'model', MLA's
+    latent sequence over 'model' and, for 3 rows, over 'data'."""
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)[arch][rows]
+    assert got["reads_model_params"] is False
+    for leaf, want in MOE_CACHE[arch, shape, rows].items():
+        assert got["placements"][leaf] == (want if leaf == "ckv" else
+                                           {"k": want, "v": want})
+    if arch == "deepseek-v3-671b":
+        assert got["placements"]["kpe"] == got["placements"]["ckv"]
+    for name, want in MOE_PARAMS[arch].items():
+        assert got["param_placements"][name] == want, name
+    rm, params = serve_weights[0]["wide", arch]
+    _, logits, cache = _reference(rm, params, rows, arch, wide=True)
+    _assert_steps(got, None, logits, cache)
+    _assert_steps(got, *_one_process(
+        serve_weights[1] / f"weights_wide_{arch}.pt", rows, wide=True,
+        arch=arch))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+@pytest.mark.parametrize("arch", list(workers.MOE_WIDE))
+def test_expert_parallel_moe_block_drops_what_one_process_drops(
+        sharded_serve4, sharded_serve8, arch, shape):
+    """`moe_block` of each widened moe smoke on (1, 63) tokens that
+    mostly choose the same experts, expert parallel on the rank's shards
+    (dbrx 2 or 1 of 4 experts a rank, deepseek 64 or 32 of 128), equals
+    the one-process block within 1e-5, its auxiliary loss too, with
+    choices dropped by the capacity: the ranks drop what one process
+    drops."""
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)[
+        "ep_moe", arch]
+    cfg = workers.serve_config(True, arch)
+    assert got["local_experts"] == cfg.n_experts // shape[1]
+    assert got["dropped"] > 0
+    np.testing.assert_allclose(got["out"].numpy(), got["want"].numpy(),
+                               **SERVE_TOL)
+    np.testing.assert_allclose(float(got["aux"]), float(got["want_aux"]),
+                               **SERVE_TOL)
+
+
 CENSUS_SCRIPT = """
 import json, torch
 from torch.distributed.tensor import distribute_tensor
@@ -707,3 +803,102 @@ def test_tensor_parallel_serve_step_gathers_no_parameter_or_cache_row():
     matrices = [b for n, b in got["full_params"].items() if "ln" not in n]
     assert max(want) < min(min(matrices), got["cache_rows"])
     assert not set(want) & set(got["full_params"].values())
+
+
+MOE_CENSUS_SCRIPT = """
+import json, torch
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import Model
+from repro_torch.train.loop import make_sharded_serve_step
+dryrun._fake_group(256)
+mesh = sharding.device_mesh(make_production_mesh(), "cpu")
+sharding.set_mesh(mesh)
+cfg = get_config({arch!r}, "full").replace(**{cut!r})
+model = Model(cfg, "meta")
+rows, max_len = {rows}, {max_len}
+
+def placed(t, sh):
+    return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+
+p_sh = sharding.param_shardings(model, mesh)
+params = {{n: placed(p.detach(), p_sh[n])
+          for n, p in model.named_parameters()}}
+cache = model.init_cache(rows, max_len, device="meta")
+c_sh = sharding.cache_shardings(cache, mesh)
+cache = {{k: ({{n: placed(t, c_sh[k][n]) for n, t in v.items()}}
+             if isinstance(v, dict) else placed(v, c_sh[k]))
+         for k, v in cache.items()}}
+tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
+counter = dryrun.OpCounter()
+with counter:
+    make_sharded_serve_step(model, mesh)(params, cache, tokens)
+leaves = [t for v in cache.values()
+          for t in (v.values() if isinstance(v, dict) else [v])]
+print(json.dumps({{
+    "collectives": counter.collectives,
+    "split_params": [p.numel() * p.element_size() for n, p in params.items()
+                     if any(pl.is_shard() for pl in p.placements)
+                     and p.dim() >= 2],
+    "matrices": [p.numel() * p.element_size() for p in params.values()
+                 if p.dim() >= 2],
+    "cache_rows": [t.numel() * t.element_size() * t.to_local().shape[1]
+                   // t.shape[1] for t in leaves if t.dim() >= 4],
+    "experts_local": list(params["moe_layers.0.moe.experts.w_down"]
+                          .to_local().shape)}}))
+torch.distributed.destroy_process_group()
+"""
+# the census's models: the full configs cut in depth (meta tensors, bf16)
+MOE_CENSUS = {"dbrx-132b": dict(n_layers=2),
+              "deepseek-v3-671b": dict(n_layers=2, n_dense_layers=1)}
+
+
+@pytest.mark.parametrize("arch", list(MOE_CENSUS))
+def test_tensor_parallel_moe_serve_step_gathers_no_parameter_or_cache_row(
+        arch):
+    """The census of the moe step on a fake (16, 16) group of 256 ranks
+    (no data moves): each full config at full width, cut in depth (dbrx
+    2 MoE layers; deepseek 1 dense + 1 MLA/MoE), on meta tensors, 32
+    rows of an 8192-position cache (2 rows a data rank). No all-gather is
+    as large as any matrix that 'model' splits or as the rank's rows of
+    any cache leaf (what the gathering step moved), and none is any
+    matrix parameter's full size (deepseek's router logits, 256 bf16 a
+    row, are as large as its kv_norm scale); the rank holds E / 16
+    experts; the
+    all-reduces are exactly the embedding's sum, each sequence-sharded
+    attention's log-sum-exp combine (a max and a sum, float32) and each
+    MoE layer's expert all-reduce of the (r, n, d) gathered slots, r x n
+    x d x 2 bytes (r = 2 rows, n = top-k choices a row)."""
+    cut, rows, max_len = MOE_CENSUS[arch], 32, 8192
+    script = MOE_CENSUS_SCRIPT.format(arch=arch, cut=cut, rows=rows,
+                                      max_len=max_len)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, cwd=ROOT, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = get_config(arch, "full").replace(**cut)
+    r, bf16, f32 = 2, 2, 4
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    expert = r * cfg.top_k * cfg.d_model * bf16
+    if cfg.use_mla:       # MLA's context: kv_lora features, 128 heads
+        combine = [r * cfg.n_heads * f32,
+                   r * cfg.n_heads * (cfg.kv_lora_rank + 1) * f32]
+    else:                 # dbrx's 8 KV heads: the sequence over 'model'
+        combine = [r * cfg.n_heads * f32,
+                   r * cfg.n_heads * (cfg.d_head + 1) * f32]
+    want_reduce = [r * cfg.d_model * bf16] + (combine + [expert]) * n_moe
+    reduces = [b for kind, b in got["collectives"] if kind == "all-reduce"]
+    gathers = [b for kind, b in got["collectives"] if kind == "all-gather"]
+    assert sorted(reduces) == sorted(want_reduce)
+    assert {kind for kind, _ in got["collectives"]} == {"all-gather",
+                                                        "all-reduce"}
+    assert got["experts_local"][0] == cfg.n_experts // 16
+    assert max(gathers) < min(min(got["split_params"]),
+                              min(got["cache_rows"]))
+    assert not set(gathers) & set(got["matrices"])

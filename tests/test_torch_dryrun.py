@@ -183,6 +183,45 @@ def test_decode_records_show_the_cache_gather(records):
         + 256 * 2 ** 20
 
 
+def _dispatch_bytes(cfg, rows: int, experts: int) -> int:
+    """One MoE layer's bf16 dispatch buffers at decode for ``experts``
+    experts: each row is a routing row of one token, whose k choices fill
+    a capacity of max(k / E x capacity_factor, 4) rounded up to 8 slots
+    an expert; a slot holds the token in and out (d each) and the swiglu
+    FFN's gate, up and hidden (d_ff_expert each)."""
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(int(k / e * cfg.capacity_factor), 4)
+    cap = (cap + 7) // 8 * 8
+    return experts * rows * cap * (2 * cfg.d_model + 3 * cfg.d_ff_expert) * 2
+
+
+@pytest.mark.parametrize("cell", [("dbrx-132b", "decode_32k", "multi"),
+                                  ("deepseek-v3-671b", "decode_32k",
+                                   "single")], ids=lambda c: c[0])
+def test_moe_decode_records_hold_the_local_experts_buffers(records, cell):
+    """The expert-parallel step fills dispatch buffers for the rank's E / 16
+    experts alone and gathers no expert weight: its temporaries stay
+    below twice the local buffers of one layer, plus the float32 logits
+    and, for MLA, the float32 copy of the rank's latent cache rows. That
+    bound lies well below one layer's buffers for all E experts and one
+    layer's expert weights, which a step building E x capacity buffers or
+    gathering the experts would hold."""
+    rec = records[0][cell]
+    cfg = get_config(cell[0], "full")
+    rows = rec["rank_rows"]
+    local = _dispatch_bytes(cfg, rows, cfg.n_experts // 16)
+    whole = _dispatch_bytes(cfg, rows, cfg.n_experts)
+    latent = (rows * 32768 // 16 * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4
+              if cfg.use_mla else 0)
+    bound = 2 * local + rows * cfg.vocab_size * 4 + latent
+    experts = cfg.n_experts * 3 * cfg.d_model * cfg.d_ff_expert * 2
+    assert bound < whole // 4 and bound < experts // 100
+    temp = rec["temp_size_in_bytes"]
+    assert 0 < temp < bound
+    assert rec["device_bytes_total"] - rec["argument_size_in_bytes"] < bound
+    assert rec["compute_peak_bytes"] - rec["argument_size_in_bytes"] < bound
+
+
 def test_collective_census_on_a_dtensor_program():
     """A (64, 64) float32 meta DTensor, Shard(0) over 'model' of the
     (16, 16) mesh, gathered whole: one all-gather of 64 x 64 x 4 bytes

@@ -175,6 +175,21 @@ SERVE = dict(arch="qwen3-0.6b", seed=5, batch=4, odd_batch=3, prompt=6,
 # columns) replicated by the divisibility fallback
 SERVE_WIDE = dict(d_model=128, n_heads=8, n_kv_heads=2, d_head=16, d_ff=256,
                   vocab_size=512, n_layers=2)
+# the moe family's smokes widened likewise (their `serve_config(True,
+# arch)`): dbrx's 4 experts split over 'model' (expert parallel), its
+# router (d, 4) replicated, its 2 KV heads over 'model' or, on 4 'model'
+# ranks, the sequence; deepseek's 1 dense + 2 MLA/MoE layers with 128
+# experts, so that the fan-out rule splits its router's columns too, and
+# every MLA projection, q_norm and kv_norm (128 features) over 'model',
+# its 8 dense KV heads over 'model' and its latent caches' sequence
+MOE_WIDE = {
+    "dbrx-132b": dict(d_model=128, n_heads=8, n_kv_heads=2, d_head=16,
+                      d_ff=256, d_ff_expert=256),
+    "deepseek-v3-671b": dict(d_model=128, n_heads=8, n_kv_heads=8,
+                             d_head=16, d_ff=256, n_experts=128,
+                             d_ff_expert=32, q_lora_rank=128,
+                             kv_lora_rank=128, qk_nope_dim=16,
+                             qk_rope_dim=8, v_head_dim=16)}
 
 
 # families whose sharded serve step still gathers (the encoder-decoder
@@ -183,12 +198,14 @@ GATHERED = ("whisper-base", "mamba2-2.7b")
 
 
 def serve_config(wide: bool = False, arch: str | None = None):
-    """SERVE's arch (or ``arch``) at smoke width (``wide``: SERVE_WIDE's),
-    float32."""
+    """SERVE's arch (or ``arch``) at smoke width (``wide``: SERVE_WIDE's,
+    or a MOE_WIDE arch's own), float32."""
     from repro_torch.configs import get_config
     cfg = get_config(arch or SERVE["arch"], "smoke").replace(
         dtype=torch.float32)
-    return cfg.replace(**SERVE_WIDE) if wide else cfg
+    if not wide:
+        return cfg
+    return cfg.replace(**(MOE_WIDE[arch] if arch else SERVE_WIDE))
 
 
 def serve_model(weights: str, wide: bool = False, arch: str | None = None):
@@ -213,7 +230,10 @@ def serve_cache(model, rows: int, random: bool) -> dict:
     """``model``'s decode cache of ``rows`` rows and SERVE's max_len:
     zeros, or with ``random`` every leaf but ``length`` drawn from numpy
     (seeded by SERVE and rows), so that an encoder memory or a recurrent
-    state the steps read is not zeros."""
+    state the steps read is not zeros; for the moe family also
+    ``length``, each row's in [0, max_len - steps], so that the steps
+    attend over drawn positions that span the shards of a sequence
+    split over several ranks."""
     cache = model.init_cache(rows, SERVE["max_len"])
     if random:
         rng = np.random.default_rng(SERVE["seed"] + 100 + rows)
@@ -227,6 +247,9 @@ def serve_cache(model, rows: int, random: bool) -> dict:
                         0.5 * rng.standard_normal(tuple(v.shape))))
 
         fill(cache)
+        if model.cfg.family == "moe":
+            cache["length"].copy_(torch.from_numpy(rng.integers(
+                0, SERVE["max_len"] - SERVE["steps"] + 1, rows)))
     return cache
 
 
@@ -293,6 +316,52 @@ def _serve_runs(mesh, weights: str, wide: bool, prefill: bool,
     return out
 
 
+def ep_moe_run(mesh, weights: str, arch: str) -> dict:
+    """`moe_block` of a MOE_WIDE arch's first MoE layer on (1, 63) tokens
+    drawn near one direction (so that most choose the same experts and
+    their rows overflow the capacity), expert parallel under a
+    tensor-parallel context whose shards are the rank's shards of the
+    layer's parameters in `param_shardings`' layout, and the one-process
+    block on the same weights; with the choices the capacity drops."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models.moe import moe_block, top_k
+    model = serve_model(weights, True, arch)
+    cfg, block, prefix = model.cfg, model.moe_layers[0].moe, "moe_layers.0.moe."
+    p_sh = sharding.param_shardings(model, mesh)
+    m_dim = mesh.mesh_dim_names.index("model")
+    shards, groups = {}, {}
+    for name, t in block.named_parameters():
+        pl = p_sh[prefix + name].placements
+        local = distribute_tensor(t.detach().clone(), mesh, pl,
+                                  src_data_rank=None).to_local()
+        if pl[m_dim].is_shard():
+            shards[id(local)] = pl[m_dim].dim
+        owner, _, leaf = name.rpartition(".")
+        groups.setdefault(owner, {})[leaf] = local
+    p = SimpleNamespace(**groups.pop(""), **{
+        owner: SimpleNamespace(**leaves) for owner, leaves in groups.items()})
+    rng = np.random.default_rng(SERVE["seed"] + 7)
+    x = torch.from_numpy((rng.standard_normal(cfg.d_model) + 0.3
+                          * rng.standard_normal((1, 63, cfg.d_model))
+                          ).astype(np.float32))
+    with tp.active(tp.TensorParallel(mesh, shards, {})):
+        out, aux = moe_block(p, x, cfg)
+    want, want_aux = moe_block(block, x, cfg)
+    _, top_i = top_k(torch.softmax(x[0] @ block.router, dim=-1), cfg.top_k)
+    counts = torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts)
+    n = x.shape[1] * cfg.top_k
+    cap = max(int(n / cfg.n_experts * cfg.capacity_factor), 4)
+    cap = ((cap + 7) // 8) * 8
+    return {"out": out, "want": want, "aux": aux, "want_aux": want_aux,
+            "dropped": int((counts - cap).clamp(min=0).sum()),
+            "local_experts": p.experts.w_down.shape[0]}
+
+
 def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
                          shape: tuple):
     """The sharded prefill and serve steps on a (data, model) mesh of
@@ -301,9 +370,12 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
     its parameters in the FSDP layout ("fsdp", SERVE's batch only) and
     each GATHERED arch (by its name); on every shape the wide model
     ("wide"; on (2, 4) its 2 KV heads do not divide 'model', so the cache
-    puts its sequence there). Rank 0 writes the results by run and rows
-    to serve{world}.pt. The weights are ``out_dir``'s weights.pt,
-    weights_wide.pt and weights_{arch}.pt."""
+    puts its sequence there) and each MOE_WIDE arch (by its name, from a
+    random first cache and lengths), with its expert-parallel
+    `moe_block` ("ep_moe", arch). Rank 0 writes the results by run
+    and rows to serve{world}.pt. The weights are ``out_dir``'s
+    weights.pt, weights_wide.pt, weights_{arch}.pt and
+    weights_wide_{arch}.pt."""
     from repro_torch.distributed import sharding
     _init(rank, world, init)
     mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), shape),
@@ -312,6 +384,10 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
     small = os.path.join(out_dir, "weights.pt")
     wide = os.path.join(out_dir, "weights_wide.pt")
     out = {"wide": _serve_runs(mesh, wide, True, False)}
+    for arch in MOE_WIDE:
+        weights = os.path.join(out_dir, f"weights_wide_{arch}.pt")
+        out[arch] = _serve_runs(mesh, weights, True, False, arch=arch)
+        out["ep_moe", arch] = ep_moe_run(mesh, weights, arch)
     if tuple(shape) == (2, 2):
         out["smoke"] = _serve_runs(mesh, small, False, True)
         out["fsdp"] = _serve_runs(mesh, wide, True, False, fsdp=True,
