@@ -596,8 +596,17 @@ DECODE_SHARD = (8, 16, 8, 128, 2048)
 # layers' (128 KV heads of 56 over 'model': 8 a rank, every position)
 DECODE_MOE_SHARD = (8, 48, 8, 128, 2048)
 DECODE_DENSE_SHARD = (8, 8, 8, 56, 32768)
+# and the sequence shards of the other families there, each with the
+# log-sum-exp: recurrentgemma-2b's ring (2048 positions, 1 KV head: 128 a
+# rank), whisper-base's self-attention cache (8 KV heads: 2048 of 32768)
+# and its encoder memory (96 of 1536)
+DECODE_HYBRID_SHARD = (8, 10, 1, 256, 128)
+DECODE_ENCDEC_SELF_SHARD = (8, 8, 8, 64, 2048)
+DECODE_ENCDEC_CROSS_SHARD = (8, 8, 8, 64, 96)
 DECODE_LSE_SHAPES = (DECODE_SHARD, DECODE_SMOKE, DECODE_MAIN,
-                     DECODE_MOE_SHARD, DECODE_DENSE_SHARD)
+                     DECODE_MOE_SHARD, DECODE_DENSE_SHARD,
+                     DECODE_HYBRID_SHARD, DECODE_ENCDEC_SELF_SHARD,
+                     DECODE_ENCDEC_CROSS_SHARD)
 # the log-sum-exp is float32 from float32 scores in both types: held at
 # tests/test_torch_decode_attn.py's 2e-5 (absolute plus relative), not at
 # DECODE_TOL's bf16 output bound
@@ -795,6 +804,16 @@ DIST_SERVE_STEPS = 8
 # layout: dense K/V heads and the latent sequence over 'model'): (arch,
 # layers, dense layers, whether 'model' takes the K/V sequence)
 DIST_MOE = (("dbrx-132b", 2, 0, True), ("deepseek-v3-671b", 4, 3, False))
+# and the SSM, hybrid and encoder-decoder families' likewise, from a
+# seeded cache (every state and the encoder memory drawn, lengths set so
+# that the hybrid's 64-position ring wraps within the steps): mamba2-2.7b
+# cut to 4 of 64 layers (its conv channels and ssm heads over 'model'),
+# recurrentgemma-2b to 5 of 26 (one super-block and the recurrent tail;
+# its ring's sequence over 'model'), whisper-base whole (6 layers; its
+# self-attention cache's and its memory's sequence over 'model')
+DIST_FAMILIES = (("mamba2-2.7b", 4, 0, False),
+                 ("recurrentgemma-2b", 5, 0, True),
+                 ("whisper-base", 6, 0, True))
 # train_resume: python -m repro_torch.launch.train at full width, float32,
 # cut to RESUME_LAYERS layers (a checkpoint is then ~2.3 GB, the
 # embedding most of it), RESUME_STEPS steps saving every RESUME_EVERY,
@@ -809,7 +828,7 @@ RESUME_TIMEOUT_S = 300
 CUBLAS_DETERMINISTIC = ":4096:8"
 # dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of
 # each DRYRUN_CELLS cell's decode_32k on the (16, 16) mesh in a child with
-# no card visible (the three children at once); the card runs that
+# no card visible (every child at once); the card runs that
 # rank's tensor-parallel step (its 8 of 128 rows, its shard of the 32768
 # positions, every row at 32767 valid positions) over a fake 256-rank
 # group and holds it to the record: FLOPs exactly, the peak within 10 % +
@@ -817,7 +836,9 @@ CUBLAS_DETERMINISTIC = ":4096:8"
 # roofline bound at most 1.05 of the measured step; the record's
 # all-gathers below the cell's limit (the gathering steps moved
 # 31257131520 B (qwen3-0.6b) and 304901718528 B (dbrx-132b), their cache
-# rows and experts). Per cell: the arch, --layers (None: full depth), the
+# rows and experts, and 6765904384 B (mamba2-2.7b), 5926955520 B
+# (recurrentgemma-2b) and 3513809408 B (whisper-base), every parameter
+# and state row). mamba2-2.7b's step launches no decode_attn. Per cell: the arch, --layers (None: full depth), the
 # all-gather limit, whether the path's decode_attn calls take the
 # log-sum-exp (a sequence-sharded KV cache), and the phase line's key for
 # the cell. deepseek-v3-671b is cut in depth by --layers 5, which keeps 1
@@ -825,7 +846,11 @@ CUBLAS_DETERMINISTIC = ":4096:8"
 # 86375013920 B of arguments at full depth do not fit one card
 DRYRUN_CELLS = (("qwen3-0.6b", None, 32 * 2 ** 20, True, None),
                 ("dbrx-132b", None, 64 * 2 ** 20, True, "dbrx"),
-                ("deepseek-v3-671b", 5, 512 * 2 ** 20, False, "deepseek"))
+                ("deepseek-v3-671b", 5, 512 * 2 ** 20, False, "deepseek"),
+                ("mamba2-2.7b", None, 64 * 2 ** 20, False, "mamba2"),
+                ("recurrentgemma-2b", None, 64 * 2 ** 20, True,
+                 "recurrentgemma"),
+                ("whisper-base", None, 64 * 2 ** 20, True, "whisper"))
 DRYRUN_ARCH = DRYRUN_CELLS[0][0]           # the cell the router reads
 DRYRUN_SHAPE = "decode_32k"
 DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
@@ -2557,6 +2582,14 @@ def phase_decode_attn_kernel(torch) -> dict:
              np.full(DECODE_MOE_SHARD[0], DECODE_MOE_SHARD[-1])),
             ("dense_shard", DECODE_DENSE_SHARD,
              np.full(DECODE_DENSE_SHARD[0], DECODE_DENSE_SHARD[-1])),
+            ("hybrid_shard", DECODE_HYBRID_SHARD,
+             np.full(DECODE_HYBRID_SHARD[0], DECODE_HYBRID_SHARD[-1])),
+            ("encdec_self_shard", DECODE_ENCDEC_SELF_SHARD,
+             np.full(DECODE_ENCDEC_SELF_SHARD[0],
+                     DECODE_ENCDEC_SELF_SHARD[-1])),
+            ("encdec_cross_shard", DECODE_ENCDEC_CROSS_SHARD,
+             np.full(DECODE_ENCDEC_CROSS_SHARD[0],
+                     DECODE_ENCDEC_CROSS_SHARD[-1])),
             ("main", DECODE_MAIN, np.full(DECODE_MAIN[0], SERVE_MEAN_LENGTH)),
             ("s4096", DECODE_MID, np.full(DECODE_MID[0], DECODE_MID[-1])),
             ("long", DECODE_LONG, np.full(DECODE_LONG[0], DECODE_LONG[-1])),
@@ -2569,7 +2602,8 @@ def phase_decode_attn_kernel(torch) -> dict:
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None])[:, None, None, :]
         # as the tensor-parallel step calls it over a sequence shard
-        lse = label in ("shard", "moe_shard")
+        lse = label in ("shard", "moe_shard", "hybrid_shard",
+                         "encdec_self_shard", "encdec_cross_shard")
         timed[label] = {
             "shape": list(shape), "dtype": SERVE_DTYPE,
             "lengths": int(lens[0]), "return_lse": lse,
@@ -2607,7 +2641,11 @@ def phase_decode_attn_kernel(torch) -> dict:
                      "log-sum-exp output as the tensor-parallel step asks "
                      "(plain_ms likewise); moe_shard: dbrx-132b's, likewise; "
                      "dense_shard: deepseek-v3-671b's dense layers' (its "
-                     "KV heads split, no log-sum-exp); main: the serve phase's shape at "
+                     "KV heads split, no log-sum-exp); hybrid_shard, "
+                     "encdec_self_shard, encdec_cross_shard: "
+                     "recurrentgemma-2b's ring, whisper-base's "
+                     "self-attention cache and memory on the same mesh, "
+                     "with the log-sum-exp; main: the serve phase's shape at "
                      "its mean decode length; s4096, long: S = 4096, "
                      "32768, every row full; d256: recurrentgemma-2b's "
                      "attention at its full 2048-position window"}
@@ -4845,20 +4883,41 @@ def _distributed_serve(mesh, init: dict, cfg, torch) -> dict:
                                         for r in layouts.values())}
 
 
-def _distributed_moe_serve(mesh, torch) -> dict:
-    """The moe family's tensor-parallel `make_sharded_serve_step` on the
-    one-rank mesh (DIST_MOE: full width, bf16, weights drawn from a
+def _seed_cache(cache: dict, cfg, gen, torch) -> None:
+    """DIST_FAMILIES' first cache, in place: every floating leaf (the
+    recurrent states, the K/V, the encoder memory) standard normal x 0.5
+    from ``gen``, as if earlier tokens had filled it, and the lengths
+    start + 0, 1, ... (hybrid: the ring's last DIST_SERVE_STEPS / 2
+    positions, so that it wraps within the steps) or 0, 7, 14, ..."""
+    with torch.no_grad():
+        for v in cache.values():
+            for t in (v.values() if isinstance(v, dict) else [v]):
+                if t.is_floating_point():
+                    t.normal_(generator=gen).mul_(0.5)
+        rows = torch.arange(cache["length"].shape[0], device=CARD)
+        if cfg.family == "hybrid":
+            ring = cache["kv"]["k"].shape[2]
+            cache["length"].copy_(ring - DIST_SERVE_STEPS // 2 + rows)
+        else:
+            cache["length"].copy_(7 * rows)
+
+
+def _distributed_tp_serve(mesh, cells, seeded: bool, torch) -> dict:
+    """The tensor-parallel `make_sharded_serve_step` of ``cells``
+    (DIST_MOE or DIST_FAMILIES: full width, bf16, weights drawn from a
     seeded generator, fan-in scaled; every parameter placed by
-    param_shardings on its own storage), DIST_SERVE_STEPS steps of
-    DIST_SERVE_ROWS rows of a VS_CPU_MAX_LEN cache, against
-    `Model.decode_step` on the same weights, tokens and a cache of its
-    own: the expert-parallel block, the router's product, MLA on its
-    heads and latent shard and the log-sum-exp combines (NCCL
-    all-reduces on one rank) run the one-process arithmetic, so each
-    step's logits and every cache leaf are held bitwise, else within
-    serve_vs_cpu's bound (VS_CPU_RTOL x the largest |value|; the line
-    says which), lengths equal; decode_attn's launches in the sharded
-    steps alone (GQA layers x steps)."""
+    param_shardings on its own storage) on the one-rank mesh,
+    DIST_SERVE_STEPS steps of DIST_SERVE_ROWS rows of a VS_CPU_MAX_LEN
+    cache (zeros, or with ``seeded`` `_seed_cache`'s), against
+    `Model.decode_step` on the same weights, tokens and a copy of the
+    first cache: the expert-parallel block, the router's product, MLA on
+    its heads and latent shard, the SSM and RG-LRU layers on their
+    channels and heads and the log-sum-exp combines (NCCL all-reduces on
+    one rank) run the one-process arithmetic, so each step's logits and
+    every cache leaf are held bitwise, else within serve_vs_cpu's bound
+    (VS_CPU_RTOL x the largest |value|; the line says which), lengths
+    equal; decode_attn's launches in the sharded steps alone (attention
+    layers x steps; whisper's self and cross each)."""
     from torch.distributed.tensor import DTensor, Shard
 
     from repro_torch.configs import get_config
@@ -4868,7 +4927,8 @@ def _distributed_moe_serve(mesh, torch) -> dict:
     from repro_torch.train.loop import make_sharded_serve_step
     m_dim = mesh.mesh_dim_names.index("model")
     runs = {}
-    for arch, layers, dense, seq in DIST_MOE:
+    for arch, layers, dense, seq in cells:
+        t0 = time.perf_counter()
         cfg = get_config(arch, "full").replace(n_layers=layers,
                                                n_dense_layers=dense)
         model = Model(cfg, CARD)
@@ -4885,11 +4945,17 @@ def _distributed_moe_serve(mesh, torch) -> dict:
                                (DIST_SERVE_ROWS, DIST_SERVE_STEPS),
                                generator=gen, device=CARD, dtype=torch.int32)
         cache = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
+        if seeded:
+            _seed_cache(cache, cfg, gen, torch)
+        plain = {k: ({n: t.clone() for n, t in v.items()}
+                     if isinstance(v, dict) else v.clone())
+                 for k, v in cache.items()}
+        first = cache["length"].tolist()
         c_sh = sharding.cache_shardings(cache, mesh)
 
         def place(t, sh, name):
             pl = list(sh.placements)
-            if seq and name in ("k", "v"):
+            if seq and name in ("k", "v", "mem_k", "mem_v"):
                 pl[m_dim] = Shard(2)
             return DTensor.from_local(t, mesh, pl, shape=t.shape,
                                       stride=t.stride())
@@ -4905,7 +4971,6 @@ def _distributed_moe_serve(mesh, torch) -> dict:
             got.append(logits.to_local())
         torch.cuda.synchronize()
         launches = ops.decode_attention.launches
-        plain = model.init_cache(DIST_SERVE_ROWS, VS_CPU_MAX_LEN)
         want = [model.decode_step(tokens[:, t:t + 1], plain)
                 for t in range(DIST_SERVE_STEPS)]
         gaps = [float((g.float() - w.float()).abs().max())
@@ -4922,34 +4987,51 @@ def _distributed_moe_serve(mesh, torch) -> dict:
                     / float(ref.float().abs().max())
         lengths = bool(torch.equal(sharded["length"].to_local(),
                                    plain["length"]))
-        n_gqa = cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
+        n_attn = _attn_calls(cfg)
         line = {"n_layers": layers, "n_dense_layers": dense,
                 "dtype": str(cfg.dtype).removeprefix("torch."),
                 "params": sum(p.numel() for p in model.parameters()),
-                "kv_placements": {
+                "placements": {
                     name: [str(pl) for pl in leaf.placements]
                     for name, leaf in (
                         (k, v["k"] if isinstance(v, dict) else v)
                         for k, v in sharded.items() if k != "length")},
+                "first_lengths": first,
                 "logit_gap_rel": gaps, "leaf_gap_rel": leaves,
                 "lengths_equal": lengths,
                 "bitwise": max(gaps) == 0.0 == max(leaves.values()),
                 "decode_attn_launches": launches}
         line["equality"] = ("bitwise" if line["bitwise"]
                             else "serve_vs_cpu bound")
-        runs[arch] = line
         del model, params, sharded, cache, plain, step, got, want
         torch.cuda.empty_cache()
+        line["wall_s"] = time.perf_counter() - t0
+        runs[arch] = line
         check(max(gaps) <= VS_CPU_RTOL and max(leaves.values()) <= VS_CPU_RTOL
               and lengths, f"distributed: the tensor-parallel serve step of "
                            f"{arch} against decode_step: {line}")
-        check(launches == DIST_SERVE_STEPS * n_gqa,
+        check(launches == DIST_SERVE_STEPS * n_attn,
               f"distributed: {launches} decode_attn launches in {arch}'s "
               f"tensor-parallel serve steps")
     return {"rows": DIST_SERVE_ROWS, "steps": DIST_SERVE_STEPS,
             "max_len": VS_CPU_MAX_LEN, "tolerance_rel": VS_CPU_RTOL,
-            "archs": runs, "decode_attn_launches": sum(
-                r["decode_attn_launches"] for r in runs.values())}
+            "seeded_cache": seeded, "archs": runs,
+            "decode_attn_launches": sum(r["decode_attn_launches"]
+                                        for r in runs.values())}
+
+
+def _attn_calls(cfg) -> int:
+    """A decode step's `decode_attention` calls: one a GQA attention
+    layer (the hybrid's super-blocks' attention layers; whisper's self-
+    and cross-attention, two a layer; MLA's layers none)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // len(cfg.block_pattern)) * \
+            cfg.block_pattern.count("attn")
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
+    return cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
 
 
 def phase_distributed(torch) -> dict:
@@ -5034,7 +5116,9 @@ def phase_distributed(torch) -> dict:
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
         serve = _distributed_serve(mesh, init, cfg, torch)
-        serve_moe = _distributed_moe_serve(mesh, torch)
+        serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch)
+        serve_families = _distributed_tp_serve(mesh, DIST_FAMILIES, True,
+                                               torch)
         out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
                "n_layers": TRAIN_VS_CPU_LAYERS, "mesh": list(DIST_MESH),
                "mesh_dim_names": ["data", "model"], "backend": "nccl",
@@ -5049,7 +5133,7 @@ def phase_distributed(torch) -> dict:
                "leaves_out_of_bounds": bad, "census": census,
                "collectives": collectives,
                "decode_attn_launches": launches, "serve": serve,
-               "serve_moe": serve_moe,
+               "serve_moe": serve_moe, "serve_families": serve_families,
                "multi_card": "not measured: one card"}
         emit(out)
         check(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL and not bad),
@@ -5370,7 +5454,7 @@ def _dryrun_prepare(arch: str, layers, mesh, torch) -> dict:
     model, step, meta_args = specs.build_cell(arch, DRYRUN_SHAPE, mesh,
                                               layers)
     cfg = model.cfg
-    n_attn = cfg.n_dense_layers if cfg.use_mla else cfg.n_layers
+    n_attn = _attn_calls(cfg)
     g = torch.Generator(device=CARD)
     g.manual_seed(DRYRUN_SEED)
     params, cache, tokens = _card_args(meta_args, mesh, g, torch)
@@ -5409,20 +5493,18 @@ def _dryrun_prepare(arch: str, layers, mesh, torch) -> dict:
             "flop_counter": int(counter.get_total_flops()),
             "attn_flops": attn_flops, "shapes": [list(x) for x in shapes],
             "logits_shape": list(logits.to_local().shape),
-            "last_call": kept[-1], "by_len": by_len}
+            "last_call": kept[-1] if kept else None, "by_len": by_len}
 
 
 def _dryrun_finish(cell: dict, rec: dict, lse: bool, max_gather: int,
                    torch) -> dict:
     """The timed half of a dryrun cell, once the CPU children have ended:
-    DRYRUN_REPS steps by CUDA events; the last layer's decode_attn call of
-    the step (its shard, a seeded q) against the plain version (with its
-    log-sum-exp where the path takes it) and timed beside SDPA; the
-    checks against the record. Frees the cell's tensors."""
+    DRYRUN_REPS steps by CUDA events; the last decode_attn call of the
+    step, where it makes one (`_dryrun_kernel`); what the checks hold to
+    the record. Frees the cell's tensors."""
     import statistics
 
     from repro_torch.kernels.decode_attn import ops
-    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
     from repro_torch.launch import specs
     from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
                                          make_production_mesh)
@@ -5439,6 +5521,60 @@ def _dryrun_finish(cell: dict, rec: dict, lse: bool, max_gather: int,
         times.append(start.elapsed_time(end))
     rep_launches = ops.decode_attention.launches - before
     launches = cell["warm_launches"] + cell["step_launches"] + rep_launches
+    if cell["last_call"] is not None:
+        kernel = _dryrun_kernel(cell, lse, launches, torch)
+    else:                       # the SSM's step: no attention, no launch
+        kernel = {"decode_attn": None, "max_abs_err": None,
+                  "max_abs_want": None, "lse_max_abs_err": None}
+    for key in ("run", "step", "args", "gen", "last_call"):
+        del cell[key]
+    torch.cuda.empty_cache()
+    _, args = specs.cell_lowerable(arch, DRYRUN_SHAPE, make_production_mesh(),
+                                   rec["n_layers_override"])
+    arg_bytes = specs.argument_bytes(args)
+    ms = statistics.median(times)
+    step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["hlo_bytes"] / HBM_BW) * 1e3
+    call_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["compute_bytes"] / HBM_BW) * 1e3
+    peak_lim = DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"] + \
+        DRYRUN_PEAK_SLACK
+    return {"arch": arch, "record": {k: rec[k] for k in rec
+                                     if k != "collectives"},
+            "collectives": rec["collectives"],
+            "argument_bytes_here": arg_bytes,
+            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
+            "rows": DRYRUN_ROWS, "max_len": 32768, "valid": 32767,
+            "decode_attn_shapes": cell["shapes"][-1:],
+            "logits_shape": cell["logits_shape"],
+            "step_ms": ms, "step_ms_all": times,
+            "card_peak_bytes": cell["peak"],
+            "peak_gap_bytes": cell["peak"] - rec["compute_peak_bytes"],
+            "peak_tolerance": peak_lim,
+            "card_flops": cell["flop_counter"] + cell["attn_flops"],
+            "flop_counter_flops": cell["flop_counter"],
+            "decode_attn_flops": cell["attn_flops"],
+            "warmup_decode_attn_launches": cell["warm_launches"],
+            "step_decode_attn_launches": cell["step_launches"],
+            "reps_decode_attn_launches": rep_launches,
+            "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
+            "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
+            "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
+                              >= rec["hlo_flops"] / PEAK_FLOPS_BF16
+                              else "operations"),
+            "all_gather_limit": max_gather, **kernel,
+            "decode_attn_launches": launches,
+            "decode_attn_by_length": cell.get("by_len"),
+            "n_attn": n_attn}
+
+
+def _dryrun_kernel(cell: dict, lse: bool, launches: int, torch) -> dict:
+    """A dryrun cell's last decode_attn call (its shard, a seeded q)
+    against the plain version, with its log-sum-exp where the path takes
+    it, and timed beside SDPA."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    arch = cell["arch"]
     _, k, v, lengths = cell["last_call"]
     _, hq, _, d, _ = cell["shapes"][-1]
     q = torch.randn(DRYRUN_ROWS, hq, d, generator=cell["gen"],
@@ -5468,49 +5604,8 @@ def _dryrun_finish(cell: dict, rec: dict, lse: bool, max_gather: int,
                         f"{lim}")
     timing = _decode_timing(call, launches, torch, return_lse=lse)
     del got, want, err, call, q, k, v, lengths
-    for key in ("run", "step", "args", "gen", "last_call"):
-        del cell[key]
-    torch.cuda.empty_cache()
-    _, args = specs.cell_lowerable(arch, DRYRUN_SHAPE, make_production_mesh(),
-                                   rec["n_layers_override"])
-    arg_bytes = specs.argument_bytes(args)
-    ms = statistics.median(times)
-    step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
-                     rec["hlo_bytes"] / HBM_BW) * 1e3
-    call_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
-                     rec["compute_bytes"] / HBM_BW) * 1e3
-    peak_lim = DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"] + \
-        DRYRUN_PEAK_SLACK
-    gathered = rec["collectives"]["all-gather"]["bytes"]
-    return {"arch": arch, "record": {k: rec[k] for k in rec
-                                     if k != "collectives"},
-            "collectives": rec["collectives"],
-            "argument_bytes_here": arg_bytes,
-            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
-            "rows": DRYRUN_ROWS, "max_len": 32768, "valid": 32767,
-            "decode_attn_shapes": cell["shapes"][-1:],
-            "logits_shape": cell["logits_shape"],
-            "step_ms": ms, "step_ms_all": times,
-            "card_peak_bytes": cell["peak"],
-            "peak_gap_bytes": cell["peak"] - rec["compute_peak_bytes"],
-            "peak_tolerance": peak_lim,
-            "card_flops": cell["flop_counter"] + cell["attn_flops"],
-            "flop_counter_flops": cell["flop_counter"],
-            "decode_attn_flops": cell["attn_flops"],
-            "warmup_decode_attn_launches": cell["warm_launches"],
-            "step_decode_attn_launches": cell["step_launches"],
-            "reps_decode_attn_launches": rep_launches,
-            "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
-            "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
-            "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
-                              >= rec["hlo_flops"] / PEAK_FLOPS_BF16
-                              else "operations"),
-            "all_gather_limit": max_gather,
-            "decode_attn": timing, "max_abs_err": worst,
-            "max_abs_want": top, "lse_max_abs_err": lse_err,
-            "decode_attn_launches": launches,
-            "decode_attn_by_length": cell.get("by_len"),
-            "n_attn": n_attn}
+    return {"decode_attn": timing, "max_abs_err": worst,
+            "max_abs_want": top, "lse_max_abs_err": lse_err}
 
 
 def _dryrun_checks(out: dict) -> None:
@@ -5549,9 +5644,10 @@ def _dryrun_checks(out: dict) -> None:
 
 def phase_dryrun(torch) -> dict:
     """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
-    each DRYRUN_CELLS cell (qwen3-0.6b and dbrx-132b decode_32k at full
-    depth, deepseek-v3-671b's cut to 1 dense + 4 MLA/MoE layers) on the
-    (16, 16) mesh, in children with no card visible, while the card runs
+    each DRYRUN_CELLS cell (qwen3-0.6b, dbrx-132b, mamba2-2.7b,
+    recurrentgemma-2b and whisper-base decode_32k at full depth,
+    deepseek-v3-671b's cut to 1 dense + 4 MLA/MoE layers) on the (16, 16)
+    mesh, in children with no card visible, while the card runs
     the untimed part of (b); argument bytes are `launch.specs`' sum,
     computed here. (b) The same rank's tensor-parallel step on the card:
     `make_sharded_serve_step` over a fake process group of 256 ranks in
@@ -5569,13 +5665,15 @@ def phase_dryrun(torch) -> dict:
     (`decode_attention_cost` at its shard's shape), which must equal the
     record's hlo_flops exactly (the step counts no FLOPs outside the
     model call); the peak within 10 % + 256 MiB of the record's
-    compute_peak_bytes; the last layer's decode_attn call (its cache
-    shard and lengths, a seeded q) against the plain version, the
-    log-sum-exp too where the path takes it, and timed beside SDPA; the
+    compute_peak_bytes; the last decode_attn call of the step (its cache
+    shard and lengths, a seeded q; mamba2-2.7b's step makes none)
+    against the plain version, the log-sum-exp too where the path takes
+    it, and timed beside SDPA; the
     step's roofline bounds, the model call's at most 1.05 of the measured
     step; the record's all-gathers below the cell's limit. (c) The
     router's service model reads qwen3-0.6b's record. The line keeps
-    qwen3-0.6b's keys at its top level, the moe cells under their keys."""
+    qwen3-0.6b's keys at its top level, the other cells under their
+    keys."""
     import tempfile
     import torch.distributed as dist
 
@@ -6721,9 +6819,9 @@ def main() -> int:
     phase_train(torch)
     phase_train_vs_cpu(torch)
     dist_run = phase_distributed(torch)
-    dist_serve_launches = (
-        dist_run["out"]["serve"]["decode_attn_launches"]
-        + dist_run["out"]["serve_moe"]["decode_attn_launches"])
+    dist_serve_launches = sum(
+        dist_run["out"][key]["decode_attn_launches"]
+        for key in ("serve", "serve_moe", "serve_families"))
     resume = phase_train_resume(dist_run, torch)
     phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
     phase_train_resume_vs_cpu(resume, torch)
@@ -6796,7 +6894,10 @@ def main() -> int:
                    "dryrun_shape": dryrun["decode_attn"],
                    "dryrun_dbrx_shape": dryrun["dbrx"]["decode_attn"],
                    "dryrun_deepseek_shape":
-                       dryrun["deepseek"]["decode_attn"]}
+                       dryrun["deepseek"]["decode_attn"],
+                   "dryrun_recurrentgemma_shape":
+                       dryrun["recurrentgemma"]["decode_attn"],
+                   "dryrun_whisper_shape": dryrun["whisper"]["decode_attn"]}
     relax_launches = {"relax_forward": tune_run["out"]["relax_forward_launches"],
                       "relax_backward":
                           tune_run["out"]["relax_backward_launches"]}

@@ -1,11 +1,13 @@
-"""Tensor-parallel decode: the sharded serve step of the dense-branch and
-mixture-of-experts families computes on the rank's own shards of the
-parameters and of every cache leaf, as XLA partitions the reference's
-decode under the fan-out layout of `repro.distributed.sharding`
-(parameters Shard(last) over 'model', the embedding Shard(0), the routed
-experts Shard(0), their expert dim; the cache's KV heads over 'model'
-where they divide it, else its sequence; MLA's latent caches ``ckv`` and
-``kpe`` their sequence).
+"""Tensor-parallel decode: the sharded serve step of every family computes
+on the rank's own shards of the parameters and of every cache leaf, as
+XLA partitions the reference's decode under the fan-out layout of
+`repro.distributed.sharding` (parameters Shard(last) over 'model', the
+embedding Shard(0), the routed experts Shard(0), their expert dim; the
+convolutions' ``conv_w`` their channels; the cache's KV heads over
+'model' where they divide it, else its sequence; MLA's latent caches
+``ckv`` and ``kpe`` and the encoder memory ``mem_k``/``mem_v`` their
+sequence where the heads do not divide; the recurrent states ``conv``,
+``h`` and their tail's their channels, the SSM state ``ssm`` its heads).
 
 At decode the activations are a few rows, so they move, and the weights
 and the cache never do:
@@ -23,11 +25,23 @@ and the cache never do:
     takes logits from the rank's vocab rows, the padded ids masked, and
     all-gathers them over 'model' (`layers.unembed`);
   * decode attention runs on the rank's shard of the cache it reads
-    (`KVShard`, one a cache group: ``kv``, ``dense_kv``, ``moe_kv``,
-    ``ckv``): with the KV heads over 'model', on the q heads of the
-    rank's KV heads, the outputs then all-gathered; with the sequence
-    over one or more axes, on the local positions, the ranks' outputs
-    then combined by their log-sum-exps (`combine`);
+    (`KVShard`, one an attention cache: ``kv``, ``dense_kv``,
+    ``moe_kv``, ``ckv``, ``mem_k`` with ``mem_v``): with the KV heads
+    over 'model', on the q heads of the rank's KV heads, the outputs
+    then all-gathered; with the sequence over one or more axes, on the
+    local positions, the ranks' outputs then combined by their
+    log-sum-exps (`combine`); a ring buffer (the hybrid's local
+    attention) takes its slot and valid length modulo the whole window,
+    then as the rank's positions;
+  * a recurrent layer runs its channel-wise recurrence on the rank's
+    channels or heads of its state (`StateShard`, one a state leaf:
+    ``conv``, ``h``, ``tail_conv``, ``tail_h``, ``ssm``): the products
+    into those channels take the rank's columns, the convolution its
+    ``conv_w`` and ``conv_b`` shards, and the activations a product
+    needs whole (the convolved input of the RG-LRU's gates and of the
+    SSM's heads, the output into ``w_out`` / ``out_proj``) are
+    all-gathered (`repro_torch.models.rglru.rglru_decode_step`,
+    `repro_torch.models.ssd.ssd_decode_step`);
   * a mixture-of-experts layer routes every row on every 'model' rank
     alike (the router's product gathered where its columns are split),
     runs the rank's own experts on the choices they were given, and sums
@@ -60,19 +74,15 @@ from dataclasses import dataclass
 
 import torch
 
-#: The families whose decode runs tensor-parallel: those of `Model`'s
-#: dense branch and the mixture-of-experts family (GQA or MLA). The
-#: others keep the gathered step until their slice.
-FAMILIES = ("dense", "vlm", "moe")
+#: The decode cache's attention caches, each read through a `KVShard` of
+#: its own (``mem_v`` lies as ``mem_k``, ``kpe`` as ``ckv``).
+KV_CACHES = ("kv", "dense_kv", "moe_kv", "ckv", "mem_k")
+#: The recurrent state leaves and the dim of each that the layout splits
+#: over 'model': the channels, or the SSM state's heads (L, B, H, P, N).
+STATE_DIMS = {"conv": -1, "tail_conv": -1, "h": -1, "tail_h": -1, "ssm": 2}
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
-
-
-def applies(cfg) -> bool:
-    """Whether the sharded serve step of ``cfg``'s family is tensor
-    parallel."""
-    return cfg.family in FAMILIES
 
 
 def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
@@ -128,12 +138,13 @@ def reduce_pieces(x: torch.Tensor, op: str) -> torch.Tensor:
 @dataclass(frozen=True)
 class KVShard:
     """Where this rank's shard of a KV cache (L, B, S, Hkv, D) lies: the
-    first of its positions and the groups that split the sequence, the
-    first of its KV heads, how many, and the groups that split the heads
-    (empty tuples where that dim is whole)."""
+    first of its positions, the groups that split the sequence and its
+    whole length, the first of its KV heads, how many, and the groups
+    that split the heads (empty tuples where that dim is whole)."""
 
     seq_offset: int
     seq_groups: tuple
+    seq_len: int
     head_offset: int
     heads: int
     head_groups: tuple
@@ -152,8 +163,9 @@ class KVShard:
             head, head_axes = shard_offset(mesh, placements, 3,
                                            leaf.shape[3])
             heads = leaf.to_local().shape[3]
-        return cls(seq, tuple(mesh.get_group(a) for a in seq_axes), head,
-                   heads, tuple(mesh.get_group(a) for a in head_axes))
+        return cls(seq, tuple(mesh.get_group(a) for a in seq_axes),
+                   leaf.shape[2], head, heads,
+                   tuple(mesh.get_group(a) for a in head_axes))
 
     def positions(self, slot, new_len, s: int):
         """A write slot and valid lengths (B,), global, as this shard's:
@@ -162,12 +174,18 @@ class KVShard:
         return (slot - self.seq_offset,
                 (new_len - self.seq_offset).clamp(0, s))
 
+    def local_q(self, q, kv_heads: int):
+        """q (B, 1, Hq, D) cut to the q heads that share this shard's KV
+        heads (of ``kv_heads`` in all)."""
+        g = q.shape[2] // kv_heads
+        return q[:, :, self.head_offset * g:(self.head_offset + self.heads)
+                 * g]
+
     def local_heads(self, q, k, v):
         """q (B, 1, Hq, D) and the new k, v (B, 1, Hkv, D) cut to this
         shard's KV heads and the q heads that share them."""
-        g = q.shape[2] // k.shape[2]
         lo, n = self.head_offset, self.heads
-        return (q[:, :, lo * g:(lo + n) * g], k[:, :, lo:lo + n],
+        return (self.local_q(q, k.shape[2]), k[:, :, lo:lo + n],
                 v[:, :, lo:lo + n])
 
     def merge(self, out, lse) -> torch.Tensor:
@@ -186,20 +204,91 @@ class KVShard:
         return _gather(out, 1, self.head_groups)
 
 
+@dataclass(frozen=True)
+class StateShard:
+    """Where this rank's shard of a recurrent state leaf lies along the
+    dim that the layout splits (`STATE_DIMS`: the channels of ``conv``,
+    ``h`` and the tail's, the heads of ``ssm``): the first of its
+    entries, how many, and the groups that split that dim (empty where
+    it is whole). Outside a tensor-parallel step `state_shard` gives the
+    whole dim, and every method is then the identity or a view of it."""
+
+    offset: int
+    count: int
+    groups: tuple
+
+    @classmethod
+    def of(cls, leaf, dim: int) -> "StateShard":
+        """The shard of a state leaf DTensor along ``dim``."""
+        from repro_torch.distributed.sharding import shard_offset
+        dim %= leaf.dim()
+        mesh = leaf.device_mesh
+        offset, axes = shard_offset(mesh, leaf.placements, dim,
+                                    leaf.shape[dim])
+        return cls(offset, leaf.to_local().shape[dim],
+                   tuple(mesh.get_group(a) for a in axes))
+
+    def take(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``t``'s entries of this shard along ``dim``: ``t`` itself where
+        it is a 'model' shard (a parameter that the layout splits as it
+        splits the state: ``conv_w``, ``conv_b``, ``lam``), else the
+        shard's block cut from the whole ``t``."""
+        ctx = _CURRENT.get()
+        if ctx is not None and ctx.model_shard(t) is not None:
+            block = ctx.local_block(t, dim % t.dim())
+            if block != (self.offset, self.count):
+                raise ValueError(f"tensor parallel: a parameter's block "
+                                 f"{block} is not its state's "
+                                 f"{(self.offset, self.count)}")
+            return t
+        return t.narrow(dim, self.offset, self.count)
+
+    def columns(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """This shard's columns of ``x @ w``: the product itself where
+        ``w`` is a 'model' shard of its columns (the rank's, checked by
+        `take`), else cut from the whole product."""
+        y = x @ w
+        ctx = _CURRENT.get()
+        if ctx is None or ctx.model_shard(w) is None:
+            return y.narrow(-1, self.offset, self.count)
+        self.take(w)
+        return y
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``x``, this shard's entries along ``dim``, all-gathered over
+        the groups that split the state: the whole dim."""
+        return _gather(x, dim, self.groups)
+
+
 class TensorParallel:
     """The context of one tensor-parallel step: the 'model' axis of
     ``mesh`` (its group and this rank's index on it), the local
     parameter tensors that are 'model' shards and the dim each is split
-    on (``shards``, by tensor identity), and the `KVShard` of each cache
-    group by name (``kv``: ``kv``, ``dense_kv``, ``moe_kv``, ``ckv``)."""
+    on (``shards``, by tensor identity), the `KVShard` of each attention
+    cache by name (``kv``, `KV_CACHES`) and the `StateShard` of each
+    recurrent state leaf by name (``states``, `STATE_DIMS`)."""
 
     def __init__(self, mesh, shards: dict[int, int],
-                 kv: dict[str, KVShard]):
+                 kv: dict[str, KVShard],
+                 states: dict[str, StateShard] | None = None):
         on_model = "model" in mesh.mesh_dim_names
         self.groups = (mesh.get_group("model"),) if on_model else ()
         self.rank = mesh.get_local_rank("model") if on_model else 0
         self.shards = shards
         self.kv = kv
+        self.states = states or {}
+
+    @classmethod
+    def of_cache(cls, mesh, shards: dict[int, int], cache: dict
+                 ) -> "TensorParallel":
+        """The context of a step over ``cache`` (the decode cache's
+        DTensors by name): a `KVShard` for each attention cache in it and
+        a `StateShard` for each recurrent state leaf."""
+        kv = {k: KVShard.of(v["k"] if isinstance(v, dict) else v)
+              for k, v in cache.items() if k in KV_CACHES}
+        states = {k: StateShard.of(cache[k], dim)
+                  for k, dim in STATE_DIMS.items() if k in cache}
+        return cls(mesh, shards, kv, states)
 
     def model_shard(self, w: torch.Tensor) -> int | None:
         """The dim of ``w`` split over 'model', or None (a whole
@@ -235,10 +324,18 @@ def current() -> TensorParallel | None:
 
 
 def kv_shard(cache: str) -> KVShard | None:
-    """The installed context's shard of the cache group ``cache``, None
-    outside a tensor-parallel step."""
+    """The installed context's shard of the attention cache ``cache``,
+    None outside a tensor-parallel step."""
     ctx = _CURRENT.get()
     return None if ctx is None else ctx.kv[cache]
+
+
+def state_shard(leaf: str, size: int) -> StateShard:
+    """The installed context's shard of the recurrent state leaf
+    ``leaf``; outside a tensor-parallel step the whole dim of ``size``
+    entries."""
+    ctx = _CURRENT.get()
+    return StateShard(0, size, ()) if ctx is None else ctx.states[leaf]
 
 
 @contextlib.contextmanager

@@ -37,9 +37,9 @@ with the reference's keys where their meaning carries over:
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
       full parameters included where the step gathers into them; the
-      tensor-parallel decode step of the dense-branch and moe families
-      computes on the argument shards and holds no full parameter: a
-      moe layer's dispatch buffers are those of the rank's experts).
+      tensor-parallel decode step of every family computes on the
+      argument shards and holds no full parameter: a moe layer's
+      dispatch buffers are those of the rank's experts).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)

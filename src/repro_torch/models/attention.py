@@ -15,11 +15,12 @@ decode-time cross-attention calls its plain `decode_attention_ref`
 directly; the port's goes through `decode_attention` like every other
 decode call, so on the card the memory is read by the kernel.
 
-The projections and `decode_attention_step` consult the tensor-parallel
-context (`repro_torch.distributed.tensor_parallel`): inside the sharded
-serve step the products run on the rank's weight shards and the decode
-attends over the rank's shard of the cache (its KV heads, or its
-positions, combined across ranks by log-sum-exp).
+The projections, `decode_attention_step` and `cross_attention_decode`
+consult the tensor-parallel context
+(`repro_torch.distributed.tensor_parallel`): inside the sharded serve
+step the products run on the rank's weight shards and the decode attends
+over the rank's shard of the cache or of the encoder memory (its KV
+heads, or its positions, combined across ranks by log-sum-exp).
 """
 
 from __future__ import annotations
@@ -182,6 +183,20 @@ def write_step(caches, slot: torch.Tensor, in_range: torch.Tensor, lanes,
     return restore
 
 
+def _attend(q, cache_k, cache_v, lengths, shard):
+    """`decode_attention` of q (B, Hq, D) over the cache; in a
+    tensor-parallel step (``shard``, a `tensor_parallel.KVShard`) over
+    the rank's shard of it, the ranks' outputs combined by their
+    log-sum-exps where the sequence is split and gathered over the heads
+    (`KVShard.finish`)."""
+    if shard is None:
+        return decode_attention(q, cache_k, cache_v, lengths)
+    if shard.seq_groups:
+        return shard.finish(*decode_attention(q, cache_k, cache_v, lengths,
+                                              return_lse=True))
+    return shard.finish(decode_attention(q, cache_k, cache_v, lengths))
+
+
 def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
                           ring: bool = False, lanes=None,
                           every_row: bool = False, cache: str = "kv"):
@@ -201,13 +216,15 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     d).
 
     In a tensor-parallel step (`tensor_parallel.kv_shard` of the cache
-    group ``cache``, the name of ``cache_k``'s group in the model's
-    cache) the caches are the rank's shard: its KV heads take the q
-    heads that share them; the new key and value are written only where
-    the shard holds slot ``length`` (the slot less the shard's offset);
-    the kernel attends over the shard's valid positions, ``length`` less
-    the offset, clipped to [0, S_local], and `KVShard.finish` combines the
-    ranks' outputs by their log-sum-exps and gathers the heads."""
+    ``cache``, the name of ``cache_k``'s group in the model's cache) the
+    caches are the rank's shard: its KV heads take the q heads that share
+    them; a ring's slot and valid length are taken modulo the whole
+    window (`KVShard.seq_len`, not the shard's positions); the new key
+    and value are written only where the shard holds the slot (the slot
+    less the shard's offset); the kernel attends over the shard's valid
+    positions, the valid length less the offset, clipped to [0,
+    S_local], and `KVShard.finish` combines the ranks' outputs by their
+    log-sum-exps and gathers the heads."""
     b = x.shape[0]
     lengths = torch.as_tensor(length, device=x.device).expand(b)
     pos = lengths[:, None]                                  # absolute (B, 1)
@@ -217,21 +234,16 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
     s = cache_k.shape[1]
-    slot = lengths % s if ring else lengths
-    new_len = (lengths + 1).clamp(max=s) if ring else lengths + 1
     shard = tp.kv_shard(cache)
+    window = s if shard is None else shard.seq_len
+    slot = lengths % window if ring else lengths
+    new_len = (lengths + 1).clamp(max=window) if ring else lengths + 1
     if shard is not None:
         q, k_new, v_new = shard.local_heads(q, k_new, v_new)
         slot, new_len = shard.positions(slot, new_len, s)
     restore = write_step(((cache_k, k_new[:, 0]), (cache_v, v_new[:, 0])),
                          slot, (slot >= 0) & (slot < s), lanes, every_row)
-    if shard is not None and shard.seq_groups:
-        out = shard.finish(*decode_attention(q[:, 0], cache_k, cache_v,
-                                             new_len, return_lse=True))
-    else:
-        out = decode_attention(q[:, 0], cache_k, cache_v, new_len)
-        if shard is not None:
-            out = shard.finish(out)
+    out = _attend(q[:, 0], cache_k, cache_v, new_len, shard)
     restore()
     return tp.matmul(out.reshape(b, 1, -1), p.wo)
 
@@ -239,15 +251,22 @@ def decode_attention_step(p, x, cache_k, cache_v, length, cfg,
 def cross_attention_decode(p, x, mem_k, mem_v, cfg):
     """Decode-time cross-attention against the encoder's K/V. x: (B, 1,
     d); mem_k/v: (B, Ssrc, Hkv, D), projected once at prefill. Every row
-    attends to all Ssrc positions. Writes nothing. Returns (B, 1, d)."""
+    attends to all Ssrc positions. Writes nothing. Returns (B, 1, d).
+    In a tensor-parallel step mem_k/v are the rank's shard
+    (`tensor_parallel.kv_shard` of ``mem_k``): every local position is
+    valid, and the ranks' outputs are combined as in
+    `decode_attention_step`."""
     b = x.shape[0]
-    q = (x @ p.wq).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    q = tp.matmul(x, p.wq).reshape(b, 1, cfg.n_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
+    shard = tp.kv_shard("mem_k")
+    if shard is not None:
+        q = shard.local_q(q, cfg.n_kv_heads)
     lengths = torch.full((b,), mem_k.shape[1], dtype=torch.int32,
                          device=x.device)
-    out = decode_attention(q[:, 0], mem_k, mem_v, lengths)
-    return out.reshape(b, 1, -1) @ p.wo
+    out = _attend(q[:, 0], mem_k, mem_v, lengths, shard)
+    return tp.matmul(out.reshape(b, 1, -1), p.wo)
 
 
 def project_memory_kv(p, memory, cfg):

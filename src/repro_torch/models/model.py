@@ -629,9 +629,10 @@ class Model(torch.nn.Module):
         length = cache["length"]
         ks, vs = cache["kv"]["k"], cache["kv"]["v"]
         ai = 0
-        for blocks, conv, hst in ((self.super, cache["conv"], cache["h"]),
-                                  (self.tail, cache.get("tail_conv"),
-                                   cache.get("tail_h"))):
+        for blocks, conv, hst, state in (
+                (self.super, cache["conv"], cache["h"], "h"),
+                (self.tail, cache.get("tail_conv"), cache.get("tail_h"),
+                 "tail_h")):
             for s, sb in enumerate(blocks):
                 ri = 0
                 for layer in sb.values():
@@ -643,7 +644,8 @@ class Model(torch.nn.Module):
                         ai += 1
                     else:
                         t, nc, nh = rglru_mod.rglru_decode_step(
-                            layer.rglru, hn, conv[s, ri], hst[s, ri], cfg)
+                            layer.rglru, hn, conv[s, ri], hst[s, ri], cfg,
+                            state)
                         _keep(conv[s, ri], nc, lanes)
                         _keep(hst[s, ri], nh, lanes)
                         x = x + t

@@ -16,6 +16,13 @@ width-4 causal convolution.
 Block structure per Griffin: (conv1d -> RG-LRU) recurrent branch gated by
 a GeLU branch (tanh form, as ``jax.nn.gelu`` defaults to), then a linear
 out-projection. ``lam`` stays float32 whatever the config's type.
+
+The recurrence is channel-wise, so in a tensor-parallel step
+(`repro_torch.distributed.tensor_parallel`) the decode step runs it on
+the rank's channels of its state: the rank's columns of ``w_x``,
+``w_gate``, ``w_r`` and ``w_i``, its ``conv_w``, ``conv_b`` and ``lam``
+shards; the convolved input that ``w_r`` and ``w_i`` read, and the y
+that ``w_out`` reads, are all-gathered.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import dense_init
 
 _C = 8.0
@@ -78,15 +86,19 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out + b
 
 
-def _gates(p, xw: torch.Tensor):
-    """(a, b_in) of the recurrence, float32, from the convolved input."""
-    r = torch.sigmoid((xw @ p.w_r).float())
-    i = torch.sigmoid((xw @ p.w_i).float())
-    log_a_base = F.logsigmoid(p.lam)                        # log a
+def _gates(p, xw: torch.Tensor, chans: tp.StateShard | None = None):
+    """(a, b_in) of the recurrence, float32, from the convolved input
+    ``xw`` (every channel), on the channels of ``chans`` (every channel
+    when None)."""
+    if chans is None:
+        chans = tp.StateShard(0, xw.shape[-1], ())
+    r = torch.sigmoid(chans.columns(xw, p.w_r).float())
+    i = torch.sigmoid(chans.columns(xw, p.w_i).float())
+    log_a_base = F.logsigmoid(chans.take(p.lam))            # log a
     log_a = _C * r * log_a_base[None, None, :]              # (B,S,W)
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
-    return a, beta * i * xw.float()
+    return a, beta * i * chans.take(xw).float()
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -113,15 +125,19 @@ def rglru_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def rglru_decode_step(p, x: torch.Tensor, conv_state: torch.Tensor,
-                      h_state: torch.Tensor, cfg):
+                      h_state: torch.Tensor, cfg, state: str = "h"):
     """One token. x: (B, 1, d); conv_state: (B, 3, W); h_state: (B, W)
-    float32. Returns (out (B, 1, d), conv_state, h_state), new tensors."""
-    gate = F.gelu((x @ p.w_gate).float(), approximate="tanh")
-    xw = x @ p.w_x
-    window = torch.cat([conv_state, xw], dim=1)             # (B, 4, W)
-    conv_state = window[:, 1:]
-    xw = (window * p.conv_w[None]).sum(dim=1, keepdim=True) + p.conv_b
-    a, b_in = _gates(p, xw)
+    float32. Returns (out (B, 1, d), conv_state, h_state), new tensors.
+    In a tensor-parallel step both states are the rank's channels of the
+    leaf ``state`` (``h`` or ``tail_h``; ``conv`` and ``tail_conv`` lie
+    alike)."""
+    chans = tp.state_shard(state, h_state.shape[-1])
+    gate = F.gelu(chans.columns(x, p.w_gate).float(), approximate="tanh")
+    window = torch.cat([conv_state, chans.columns(x, p.w_x)], dim=1)
+    conv_state = window[:, 1:]                              # (B, 3, W)
+    xw = (window * chans.take(p.conv_w)[None]).sum(dim=1, keepdim=True) \
+        + chans.take(p.conv_b)
+    a, b_in = _gates(p, chans.gather(xw), chans)
     h_state = a[:, 0] * h_state + b_in[:, 0]
     y = (h_state[:, None, :] * gate).to(x.dtype)
-    return y @ p.w_out, conv_state, h_state
+    return tp.matmul(chans.gather(y), p.w_out), conv_state, h_state

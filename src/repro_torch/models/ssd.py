@@ -16,6 +16,13 @@ cache does not grow with the sequence.
 ``a_log``, ``dt_bias`` and ``d_skip`` are float32 whatever the config's
 type, ``dt`` goes through softplus in float32 and the scan runs in
 float32, as in the reference.
+
+In a tensor-parallel step (`repro_torch.distributed.tensor_parallel`)
+the decode step runs on the rank's shards: the input projection's
+columns (its output gathered), the convolution on the rank's channels
+of ``conv`` (its output gathered, since the rank's heads read channels
+and B/C that other ranks convolve), the state update on the rank's
+heads of ``ssm``, and the output projection's columns.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import dense_init, rms_norm
 
 # leaves the reference keeps in float32 whatever the config's type
@@ -76,7 +84,7 @@ def init_ssd(generator: torch.Generator, cfg) -> SSD:
 def _split_proj(p, x: torch.Tensor, cfg):
     """(z, xbc, dt) of the input projection."""
     di, n = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ p.in_proj
+    zxbcdt = tp.matmul(x, p.in_proj)
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n],
             zxbcdt[..., 2 * di + 2 * n:])
 
@@ -176,25 +184,38 @@ def ssd_decode_step(p, x: torch.Tensor, conv_state: torch.Tensor,
                     ssm_state: torch.Tensor, cfg):
     """One token. x: (B, 1, d); conv_state: (B, W-1, d_inner + 2N);
     ssm_state: (B, H, P, N) float32. Returns (out (B, 1, d), conv_state,
-    ssm_state), new tensors."""
+    ssm_state), new tensors.
+
+    In a tensor-parallel step ``conv_state`` and ``ssm_state`` are the
+    rank's channels and heads (`tensor_parallel.state_shard` of ``conv``
+    and ``ssm``). The gated y of the rank's heads is all-gathered before
+    the norm: ``out_proj`` needs the whole row anyway, and the norm then
+    takes its variance over the whole row as one process does (the
+    `rms_norm` site scales and gathers the rank's slice), where
+    all-reducing partial sums of squares would save that one gather of
+    (B, d_inner) but sum the variance in another order."""
     b = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    chans = tp.state_shard("conv", conv_state.shape[-1])
+    heads = tp.state_shard("ssm", ssm_state.shape[1])
     z, xbc, dt = _split_proj(p, x, cfg)
-    window = torch.cat([conv_state, xbc], dim=1)            # (B, W, C)
+    window = torch.cat([conv_state, chans.take(xbc)], dim=1)   # (B, W, C)
     conv_state = window[:, 1:]
-    out = (window * p.conv_w[None]).sum(dim=1, keepdim=True) + p.conv_b
-    xbc = F.silu(out.float()).to(x.dtype)
+    out = (window * chans.take(p.conv_w)[None]).sum(dim=1, keepdim=True) \
+        + chans.take(p.conv_b)
+    xbc = chans.gather(F.silu(out.float()).to(x.dtype))
     xs, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p.dt_bias[None, None, :])[:, 0]   # (B, H)
-    A = -torch.exp(p.a_log)
-    xh = xs.reshape(b, h, hp).float()
+    dt = F.softplus(heads.take(dt).float()
+                    + heads.take(p.dt_bias)[None, None, :])[:, 0]   # (B, H)
+    A = -torch.exp(heads.take(p.a_log))
+    xh = heads.take(xs.reshape(b, h, hp), 1).float()
     Bv = B[:, 0].float()                                    # (B, N)
     Cv = C[:, 0].float()
     decay = torch.exp(dt * A[None, :])                      # (B, H)
     upd = dt[..., None, None] * xh[..., None] * Bv[:, None, None, :]
     ssm_state = ssm_state * decay[..., None, None] + upd    # (B, H, P, N)
     y = torch.einsum("bhpn,bn->bhp", ssm_state, Cv)
-    y = y + p.d_skip[None, :, None] * xh
-    y = y.reshape(b, 1, di).to(x.dtype)
+    y = y + heads.take(p.d_skip)[None, :, None] * xh
+    y = heads.gather(y.reshape(b, 1, heads.count * hp).to(x.dtype))
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.out_norm)
-    return y @ p.out_proj, conv_state, ssm_state
+    return tp.matmul(y, p.out_proj), conv_state, ssm_state

@@ -19,23 +19,22 @@ shardings of `repro_torch.launch.specs` (the production dry run's).
 
 In every sharded step the batch's rows are split over the data axes,
 pod-major (a batch entry may be a plain global tensor, the same on every
-rank, or a DTensor). The serve step of the dense-branch and moe
-families (`tensor_parallel.FAMILIES`) is tensor parallel, as XLA
-partitions the reference's: `Model.decode_step` runs on the rank's own
-shards of the parameters (standing in for the model's own) and of the
-cache, with the products, the embedding, the unembedding, the decode
-attention and the experts' outputs exchanging activations over 'model'
+rank, or a DTensor). The serve step of every family is tensor parallel,
+as XLA partitions the reference's: `Model.decode_step` runs on the
+rank's own shards of the parameters (standing in for the model's own)
+and of every cache leaf, with the products, the norms, the embedding,
+the unembedding, the decode attention, the recurrent layers and the
+experts' outputs exchanging activations over 'model'
 (`repro_torch.distributed.tensor_parallel`); no parameter and no cache
-row moves. The train and
-prefill steps, and the serve step of the other families, gather each
-parameter DTensor to a full tensor and write it into the model's own
-parameter, and the model's unchanged `Model.loss`, `Model.forward` or
-`Model.decode_step` runs on plain tensors, the 'model' ranks computing
-redundantly: those shard storage, not compute (tensor-parallel compute
-for them is later work). Each sharded step's ``reads_model_params``
-says which of the two it is: True where it gathers into the model's own
-parameters, False where it never reads them (the dry run counts the
-model's parameters among a rank's bytes only when True).
+or state row moves. The train and prefill steps gather each parameter
+DTensor to a full tensor and write it into the model's own parameter,
+and the model's unchanged `Model.loss` or `Model.forward` runs on plain
+tensors, the 'model' ranks computing redundantly: those shard storage,
+not compute (tensor-parallel compute for them is later work). Each
+sharded step's ``reads_model_params`` says which of the two it is: True
+where it gathers into the model's own parameters, False where it never
+reads them (every serve step; the dry run counts the model's parameters
+among a rank's bytes only when True).
 """
 
 from __future__ import annotations
@@ -49,8 +48,7 @@ import torch
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import (compress_decompress,
                                                  init_error_feedback)
-from repro_torch.distributed.sharding import (cache_batch_dim,
-                                              param_shardings)
+from repro_torch.distributed.sharding import param_shardings
 from repro_torch.models.model import Model
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_schedule)
@@ -343,57 +341,69 @@ def make_sharded_serve_step(model: Model, mesh):
     1), every data rank computes every row, as the reference's batch spec
     falls back to replication.
 
-    For the dense-branch and moe families (`tensor_parallel.FAMILIES`)
-    the step is tensor parallel (`_tensor_parallel_serve_step`): the
-    dense and VLM layers' products, norms, embedding and attention as
-    `tensor_parallel` describes; a moe layer expert parallel (every
-    'model' rank routes its rows alike and runs its own experts, whose
-    outputs are summed over 'model'); MLA on its heads of ``w_ukv`` and
-    its positions of ``ckv``/``kpe``. For the others it gathers: the
-    parameters are gathered into the model (see the module docstring);
-    each cache leaf is redistributed to this rank's rows (its shard over
-    'model', and over the data axes where the cache puts them on the
-    sequence, gathered); the model's unchanged `decode_step` updates
-    those rows in place; each leaf's updated rows are redistributed back
-    to the cache's layout and written into its local shard."""
-    if tp.applies(model.cfg):
-        return _tensor_parallel_serve_step(model, mesh)
-    from torch.distributed.tensor import DTensor
+    The step is tensor parallel for every family, as
+    `repro_torch.distributed.tensor_parallel` describes: the dense and
+    VLM layers' products, norms, embedding and attention; a moe layer
+    expert parallel (every 'model' rank routes its rows alike and runs
+    its own experts, whose outputs are summed over 'model'); MLA on its
+    heads of ``w_ukv`` and its positions of ``ckv``/``kpe``; the SSM and
+    RG-LRU layers on the rank's heads and channels of their state; the
+    hybrid's ring and the encoder-decoder's self-attention cache and
+    memory on their shards."""
+    from torch.distributed.tensor import Replicate
     idx, n_data, _ = _data_rank(mesh)
-    params = dict(model.named_parameters())
+    names = mesh.mesh_dim_names
+    on_data = [name in ("pod", "data") for name in names]
+    m_dim = names.index("model") if "model" in names else None
 
-    def walk(tree, fn, *others):
-        """``fn(name, leaf, *the others' leaves)`` over a nested dict."""
-        return {k: walk(v, fn, *(o[k] for o in others))
-                if isinstance(v, dict) else fn(k, v, *(o[k] for o in others))
-                for k, v in tree.items()}
+    def local_param(t):
+        """This rank's shard of a parameter DTensor, whole over the data
+        axes, and the dim 'model' splits (None where it does not)."""
+        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
+            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
+                                      in zip(on_data, t.placements)])
+        pl = None if m_dim is None else t.placements[m_dim]
+        return t.to_local(), (pl.dim if pl is not None and pl.is_shard()
+                              else None)
 
     @torch.no_grad()
     def serve_step(placed: dict, cache: dict, tokens):
+        """One step on this rank's shards. Each parameter's local shard
+        (gathered over the data axes first where FSDP storage splits it
+        there; serving never does) stands in for the model's own
+        parameter (`_parameters_replaced`), so the model's parameters
+        are never read and may live on the meta device. The context
+        (`TensorParallel.of_cache`) holds a `KVShard` for each attention
+        cache and a `StateShard` for each recurrent state leaf; every
+        local shard is updated in place: this rank's rows (every row
+        where the data axes do not divide them), its KV heads or its
+        positions, its channels or heads. ``length``, replicated,
+        advances on this rank's rows and is all-gathered back over the
+        data axes."""
         n_rows = tokens.shape[0]
         whole = n_rows % n_data != 0
-        _load_params(params, placed)
-        tok = _local_rows(tokens, mesh, idx, n_rows // n_data, whole)
-
-        def layout(name, leaf):
-            return _rows_layout(mesh, cache_batch_dim(name, leaf.dim()),
-                                whole)
-
-        local = walk(cache, lambda name, leaf: leaf.redistribute(
-            mesh, layout(name, leaf)).to_local())
-        logits = model.decode_step(tok, local)
-
-        def write_back(name, leaf, rows):
-            new = DTensor.from_local(rows, mesh, layout(name, leaf),
-                                     shape=leaf.shape, stride=leaf.stride())
-            new = new.redistribute(mesh, leaf.placements).to_local()
-            if new is not leaf.to_local():
-                leaf.to_local().copy_(new)
-
-        walk(cache, write_back, local)
+        rows = n_rows // n_data
+        tok = _local_rows(tokens, mesh, idx, rows, whole)
+        params, shards = {}, {}
+        for name, t in placed.items():
+            local, dim = local_param(t)
+            params[name] = local
+            if dim is not None:
+                shards[id(local)] = dim
+        length = cache["length"].to_local()
+        mine = length if whole else length[idx * rows:(idx + 1) * rows]
+        local = {k: ({n: leaf.to_local() for n, leaf in v.items()}
+                     if isinstance(v, dict) else v.to_local())
+                 for k, v in cache.items() if k != "length"}
+        ctx = tp.TensorParallel.of_cache(mesh, shards, cache)
+        with tp.active(ctx), _parameters_replaced(model, params):
+            logits = model.decode_step(tok, {"length": mine, **local})
+        if not whole:
+            length.copy_(_placed_rows(mine, mesh, n_rows, False).redistribute(
+                mesh, cache["length"].placements).to_local())
         return cache, _placed_rows(logits, mesh, n_rows, whole)
 
-    serve_step.reads_model_params = True
+    serve_step.reads_model_params = False
     return serve_step
 
 
@@ -415,68 +425,6 @@ def _parameters_replaced(model: Model, tensors: dict[str, torch.Tensor]):
     finally:
         for mod, leaf, p in reversed(saved):
             mod._parameters[leaf] = p
-
-
-def _tensor_parallel_serve_step(model: Model, mesh):
-    """`make_sharded_serve_step` for the dense-branch and moe families:
-    one step on this rank's shards, as `repro_torch.distributed.
-    tensor_parallel` describes. Each parameter's local shard (gathered
-    over the data axes first where FSDP storage splits it there; serving
-    never does) stands in for the model's own parameter
-    (`_parameters_replaced`), so the model's parameters are never read
-    and may live on the meta device. Each cache group (``kv``; moe
-    ``dense_kv`` and ``moe_kv``, or ``dense_kv``, ``ckv`` and ``kpe``)
-    gets the `KVShard` of its own leaf, and its local shards are updated
-    in place: this rank's rows (every row where the data axes do not
-    divide them), its KV heads or its positions. ``length``, replicated,
-    advances on this rank's rows and is all-gathered back over the data
-    axes."""
-    from torch.distributed.tensor import Replicate
-    idx, n_data, _ = _data_rank(mesh)
-    names = mesh.mesh_dim_names
-    on_data = [name in ("pod", "data") for name in names]
-    m_dim = names.index("model") if "model" in names else None
-
-    def local_param(t):
-        """This rank's shard of a parameter DTensor, whole over the data
-        axes, and the dim 'model' splits (None where it does not)."""
-        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
-            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
-                                      in zip(on_data, t.placements)])
-        pl = None if m_dim is None else t.placements[m_dim]
-        return t.to_local(), (pl.dim if pl is not None and pl.is_shard()
-                              else None)
-
-    @torch.no_grad()
-    def serve_step(placed: dict, cache: dict, tokens):
-        n_rows = tokens.shape[0]
-        whole = n_rows % n_data != 0
-        rows = n_rows // n_data
-        tok = _local_rows(tokens, mesh, idx, rows, whole)
-        params, shards = {}, {}
-        for name, t in placed.items():
-            local, dim = local_param(t)
-            params[name] = local
-            if dim is not None:
-                shards[id(local)] = dim
-        length = cache["length"].to_local()
-        mine = length if whole else length[idx * rows:(idx + 1) * rows]
-        groups = {k: v for k, v in cache.items() if k != "length"}
-        local = {k: ({n: leaf.to_local() for n, leaf in v.items()}
-                     if isinstance(v, dict) else v.to_local())
-                 for k, v in groups.items()}
-        kv = {k: tp.KVShard.of(v["k"] if isinstance(v, dict) else v)
-              for k, v in groups.items()}
-        ctx = tp.TensorParallel(mesh, shards, kv)
-        with tp.active(ctx), _parameters_replaced(model, params):
-            logits = model.decode_step(tok, {"length": mine, **local})
-        if not whole:
-            length.copy_(_placed_rows(mine, mesh, n_rows, False).redistribute(
-                mesh, cache["length"].placements).to_local())
-        return cache, _placed_rows(logits, mesh, n_rows, whole)
-
-    serve_step.reads_model_params = False
-    return serve_step
 
 
 def make_sharded_prefill_step(model: Model, mesh):

@@ -6,7 +6,8 @@ Each cell runs in a subprocess through the CLI at ``--layers 2`` (as
 tests/test_distributed.py runs its fabricated-device bodies), a few at a
 time: one ``decode_32k`` single-mesh cell per family, qwen3-0.6b's
 ``train_4k`` and ``prefill_32k``, dbrx-132b's ``decode_32k`` on the
-multi-pod mesh and mamba2-2.7b's ``long_500k``. Every record must be
+multi-pod mesh and mamba2-2.7b's and recurrentgemma-2b's ``long_500k``.
+Every record must be
 ``ok`` with the keys the module docstring lists, and its argument bytes
 exactly `launch.specs`' sum; qwen3-0.6b's decode FLOPs a closed form,
 its train step's collectives those its layouts imply; the census is
@@ -54,6 +55,7 @@ CELLS = {
     ("qwen3-0.6b", "prefill_32k", "single"): 0,
     ("dbrx-132b", "decode_32k", "multi"): 2,
     ("mamba2-2.7b", "long_500k", "single"): 0,
+    ("recurrentgemma-2b", "long_500k", "single"): 1,    # the ring over 'data'
 }
 KEYS = {"ok", "arch", "shape", "mesh", "devices", "n_layers_override",
         "argument_size_in_bytes", "output_size_in_bytes",
@@ -181,6 +183,25 @@ def test_decode_records_show_the_cache_gather(records):
     assert rec["temp_size_in_bytes"] < 256 * 2 ** 20
     assert rec["device_bytes_total"] < rec["argument_size_in_bytes"] \
         + 256 * 2 ** 20
+
+
+FAMILY_CELLS = [c for c in CELLS if c[0] in ("mamba2-2.7b",
+                                             "recurrentgemma-2b",
+                                             "whisper-base")]
+
+
+@pytest.mark.parametrize("cell", FAMILY_CELLS,
+                         ids=["-".join(c[:2]) for c in FAMILY_CELLS])
+def test_family_decode_records_gather_activations_only(records, cell):
+    """The SSM, hybrid and encoder-decoder decode steps are tensor
+    parallel: each record's all-gathers a step stay below 64 MiB (the
+    gathering step moved every parameter and state row over 'model':
+    3.5-6.8 GB a step at full depth on this mesh), and the step reads
+    none of the model's own parameters, so the rank holds its arguments
+    and its activations: temporaries below 256 MiB."""
+    rec = records[0][cell]
+    assert rec["collectives"]["all-gather"]["bytes"] < 64 * 2 ** 20
+    assert rec["temp_size_in_bytes"] < 256 * 2 ** 20
 
 
 def _dispatch_bytes(cfg, rows: int, experts: int) -> int:

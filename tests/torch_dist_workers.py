@@ -192,20 +192,37 @@ MOE_WIDE = {
                              qk_rope_dim=8, v_head_dim=16)}
 
 
-# families whose sharded serve step still gathers (the encoder-decoder
-# and the SSM), at smoke width, float32, from a random cache (`serve_cache`)
-GATHERED = ("whisper-base", "mamba2-2.7b")
+# the SSM, hybrid and encoder-decoder smokes widened likewise (their
+# `serve_config(True, arch)`), so that every rule of their layouts fires
+# on a 'model' axis of 2 or 4: mamba2's in_proj (128, 560) split across
+# the boundaries of z, xBC and dt, conv_w / conv_b / the conv state over
+# their 288 channels, out_norm (256) and out_proj, the ssm state's 16
+# heads (a_log, dt_bias, d_skip (16,) replicated); recurrentgemma's
+# w_x, w_gate, w_r, w_i, w_out, conv_w, conv_b and lam over its 128
+# channels, with 2 super-blocks and a recurrent tail (7 layers) so that
+# conv / h and tail_conv / tail_h all split, its attention's wq, wk, wv
+# and wo (d_head 128, 1 KV head) too, and its ring's 16 positions over
+# 'model'; whisper's 2 KV heads over 'model' on (2, 2) and, on (2, 4),
+# the sequence of both its self-attention cache and its memory (the
+# log-sum-exp combine), every projection of d_model 128 split
+FAMILY_WIDE = {
+    "mamba2-2.7b": dict(d_model=128, ssm_headdim=16),
+    "recurrentgemma-2b": dict(d_model=128, lru_width=128, n_layers=7,
+                              n_heads=2, d_head=128, d_ff=256),
+    "whisper-base": dict(d_model=128, n_heads=2, n_kv_heads=2, d_head=64,
+                         d_ff=256)}
+WIDE = {**MOE_WIDE, **FAMILY_WIDE}
 
 
 def serve_config(wide: bool = False, arch: str | None = None):
     """SERVE's arch (or ``arch``) at smoke width (``wide``: SERVE_WIDE's,
-    or a MOE_WIDE arch's own), float32."""
+    or a WIDE arch's own), float32."""
     from repro_torch.configs import get_config
     cfg = get_config(arch or SERVE["arch"], "smoke").replace(
         dtype=torch.float32)
     if not wide:
         return cfg
-    return cfg.replace(**(MOE_WIDE[arch] if arch else SERVE_WIDE))
+    return cfg.replace(**(WIDE[arch] if arch else SERVE_WIDE))
 
 
 def serve_model(weights: str, wide: bool = False, arch: str | None = None):
@@ -228,12 +245,13 @@ def serve_tokens(rows: int, arch: str | None = None) -> torch.Tensor:
 
 def serve_cache(model, rows: int, random: bool) -> dict:
     """``model``'s decode cache of ``rows`` rows and SERVE's max_len:
-    zeros, or with ``random`` every leaf but ``length`` drawn from numpy
-    (seeded by SERVE and rows), so that an encoder memory or a recurrent
-    state the steps read is not zeros; for the moe family also
-    ``length``, each row's in [0, max_len - steps], so that the steps
-    attend over drawn positions that span the shards of a sequence
-    split over several ranks."""
+    zeros, or with ``random`` every leaf drawn from numpy (seeded by
+    SERVE and rows), so that an encoder memory or a recurrent state the
+    steps read is not zeros: ``length`` each row's in [0, max_len -
+    steps], so that the steps attend over drawn positions that span the
+    shards of a sequence split over several ranks, and for the hybrid's
+    ring in [0, 3 x its positions), so that rows past the window wrap
+    the ring across its shards."""
     cache = model.init_cache(rows, SERVE["max_len"])
     if random:
         rng = np.random.default_rng(SERVE["seed"] + 100 + rows)
@@ -247,9 +265,10 @@ def serve_cache(model, rows: int, random: bool) -> dict:
                         0.5 * rng.standard_normal(tuple(v.shape))))
 
         fill(cache)
-        if model.cfg.family == "moe":
-            cache["length"].copy_(torch.from_numpy(rng.integers(
-                0, SERVE["max_len"] - SERVE["steps"] + 1, rows)))
+        top = SERVE["max_len"] - SERVE["steps"] + 1
+        if model.cfg.family == "hybrid":
+            top = 3 * cache["kv"]["k"].shape[2]
+        cache["length"].copy_(torch.from_numpy(rng.integers(0, top, rows)))
     return cache
 
 
@@ -366,15 +385,14 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
                          shape: tuple):
     """The sharded prefill and serve steps on a (data, model) mesh of
     ``shape`` (`_serve_runs`): on (2, 2) SERVE's smoke model with the
-    prefill ("smoke", the KV heads over 'model'), the wide model with
-    its parameters in the FSDP layout ("fsdp", SERVE's batch only) and
-    each GATHERED arch (by its name); on every shape the wide model
-    ("wide"; on (2, 4) its 2 KV heads do not divide 'model', so the cache
-    puts its sequence there) and each MOE_WIDE arch (by its name, from a
-    random first cache and lengths), with its expert-parallel
-    `moe_block` ("ep_moe", arch). Rank 0 writes the results by run
-    and rows to serve{world}.pt. The weights are ``out_dir``'s
-    weights.pt, weights_wide.pt, weights_{arch}.pt and
+    prefill ("smoke", the KV heads over 'model') and the wide model with
+    its parameters in the FSDP layout ("fsdp", SERVE's batch only); on
+    every shape the wide model ("wide"; on (2, 4) its 2 KV heads do not
+    divide 'model', so the cache puts its sequence there) and each WIDE
+    arch (by its name, from a random first cache and lengths), with each
+    MOE_WIDE arch's expert-parallel `moe_block` ("ep_moe", arch). Rank 0
+    writes the results by run and rows to serve{world}.pt. The weights
+    are ``out_dir``'s weights.pt, weights_wide.pt and
     weights_wide_{arch}.pt."""
     from repro_torch.distributed import sharding
     _init(rank, world, init)
@@ -384,18 +402,15 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
     small = os.path.join(out_dir, "weights.pt")
     wide = os.path.join(out_dir, "weights_wide.pt")
     out = {"wide": _serve_runs(mesh, wide, True, False)}
-    for arch in MOE_WIDE:
+    for arch in WIDE:
         weights = os.path.join(out_dir, f"weights_wide_{arch}.pt")
         out[arch] = _serve_runs(mesh, weights, True, False, arch=arch)
-        out["ep_moe", arch] = ep_moe_run(mesh, weights, arch)
+        if arch in MOE_WIDE:
+            out["ep_moe", arch] = ep_moe_run(mesh, weights, arch)
     if tuple(shape) == (2, 2):
         out["smoke"] = _serve_runs(mesh, small, False, True)
         out["fsdp"] = _serve_runs(mesh, wide, True, False, fsdp=True,
                                   rows_cases=(SERVE["batch"],))
-        for arch in GATHERED:
-            out[arch] = _serve_runs(
-                mesh, os.path.join(out_dir, f"weights_{arch}.pt"), False,
-                False, arch=arch)
     if rank == 0:
         torch.save(out, os.path.join(out_dir, f"serve{world}.pt"))
     sharding.clear_mesh()
