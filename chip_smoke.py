@@ -305,7 +305,12 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                each against Model.decode_step: bitwise, else within
                serve_vs_cpu's bound (the line says which), every cache
                leaf and the lengths too, 16 and 24 decode_attn launches;
-               no multi-card number (one card)
+               then the tensor-parallel make_sharded_prefill_step of
+               qwen3-0.6b (the float32 model above), dbrx-132b and
+               deepseek-v3-671b (bf16, those models) on 4 rows of 100
+               seeded tokens against make_prefill_step: the last logits
+               bitwise, else within serve_vs_cpu's bound, no decode_attn
+               launch; no multi-card number (one card)
   train_resume python -m repro_torch.launch.train --variant full, float32,
                2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
                --deterministic with CUBLAS_WORKSPACE_CONFIG=:4096:8, as a
@@ -351,10 +356,17 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                path takes it: the first two; decode_attn_kernel's
                tolerances) and timed beside SDPA, the record's roofline
                bounds (the model call's at most 1.05 of the step); the
-               router's service model reads qwen3-0.6b's record. No
-               *_vs_cpu twin: the dry run touches no device, and
-               serve_vs_cpu and distributed hold the decode step's
-               numerics
+               router's service model reads qwen3-0.6b's record. Then
+               the --shape prefill_32k records (children started with
+               the others) of qwen3-0.6b at --layers 8, internvl2-76b at
+               2, dbrx-132b at 4 and deepseek-v3-671b at 5, and
+               once the decode cells are freed each one's rank-0
+               tensor-parallel make_sharded_prefill_step on the card (2
+               rows of 32768 tokens, internvl2's 256 patches before
+               them, bf16) held to its record as the decode cells are,
+               with no decode_attn launch. No *_vs_cpu twin: the dry run
+               touches no device, and serve_vs_cpu and distributed hold
+               the decode and prefill steps' numerics
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -814,6 +826,12 @@ DIST_MOE = (("dbrx-132b", 2, 0, True), ("deepseek-v3-671b", 4, 3, False))
 DIST_FAMILIES = (("mamba2-2.7b", 4, 0, False),
                  ("recurrentgemma-2b", 5, 0, True),
                  ("whisper-base", 6, 0, True))
+# and the tensor-parallel make_sharded_prefill_step there, against
+# make_prefill_step on the same weights: qwen3-0.6b on the train step's
+# model (float32, 4 layers) and DIST_MOE's two models (bf16), on
+# DIST_SERVE_ROWS rows of DIST_PREFILL_LEN seeded tokens; the last
+# logits bitwise, else within serve_vs_cpu's bound
+DIST_PREFILL_LEN = 100
 # train_resume: python -m repro_torch.launch.train at full width, float32,
 # cut to RESUME_LAYERS layers (a checkpoint is then ~2.3 GB, the
 # embedding most of it), RESUME_STEPS steps saving every RESUME_EVERY,
@@ -853,6 +871,25 @@ DRYRUN_CELLS = (("qwen3-0.6b", None, 32 * 2 ** 20, True, None),
                 ("whisper-base", None, 64 * 2 ** 20, True, "whisper"))
 DRYRUN_ARCH = DRYRUN_CELLS[0][0]           # the cell the router reads
 DRYRUN_SHAPE = "decode_32k"
+# and rank 0's prefill_32k cells likewise (the record's child started with
+# the decode cells'), each run on the card once the decode cells are done
+# and freed: the tensor-parallel make_sharded_prefill_step (2 rows of
+# 32768 tokens, internvl2's 256 patches before them, bf16), held to its
+# record as the decode cells are, with no decode_attn launch. Per cell:
+# the arch, --layers and the phase line's key. internvl2-76b, dbrx-132b
+# and deepseek-v3-671b are cut in depth as their ranks' full-depth
+# records hold 8705196032, 16388005888 and 86375013920 B of arguments;
+# qwen3-0.6b to 8 of 28 layers for the phase's wall (at full depth its
+# card step took 3.1 s and its record's child ~58 s among the others,
+# the phase 118 s; tests/test_torch_dryrun.py holds the full-depth record
+# to the 2-layer one, layer for layer)
+DRYRUN_PREFILL_CELLS = (("qwen3-0.6b", 8, "qwen3"),
+                        ("internvl2-76b", 2, "internvl2"),
+                        ("dbrx-132b", 4, "dbrx"),
+                        ("deepseek-v3-671b", 5, "deepseek"))
+DRYRUN_PREFILL_SHAPE = "prefill_32k"
+DRYRUN_PREFILL_ROWS = 2          # 32 rows over 16 data ranks
+DRYRUN_PREFILL_LEN = 32768
 DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
 DRYRUN_SEED = 0
 DRYRUN_REPS = 5                  # timed steps after one warm-up
@@ -4856,8 +4893,7 @@ def _distributed_serve(mesh, init: dict, cfg, torch) -> dict:
             for t in range(DIST_SERVE_STEPS)]
     layouts = {}
     for kind, (sharded, got, launches) in runs.items():
-        gaps = [float((g - w).abs().max()) / float(w.abs().max())
-                for g, w in zip(got, want)]
+        gaps = [_logit_gap(g, w, cfg.vocab_size) for g, w in zip(got, want)]
         kv_gap = max(float((sharded["kv"][k].full_tensor() - plain["kv"][k]
                             ).abs().max()) / float(plain["kv"][k].abs().max())
                      for k in ("k", "v"))
@@ -4876,11 +4912,57 @@ def _distributed_serve(mesh, init: dict, cfg, torch) -> dict:
         check(launches == DIST_SERVE_STEPS * cfg.n_layers,
               f"distributed: {launches} decode_attn launches in the "
               f"tensor-parallel serve steps ({kind})")
+    prefill = _dist_prefill(model, mesh, params, gen, torch)
     return {"rows": DIST_SERVE_ROWS, "steps": DIST_SERVE_STEPS,
             "max_len": VS_CPU_MAX_LEN, "layouts": layouts,
             "tolerance_rel": VS_CPU_RTOL,
             "decode_attn_launches": sum(r["decode_attn_launches"]
-                                        for r in layouts.values())}
+                                        for r in layouts.values()),
+            "prefill": prefill}
+
+
+def _logit_gap(got, want, vocab: int) -> float:
+    """The largest |got - want| over the real vocabulary's logits, over
+    want's largest |logit| there (the padded ids' -1e30 left out)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _dist_prefill(model, mesh, params: dict, gen, torch) -> dict:
+    """The tensor-parallel `make_sharded_prefill_step` on the one-rank
+    mesh (``params``: the model's own weights as DTensors placed by
+    param_shardings) against `make_prefill_step` on the model's own
+    weights, on DIST_SERVE_ROWS x DIST_PREFILL_LEN tokens from ``gen``:
+    the last logits bitwise, else within serve_vs_cpu's bound
+    (VS_CPU_RTOL x their largest |value|; the line says which); the step
+    never reads the model's parameters and launches no decode_attn."""
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.train.loop import (make_prefill_step,
+                                        make_sharded_prefill_step)
+    tokens = torch.randint(0, model.cfg.vocab_size,
+                           (DIST_SERVE_ROWS, DIST_PREFILL_LEN), generator=gen,
+                           device=CARD, dtype=torch.int32)
+    step = make_sharded_prefill_step(model, mesh)
+    before = ops.decode_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = step(params, {"tokens": tokens}).to_local()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.decode_attention.launches - before
+    want = make_prefill_step(model)({"tokens": tokens})
+    gap = _logit_gap(got, want, model.cfg.vocab_size)
+    line = {"rows": DIST_SERVE_ROWS, "seq": DIST_PREFILL_LEN,
+            "logits_shape": list(got.shape), "logit_gap_rel": gap,
+            "equality": "bitwise" if torch.equal(got, want)
+            else "serve_vs_cpu bound",
+            "reads_model_params": step.reads_model_params,
+            "decode_attn_launches": launches, "wall_s": wall}
+    check(got.shape == want.shape and gap <= VS_CPU_RTOL
+          and not step.reads_model_params and launches == 0,
+          f"distributed: the tensor-parallel prefill step of "
+          f"{model.cfg.name} against make_prefill_step: {line}")
+    return line
 
 
 def _seed_cache(cache: dict, cfg, gen, torch) -> None:
@@ -4902,7 +4984,8 @@ def _seed_cache(cache: dict, cfg, gen, torch) -> None:
             cache["length"].copy_(7 * rows)
 
 
-def _distributed_tp_serve(mesh, cells, seeded: bool, torch) -> dict:
+def _distributed_tp_serve(mesh, cells, seeded: bool, torch,
+                          prefill: bool = False) -> dict:
     """The tensor-parallel `make_sharded_serve_step` of ``cells``
     (DIST_MOE or DIST_FAMILIES: full width, bf16, weights drawn from a
     seeded generator, fan-in scaled; every parameter placed by
@@ -4917,7 +5000,8 @@ def _distributed_tp_serve(mesh, cells, seeded: bool, torch) -> dict:
     every cache leaf are held bitwise, else within serve_vs_cpu's bound
     (VS_CPU_RTOL x the largest |value|; the line says which), lengths
     equal; decode_attn's launches in the sharded steps alone (attention
-    layers x steps; whisper's self and cross each)."""
+    layers x steps; whisper's self and cross each). With ``prefill``
+    each model's tensor-parallel prefill step too (`_dist_prefill`)."""
     from torch.distributed.tensor import DTensor, Shard
 
     from repro_torch.configs import get_config
@@ -4973,8 +5057,7 @@ def _distributed_tp_serve(mesh, cells, seeded: bool, torch) -> dict:
         launches = ops.decode_attention.launches
         want = [model.decode_step(tokens[:, t:t + 1], plain)
                 for t in range(DIST_SERVE_STEPS)]
-        gaps = [float((g.float() - w.float()).abs().max())
-                / float(w.float().abs().max()) for g, w in zip(got, want)]
+        gaps = [_logit_gap(g, w, cfg.vocab_size) for g, w in zip(got, want)]
         leaves = {}
         for k, v in sharded.items():
             if k == "length":
@@ -5003,6 +5086,8 @@ def _distributed_tp_serve(mesh, cells, seeded: bool, torch) -> dict:
                 "decode_attn_launches": launches}
         line["equality"] = ("bitwise" if line["bitwise"]
                             else "serve_vs_cpu bound")
+        if prefill:
+            line["prefill"] = _dist_prefill(model, mesh, params, gen, torch)
         del model, params, sharded, cache, plain, step, got, want
         torch.cuda.empty_cache()
         line["wall_s"] = time.perf_counter() - t0
@@ -5044,7 +5129,9 @@ def phase_distributed(torch) -> dict:
     bitwise, else within train_vs_cpu's bounds (the line says which); the
     placements census; hierarchical_psum, ring_all_gather and
     pipeline_forward on the one-rank mesh against the identity and the
-    sequential stage, bitwise. One card: no multi-card number."""
+    sequential stage, bitwise; the tensor-parallel serve steps and, for
+    qwen3-0.6b and DIST_MOE's models, the tensor-parallel prefill step
+    (`_dist_prefill`). One card: no multi-card number."""
     import shutil
     import torch.distributed as dist
     from repro_torch.distributed import sharding
@@ -5116,7 +5203,8 @@ def phase_distributed(torch) -> dict:
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
         serve = _distributed_serve(mesh, init, cfg, torch)
-        serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch)
+        serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch,
+                                          prefill=True)
         serve_families = _distributed_tp_serve(mesh, DIST_FAMILIES, True,
                                                torch)
         out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
@@ -5393,43 +5481,49 @@ def phase_train_resume_vs_cpu(resume: dict, torch) -> dict:
     return out
 
 
-def _card_args(args, mesh, gen, torch):
-    """The dry run's step arguments (meta DTensors of rank 0's shards)
-    as DTensors of the same layouts on ``mesh`` whose shards lie on the
-    card: floating shards drawn from ``gen`` (standard normal, the
-    parameters scaled by 0.02), integer ones zero."""
+def _card_tree(tree, mesh, gen, scale: float, torch):
+    """A tree (nested dicts) of the dry run's meta DTensors (rank 0's
+    shards) as DTensors of the same layouts on ``mesh`` whose shards lie
+    on the card: floating shards drawn from ``gen`` (standard normal x
+    ``scale``), integer ones zero."""
     from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _card_tree(v, mesh, gen, scale, torch)
+                for k, v in tree.items()}
+    local = tree.to_local()
+    t = torch.zeros(local.shape, dtype=local.dtype, device=CARD)
+    if t.is_floating_point():
+        t.normal_(generator=gen).mul_(scale)
+    return DTensor.from_local(t, mesh, tree.placements, shape=tree.shape,
+                              stride=tree.stride())
 
-    def real(leaf, scale):
-        local = leaf.to_local()
-        t = torch.zeros(local.shape, dtype=local.dtype, device=CARD)
-        if t.is_floating_point():
-            t.normal_(generator=gen).mul_(scale)
-        return DTensor.from_local(t, mesh, leaf.placements, shape=leaf.shape,
-                                  stride=leaf.stride())
 
-    def walk(tree, scale):
-        return ({k: walk(v, scale) for k, v in tree.items()}
-                if isinstance(tree, dict) else real(tree, scale))
-
+def _card_args(args, mesh, gen, torch):
+    """A decode cell's step arguments on the card (`_card_tree`): the
+    parameters scaled by 0.02, the cache and the tokens standard
+    normal or zero."""
     params, cache, tokens = args
-    return walk(params, 0.02), walk(cache, 1.0), real(tokens, 1.0)
+    return (_card_tree(params, mesh, gen, 0.02, torch),
+            _card_tree(cache, mesh, gen, 1.0, torch),
+            _card_tree(tokens, mesh, gen, 1.0, torch))
 
 
-def _dryrun_tag(arch: str, layers) -> str:
-    """The dry-run CLI's record name of a DRYRUN_CELLS cell."""
-    tag = f"{arch}__{DRYRUN_SHAPE}__single"
+def _dryrun_tag(arch: str, layers, shape: str = DRYRUN_SHAPE) -> str:
+    """The dry-run CLI's record name of a DRYRUN_CELLS (or, with
+    ``shape``, a DRYRUN_PREFILL_CELLS) cell."""
+    tag = f"{arch}__{shape}__single"
     return tag + (f"__L{layers}" if layers else "")
 
 
-def _dryrun_child(arch: str, layers, out_dir: str):
-    """The dry-run CLI writing one DRYRUN_CELLS cell's record into
-    ``out_dir``, in a child with no card visible."""
+def _dryrun_child(arch: str, layers, out_dir: str,
+                  shape: str = DRYRUN_SHAPE):
+    """The dry-run CLI writing one cell's record into ``out_dir``, in a
+    child with no card visible."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", DRYRUN_SHAPE, "--mesh", "single", "--out", out_dir]
+           "--shape", shape, "--mesh", "single", "--out", out_dir]
     if layers:
         cmd += ["--layers", str(layers)]
     return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -5642,6 +5736,116 @@ def _dryrun_checks(out: dict) -> None:
           f"dryrun {arch}: the record all-gathers {gathered} B a step")
 
 
+def _dryrun_prefill(arch: str, layers, rec: dict, mesh, torch) -> dict:
+    """One DRYRUN_PREFILL_CELLS cell on the card, once the CPU children
+    have ended: rank 0's tensor-parallel `make_sharded_prefill_step`
+    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake
+    group), the record's arguments made real (`_card_tree`: the
+    parameters x 0.02, 2 rows of 32768 seeded tokens, internvl2's patches
+    standard normal), one warm-up, one step under FlopCounterMode with
+    the peak taken over it (arguments resident), then DRYRUN_REPS steps
+    timed by CUDA events; decode_attn's launches over all of them. The
+    fake collectives move nothing, so the values are not the model's
+    (the distributed phase holds the step's numerics). Frees the cell's
+    tensors."""
+    import statistics
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_production_mesh)
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    model, step, (params, batch) = specs.build_cell(
+        arch, DRYRUN_PREFILL_SHAPE, mesh, layers)
+    cfg = model.cfg
+    g = torch.Generator(device=CARD)
+    g.manual_seed(DRYRUN_SEED)
+    params = _card_tree(params, mesh, g, 0.02, torch)
+    batch = _card_tree(batch, mesh, g, 1.0, torch)
+    batch["tokens"].to_local().random_(0, cfg.vocab_size, generator=g)
+    first = ops.decode_attention.launches
+    step(params, batch)                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        logits = step(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(DRYRUN_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        step(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = ops.decode_attention.launches - first
+    logits_shape = list(logits.to_local().shape)
+    del model, step, params, batch, logits
+    torch.cuda.empty_cache()
+    _, args = specs.cell_lowerable(arch, DRYRUN_PREFILL_SHAPE,
+                                   make_production_mesh(), layers)
+    ms = statistics.median(times)
+    step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["hlo_bytes"] / HBM_BW) * 1e3
+    call_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
+                     rec["compute_bytes"] / HBM_BW) * 1e3
+    return {"arch": arch, "shape": DRYRUN_PREFILL_SHAPE,
+            "record": {k: rec[k] for k in rec if k != "collectives"},
+            "collectives": rec["collectives"],
+            "argument_bytes_here": specs.argument_bytes(args),
+            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
+            "rows": DRYRUN_PREFILL_ROWS,
+            "seq": DRYRUN_PREFILL_LEN + (cfg.n_patches
+                                         if cfg.family == "vlm" else 0),
+            "logits_shape": logits_shape,
+            "step_ms": ms, "step_ms_all": times,
+            "card_peak_bytes": peak,
+            "peak_gap_bytes": peak - rec["compute_peak_bytes"],
+            "peak_tolerance": DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"]
+            + DRYRUN_PEAK_SLACK,
+            "card_flops": int(counter.get_total_flops()),
+            "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
+            "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
+            "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
+                              >= rec["hlo_flops"] / PEAK_FLOPS_BF16
+                              else "operations"),
+            "decode_attn_launches": launches,
+            "cell_wall_s": time.perf_counter() - t0}
+
+
+def _dryrun_prefill_checks(out: dict) -> None:
+    """A prefill cell's line against its record."""
+    arch, rec = out["arch"], out["record"]
+    tag = f"dryrun {arch} {out['shape']}"
+    check(rec["ok"] is True, f"{tag}: the record is not ok")
+    check(rec["argument_size_in_bytes"] == out["argument_bytes_here"],
+          f"{tag}: argument bytes {rec['argument_size_in_bytes']} against "
+          f"launch.specs' {out['argument_bytes_here']}")
+    check(rec["decode_attention_calls"] == 0
+          and out["decode_attn_launches"] == 0,
+          f"{tag}: {out['decode_attn_launches']} decode_attn launches")
+    check(out["card_flops"] == rec["hlo_flops"],
+          f"{tag}: card FLOPs {out['card_flops']} against the record's "
+          f"{rec['hlo_flops']}")
+    check(abs(out["peak_gap_bytes"]) <= out["peak_tolerance"],
+          f"{tag}: card peak {out['card_peak_bytes']} B against the "
+          f"record's {rec['compute_peak_bytes']} B (tolerance "
+          f"{out['peak_tolerance']})")
+    check(out["call_bound_share"] <= DRYRUN_MAX_SHARE,
+          f"{tag}: bound share {out['call_bound_share']} over "
+          f"{DRYRUN_MAX_SHARE}")
+    check(out["logits_shape"] == [DRYRUN_PREFILL_ROWS,
+                                  rec["output_size_in_bytes"]
+                                  // (4 * DRYRUN_PREFILL_ROWS)],
+          f"{tag}: logits {out['logits_shape']}")
+
+
 def phase_dryrun(torch) -> dict:
     """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
     each DRYRUN_CELLS cell (qwen3-0.6b, dbrx-132b, mamba2-2.7b,
@@ -5671,9 +5875,14 @@ def phase_dryrun(torch) -> dict:
     it, and timed beside SDPA; the
     step's roofline bounds, the model call's at most 1.05 of the measured
     step; the record's all-gathers below the cell's limit. (c) The
-    router's service model reads qwen3-0.6b's record. The line keeps
-    qwen3-0.6b's keys at its top level, the other cells under their
-    keys."""
+    router's service model reads qwen3-0.6b's record. (d) Each
+    DRYRUN_PREFILL_CELLS cell's record is written by a child started with
+    the others, and once the decode cells are done and freed its
+    tensor-parallel `make_sharded_prefill_step` runs on the card
+    (`_dryrun_prefill`), held to the record as (b) holds the decode
+    cells, with no decode_attn launch. The line keeps qwen3-0.6b's decode
+    keys at its top level, the other decode cells under their keys and
+    the prefill cells under "prefill"."""
     import tempfile
     import torch.distributed as dist
 
@@ -5685,9 +5894,12 @@ def phase_dryrun(torch) -> dict:
     from repro_torch.serve import router
     out_dir = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    children = [_dryrun_child(arch, layers, out_dir.name)
-                for arch, layers, *_ in DRYRUN_CELLS]
-    lines, child_s, child_out = [], {}, {}
+    jobs = [(arch, layers, DRYRUN_SHAPE) for arch, layers, *_ in DRYRUN_CELLS]
+    jobs += [(arch, layers, DRYRUN_PREFILL_SHAPE)
+             for arch, layers, _ in DRYRUN_PREFILL_CELLS]
+    children = [_dryrun_child(arch, layers, out_dir.name, shape)
+                for arch, layers, shape in jobs]
+    lines, prefill_lines, child_s, child_out = [], [], {}, {}
     try:
         dryrun_mod._fake_group(256)
         mesh = sharding.device_mesh(make_production_mesh(), "cuda")
@@ -5696,20 +5908,29 @@ def phase_dryrun(torch) -> dict:
                  for arch, layers, *_ in DRYRUN_CELLS]
         # the CPU children end before anything is timed: the steps are
         # host-bound, and a loaded host would slow them
-        for (arch, *_), child in zip(DRYRUN_CELLS, children):
+        records = {}
+        for (arch, layers, shape), child in zip(jobs, children):
+            tag = _dryrun_tag(arch, layers, shape)
             stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
-            child_s[arch] = time.perf_counter() - t0
-            child_out[arch] = stdout.strip().splitlines()[-1:]
+            child_s[tag] = time.perf_counter() - t0
+            child_out[tag] = stdout.strip().splitlines()[-1:]
             check(child.returncode == 0,
-                  f"dryrun {arch}: the CLI exited {child.returncode}: "
+                  f"dryrun {tag}: the CLI exited {child.returncode}: "
                   f"{stderr[-2000:]}")
-        records = [json.loads((Path(out_dir.name) / (_dryrun_tag(
-            arch, layers) + ".json")).read_text())
-            for arch, layers, *_ in DRYRUN_CELLS]
-        for cell, rec, (_, _, max_gather, lse, _) in zip(
-                cells, records, DRYRUN_CELLS):
-            lines.append(_dryrun_finish(cell, rec, lse, max_gather, torch))
+            records[tag] = json.loads((Path(out_dir.name) / (tag + ".json")
+                                       ).read_text())
+        for cell, (arch, layers, max_gather, lse, _) in zip(cells,
+                                                            DRYRUN_CELLS):
+            lines.append(_dryrun_finish(
+                cell, records[_dryrun_tag(arch, layers)], lse, max_gather,
+                torch))
         del cells
+        t1 = time.perf_counter()
+        for arch, layers, _ in DRYRUN_PREFILL_CELLS:
+            prefill_lines.append(_dryrun_prefill(
+                arch, layers, records[_dryrun_tag(
+                    arch, layers, DRYRUN_PREFILL_SHAPE)], mesh, torch))
+        prefill_s = time.perf_counter() - t1
         served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
         roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
     finally:
@@ -5722,9 +5943,13 @@ def phase_dryrun(torch) -> dict:
                 child.kill()
                 child.wait()
         out_dir.cleanup()
-    for line in lines:
-        line["child_wall_s"] = child_s[line["arch"]]
-        line["child_stdout"] = child_out[line["arch"]]
+    for line, (arch, layers, *_) in zip(lines, DRYRUN_CELLS):
+        line["child_wall_s"] = child_s[_dryrun_tag(arch, layers)]
+        line["child_stdout"] = child_out[_dryrun_tag(arch, layers)]
+    for line, (arch, layers, _) in zip(prefill_lines, DRYRUN_PREFILL_CELLS):
+        tag = _dryrun_tag(arch, layers, DRYRUN_PREFILL_SHAPE)
+        line["child_wall_s"] = child_s[tag]
+        line["child_stdout"] = child_out[tag]
     top = lines[0]
     rec = top["record"]
     out = {"phase": "dryrun", "shape": DRYRUN_SHAPE, "mesh": "single",
@@ -5734,6 +5959,10 @@ def phase_dryrun(torch) -> dict:
                         "fake 256-rank group on a cuda DeviceMesh",
            **{key: {k: v for k, v in line.items() if k != "n_attn"}
               for (*_, key), line in zip(DRYRUN_CELLS, lines) if key},
+           "prefill": {key: line for (*_, key), line
+                       in zip(DRYRUN_PREFILL_CELLS, prefill_lines)},
+           "prefill_cells_s": prefill_s,
+           "children_s": max(child_s.values()),
            "decode_attn_launches_all": sum(line["decode_attn_launches"]
                                            for line in lines),
            "router": {"token_s_accel": served.token_s_accel,
@@ -5749,10 +5978,14 @@ def phase_dryrun(torch) -> dict:
                      "hlo_flops (the step's FLOPs are all the model "
                      "call's) and compute_bytes (the model call on the "
                      "rank's shards); decode_attn: as serve_* phases, with "
-                     "the log-sum-exp output where the step asks for it"}
+                     "the log-sum-exp output where the step asks for it; "
+                     "prefill: the same around the tensor-parallel "
+                     "make_sharded_prefill_step, after the decode cells"}
     emit(out)
     for line in lines:
         _dryrun_checks(line)
+    for line in prefill_lines:
+        _dryrun_prefill_checks(line)
     check(roofline is not None and served.token_s_accel == roofline ==
           max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
               rec["hlo_bytes"] / HBM_BW) / 128,

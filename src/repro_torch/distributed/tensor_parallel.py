@@ -57,13 +57,53 @@ and the cache never do:
 Norms, rope, activations and the residual run on the gathered activations
 of the rank's rows, redundantly over 'model'.
 
+Tensor-parallel prefill (the dense, VLM and MoE families) is sequence
+parallel with tensor-parallel sub-blocks, as in Megatron-LM (Korthikanti
+et al., 2022), under the reference's layout constraints: the residual
+stream between sub-blocks holds the rank's block of the sequence's
+positions, padded at its end to a multiple of 'model' (`seq_local`). A
+prefill holds far more positions than a weight has rows, so there the
+weights stay and the activations move twice a sub-block:
+
+  * into an attention, MLP or MoE sub-block the normed activations of
+    the rank's positions are all-gathered along the sequence
+    (`seq_gather`); out of it the partial sums of its row product are
+    summed over 'model' onto the rank's positions by one reduce-scatter
+    (`seq_scatter`);
+  * the column products take the rank's block of the columns (its q
+    heads of ``wq``, its ff columns of ``w_gate``/``w_up``/``w_in``,
+    its heads of MLA's ``w_uq``/``w_ukv``: `column_block`), and the row
+    products the rank's rows of ``wo`` and ``w_down`` (`row_block`: one
+    all-to-all brings a column-split weight's rows, 1/n of it);
+  * where the KV heads do not divide 'model' the rank still needs the
+    whole KV heads its q heads read (the reference's repeat-KV rule):
+    their columns of ``wk``/``wv`` come by one all-to-all from the
+    ranks that hold them (`columns_of`);
+  * a norm's scale, the router and MLA's ``w_dq``/``w_dkv`` (whose
+    latents every head reads) are gathered whole (`whole`; `matmul`
+    gathers a split weight whole in prefill), never their outputs;
+  * the embedding is a masked lookup of the rank's vocab rows at every
+    position, a VLM's patches prepended, reduce-scattered onto the
+    rank's positions; the final norm and the unembedding run on the last
+    real position alone, sent from the rank that holds it
+    (`seq_last`), the vocab shards' logits then all-gathered;
+  * a MoE layer routes the gathered rows' real positions alike on every
+    rank, runs the rank's own experts, and its choices' outputs (each
+    nonzero on one rank) and the shared expert's partial product are
+    reduce-scattered onto the rank's positions together, then weighted
+    and summed in the one-process order.
+
+Pads sit after every real position, so causal attention never lets a
+real position see one, and the MoE never routes them.
+
 The sites consult the `TensorParallel` context that `active` installs
 (`repro_torch.train.loop.make_sharded_serve_step` does, around the
-model's `decode_step`); with none installed each computes what the
-one-process model computes. The collectives are the `_c10d_functional`
-ops, so they run alike on NCCL, on gloo and on the dry run's fake process
-group over meta tensors, whose census counts them
-(`repro_torch.launch.dryrun`).
+model's `decode_step`, and `make_sharded_prefill_step` around its
+`last_logits`, with the sequence's length: `sequence_parallel`); with
+none installed each computes what the one-process model computes. The
+collectives are the `_c10d_functional` ops, so they run alike on NCCL,
+on gloo and on the dry run's fake process group over meta tensors, whose
+census counts them (`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -107,6 +147,27 @@ def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
         x = c10d.wait_tensor(c10d.all_reduce(x.contiguous(), op,
                                              group.group_name))
     return x
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` and split along ``dim``
+    into their equal blocks: this rank's block."""
+    import torch.distributed as dist
+    c10d = torch.ops._c10d_functional
+    n = dist.get_world_size(group)
+    y = c10d.wait_tensor(c10d.reduce_scatter_tensor(
+        x.movedim(dim, 0).contiguous(), "sum", n, group.group_name))
+    return y.movedim(0, dim)
+
+
+def _all_to_all(x: torch.Tensor, recv: list[int], send: list[int],
+                group) -> torch.Tensor:
+    """``x``'s rows sent in blocks of ``send`` rows to the ranks of
+    ``group`` in order, and the blocks of ``recv`` rows received from
+    them, in order."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_to_all_single(
+        x.contiguous(), recv, send, group.group_name))
 
 
 def combine(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
@@ -262,21 +323,32 @@ class StateShard:
 
 class TensorParallel:
     """The context of one tensor-parallel step: the 'model' axis of
-    ``mesh`` (its group and this rank's index on it), the local
-    parameter tensors that are 'model' shards and the dim each is split
-    on (``shards``, by tensor identity), the `KVShard` of each attention
-    cache by name (``kv``, `KV_CACHES`) and the `StateShard` of each
-    recurrent state leaf by name (``states``, `STATE_DIMS`)."""
+    ``mesh`` (its group, its size and this rank's index on it), the
+    local parameter tensors that are 'model' shards and the dim each is
+    split on (``shards``, by tensor identity), the `KVShard` of each
+    attention cache by name (``kv``, `KV_CACHES`) and the `StateShard` of
+    each recurrent state leaf by name (``states``, `STATE_DIMS`); in a
+    prefill step ``seq_len``, the sequence's length, which selects the
+    prefill rule (`sequence_parallel`)."""
 
     def __init__(self, mesh, shards: dict[int, int],
                  kv: dict[str, KVShard],
-                 states: dict[str, StateShard] | None = None):
-        on_model = "model" in mesh.mesh_dim_names
+                 states: dict[str, StateShard] | None = None,
+                 seq_len: int | None = None):
+        names = mesh.mesh_dim_names
+        on_model = "model" in names
         self.groups = (mesh.get_group("model"),) if on_model else ()
         self.rank = mesh.get_local_rank("model") if on_model else 0
+        self.size = mesh.size(names.index("model")) if on_model else 1
         self.shards = shards
         self.kv = kv
         self.states = states or {}
+        # prefill's rule (`sequence_parallel`): the sequence's length, its
+        # length padded to a multiple of 'model', the rank's positions
+        self.seq_len = seq_len
+        if seq_len is not None:
+            self.seq_block = -(-seq_len // self.size)
+            self.seq_padded = self.seq_block * self.size
 
     @classmethod
     def of_cache(cls, mesh, shards: dict[int, int], cache: dict
@@ -317,6 +389,132 @@ class TensorParallel:
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         return _all_reduce(x, op, self.groups)
 
+    # ------------------------------------------- prefill (sequence parallel)
+    def block(self, total: int) -> tuple[int, int]:
+        """(the first, the count) of this rank's equal block of ``total``
+        units (heads, ff columns, rows) over 'model'."""
+        if total % self.size:
+            raise ValueError(f"tensor parallel: {total} heads or columns "
+                             f"on {self.size} 'model' ranks")
+        n = total // self.size
+        return self.rank * n, n
+
+    def whole(self, w: torch.Tensor) -> torch.Tensor:
+        """``w`` whole: all-gathered over 'model' where it is a shard."""
+        dim = self.model_shard(w)
+        return w if dim is None else self.gather(w, dim)
+
+    def column_block(self, w: torch.Tensor, unit: int = 1) -> torch.Tensor:
+        """This rank's block of ``w``'s columns in whole units of ``unit``
+        (a head's columns): ``w`` itself where it is a 'model' shard of
+        its columns, else cut from the whole ``w``."""
+        if self.model_shard(w) is None:
+            lo, n = self.block(w.shape[-1] // unit)
+            return w.narrow(-1, lo * unit, n * unit)
+        self.local_block(w, w.dim() - 1, unit)
+        return w
+
+    def columns(self, x: torch.Tensor, w: torch.Tensor,
+                unit: int = 1) -> torch.Tensor:
+        """``x`` times this rank's block of ``w``'s columns."""
+        return x @ self.column_block(w, unit)
+
+    def row_block(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the rows of a 2-D ``w`` with all its
+        columns: cut from the whole ``w``, or, where ``w`` is a 'model'
+        shard of its columns, brought by one all-to-all over 'model'
+        (each rank sends every rank that rank's rows of its columns):
+        1/n of the weight moves."""
+        lo, m = self.block(w.shape[0])
+        dim = self.model_shard(w)
+        if dim is None:
+            return w.narrow(0, lo, m)
+        if dim != 1:
+            raise ValueError(f"tensor parallel: a row product's weight "
+                             f"{tuple(w.shape)} split on dim {dim}")
+        n, c = self.size, w.shape[1]
+        out = _all_to_all(w, [m] * n, [m] * n, self.groups[0])
+        return out.reshape(n, m, c).permute(1, 0, 2).reshape(m, n * c)
+
+    def columns_of(self, w: torch.Tensor, ranges) -> torch.Tensor:
+        """Columns [lo, hi) of a 2-D ``w``, (lo, hi) this rank's entry of
+        ``ranges`` (one a 'model' rank, the same list on every rank): cut
+        from the whole ``w``, or, where ``w`` is a 'model' shard of its
+        columns, brought by one all-to-all over 'model' from the ranks
+        that hold them (each sends every rank the part of its columns that
+        rank asks for); the identity where every rank asks for its own."""
+        lo, hi = ranges[self.rank]
+        dim = self.model_shard(w)
+        if dim is None:
+            return w[:, lo:hi]
+        if dim != 1:
+            raise ValueError(f"tensor parallel: {tuple(w.shape)} split on "
+                             f"dim {dim}, not its columns")
+        c = w.shape[1]
+        held = [(r * c, (r + 1) * c) for r in range(self.size)]
+        if list(ranges) == held:
+            return w
+
+        def part(a, b):
+            return max(a[0], b[0]), min(a[1], b[1])
+
+        mine = held[self.rank]
+        sends = [part(mine, want) for want in ranges]
+        send = [max(b - a, 0) for a, b in sends]
+        recv = [max(b - a, 0) for a, b in (part(h, (lo, hi)) for h in held)]
+        wt = w.T
+        x = torch.cat([wt[a - mine[0]:b - mine[0]]
+                       for (a, b), k in zip(sends, send) if k])
+        return _all_to_all(x, recv, send, self.groups[0]).T
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's positions (dim 1) all-gathered over 'model': every
+        position of the padded sequence."""
+        return _gather(x, 1, self.groups)
+
+    def _padded(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, L <= the padded length, ...) zero-padded along dim
+        1 to the padded length."""
+        pad = self.seq_padded - x.shape[1]
+        if pad == 0:
+            return x
+        return torch.cat([x, x.new_zeros(x.shape[0], pad, *x.shape[2:])], 1)
+
+    def seq_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, L, ...), a rank's partial sum over the sequence's
+        first L positions, padded, summed over 'model' and split onto the
+        ranks' positions by one reduce-scatter: the rank's (B, local,
+        ...)."""
+        x = self._padded(x)
+        return _reduce_scatter(x, 1, self.groups[0]) if self.groups else x
+
+    def seq_local(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's positions of ``x`` (B, L, ...), a tensor every rank
+        holds whole, padded."""
+        return self._padded(x).narrow(1, self.rank * self.seq_block,
+                                      self.seq_block)
+
+    def seq_last(self, h: torch.Tensor) -> torch.Tensor:
+        """(B, ...) of the sequence's last real position from ``h`` (B,
+        local, ...), the rank's positions: the holder's row, zeros on
+        every other rank, summed over 'model' (exact: one term is not
+        zero)."""
+        owner, j = divmod(self.seq_len - 1, self.seq_block)
+        row = h[:, j]
+        if not self.groups:
+            return row
+        return self.all_reduce(row if self.rank == owner
+                               else torch.zeros_like(row), "sum")
+
+    def kv_ranges(self, n_heads: int, n_kv_heads: int, d_head: int
+                  ) -> list[tuple[int, int]]:
+        """Each 'model' rank's (lo, hi) columns of ``wk``/``wv``: the
+        whole KV heads its block of the q heads reads."""
+        g = n_heads // n_kv_heads
+        _, hl = self.block(n_heads)
+        return [((r * hl // g) * d_head, (((r + 1) * hl - 1) // g + 1)
+                 * d_head) for r in range(self.size)]
+
 
 def current() -> TensorParallel | None:
     """The installed context, None outside a tensor-parallel step."""
@@ -328,6 +526,21 @@ def kv_shard(cache: str) -> KVShard | None:
     None outside a tensor-parallel step."""
     ctx = _CURRENT.get()
     return None if ctx is None else ctx.kv[cache]
+
+
+def sequence_parallel() -> TensorParallel | None:
+    """The installed context where it is a prefill's (sequence parallel:
+    it knows the sequence's length), else None."""
+    ctx = _CURRENT.get()
+    return None if ctx is None or ctx.seq_len is None else ctx
+
+
+def last_position(h: torch.Tensor) -> torch.Tensor:
+    """(B, ...) of the last position of the hidden states ``h``: ``h[:,
+    -1]``, or in a prefill step the sequence's last real position, sent
+    from the rank that holds it (`TensorParallel.seq_last`)."""
+    ctx = sequence_parallel()
+    return h[:, -1] if ctx is None else ctx.seq_last(h)
 
 
 def state_shard(leaf: str, size: int) -> StateShard:
@@ -353,10 +566,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor,
            dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ w`` (``w`` cast to ``dtype`` first where it is given); in a
     tensor-parallel step where ``w`` is a 'model' shard of its columns,
-    the full product, all-gathered over 'model'."""
-    y = x @ (w if dtype is None else w.to(dtype))
+    the full product: at decode its output all-gathered over 'model', in
+    prefill (whose rows outnumber the weight's) the weight gathered
+    whole."""
     ctx = _CURRENT.get()
     dim = None if ctx is None else ctx.model_shard(w)
+    w = w if dtype is None else w.to(dtype)
+    if dim is not None and ctx.seq_len is not None:
+        return x @ ctx.gather(w, dim)
+    y = x @ w
     if dim is None:
         return y
     if dim != w.dim() - 1:

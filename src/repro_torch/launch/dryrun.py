@@ -37,18 +37,21 @@ with the reference's keys where their meaning carries over:
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
       full parameters included where the step gathers into them; the
-      tensor-parallel decode step of every family computes on the
-      argument shards and holds no full parameter: a moe layer's
-      dispatch buffers are those of the rank's experts).
+      tensor-parallel decode step of every family, and the
+      tensor-parallel prefill step of the dense, VLM and MoE families,
+      compute on the argument shards and hold no full parameter: a moe
+      layer's dispatch buffers are those of the rank's experts).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)
       MemTracker's peak, and the bytes counted as for ``hlo_bytes``,
-      over the model call alone (`decode_step`, the prefill's `forward`,
-      or the train step's `loss`, whose gradients the step takes after
-      it), with the model (the rank's parameter shards in the
-      tensor-parallel decode) and the call's inputs (the rank's rows, or
-      its cache shard) resident: the work one card runs for the rank,
+      over the model call alone (the step's ``model_call``:
+      `decode_step`, the tensor-parallel prefill's `last_logits`, the
+      gathering prefill's `forward`, or the train step's `loss`, whose
+      gradients the step takes after it), with the model (the rank's
+      parameter shards in the tensor-parallel steps) and the call's
+      inputs (the rank's rows, or its cache shard) resident: the work
+      one card runs for the rank,
       without what the sharded step does around the call. Both are
       taken within the step's one run: the model's method is wrapped for
       the cell. A decode or prefill cell's model-call FLOPs are its
@@ -219,11 +222,6 @@ def _fake_group(world: int) -> None:
                             world_size=world)
 
 
-# the model call each kind of step makes (the port-only compute_* keys)
-_MODEL_CALL = {"decode": "decode_step", "prefill": "forward",
-               "train": "loss"}
-
-
 def _tracked(external):
     """A MemTracker that counts the ``external`` tensors and modules as
     resident."""
@@ -240,13 +238,12 @@ def _peak(tracker) -> int:
 
 
 @contextlib.contextmanager
-def _model_call_window(model, kind: str):
-    """While active, the model call of this kind of step (`_MODEL_CALL`)
-    runs under a MemTracker and an OpCounter of its own, the model and
-    the call's tensor arguments counted resident; yields a dict that then
-    holds the call's ``peak`` and ``bytes`` (`decode_attention`'s
-    included)."""
-    name = _MODEL_CALL[kind]
+def _model_call_window(model, name: str):
+    """While active, the model's method ``name`` (the step's
+    ``model_call``) runs under a MemTracker and an OpCounter of its own,
+    the model and the call's tensor arguments counted resident; yields a
+    dict that then holds the call's ``peak`` and ``bytes``
+    (`decode_attention`'s included)."""
     inner = getattr(model, name)
     window: dict = {}
 
@@ -290,7 +287,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         tracker = _tracked([model] * step.reads_model_params + local_args)
         decode_attention.meta.update(calls=0, flops=0, bytes=0)
         t1 = time.perf_counter()
-        with _model_call_window(model, SHAPES[shape]["kind"]) as call:
+        with _model_call_window(model, step.model_call) as call:
             with tracker, flops, counter:
                 outputs = step(*args)
         rec["trace_s"] = time.perf_counter() - t1

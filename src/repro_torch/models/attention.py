@@ -15,12 +15,15 @@ decode-time cross-attention calls its plain `decode_attention_ref`
 directly; the port's goes through `decode_attention` like every other
 decode call, so on the card the memory is read by the kernel.
 
-The projections, `decode_attention_step` and `cross_attention_decode`
-consult the tensor-parallel context
+The projections, `attention_block`, `decode_attention_step` and
+`cross_attention_decode` consult the tensor-parallel context
 (`repro_torch.distributed.tensor_parallel`): inside the sharded serve
 step the products run on the rank's weight shards and the decode attends
 over the rank's shard of the cache or of the encoder memory (its KV
-heads, or its positions, combined across ranks by log-sum-exp).
+heads, or its positions, combined across ranks by log-sum-exp); inside
+the sharded prefill step the block gathers the rank's positions over
+the sequence, attends on the rank's q heads and the whole KV heads they
+read, and reduce-scatters its partial output product onto the positions.
 """
 
 from __future__ import annotations
@@ -75,13 +78,29 @@ def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
     """Returns q (B,S,Hq,D), k,v (B,Skv,Hkv,D), K/V projected from ``xkv``
     (B, Skv, d) when it is given (an encoder memory) and from ``x``
     otherwise; qk-norm before rope, and no rope when ``positions`` is
-    None."""
+    None. In a prefill step (`tensor_parallel.sequence_parallel`) q is
+    the rank's block of the q heads and k, v the whole KV heads they
+    read, repeated to one a q head where the rank's q heads do not
+    group evenly onto them (the reference's repeat-KV rule)."""
     b, s, _ = x.shape
     xkv = x if xkv is None else xkv
     skv = xkv.shape[1]
-    q = tp.matmul(x, p.wq).reshape(b, s, n_heads, d_head)
-    k = tp.matmul(xkv, p.wk).reshape(b, skv, n_kv_heads, d_head)
-    v = tp.matmul(xkv, p.wv).reshape(b, skv, n_kv_heads, d_head)
+    ctx = tp.sequence_parallel()
+    if ctx is None:
+        q = tp.matmul(x, p.wq).reshape(b, s, n_heads, d_head)
+        k = tp.matmul(xkv, p.wk).reshape(b, skv, n_kv_heads, d_head)
+        v = tp.matmul(xkv, p.wv).reshape(b, skv, n_kv_heads, d_head)
+    else:
+        q = ctx.columns(x, p.wq, d_head).reshape(b, s, -1, d_head)
+        ranges = ctx.kv_ranges(n_heads, n_kv_heads, d_head)
+        k = (xkv @ ctx.columns_of(p.wk, ranges)).reshape(b, skv, -1, d_head)
+        v = (xkv @ ctx.columns_of(p.wv, ranges)).reshape(b, skv, -1, d_head)
+        hq, hkv, g = q.shape[2], k.shape[2], n_heads // n_kv_heads
+        first = ctx.block(n_heads)[0]
+        kv_of = [(first + i) // g - ranges[ctx.rank][0] // d_head
+                 for i in range(hq)]
+        if hq % hkv or kv_of != [i // (hq // hkv) for i in range(hq)]:
+            k, v = k[:, :, kv_of], v[:, :, kv_of]
     if qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -129,7 +148,19 @@ def attention_block(p, x, cfg, memory=None, layer_window=0, causal=None):
     output); ``layer_window`` > 0 masks to a sliding window. ``memory``
     (B, Ssrc, d), an encoder output, makes it cross-attention: K/V from
     the memory and no rope. ``causal`` None means ``cfg.causal`` for
-    self-attention and no mask for cross-attention."""
+    self-attention and no mask for cross-attention.
+
+    In a prefill step ``x`` is the rank's positions (self-attention
+    only): all-gathered over the sequence, attended on the rank's q heads
+    (`_project_qkv`) with rope on the global positions, the output
+    multiplied by the rank's rows of ``wo`` and the partial sums
+    reduce-scattered back onto the rank's positions."""
+    ctx = tp.sequence_parallel()
+    if ctx is not None:
+        if memory is not None:
+            raise NotImplementedError("tensor-parallel prefill: "
+                                      "cross-attention")
+        x = ctx.seq_gather(x)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
@@ -137,9 +168,14 @@ def attention_block(p, x, cfg, memory=None, layer_window=0, causal=None):
                            cfg.rope_theta, cfg.qk_norm, xkv=memory)
     if causal is None:
         causal = cfg.causal and memory is None
+    if ctx is not None and not causal and ctx.seq_padded > ctx.seq_len:
+        raise NotImplementedError("tensor-parallel prefill: a non-causal "
+                                  "attention would see the pads")
     out = sdpa_chunked(q, k, v, causal=causal, window=layer_window,
-                       q_block=cfg.q_block)
-    return out.reshape(b, s, -1) @ p.wo
+                       q_block=cfg.q_block).reshape(b, s, -1)
+    if ctx is None:
+        return out @ p.wo
+    return ctx.seq_scatter(out @ ctx.row_block(p.wo))
 
 
 def _write_slot(cache: torch.Tensor, slot: torch.Tensor, write: torch.Tensor,

@@ -8,7 +8,10 @@ cast to float32, the cross-entropy in float32.
 `rms_norm`, the MLP's products, `embed` and `unembed` consult the
 tensor-parallel context (`repro_torch.distributed.tensor_parallel`):
 inside the sharded serve step they compute on the rank's shards of the
-weights; elsewhere exactly as written."""
+weights, and inside the sharded prefill step on the rank's positions of
+the sequence (the MLP on the gathered sequence's rank's ff columns, its
+row product reduce-scattered onto the positions; the embedding
+reduce-scattered onto them); elsewhere exactly as written."""
 
 from __future__ import annotations
 
@@ -47,9 +50,10 @@ def init_rms(d: int, dtype: torch.dtype, device=None) -> torch.nn.Parameter:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last dim, gain ``1 + scale``. Where ``scale`` is
-    a 'model' shard (a stacked norm scale the fan-out rule splits), the
-    rank scales its slice of the normalised ``x`` and the slices are
-    all-gathered: the scale never moves."""
+    a 'model' shard (a stacked norm scale the fan-out rule splits): at
+    decode the rank scales its slice of the normalised ``x`` and the
+    slices are all-gathered, the scale never moving; in prefill, whose
+    ``x`` is the rank's positions, the scale (a few KB) is gathered."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
@@ -57,6 +61,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     ctx = tp.current()
     if ctx is None or ctx.model_shard(scale) is None:
         return (out * (1.0 + scale.float())).to(dt)
+    if ctx.seq_len is not None:
+        return (out * (1.0 + ctx.whole(scale).float())).to(dt)
     n = scale.shape[-1]
     part = out[..., ctx.rank * n:(ctx.rank + 1) * n]
     return ctx.gather((part * (1.0 + scale.float())).to(dt), -1)
@@ -130,19 +136,38 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, mlp_type: str,
     return mod
 
 
-def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def mlp_hidden(p, x: torch.Tensor, mlp_type: str,
+               product=tp.matmul) -> torch.Tensor:
+    """The MLP's activations before ``w_down``, each column product
+    ``product(x, w)``."""
     if mlp_type == "swiglu":
-        g = tp.matmul(x, p.w_gate)
-        u = tp.matmul(x, p.w_up)
-        h = F.silu(g.float()).to(x.dtype) * u
-    elif mlp_type == "gelu":
-        h = F.gelu(tp.matmul(x, p.w_in).float(),
-                   approximate="tanh").to(x.dtype)
-    elif mlp_type == "relu2":  # squared ReLU (nemotron-4)
-        h = F.relu(tp.matmul(x, p.w_in).float()).square().to(x.dtype)
-    else:
-        raise ValueError(mlp_type)
-    return tp.matmul(h, p.w_down)
+        g = product(x, p.w_gate)
+        u = product(x, p.w_up)
+        return F.silu(g.float()).to(x.dtype) * u
+    if mlp_type == "gelu":
+        return F.gelu(product(x, p.w_in).float(),
+                      approximate="tanh").to(x.dtype)
+    if mlp_type == "relu2":  # squared ReLU (nemotron-4)
+        return F.relu(product(x, p.w_in).float()).square().to(x.dtype)
+    raise ValueError(mlp_type)
+
+
+def mlp_partial(ctx, p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """Prefill's MLP on the gathered sequence ``x``: the rank's ff
+    columns, then their rows of ``w_down``: the rank's partial sum of
+    the output."""
+    return mlp_hidden(p, x, mlp_type, ctx.columns) @ ctx.row_block(p.w_down)
+
+
+def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """The MLP. In a prefill step ``x`` is the rank's positions: gathered
+    over the sequence, the rank's partial sum (`mlp_partial`)
+    reduce-scattered back onto them."""
+    ctx = tp.sequence_parallel()
+    if ctx is not None:
+        return ctx.seq_scatter(mlp_partial(ctx, p, ctx.seq_gather(x),
+                                           mlp_type))
+    return tp.matmul(mlp_hidden(p, x, mlp_type), p.w_down)
 
 
 # ----------------------------------------------------------- embeddings
@@ -161,18 +186,32 @@ def _vocab_shard(table: torch.Tensor):
     return None if dim is None else ctx
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` by id. On a vocab shard: the rank's rows, zeros
-    for the ids other ranks hold, summed over 'model' (exactly the
-    lookup: one term is not zero)."""
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows of ``table`` by id, after the embeddings ``prefix`` (B, P,
+    d) where it is given (a VLM's patches). On a vocab shard: the rank's
+    rows, zeros for the ids other ranks hold, summed over 'model'
+    (exactly the lookup: one term is not zero). In a prefill step the
+    rank's positions of the sequence: on a vocab shard the sum is a
+    reduce-scatter onto them, the prefix entering on 'model' rank 0."""
     ctx = _vocab_shard(table)
+    seq = tp.sequence_parallel()
     if ctx is None:
-        return F.embedding(tokens, table)
+        out = F.embedding(tokens, table)
+        if prefix is not None:
+            out = torch.cat([prefix, out], dim=1)
+        return out if seq is None else seq.seq_local(out)
     rows = table.shape[0]
     local = tokens - ctx.rank * rows
     hit = ((local >= 0) & (local < rows))[..., None]
     out = torch.where(hit, F.embedding(local.clamp(0, rows - 1), table), 0.0)
-    return ctx.all_reduce(out, "sum")
+    if seq is not None:
+        if prefix is not None:
+            first = prefix if ctx.rank == 0 else torch.zeros_like(prefix)
+            out = torch.cat([first, out], dim=1)
+        return seq.seq_scatter(out)
+    out = ctx.all_reduce(out, "sum")
+    return out if prefix is None else torch.cat([prefix, out], dim=1)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor,

@@ -12,7 +12,12 @@ launches no `decode_attn`.
 The products and the norms consult the tensor-parallel context
 (`repro_torch.distributed.tensor_parallel`); in the sharded serve step
 the decode runs on the rank's shards: its heads of ``w_ukv`` (whole
-heads of nope + v columns), its positions of ``ckv`` / ``kpe``.
+heads of nope + v columns), its positions of ``ckv`` / ``kpe``. In the
+sharded prefill step the block gathers the rank's positions over the
+sequence, forms the latents with ``w_dq`` and ``w_dkv`` gathered whole
+(every head reads them), attends on the rank's heads of ``w_uq`` and
+``w_ukv``, and reduce-scatters its partial product with its rows of
+``wo`` onto the rank's positions.
 """
 
 from __future__ import annotations
@@ -72,30 +77,43 @@ def _latents(p, x, cfg, positions):
 
 
 def _queries(p, x, cfg, positions):
-    """q_nope (B, S, H, dn) and the roped q_pe (B, S, H, dr)."""
+    """q_nope (B, S, H, dn) and the roped q_pe (B, S, H, dr); in a
+    prefill step the rank's heads of them."""
     b, s, _ = x.shape
-    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = rms_norm(tp.matmul(x, p.w_dq), p.q_norm)
-    q = tp.matmul(cq, p.w_uq).reshape(b, s, h, dn + dr)
+    ctx = tp.sequence_parallel()
+    q = tp.matmul(cq, p.w_uq) if ctx is None else \
+        ctx.columns(cq, p.w_uq, dn + dr)
+    q = q.reshape(b, s, -1, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = rope(q_pe, positions, cfg.rope_theta, has_head_axis=True)
     return q_nope, q_pe
 
 
 def mla_block(p, x, cfg):
-    """Training/prefill MLA, causal. x: (B, S, d) -> (B, S, d)."""
+    """Training/prefill MLA, causal. x: (B, S, d) -> (B, S, d). In a
+    prefill step x is the rank's positions, and so is the output (see
+    the module docstring)."""
+    ctx = tp.sequence_parallel()
+    if ctx is not None:
+        x = ctx.seq_gather(x)
     b, s, _ = x.shape
-    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                     cfg.v_head_dim)
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     pos = torch.arange(s, device=x.device)
     q_nope, q_pe = _queries(p, x, cfg, pos)
     c_kv, k_pe = _latents(p, x, cfg, pos)
-    kv = (c_kv @ p.w_ukv).reshape(b, s, h, dn + dv)
+    w_ukv = p.w_ukv if ctx is None else ctx.column_block(p.w_ukv, dn + dv)
+    kv = (c_kv @ w_ukv).reshape(b, s, -1, dn + dv)
+    h = kv.shape[2]
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
-    out = sdpa_chunked(q, k, v, causal=True, q_block=cfg.q_block)
-    return out.reshape(b, s, -1) @ p.wo
+    out = sdpa_chunked(q, k, v, causal=True,
+                       q_block=cfg.q_block).reshape(b, s, -1)
+    if ctx is None:
+        return out @ p.wo
+    return ctx.seq_scatter(out @ ctx.row_block(p.wo))
 
 
 def mla_decode_step(p, x, cache_ckv, cache_kpe, length, cfg, lanes=None,

@@ -4,6 +4,7 @@ encoder-decoder and VLM (port of `repro.models.model`).
     build_model(cfg, seed, device)        -> Model, weights drawn from a seed
     Model.loss(batch)                     -> (total, metrics)    [train]
     Model.forward(tokens, frontend=None)  -> (logits, aux)       [eval]
+    Model.last_logits(tokens, frontend)   -> last_logits         [prefill]
     Model.init_cache(batch, max_len)      -> cache dict          [serving]
     Model.prefill(batch, cache)           -> last_logits  (cache in place)
     Model.decode_step(tokens, cache)      -> logits       (cache in place)
@@ -64,6 +65,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -345,12 +347,16 @@ class Model(torch.nn.Module):
         """The backbone's hidden states (B, S, d) before the final norm (the
         vlm patches' positions included), and the auxiliary loss (float32:
         the sum of the MoE layers' load-balancing losses, 0 for the other
-        families)."""
+        families). In a tensor-parallel prefill step
+        (`tensor_parallel.sequence_parallel`) the residual stream, and so
+        the hidden states, hold the rank's positions of the padded
+        sequence: the embedding, the norms and each sub-block keep it
+        there."""
         cfg = self.cfg
-        x = embed(self.embed, torch.as_tensor(tokens, device=self.device))
+        x = embed(self.embed, torch.as_tensor(tokens, device=self.device),
+                  prefix=self._frontend(frontend) if cfg.family == "vlm"
+                  else None)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        if cfg.family == "vlm":
-            x = torch.cat([self._frontend(frontend), x], dim=1)
         if cfg.family == "moe":
             x = self._attn_mlp(self.dense_layers, x)
             for block in self.moe_layers:
@@ -395,6 +401,16 @@ class Model(torch.nn.Module):
         x = rms_norm(h, self.final_norm)
         if self.cfg.family == "vlm":
             x = x[:, frontend.shape[1]:]
+        return unembed(self.embed, x, self.cfg.vocab_size)
+
+    def last_logits(self, tokens: torch.Tensor, frontend=None):
+        """The last position's logits (B, padded vocab) float32, as
+        ``forward(tokens, frontend)[0][:, -1]``, with the final norm and
+        the head applied to that position alone. In a tensor-parallel
+        prefill step the position comes from the rank that holds it
+        (`tensor_parallel.last_position`)."""
+        h, _ = self._hidden(tokens, frontend)
+        x = rms_norm(tp.last_position(h), self.final_norm)
         return unembed(self.embed, x, self.cfg.vocab_size)
 
     def forward(self, tokens: torch.Tensor, frontend=None):

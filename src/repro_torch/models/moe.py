@@ -23,6 +23,14 @@ dispatch buffers for its own experts alone (the 'model' shard of the
 stacked weights, E / n of them) and runs them, and the choices' expert
 outputs, exact zeros on every rank but their expert's, are summed over
 'model' before the top-k weighting. No expert weight moves.
+
+In a prefill step (`tensor_parallel.sequence_parallel`) the block's
+input is the rank's positions: they are all-gathered over the sequence
+and every rank routes the rows' real positions alike (the capacity and
+the drops of one process), runs its own experts, and reduce-scatters the
+choices' outputs, with the shared expert's partial product as one more
+slot, onto its positions; there it weights and sums them in the
+one-process order.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.models.layers import MLP, dense_init, mlp
+from repro_torch.models.layers import MLP, dense_init, mlp, mlp_partial
 
 
 class Experts(torch.nn.Module):
@@ -123,7 +131,11 @@ def top_k(probs: torch.Tensor, k: int):
 
 def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar). Expert
-    parallel in a tensor-parallel step (see the module docstring)."""
+    parallel in a tensor-parallel step, and in a prefill step on the
+    rank's positions (see the module docstring)."""
+    seq = tp.sequence_parallel()
+    if seq is not None:
+        x = seq.seq_gather(x)[:, :seq.seq_len]
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -162,11 +174,14 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     tok_of = torch.arange(n, device=x.device) // k              # (n,) local
 
     # the rank's experts [lo, lo + el) (all E outside expert parallelism)
-    # and the kept choices they take
+    # and the kept choices they take; in a prefill step whose experts are
+    # whole every choice is 'model' rank 0's
     ctx = tp.current()
     block = ctx and ctx.local_block(p.experts.w_down, 0)
     lo, el = block or (0, e)
     mine = keep & (flat_e >= lo) & (flat_e < lo + el)
+    if seq is not None and not block and seq.rank:
+        mine = torch.zeros_like(mine)
     local_e = flat_e - lo
 
     # local token ids into (r, el*cap) dispatch buffers; the el*cap column
@@ -190,12 +205,34 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     y_slot = y_flat.gather(
         1, dest.clamp(max=el * cap - 1)[..., None].expand(r, n, d))
     y_slot = torch.where(mine[..., None], y_slot, 0)            # (r, n, d)
+    w_flat = (top_p.reshape(r, n) * keep).to(y_slot.dtype)
+    if seq is not None:
+        return _prefill_combine(seq, p, x, y_slot, w_flat, cfg), aux
     if block:
         y_slot = ctx.all_reduce(y_slot, "sum")
-    w_flat = (top_p.reshape(r, n) * keep).to(y_slot.dtype)
     contrib = (y_slot * w_flat[..., None]).reshape(r, tl, k, d)
     out = contrib.sum(dim=2)                                    # (r, tl, d)
 
     if hasattr(p, "shared"):
         out = out + mlp(p.shared, xr, cfg.mlp_type)
     return out.reshape(b, s, d), aux
+
+
+def _prefill_combine(seq, p, x, y_slot, w_flat, cfg) -> torch.Tensor:
+    """A prefill step's MoE output on the rank's positions (B, local, d)
+    from the gathered rows' real positions ``x`` (B, S, d), the rank's
+    choices' outputs ``y_slot`` (r, n, d) (zeros where another rank's
+    expert took the choice) and their weights ``w_flat`` (r, n): the
+    slots, and the shared expert's partial product (`mlp_partial`) as
+    one more, reduce-scattered onto the rank's positions, then weighted
+    and summed over the choices as one process sums them."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    slots = y_slot.reshape(b, s, k, d)
+    if hasattr(p, "shared"):
+        shared = mlp_partial(seq, p.shared, x, cfg.mlp_type)
+        slots = torch.cat([slots, shared[:, :, None]], dim=2)
+    slots = seq.seq_scatter(slots)                         # (B, local, k+1, d)
+    w = seq.seq_local(w_flat.reshape(b, s, k))
+    out = (slots[:, :, :k] * w[..., None]).sum(dim=2)
+    return out + slots[:, :, k] if hasattr(p, "shared") else out

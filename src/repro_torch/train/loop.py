@@ -26,15 +26,24 @@ and of every cache leaf, with the products, the norms, the embedding,
 the unembedding, the decode attention, the recurrent layers and the
 experts' outputs exchanging activations over 'model'
 (`repro_torch.distributed.tensor_parallel`); no parameter and no cache
-or state row moves. The train and prefill steps gather each parameter
-DTensor to a full tensor and write it into the model's own parameter,
-and the model's unchanged `Model.loss` or `Model.forward` runs on plain
-tensors, the 'model' ranks computing redundantly: those shard storage,
-not compute (tensor-parallel compute for them is later work). Each
-sharded step's ``reads_model_params`` says which of the two it is: True
-where it gathers into the model's own parameters, False where it never
-reads them (every serve step; the dry run counts the model's parameters
-among a rank's bytes only when True).
+or state row moves. The prefill step of the dense, VLM and MoE families
+(`TP_PREFILL`) is tensor parallel too, under the reference's layout
+constraints: `Model.last_logits` runs on the rank's own shards of the
+parameters with the residual stream on the rank's positions of the
+sequence, each attention, MLP or MoE sub-block gathering its input over
+the sequence and reduce-scattering its output back, the weights staying
+where they are but for the few that every position needs whole
+(`tensor_parallel`'s prefill rule). The train step, and the prefill
+step of the SSM, hybrid and encoder-decoder families, gather each
+parameter DTensor to a full tensor and write it into the model's own
+parameter, and the model's unchanged `Model.loss` or `Model.forward`
+runs on plain tensors, the 'model' ranks computing redundantly: those
+shard storage, not compute (tensor-parallel compute for them is later
+work). Each sharded step's ``reads_model_params`` says which of the two
+it is: True where it gathers into the model's own parameters, False
+where it never reads them (every serve step, the tensor-parallel
+prefill; the dry run counts the model's parameters among a rank's bytes
+only when True), and ``model_call`` names the model's method it runs.
 """
 
 from __future__ import annotations
@@ -52,6 +61,11 @@ from repro_torch.distributed.sharding import param_shardings
 from repro_torch.models.model import Model
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_schedule)
+
+
+#: The families whose sharded prefill step is tensor parallel; the others
+#: gather every parameter into the model's own.
+TP_PREFILL = ("dense", "vlm", "moe")
 
 
 class TrainState(NamedTuple):
@@ -303,6 +317,7 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
         return TrainState(params=new_params, opt=opt, ef=None), out
 
     train_step.reads_model_params = True
+    train_step.model_call = "loss"
     return train_step
 
 
@@ -350,21 +365,7 @@ def make_sharded_serve_step(model: Model, mesh):
     RG-LRU layers on the rank's heads and channels of their state; the
     hybrid's ring and the encoder-decoder's self-attention cache and
     memory on their shards."""
-    from torch.distributed.tensor import Replicate
     idx, n_data, _ = _data_rank(mesh)
-    names = mesh.mesh_dim_names
-    on_data = [name in ("pod", "data") for name in names]
-    m_dim = names.index("model") if "model" in names else None
-
-    def local_param(t):
-        """This rank's shard of a parameter DTensor, whole over the data
-        axes, and the dim 'model' splits (None where it does not)."""
-        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
-            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
-                                      in zip(on_data, t.placements)])
-        pl = None if m_dim is None else t.placements[m_dim]
-        return t.to_local(), (pl.dim if pl is not None and pl.is_shard()
-                              else None)
 
     @torch.no_grad()
     def serve_step(placed: dict, cache: dict, tokens):
@@ -384,12 +385,7 @@ def make_sharded_serve_step(model: Model, mesh):
         whole = n_rows % n_data != 0
         rows = n_rows // n_data
         tok = _local_rows(tokens, mesh, idx, rows, whole)
-        params, shards = {}, {}
-        for name, t in placed.items():
-            local, dim = local_param(t)
-            params[name] = local
-            if dim is not None:
-                shards[id(local)] = dim
+        params, shards = _local_params(placed, mesh)
         length = cache["length"].to_local()
         mine = length if whole else length[idx * rows:(idx + 1) * rows]
         local = {k: ({n: leaf.to_local() for n, leaf in v.items()}
@@ -404,7 +400,30 @@ def make_sharded_serve_step(model: Model, mesh):
         return cache, _placed_rows(logits, mesh, n_rows, whole)
 
     serve_step.reads_model_params = False
+    serve_step.model_call = "decode_step"
     return serve_step
+
+
+def _local_params(placed: dict, mesh) -> tuple[dict, dict]:
+    """This rank's shard of each parameter DTensor of ``placed`` (by
+    name), gathered over the data axes first where FSDP storage splits
+    it there, and the dim 'model' splits of each that is a 'model' shard
+    (by tensor identity: `tensor_parallel.TensorParallel`'s
+    ``shards``)."""
+    from torch.distributed.tensor import Replicate
+    names = mesh.mesh_dim_names
+    on_data = [name in ("pod", "data") for name in names]
+    m_dim = names.index("model") if "model" in names else None
+    params, shards = {}, {}
+    for name, t in placed.items():
+        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
+            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
+                                      in zip(on_data, t.placements)])
+        pl = None if m_dim is None else t.placements[m_dim]
+        params[name] = local = t.to_local()
+        if pl is not None and pl.is_shard():
+            shards[id(local)] = pl.dim
+    return params, shards
 
 
 @contextlib.contextmanager
@@ -433,22 +452,59 @@ def make_sharded_prefill_step(model: Model, mesh):
     twin of the reference's jitted `make_prefill_step` on ``mesh``, with
     ``params`` as `make_sharded_serve_step`'s and ``batch`` holding
     ``tokens`` (B, S) and, for encdec and vlm, ``frontend``, each a
-    DTensor or a plain global tensor. The model's unchanged `forward`
-    runs on this rank's rows (every row where the data axes do not
-    divide them)."""
+    DTensor or a plain global tensor. The model runs on this rank's rows
+    (every row where the data axes do not divide them).
+
+    A `TP_PREFILL` family's step is tensor parallel: each parameter's
+    local shard stands in for the model's own (`_parameters_replaced`, so
+    the model's parameters are never read and may live on the meta
+    device), and `Model.last_logits` runs under a prefill context
+    (`tensor_parallel.TensorParallel` with the sequence's length, the
+    VLM's patches included): the residual stream on the rank's positions
+    of the sequence, padded at its end to a multiple of 'model'; each
+    sub-block on the gathered sequence, the rank's heads or ff columns
+    or experts, and reduce-scattered back; the final norm and the head
+    on the last real position alone. The other families' step gathers
+    every parameter into the model's own and runs its unchanged
+    `forward`."""
     idx, n_data, _ = _data_rank(mesh)
-    params = dict(model.named_parameters())
+
+    def local_rows(batch: dict):
+        n_rows = batch["tokens"].shape[0]
+        whole = n_rows % n_data != 0
+        return n_rows, whole, {
+            k: _local_rows(v, mesh, idx, n_rows // n_data, whole)
+            for k, v in batch.items()}
+
+    if model.cfg.family not in TP_PREFILL:
+        params = dict(model.named_parameters())
+
+        @torch.no_grad()
+        def gathering_step(placed: dict, batch: dict):
+            n_rows, whole, local = local_rows(batch)
+            _load_params(params, placed)
+            logits, _ = model.forward(local["tokens"],
+                                      frontend=local.get("frontend"))
+            return _placed_rows(logits[:, -1].contiguous(), mesh, n_rows,
+                                whole)
+
+        gathering_step.reads_model_params = True
+        gathering_step.model_call = "forward"
+        return gathering_step
 
     @torch.no_grad()
     def prefill_step(placed: dict, batch: dict):
-        n_rows = batch["tokens"].shape[0]
-        whole = n_rows % n_data != 0
-        _load_params(params, placed)
-        local = {k: _local_rows(v, mesh, idx, n_rows // n_data, whole)
-                 for k, v in batch.items()}
-        logits, _ = model.forward(local["tokens"],
-                                  frontend=local.get("frontend"))
-        return _placed_rows(logits[:, -1].contiguous(), mesh, n_rows, whole)
+        n_rows, whole, local = local_rows(batch)
+        tokens, frontend = local["tokens"], local.get("frontend")
+        seq = tokens.shape[1]
+        if model.cfg.family == "vlm":
+            seq += frontend.shape[1]
+        params, shards = _local_params(placed, mesh)
+        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq)
+        with tp.active(ctx), _parameters_replaced(model, params):
+            logits = model.last_logits(tokens, frontend=frontend)
+        return _placed_rows(logits, mesh, n_rows, whole)
 
-    prefill_step.reads_model_params = True
+    prefill_step.reads_model_params = False
+    prefill_step.model_call = "last_logits"
     return prefill_step

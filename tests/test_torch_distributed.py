@@ -19,6 +19,7 @@ by `interop.model_params`.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -444,6 +445,17 @@ def serve_weights(tmp_path_factory):
                                         "cpu"),
                    out / name)
         refs[key] = (rm, params)
+    for arch, wide in workers.PREFILL_CASES:
+        cfg = ref_config(arch, "smoke").replace(dtype=jnp.float32)
+        if wide:
+            cfg = cfg.replace(**workers.PREFILL_WIDE[arch])
+        rm = ref_build(cfg)
+        params = rm.init(jax.random.PRNGKey(workers.SERVE["seed"]))
+        torch.save(interop.model_params(jax.tree.map(np.asarray, params),
+                                        workers.prefill_config(arch, wide),
+                                        "cpu"),
+                   workers.prefill_weights(str(out), arch, wide))
+        refs["prefill", arch, wide] = (rm, params)
     return refs, out
 
 
@@ -463,9 +475,8 @@ def sharded_serve8(serve_weights):
     serve steps; rank 0's results by run and batch rows."""
     out = serve_weights[1] / "mesh24"
     out.mkdir()
-    for name in ("weights.pt", "weights_wide.pt",
-                 *(f"weights_wide_{arch}.pt" for arch in workers.WIDE)):
-        shutil.copy(serve_weights[1] / name, out / name)
+    for weights in serve_weights[1].glob("weights*.pt"):
+        shutil.copy(weights, out / weights.name)
     workers.spawn(workers.sharded_serve_worker, 8, str(out), (2, 4))
     return torch.load(out / "serve8.pt", weights_only=False)
 
@@ -787,6 +798,69 @@ def test_tensor_parallel_family_serve_step_equals_reference_and_one_process(
         arch=arch), FAMILY_LOGITS_TOL)
 
 
+# the prefill cases' logits: the smokes' at SERVE_TOL; the widened
+# models' at FAMILY_LOGITS_TOL (TOL32), as the widened serve steps': their
+# logits reach 70-100
+PREFILL_IDS = [f"{arch}-{'wide' if wide else 'smoke'}"
+               for arch, wide in workers.PREFILL_CASES]
+_PREFILL_WANT: dict = {}
+
+
+def _prefill_wants(serve_weights, arch, wide, rows, length):
+    """The reference's jitted `make_prefill_step` and the one-process
+    port `make_prefill_step` on a PREFILL_CASES case's weights and
+    `prefill_batch` (cached: both meshes compare with them)."""
+    key = arch, wide, rows, length
+    if key not in _PREFILL_WANT:
+        rm, params = serve_weights[0]["prefill", arch, wide]
+        cfg = workers.prefill_config(arch, wide)
+        batch = workers.prefill_batch(cfg, rows, length)
+        ref = torch.from_numpy(np.array(jax.jit(
+            ref_loop.make_prefill_step(rm))(
+                params, {k: jnp.asarray(v.numpy())
+                         for k, v in batch.items()})))
+        model = Model(cfg, "cpu")
+        model.load_state_dict(torch.load(workers.prefill_weights(
+            str(serve_weights[1]), arch, wide)))
+        _PREFILL_WANT[key] = ref, loop.make_prefill_step(model)(batch)
+    return _PREFILL_WANT[key]
+
+
+@pytest.mark.parametrize("rows", SERVE_ROWS)
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+@pytest.mark.parametrize("case", workers.PREFILL_CASES, ids=PREFILL_IDS)
+def test_tensor_parallel_prefill_step_equals_reference_and_one_process(
+        serve_weights, sharded_serve4, sharded_serve8, case, shape, rows):
+    """The tensor-parallel prefill of the dense, VLM and MoE families
+    (`torch_dist_workers.PREFILL_CASES`: qwen3 and internvl2, with its
+    patches, at smoke width and widened so that a KV head's columns lie
+    on two of 4 ranks; dbrx's and deepseek's MLA smokes widened by
+    MOE_WIDE) on 4 gloo ranks as (data 2, model 2) and on 8 as (data 2,
+    model 4), 4 rows over 'data' and 3 rows whole, at prompt lengths
+    that 'model' does not divide (the sequence padded at its end): the
+    last logits equal the reference's jitted `make_prefill_step` and the
+    one-process port step on the same weights and batch, the smokes'
+    within 1e-5 and the widened models' within TOL32. The step never
+    reads the model's own parameters."""
+    arch, wide = case
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)[
+        "prefill"][case]
+    assert got["reads_model_params"] is False
+    if wide:
+        placed = got["param_placements"]
+        lead = "moe_layers.0" if arch in workers.MOE_WIDE else "layers.0"
+        assert placed[lead + ".attn.wo"] == ["R", "S(1)"]
+        if arch not in workers.MOE_WIDE:
+            assert placed["layers.0.attn.wk"] == ["R", "S(1)"]
+    tol = FAMILY_LOGITS_TOL if wide else SERVE_TOL
+    for length in workers.PREFILL_LENGTHS:
+        logits = got["logits"][rows, length]
+        for want in _prefill_wants(serve_weights, arch, wide, rows, length):
+            assert logits.shape == want.shape
+            np.testing.assert_allclose(logits.numpy(), want.numpy(),
+                                       err_msg=f"length {length}", **tol)
+
+
 CENSUS_SCRIPT = """
 import json, torch
 from torch.distributed.tensor import distribute_tensor
@@ -871,12 +945,14 @@ def test_tensor_parallel_serve_step_gathers_no_parameter_or_cache_row():
 FULL_CENSUS_SCRIPT = """
 import json, torch
 from torch.distributed.tensor import distribute_tensor
+from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import Model
-from repro_torch.train.loop import make_sharded_serve_step
+from repro_torch.train.loop import (make_sharded_prefill_step,
+                                    make_sharded_serve_step)
 dryrun._fake_group(256)
 mesh = sharding.device_mesh(make_production_mesh(), "cpu")
 sharding.set_mesh(mesh)
@@ -890,18 +966,30 @@ def placed(t, sh):
 p_sh = sharding.param_shardings(model, mesh)
 params = {{n: placed(p.detach(), p_sh[n])
           for n, p in model.named_parameters()}}
-cache = model.init_cache(rows, max_len, device="meta")
-c_sh = sharding.cache_shardings(cache, mesh)
-cache = {{k: ({{n: placed(t, c_sh[k][n]) for n, t in v.items()}}
-             if isinstance(v, dict) else placed(v, c_sh[k]))
-         for k, v in cache.items()}}
-tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
 counter = dryrun.OpCounter()
-step = make_sharded_serve_step(model, mesh)
-with counter:
-    step(params, cache, tokens)
-leaves = [(n, t) for k, v in cache.items() if k != "length"
-          for n, t in (v.items() if isinstance(v, dict) else [(k, v)])]
+flops = FlopCounterMode(display=False)
+if {prefill!r}:
+    batch = {{"tokens": torch.zeros((rows, max_len), dtype=torch.int32,
+                                    device="meta")}}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.zeros((rows, cfg.n_patches, cfg.d_model),
+                                        device="meta")
+    step = make_sharded_prefill_step(model, mesh)
+    with counter, flops:
+        step(params, batch)
+    leaves = []
+else:
+    cache = model.init_cache(rows, max_len, device="meta")
+    c_sh = sharding.cache_shardings(cache, mesh)
+    cache = {{k: ({{n: placed(t, c_sh[k][n]) for n, t in v.items()}}
+                 if isinstance(v, dict) else placed(v, c_sh[k]))
+             for k, v in cache.items()}}
+    tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
+    step = make_sharded_serve_step(model, mesh)
+    with counter, flops:
+        step(params, cache, tokens)
+    leaves = [(n, t) for k, v in cache.items() if k != "length"
+              for n, t in (v.items() if isinstance(v, dict) else [(k, v)])]
 
 def rank_rows(name, t):
     dim = sharding.cache_batch_dim(name, t.dim())
@@ -912,12 +1000,18 @@ split = {{n: p for n, p in params.items()
 experts = params.get("moe_layers.0.moe.experts.w_down")
 print(json.dumps({{
     "collectives": counter.collectives,
+    "flops": flops.get_total_flops(),
     "reads_model_params": step.reads_model_params,
     "split_params": [p.numel() * p.element_size() for p in split.values()],
     "split_matrices": [p.numel() * p.element_size() for p in split.values()
                        if min(p.shape[-2:]) >= 128],
     "matrices": [p.numel() * p.element_size() for p in params.values()
                  if p.dim() >= 2],
+    "model_split": [n for n, p in params.items()
+                    if p.placements[-1].is_shard()],
+    "param_bytes": {{n: [p.numel() * p.element_size(),
+                        p.to_local().numel() * p.element_size()]
+                    for n, p in params.items()}},
     "cache_rows": {{n: rank_rows(n, t) for n, t in leaves}},
     "experts_local": None if experts is None
                      else list(experts.to_local().shape)}}))
@@ -925,11 +1019,14 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _full_census(arch: str, cut: dict, rows: int, max_len: int) -> dict:
+def _full_census(arch: str, cut: dict, rows: int, max_len: int,
+                 prefill: bool = False) -> dict:
     """FULL_CENSUS_SCRIPT's record of ``arch``'s full config cut by
-    ``cut``, in a subprocess."""
+    ``cut``, in a subprocess: its tensor-parallel serve step over a cache
+    of ``rows`` x ``max_len``, or with ``prefill`` its prefill step over
+    ``rows`` x ``max_len`` tokens."""
     script = FULL_CENSUS_SCRIPT.format(arch=arch, cut=cut, rows=rows,
-                                       max_len=max_len)
+                                       max_len=max_len, prefill=prefill)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
@@ -1072,3 +1169,207 @@ def test_tensor_parallel_family_serve_step_gathers_no_parameter_or_cache_row(
     assert max(activations) < min(min(got["split_matrices"]),
                                   min(got["cache_rows"].values()))
     assert not set(gathers) & set(got["matrices"])
+
+
+# the prefill census's models: the full configs cut in depth as the dry
+# run's --layers cuts them (qwen3, internvl2 and dbrx 2 layers; deepseek 5,
+# 1 dense + 4 MLA/MoE), meta tensors, bf16, 32 rows of 32768 tokens (2 a
+# data rank; internvl2's 256 patches before them)
+PREFILL_CENSUS = {"qwen3-0.6b": dict(n_layers=2),
+                  "internvl2-76b": dict(n_layers=2),
+                  "dbrx-132b": dict(n_layers=2),
+                  "deepseek-v3-671b": dict(n_layers=5, n_dense_layers=1)}
+PREFILL_CENSUS_LEN = 32768
+
+
+@pytest.fixture(scope="module")
+def prefill_census():
+    """FULL_CENSUS_SCRIPT's prefill record of each PREFILL_CENSUS cell,
+    the four subprocesses at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(PREFILL_CENSUS)) as pool:
+        got = pool.map(lambda arch: _full_census(
+            arch, PREFILL_CENSUS[arch], 32, PREFILL_CENSUS_LEN, prefill=True),
+            PREFILL_CENSUS)
+        return dict(zip(PREFILL_CENSUS, got))
+
+
+def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
+    """Rank 0's tensor-parallel prefill of ``cfg`` on ``rows`` rows of
+    ``length`` tokens and 'model' of ``n``, from the layout the census
+    reports (``model_split``, ``param_bytes``): its collectives by type
+    as sorted output bytes (``moves``: the whole parameters it gathers and
+    the weight pieces its all-to-alls bring, by name), its FLOPs, and
+    the one-process model's products and attention divided by ``n`` plus
+    the last position's unembedding on the rank's vocab rows. The FLOPs
+    differ from the latter by exactly the products that every rank runs
+    whole: the KV heads its q heads read (8 KV heads on 16 ranks: one
+    whole head a rank, two ranks a head), the router and MLA's
+    ``w_dq``/``w_dkv``."""
+    bf16, f32 = 2, 4
+    d = cfg.d_model
+    split = set(got["model_split"])
+    size = {name: b[0] for name, b in got["param_bytes"].items()}
+    seq = length + (cfg.n_patches if cfg.family == "vlm" else 0)
+    assert seq % n == 0                        # no pads at these lengths
+    t, loc = rows * seq, seq // n
+    act = rows * seq * d * bf16                # a gathered (rows, S, d)
+    out = {"all-gather": [], "reduce-scatter": [], "all-reduce": [],
+           "all-to-all": []}
+    moves = {}
+    flops = [0, 0]                             # [this rank, one process / n]
+
+    def mm(m, k, cols, whole=False):
+        """A product of m rows by (k, cols): 1/n of it on the rank, or
+        the whole."""
+        flops[0] += 2 * m * k * cols // (1 if whole else n)
+        flops[1] += 2 * m * k * cols / n
+
+    def whole(name):
+        if name in split:
+            out["all-gather"].append(size[name])
+            moves[name] = "whole"
+
+    def rows_of(name, k):                      # a row product's weight
+        mm(t, k, d)
+        if name in split:
+            out["all-to-all"].append(k // n * d * bf16)
+            moves[name] = "rows"
+
+    def attention(heads, dqk, dv):
+        flops[0] += 2 * rows * heads // n * seq * seq * (dqk + dv)
+        flops[1] += 2 * rows * heads * seq * seq * (dqk + dv) / n
+
+    def sub_block(norm):
+        out["all-gather"].append(act)
+        out["reduce-scatter"].append(rows * loc * d * bf16)
+        whole(norm)
+
+    def gqa(pre):
+        sub_block(pre + "ln1")
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        if cfg.qk_norm:
+            whole(pre + "attn.q_norm")
+            whole(pre + "attn.k_norm")
+        mm(t, d, hq * dh)
+        kv = max(hkv // n, 1) * dh             # the rank's whole KV heads
+        for w in ("wk", "wv"):
+            flops[0] += 2 * t * d * kv
+            flops[1] += 2 * t * d * hkv * dh / n
+            if pre + "attn." + w in split and hkv < n:
+                out["all-to-all"].append(d * kv * bf16)
+                moves[pre + "attn." + w] = "kv heads"
+        attention(hq, dh, dh)
+        rows_of(pre + "attn.wo", hq * dh)
+
+    def mla(pre):
+        sub_block(pre + "ln1")
+        h, qr, kvr = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        for name in ("w_dq", "attn.q_norm", "w_dkv", "attn.kv_norm"):
+            whole(pre + ("attn." + name if name.startswith("w_") else name))
+        mm(t, d, qr, whole=True)
+        mm(t, qr, h * (dn + dr))
+        mm(t, d, kvr + dr, whole=True)
+        mm(t, kvr, h * (dn + dv))
+        attention(h, dn + dr, dv)
+        rows_of(pre + "attn.wo", h * dv)
+
+    def ffn(pre, ff):
+        for _ in range(2 if cfg.mlp_type == "swiglu" else 1):
+            mm(t, d, ff)
+        rows_of(pre + "w_down", ff)
+
+    def moe(pre):
+        sub_block(pre + "ln2")
+        e, k = cfg.n_experts, cfg.top_k
+        whole(pre + "moe.router")
+        if pre + "moe.router" in split:        # gathered after its cast
+            out["all-gather"][-1] = d * e * bf16
+        mm(t, d, e, whole=True)
+        r = math.gcd(t, 32)
+        while t % r:
+            r -= 1
+        choices = t // r * k
+        cap = max(int(choices / e * cfg.capacity_factor), 4)
+        cap = (cap + 7) // 8 * 8
+        for _ in range(3 if cfg.mlp_type == "swiglu" else 2):
+            mm(e * r * cap, d, cfg.d_ff_expert)
+        shared = cfg.n_shared_experts * cfg.d_ff_expert
+        if shared:
+            ffn(pre + "moe.shared.", shared)
+        out["reduce-scatter"][-1] = rows * loc * (k + bool(shared)) * d * bf16
+
+    def dense(pre):
+        gqa(pre)
+        sub_block(pre + "ln2")
+        ffn(pre + "mlp.", cfg.d_ff)
+
+    out["reduce-scatter"].append(rows * loc * d * bf16)      # the embedding
+    if cfg.family == "moe":
+        for i in range(cfg.n_dense_layers):
+            dense(f"dense_layers.{i}.")
+        for i in range(cfg.n_layers - cfg.n_dense_layers):
+            pre = f"moe_layers.{i}."
+            mla(pre) if cfg.use_mla else gqa(pre)
+            moe(pre)
+    else:
+        for i in range(cfg.n_layers):
+            dense(f"layers.{i}.")
+    whole("final_norm")
+    out["all-reduce"].append(rows * d * bf16)          # the last position
+    vocab = cfg.padded_vocab
+    out["all-gather"].append(rows * vocab * f32)        # its logits
+    flops[0] += 2 * rows * d * vocab // n
+    flops[1] += 2 * rows * d * vocab / n
+    return {k: sorted(v) for k, v in out.items()}, moves, flops
+
+
+@pytest.mark.parametrize("arch", list(PREFILL_CENSUS))
+def test_tensor_parallel_prefill_step_gathers_no_weight_but_the_small_ones(
+        prefill_census, arch):
+    """The census of the tensor-parallel prefill on a fake (16, 16) group
+    of 256 ranks (no data moves): each full config at full width cut in
+    depth (PREFILL_CENSUS) on meta tensors, 2 rows of 32768 positions a
+    data rank (internvl2's 256 patches before them). The collectives are
+    exactly `_prefill_expected`'s: one sequence all-gather and one
+    reduce-scatter a sub-block (attention, MLP or MoE), the embedding's
+    reduce-scatter, the last position's all-reduce and the logits'
+    all-gather; the only whole parameters gathered are the split norm
+    scales, deepseek's router and MLA's ``w_dq``/``w_dkv``; the only
+    other weight pieces moved are the rank's KV heads' columns of
+    ``wk``/``wv`` and the rank's rows of each row product (``wo``,
+    ``w_down``, the shared expert's), 1/16 of each, by all-to-all; no
+    expert weight moves (the rank holds E / 16 experts); no all-gather
+    but the logits is larger than a sequence's activations. The FLOPs
+    are exactly the rank's: over the one-process products and attention
+    / 16 by the products every rank runs whole, the whole KV head a
+    rank's q heads read (8 KV heads on 16 ranks: qwen3 1.4 %, internvl2
+    1.2 %, dbrx 0.95 % over) and deepseek's ``w_dq``/``w_dkv`` and
+    router (11 % over). The step never reads the model's
+    parameters."""
+    got = prefill_census[arch]
+    cfg = get_config(arch, "full").replace(**PREFILL_CENSUS[arch])
+    want, moves, (flops, naive) = _prefill_expected(cfg, got, 2,
+                                                    PREFILL_CENSUS_LEN)
+    assert got["reads_model_params"] is False
+    census = {k: sorted(b for kind, b in got["collectives"] if kind == k)
+              for k in want}
+    assert {kind for kind, _ in got["collectives"]} <= set(want)
+    assert census == want
+    allowed = ("ln1", "ln2", "q_norm", "k_norm", "kv_norm", "router",
+               "w_dq", "w_dkv", "wk", "wv", "wo", "w_down")
+    assert all(name.rsplit(".", 1)[-1] in allowed for name in moves)
+    assert not any("experts" in name for name in moves)
+    if cfg.family == "moe":
+        assert got["experts_local"][0] == cfg.n_experts // 16
+        expert = {b for name, b in got["param_bytes"].items()
+                  if "experts" in name for b in b}
+        assert not expert & {b for _, b in got["collectives"]}
+    act = 2 * (PREFILL_CENSUS_LEN + (cfg.n_patches if cfg.family == "vlm"
+                                     else 0)) * cfg.d_model * 2
+    logits = 2 * cfg.padded_vocab * 4
+    assert max(b for b in census["all-gather"] if b != logits) <= act
+    assert got["flops"] == flops
+    over = flops / naive - 1
+    assert 0 <= over < (0.12 if cfg.use_mla else 0.015), over

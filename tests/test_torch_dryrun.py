@@ -169,6 +169,49 @@ def test_train_collectives_follow_the_layouts(records):
         assert census[kind] == {"count": 0, "bytes": 0}
 
 
+def test_qwen3_prefill_record_at_full_depth_holds_no_full_logits(records):
+    """qwen3-0.6b's prefill_32k at full depth (28 layers) through the CLI
+    against the module's 2-layer record: every layer alike, so the
+    FLOPs, each collective's count and bytes grow by 14 x the 2-layer
+    record's layers (a layer: two sequence all-gathers, two
+    reduce-scatters, four all-to-alls and its four norm scales; the
+    fixed part: the embedding's reduce-scatter, the last position's
+    all-reduce and the logits' all-gather, and the last position's
+    unembedding), and the temporaries are one layer's peak, the 2-layer
+    record's and below 4 GiB (a rank of the gathering step held 65536 x
+    152064 float32 logits, 40 GB). The step never reads the model's
+    parameters, so the arguments are the rank's shards alone
+    (`launch.specs`' sum)."""
+    two = records[0][("qwen3-0.6b", "prefill_32k", "single")]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", "prefill_32k", "--mesh", "single",
+         "--out", str(records[1])],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    full = json.loads((records[1] / "qwen3-0.6b__prefill_32k__single.json"
+                       ).read_text())
+    cfg = get_config("qwen3-0.6b", "full")
+    _, args = specs.cell_lowerable("qwen3-0.6b", "prefill_32k",
+                                   _mesh("single"))
+    sharding.clear_mesh()
+    assert full["argument_size_in_bytes"] == specs.argument_bytes(args)
+    rows, d, v = 2, cfg.d_model, cfg.padded_vocab
+    head = 2 * rows * d * v // 16
+    layers = (two["hlo_flops"] - head) // LAYERS
+    assert full["hlo_flops"] == head + cfg.n_layers * layers
+    fixed = {"all-gather": (1, rows * v * 4),
+             "reduce-scatter": (1, rows * 2048 * d * 2),
+             "all-reduce": (1, rows * d * 2), "all-to-all": (0, 0)}
+    for kind, (count, nbytes) in fixed.items():
+        for key, base in (("count", count), ("bytes", nbytes)):
+            per = (two["collectives"][kind][key] - base) // LAYERS
+            assert full["collectives"][kind][key] == \
+                base + cfg.n_layers * per, (kind, key)
+    assert full["collectives"]["all-to-all"]["count"] == 4 * cfg.n_layers
+    assert full["temp_size_in_bytes"] == two["temp_size_in_bytes"] < 2 ** 32
+
+
 def test_decode_records_show_the_cache_gather(records):
     """qwen3-0.6b's cache puts the sequence over 'model' (8 KV heads on
     16). The tensor-parallel step attends over the rank's 2048 positions

@@ -212,6 +212,26 @@ FAMILY_WIDE = {
     "whisper-base": dict(d_model=128, n_heads=2, n_kv_heads=2, d_head=64,
                          d_ff=256)}
 WIDE = {**MOE_WIDE, **FAMILY_WIDE}
+# the tensor-parallel prefill's cases, (arch, widened): each arch at smoke
+# width as it is (there only the embedding splits over 'model'), and
+# widened so that every rule of the prefill fires on a 'model' axis of 2
+# or 4: qwen3's and internvl2's wq, wo and MLP split, and wk and wv (2 KV
+# heads of 64 columns) too, so that on 4 ranks each KV head's columns lie
+# on two ranks, which the all-to-all brings together for the two q heads
+# that read it; dbrx's and deepseek's as MOE_WIDE (experts, router, every
+# MLA projection and norm). The prompts' lengths (internvl2's 8 patches
+# before them) are ones that 'model' does not divide: 6 and 14 on 4
+# ranks, 7 and 15 on 2 and 4, so the sequence is padded at its end.
+PREFILL_WIDE = {
+    "qwen3-0.6b": dict(d_model=128, n_heads=4, n_kv_heads=2, d_head=64,
+                       d_ff=256),
+    "internvl2-76b": dict(d_model=128, n_heads=4, n_kv_heads=2, d_head=64,
+                          d_ff=256),
+    **MOE_WIDE}
+PREFILL_CASES = (("qwen3-0.6b", False), ("qwen3-0.6b", True),
+                 ("internvl2-76b", False), ("internvl2-76b", True),
+                 ("dbrx-132b", True), ("deepseek-v3-671b", True))
+PREFILL_LENGTHS = (6, 7)
 
 
 def serve_config(wide: bool = False, arch: str | None = None):
@@ -335,6 +355,65 @@ def _serve_runs(mesh, weights: str, wide: bool, prefill: bool,
     return out
 
 
+def prefill_config(arch: str, wide: bool):
+    """A PREFILL_CASES case's config: ``arch`` at smoke width, widened by
+    PREFILL_WIDE where ``wide``, float32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, "smoke").replace(dtype=torch.float32)
+    return cfg.replace(**PREFILL_WIDE[arch]) if wide else cfg
+
+
+def prefill_weights(out_dir: str, arch: str, wide: bool) -> str:
+    """The file of a PREFILL_CASES case's weights (the reference's,
+    carried across by the test) in ``out_dir``."""
+    return os.path.join(out_dir, f"weights_prefill_{arch}_{int(wide)}.pt")
+
+
+def prefill_batch(cfg, rows: int, length: int) -> dict:
+    """(rows, length) int32 tokens and, for a VLM, (rows, n_patches,
+    d_model) float32 patches, from numpy seeded by SERVE, rows and
+    length."""
+    rng = np.random.default_rng(SERVE["seed"] + 1000 * rows + length)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (rows, length)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (rows, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def prefill_runs(mesh, out_dir: str) -> dict:
+    """Each PREFILL_CASES case's `make_sharded_prefill_step` on ``mesh``:
+    the last logits gathered, by (rows, length) for SERVE's two row
+    counts (4 split over 'data'; 3, which every data rank computes whole)
+    and PREFILL_LENGTHS (plain global tensors), with the step's
+    ``reads_model_params`` and its parameters' placements."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.loop import make_sharded_prefill_step
+    out = {}
+    for arch, wide in PREFILL_CASES:
+        model = Model(prefill_config(arch, wide), "cpu")
+        model.load_state_dict(torch.load(prefill_weights(out_dir, arch,
+                                                         wide)))
+        p_sh = sharding.param_shardings(model, mesh)
+        params = {n: distribute_tensor(p.detach().clone(), mesh,
+                                       p_sh[n].placements, src_data_rank=None)
+                  for n, p in model.named_parameters()}
+        step = make_sharded_prefill_step(model, mesh)
+        logits = {(rows, length): step(params, prefill_batch(
+            model.cfg, rows, length)).full_tensor()
+            for rows in (SERVE["batch"], SERVE["odd_batch"])
+            for length in PREFILL_LENGTHS}
+        out[arch, wide] = {
+            "logits": logits, "reads_model_params": step.reads_model_params,
+            "param_placements": {n: [str(pl) for pl in t.placements]
+                                 for n, t in params.items()}}
+    return out
+
+
 def ep_moe_run(mesh, weights: str, arch: str) -> dict:
     """`moe_block` of a MOE_WIDE arch's first MoE layer on (1, 63) tokens
     drawn near one direction (so that most choose the same experts and
@@ -390,10 +469,11 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
     every shape the wide model ("wide"; on (2, 4) its 2 KV heads do not
     divide 'model', so the cache puts its sequence there) and each WIDE
     arch (by its name, from a random first cache and lengths), with each
-    MOE_WIDE arch's expert-parallel `moe_block` ("ep_moe", arch). Rank 0
-    writes the results by run and rows to serve{world}.pt. The weights
-    are ``out_dir``'s weights.pt, weights_wide.pt and
-    weights_wide_{arch}.pt."""
+    MOE_WIDE arch's expert-parallel `moe_block` ("ep_moe", arch) and
+    every PREFILL_CASES case's tensor-parallel prefill ("prefill"). Rank
+    0 writes the results by run and rows to serve{world}.pt. The weights
+    are ``out_dir``'s weights.pt, weights_wide.pt,
+    weights_wide_{arch}.pt and `prefill_weights`'."""
     from repro_torch.distributed import sharding
     _init(rank, world, init)
     mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), shape),
@@ -407,6 +487,7 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
         out[arch] = _serve_runs(mesh, weights, True, False, arch=arch)
         if arch in MOE_WIDE:
             out["ep_moe", arch] = ep_moe_run(mesh, weights, arch)
+    out["prefill"] = prefill_runs(mesh, out_dir)
     if tuple(shape) == (2, 2):
         out["smoke"] = _serve_runs(mesh, small, False, True)
         out["fsdp"] = _serve_runs(mesh, wide, True, False, fsdp=True,
