@@ -139,30 +139,31 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
   serve        SporkRouter("qwen3-0.6b") on the card with launch/serve.py's
                defaults (10 minutes, rate 40, burstiness 0.65, energy):
                report, and one spork_predict launch per allocator tick;
-               then ServeEngine over qwen3-0.6b at full width in bf16 (8
-               slots, max_len 1024, 8 requests of 128 prompt tokens and 64
-               new tokens): 512 tokens, decode_attn launches = 28 x
+               then ServeEngine over qwen3-0.6b at full width in bf16,
+               cut in depth to 4 of 28 layers for the wall (8 slots,
+               max_len 1024, 8 requests of 128 prompt tokens and 64 new
+               tokens): 512 tokens, decode_attn launches = 4 x
                (prefilled tokens + steps), the plain version never called,
                prefill/decode wall, tokens/s, peak memory; the interleaving
                regression of tests/test_serve.py at full width (streams
                alone = interleaved, bitwise); launch/serve.py's main once
                with short arguments
-  serve_vs_cpu the same model in float32 on the card and (weights carried
-               across) on the CPU: 2 requests of 16 + 8 tokens; every
+  serve_vs_cpu the same model at full depth in float32 on the card and (weights
+               carried across) on the CPU: 2 requests of 16 + 8 tokens; every
                step's logits within 1e-3 x that step's max |logit|, tokens
                equal except at CPU top-2 gaps below that (counted)
-  serve_hybrid SporkRouter("recurrentgemma-2b") as in serve, then
-               ServeEngine over recurrentgemma-2b at full width in bf16
-               (8 slots of 2048 positions: the ring holds the whole
-               window; 8 requests of 128 + 64 tokens): decode_attn
-               launches = 8 attention layers x (1024 + 64) = 8704 at D =
-               256, the plain version never called; every attention
-               layer's call of the last step rerun on its own tensors
-               against the plain version; the kernel, the plain version
-               and SDPA timed at that call beside the bound; prefill and
-               decode wall, tokens/s, a decode step's idle share; the
-               interleaving regression (tokens, logits, K/V rows and the
-               recurrent state bitwise alone = interleaved)
+  serve_hybrid SporkRouter("recurrentgemma-2b") as in serve, then ServeEngine
+               over recurrentgemma-2b at full width in bf16, cut in depth to 5
+               of 26 layers for the wall (8 slots of 2048 positions: the ring
+               holds the whole window; 8 requests of 128 + 64 tokens):
+               decode_attn launches = 1 attention layer x (1024 + 64) = 1088
+               at D = 256, the plain version never called; every attention
+               layer's call of the last step rerun on its own tensors against
+               the plain version; the kernel, the plain version and SDPA timed
+               at that call beside the bound; prefill and decode wall,
+               tokens/s, a decode step's idle share; the interleaving
+               regression (tokens, logits, K/V rows and the recurrent state
+               bitwise alone = interleaved)
   serve_hybrid_vs_cpu
                the smoke config (window 16) in float32 on the card and,
                weights carried across, on the CPU: one lane of 8 + 32
@@ -241,7 +242,7 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                the smoke config (1 dense and 2 MLA + MoE layers) in float32,
                card against CPU, with serve_moe_vs_cpu's checks
   serve_ssm    SporkRouter("mamba2-2.7b") as in serve, then ServeEngine
-               over mamba2-2.7b at full width in bf16, cut in depth to 32
+               over mamba2-2.7b at full width in bf16, cut in depth to 4
                of 64 layers for the wall (8 slots,
                8 requests of 128 + 64 tokens): no attention, so no
                decode_attn launch (counted); prefill and decode wall,
@@ -250,7 +251,7 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                512 and 8192 (constant state); the interleaving regression
                (tokens, logits, conv and ssm lanes bitwise alone =
                interleaved); launch/serve.py --arch mamba2-2.7b once; the
-               duality in float32 at full width, 16 of 64 layers:
+               duality in float32 at full width, 4 of 64 layers:
                forward's chunked scan and prefill's recurrence, last
                logits at S = 300 (two chunks and a padded third) within
                1e-3 x max |logit|
@@ -306,11 +307,13 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                serve_vs_cpu's bound (the line says which), every cache
                leaf and the lengths too, 16 and 24 decode_attn launches;
                then the tensor-parallel make_sharded_prefill_step of
-               qwen3-0.6b (the float32 model above), dbrx-132b and
-               deepseek-v3-671b (bf16, those models) on 4 rows of 100
-               seeded tokens against make_prefill_step: the last logits
-               bitwise, else within serve_vs_cpu's bound, no decode_attn
-               launch; no multi-card number (one card)
+               qwen3-0.6b (the float32 model above), dbrx-132b,
+               deepseek-v3-671b, mamba2-2.7b, recurrentgemma-2b and
+               whisper-base (bf16, those models; whisper's encoder over
+               1536 seeded frames) on 4 rows of 100 seeded tokens
+               against make_prefill_step: the last logits bitwise, else
+               within serve_vs_cpu's bound, no decode_attn launch; no
+               multi-card number (one card)
   train_resume python -m repro_torch.launch.train --variant full, float32,
                2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
                --deterministic with CUBLAS_WORKSPACE_CONFIG=:4096:8, as a
@@ -332,12 +335,12 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
   dryrun       python -m repro_torch.launch.dryrun --shape decode_32k
                --mesh single for qwen3-0.6b and dbrx-132b at full depth
                and deepseek-v3-671b cut to 1 dense + 4 MLA/MoE layers
-               (--layers 5, the reference's depth rule), three children
-               at once with
-               no card visible (rank 0's sharded decode step on meta
-               tensors over a fake 256-rank process group): ok records
-               whose argument bytes equal launch.specs' sum here and
-               whose all-gathers lie below 32 MiB, 64 MiB and 512 MiB;
+               (--layers 5, the reference's depth rule), in children started
+               after the build, all at once, at the lowest CPU priority, with
+               no card visible (rank 0's sharded decode step on meta tensors
+               over a fake 256-rank process group): ok records whose argument
+               bytes equal launch.specs' sum here and whose all-gathers lie
+               below 32 MiB, 64 MiB and 512 MiB;
                meanwhile each cell's rank-0 tensor-parallel
                make_sharded_serve_step on the card over a fake 256-rank
                group (its collectives move nothing), at full width in
@@ -358,12 +361,14 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                bounds (the model call's at most 1.05 of the step); the
                router's service model reads qwen3-0.6b's record. Then
                the --shape prefill_32k records (children started with
-               the others) of qwen3-0.6b at --layers 8, internvl2-76b at
-               2, dbrx-132b at 4 and deepseek-v3-671b at 5, and
+               the others) of qwen3-0.6b at --layers 4, internvl2-76b at
+               2, dbrx-132b at 4, deepseek-v3-671b at 2, mamba2-2.7b at
+               4, recurrentgemma-2b and whisper-base at full depth, and
                once the decode cells are freed each one's rank-0
                tensor-parallel make_sharded_prefill_step on the card (2
                rows of 32768 tokens, internvl2's 256 patches before
-               them, bf16) held to its record as the decode cells are,
+               them, whisper's 1536 frames beside them, bf16) held to
+               its record as the decode cells are,
                with no decode_attn launch. No *_vs_cpu twin: the dry run
                touches no device, and serve_vs_cpu and distributed hold
                the decode and prefill steps' numerics
@@ -385,11 +390,12 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                autograd step, and an Adam step on the card and the CPU
   tune         benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65,
                1800 s, 120 steps) cut in depth to seed 0 (of 0-2: the
-               room for the encdec and VLM phases) through tune_gradient
+               room for the encdec and VLM phases) and bias 0.55 (for
+               the wall) through tune_gradient
                on the card: objective <= grid objective in every row, 121
                forward and 120 reverse relax launches a trace, no
                spork_predict launch; wall, ms per Adam step and per real
-               simulation, the seconds the cut frees (the 4 traces cut x
+               simulation, the seconds the cut frees (the 5 traces cut x
                the mean wall of a tuned trace), and the full grid's
                projected time (run only when under 120 s)
   tune_vs_cpu  the row (0.55, 0) with device="cpu": headroom, gain and
@@ -398,9 +404,9 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                grid search's choice
   fig4         benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0 (SporkE,
                SporkC, SporkE-ideal, MArk-ideal at a 60 s FPGA spin-up,
-               biases 0.5-0.75, 10 seeds, 7200 s) through sweep on the
-               card: spork_predict launches equal to the plan's ticks;
-               wall and the 16 rows
+               biases 0.5-0.75, 10 seeds, 3600 s of its 7200 for the
+               wall) through sweep on the card: spork_predict launches
+               equal to the plan's ticks; wall and the 16 rows
   fig4_vs_cpu  the Spork cells (SporkE, SporkC, SporkE-ideal) of bias
                0.5, seed 0 on the CPU: counters identical, floats within
                1e-5
@@ -428,9 +434,10 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                training phases) on the card and the CPU from the same
                arrival streams: counters identical, floats within 1e-5
   fleet        benchmarks/fleet_suite.py in its fast mode (16, 64, 256 and
-               1024 tenants x 3 admission policies, 60 s, 0.05 workers a
-               tenant) through sweep_fleet on the card, every arrival slot
-               one arrival launch (B = 1): at most 8 dispatches, tenant
+               1024 tenants x 3 admission policies, 0.05 workers a
+               tenant; 20 s of its 60 s for the wall) through
+               sweep_fleet on the card, every arrival slot one arrival
+               launch (B = 1): at most 8 dispatches, tenant
                rows conserving to each cell's totals, arrival launches
                equal to the slots walked; the 16- and 64-tenant cells also
                through FleetSim on the card and TenantRouter on one
@@ -626,8 +633,13 @@ DECODE_LSE_TOL = 2e-5
 DECODE_SHARDS = 16
 DECODE_BF16_STEPS = 4            # bf16 also within 4 x 2^-8 x max|want|
 # serve: qwen3-0.6b at full width in bf16, 8 requests of 128 prompt tokens
-# and 64 new tokens each, in 8 slots of 1024 positions
+# and 64 new tokens each, in 8 slots of 1024 positions; cut in depth to
+# SERVE_LAYERS of 28 for the wall (the engine prefills one token a step,
+# 1088 host-bound steps: 58.23 s of prefill at full depth on a fast host,
+# ~1.5x that on a slow one; every layer runs alike, and serve_vs_cpu
+# holds the full depth's numerics)
 SERVE_ARCH = "qwen3-0.6b"
+SERVE_LAYERS = 4
 SERVE_DTYPE = "bfloat16"
 SERVE_SLOTS = 8
 SERVE_MAX_LEN = 1024
@@ -679,12 +691,14 @@ RELAX_DEP_CYCLES = {"float32": 4, "float64": 8}
 RELAX_ADAM_STEPS = 50            # Adam steps timed on the card
 RELAX_ADAM_CPU_STEPS = 5         # and on the CPU
 # tune: benchmarks/policy_tuning.py's fast grid on the card, cut in depth
-# from its 3 seeds to 1 (both biases, the horizon and the steps as they
-# are) to make room for the encoder-decoder and VLM serving phases; the
-# line reports the seconds the cut frees, TUNE_SEEDS_CUT traces x the
+# from its 3 seeds to 1 (the horizon and the steps as they are) to make
+# room for the encoder-decoder and VLM serving phases, and from its biases
+# 0.55 and 0.65 to the first for the wall (13.92 s a trace on a fast
+# host); the line reports the seconds the cut frees, the traces cut x the
 # mean wall of a tuned trace. Its full grid runs only when the fast run
 # projects it under TUNE_FULL_MAX_S
-TUNE_BIASES = (0.55, 0.65)
+TUNE_GRID_BIASES = (0.55, 0.65)  # the fast grid's
+TUNE_BIASES = (0.55,)
 TUNE_SEEDS = 1
 TUNE_SEEDS_CUT = 2               # seeds 1-2 of the fast grid, not run
 TUNE_HORIZON_S = 1800
@@ -695,11 +709,16 @@ TUNE_FULL_MAX_S = 120.0
 TUNE_VS_CPU = (0.55, 0)          # tune_vs_cpu: the (bias, seed) rerun
 TUNE_THETA_RTOL = 1e-4
 # serve_hybrid: recurrentgemma-2b at full width in bf16, the serve phase's
-# requests in 8 slots of 2048 positions (its ring holds the whole window):
-# 8 attention layers x (1024 prefilled + 64 steps) decode_attn launches
+# requests in 8 slots of 2048 positions (its ring holds the whole window),
+# cut in depth to HYBRID_LAYERS of 26 for the wall (44.0 s of prefill at
+# full depth on a fast host, 15.27 s at 8): one super-block (RG-LRU,
+# RG-LRU, attention) and a tail of 2 RG-LRU layers, as the full depth's 8
+# and 2, so 1 attention layer x (1024 prefilled + 64 steps) decode_attn
+# launches
 HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_LAYERS = 5
 HYBRID_MAX_LEN = 2048
-HYBRID_LAUNCHES = 8 * (SERVE_REQUESTS * SERVE_PROMPT + SERVE_NEW)
+HYBRID_LAUNCHES = 1 * (SERVE_REQUESTS * SERVE_PROMPT + SERVE_NEW)
 # serve_hybrid_vs_cpu: the smoke config (window 16) in float32, one lane
 # of 8 prompt + 32 new positions (the ring wraps twice)
 HYBRID_VS_CPU_PROMPT = 8
@@ -750,17 +769,23 @@ MOE_TIE_GAP = 1e-5
 # serve_ssm: mamba2-2.7b at full width in bf16, cut in depth to
 # SSM_LAYERS of 64 for the wall (the phase is host-bound: ~130 s at full
 # depth, the largest; the moe family's tensor-parallel checks in
-# decode_attn_kernel, distributed and dryrun take the room), the serve
+# decode_attn_kernel, distributed and dryrun took it to 32 layers, and a
+# whole run of 1411.9 s on a slow host, with the SSM, hybrid and
+# encoder-decoder prefill checks in, to 16, and a run cut at 1200 s on a
+# slow host to 4; every layer runs alike and
+# the interleaving, cache-bytes and duality checks do not depend on the
+# depth), the serve
 # phase's requests in 8 slots (the cache does not
 # depend on max_len: its bytes are checked equal at SSM_STATE_LENS); the
 # duality in float32 at full width, n_layers cut 64 -> SSM_DUAL_LAYERS (the
-# recurrence's 300 steps at full depth took 14 s), at S = SSM_DUAL_S, two
-# chunks of 128 and a padded third, last logits within SSM_DUAL_RTOL x max
-# |logit| (the reference's test holds its smoke model to 1e-3 absolute)
+# recurrence's 300 steps at full depth took 14 s, at 16 layers 5.92 s), at S =
+# SSM_DUAL_S, two chunks of 128 and a padded third, last logits within
+# SSM_DUAL_RTOL x max |logit| (the reference's test holds its smoke model to
+# 1e-3 absolute)
 SSM_ARCH = "mamba2-2.7b"
-SSM_LAYERS = 32
+SSM_LAYERS = 4
 SSM_STATE_LENS = (512, 8192)
-SSM_DUAL_LAYERS = 16
+SSM_DUAL_LAYERS = 4
 SSM_DUAL_S = 300
 SSM_DUAL_RTOL = 1e-3
 # serve_ssm_vs_cpu: full width in float32, n_layers cut 64 -> 4, 2 lanes
@@ -828,8 +853,9 @@ DIST_FAMILIES = (("mamba2-2.7b", 4, 0, False),
                  ("whisper-base", 6, 0, True))
 # and the tensor-parallel make_sharded_prefill_step there, against
 # make_prefill_step on the same weights: qwen3-0.6b on the train step's
-# model (float32, 4 layers) and DIST_MOE's two models (bf16), on
-# DIST_SERVE_ROWS rows of DIST_PREFILL_LEN seeded tokens; the last
+# model (float32, 4 layers), DIST_MOE's two models and DIST_FAMILIES'
+# three (bf16), on DIST_SERVE_ROWS rows of DIST_PREFILL_LEN seeded tokens
+# (whisper-base's encoder over its src_len seeded frames); the last
 # logits bitwise, else within serve_vs_cpu's bound
 DIST_PREFILL_LEN = 100
 # train_resume: python -m repro_torch.launch.train at full width, float32,
@@ -844,24 +870,24 @@ RESUME_STEPS = 4
 RESUME_EVERY = 2
 RESUME_TIMEOUT_S = 300
 CUBLAS_DETERMINISTIC = ":4096:8"
-# dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of
-# each DRYRUN_CELLS cell's decode_32k on the (16, 16) mesh in a child with
-# no card visible (every child at once); the card runs that
-# rank's tensor-parallel step (its 8 of 128 rows, its shard of the 32768
-# positions, every row at 32767 valid positions) over a fake 256-rank
-# group and holds it to the record: FLOPs exactly, the peak within 10 % +
-# 256 MiB (allocator rounding, cuBLAS's workspace), the model call's
-# roofline bound at most 1.05 of the measured step; the record's
-# all-gathers below the cell's limit (the gathering steps moved
-# 31257131520 B (qwen3-0.6b) and 304901718528 B (dbrx-132b), their cache
-# rows and experts, and 6765904384 B (mamba2-2.7b), 5926955520 B
-# (recurrentgemma-2b) and 3513809408 B (whisper-base), every parameter
-# and state row). mamba2-2.7b's step launches no decode_attn. Per cell: the arch, --layers (None: full depth), the
-# all-gather limit, whether the path's decode_attn calls take the
-# log-sum-exp (a sequence-sharded KV cache), and the phase line's key for
-# the cell. deepseek-v3-671b is cut in depth by --layers 5, which keeps 1
-# dense + 4 MLA/MoE layers under the dry run's depth rule: rank 0's
-# 86375013920 B of arguments at full depth do not fit one card
+# dryrun: python -m repro_torch.launch.dryrun writes rank 0's record of each
+# DRYRUN_CELLS cell's decode_32k on the (16, 16) mesh in a child with no card
+# visible (every child at once, started after the build at the lowest CPU
+# priority); the card runs that rank's tensor-parallel step
+# (its 8 of 128 rows, its shard of the 32768 positions, every row at 32767
+# valid positions) over a fake 256-rank group and holds it to the record: FLOPs
+# exactly, the peak within 10 % + 256 MiB (allocator rounding, cuBLAS's
+# workspace), the model call's roofline bound at most 1.05 of the measured
+# step; the record's all-gathers below the cell's limit (gathering the cache
+# rows and experts would move 31257131520 B (qwen3-0.6b) and 304901718528 B
+# (dbrx-132b), and every parameter and state row 6765904384 B (mamba2-2.7b),
+# 5926955520 B (recurrentgemma-2b) and 3513809408 B (whisper-base)).
+# mamba2-2.7b's step launches no decode_attn. Per cell: the arch, --layers
+# (None: full depth), the all-gather limit, whether the path's decode_attn
+# calls take the log-sum-exp (a sequence-sharded KV cache), and the phase
+# line's key for the cell. deepseek-v3-671b is cut in depth by --layers 5,
+# which keeps 1 dense + 4 MLA/MoE layers under the dry run's depth rule: rank
+# 0's 86375013920 B of arguments at full depth do not fit one card
 DRYRUN_CELLS = (("qwen3-0.6b", None, 32 * 2 ** 20, True, None),
                 ("dbrx-132b", None, 64 * 2 ** 20, True, "dbrx"),
                 ("deepseek-v3-671b", 5, 512 * 2 ** 20, False, "deepseek"),
@@ -879,14 +905,28 @@ DRYRUN_SHAPE = "decode_32k"
 # the arch, --layers and the phase line's key. internvl2-76b, dbrx-132b
 # and deepseek-v3-671b are cut in depth as their ranks' full-depth
 # records hold 8705196032, 16388005888 and 86375013920 B of arguments;
-# qwen3-0.6b to 8 of 28 layers for the phase's wall (at full depth its
+# qwen3-0.6b to 4 of 28 layers for the phase's wall (at full depth its
 # card step took 3.1 s and its record's child ~58 s among the others,
-# the phase 118 s; tests/test_torch_dryrun.py holds the full-depth record
-# to the 2-layer one, layer for layer)
-DRYRUN_PREFILL_CELLS = (("qwen3-0.6b", 8, "qwen3"),
+# the phase 118 s; at 8 layers 897.51 ms a step; tests/test_torch_dryrun.py
+# holds the full-depth record to the 2-layer one, layer for layer);
+# mamba2-2.7b to 4 of 64 for the same reason (its full-depth record's
+# child takes ~50 s alone on the CPU: the SSD's chunk loop on meta
+# tensors; at 8 layers 169.83 ms a step); deepseek-v3-671b to 1 dense
+# + 1 MLA/MoE layer (--layers 2) for the wall, since the three cells
+# below came in (at --layers 5, 1 + 4, its card cell took 17.5 s, 2485 ms
+# a step; every MLA/MoE layer alike, so one holds the record's count);
+# recurrentgemma-2b (26
+# layers, its RG-LRU scans on the rank's channels and its local
+# attention by the context rule, 10 heads on 16 ranks) and whisper-base
+# (6 + 6, the context rule for its 8 heads, its encoder over 1536
+# frames) at full depth
+DRYRUN_PREFILL_CELLS = (("qwen3-0.6b", 4, "qwen3"),
                         ("internvl2-76b", 2, "internvl2"),
                         ("dbrx-132b", 4, "dbrx"),
-                        ("deepseek-v3-671b", 5, "deepseek"))
+                        ("deepseek-v3-671b", 2, "deepseek"),
+                        ("mamba2-2.7b", 4, "mamba2"),
+                        ("recurrentgemma-2b", None, "recurrentgemma"),
+                        ("whisper-base", None, "whisper"))
 DRYRUN_PREFILL_SHAPE = "prefill_32k"
 DRYRUN_PREFILL_ROWS = 2          # 32 rows over 16 data ranks
 DRYRUN_PREFILL_LEN = 32768
@@ -897,13 +937,16 @@ DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PEAK_SLACK = 256 * 2 ** 20
 DRYRUN_MAX_SHARE = 1.05
 DRYRUN_TIMEOUT_S = 300
-# fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0
+# fig4: benchmarks/fig4_spork_vs_mark.py at BENCH_FAST=0, its traces cut
+# from 7200 s to 3600 s for the wall (34.52 s at 7200 s on a fast host;
+# 4 seeds of 10 took 31.93 s: the sweep's wall follows its steps in time,
+# not its cells)
 FIG4_SCHEDULERS = (("SporkE", "spork", 1.0), ("SporkC", "spork", 0.0),
                    ("SporkE-ideal", "spork_ideal", 1.0),
                    ("MArk-ideal", "mark_ideal", 1.0))
 FIG4_BIASES = (0.5, 0.6, 0.7, 0.75)
 FIG4_SEEDS = 10
-FIG4_HORIZON_S = 7200
+FIG4_HORIZON_S = 3600
 FIG4_SPIN_UP_S = 60.0
 # the device the phases run on
 CARD = "cuda"
@@ -931,9 +974,12 @@ CHAOS_VS_CPU = "crash_storm"
 CHAOS_VS_CPU_TAGS = ("base", 1.0)    # its cells rerun on the CPU, under
 CHAOS_VS_CPU_POLICY = "SporkE"       # one dispatcher
 # benchmarks/fleet_suite.py in its fast mode: 16-1024 Zipf tenants x 3
-# admission policies, 60 s tenant horizons at 0.05 workers a tenant
+# admission policies at 0.05 workers a tenant, the tenant horizons cut from
+# the suite's 60 s to 20 s for the wall (the grid walks one arrival launch
+# a slot, 61284 slots in 77.16 s at 60 s on a fast host; the 16-tenant
+# chunk keeps FLEET_CHECK_ENTRIES entries)
 FLEET_SCALES = (16, 64, 256, 1024)
-FLEET_HORIZON_S = 60.0
+FLEET_HORIZON_S = 20.0
 FLEET_DEMAND = 0.05
 FLEET_SEED = 1
 FLEET_MAX_DISPATCHES = 8
@@ -2855,7 +2901,8 @@ def _interleave_regression(tag: str, model, prompts, max_len: int,
 
 def phase_serve(torch) -> dict:
     """SporkRouter on the card, then ServeEngine over qwen3-0.6b at full
-    width in bf16: every decode attention goes through the kernel."""
+    width in bf16, SERVE_LAYERS of its 28 layers: every decode attention
+    goes through the kernel."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ops
@@ -2863,7 +2910,7 @@ def phase_serve(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     router = _serve_router(torch)
-    cfg = get_config(SERVE_ARCH, "full")
+    cfg = get_config(SERVE_ARCH, "full").replace(n_layers=SERVE_LAYERS)
     check(cfg.dtype == getattr(torch, SERVE_DTYPE),
           f"serve: the full config is not {SERVE_DTYPE}")
     rng = np.random.default_rng(SERVE_SEED)
@@ -2918,6 +2965,7 @@ def phase_serve(torch) -> dict:
           "serve: the CLI's engine emitted the wrong number of tokens")
     out = {"phase": "serve", "router": router,
            "engine": {"arch": SERVE_ARCH, "variant": "full",
+                      "n_layers": cfg.n_layers,
                       "dtype": SERVE_DTYPE, "params": cfg.param_count(),
                       "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
                       "requests": SERVE_REQUESTS, "prompt": SERVE_PROMPT,
@@ -3219,8 +3267,8 @@ def phase_relax_kernel(torch) -> dict:
 
 
 def phase_tune(torch) -> dict:
-    """benchmarks/policy_tuning.py's fast grid (biases 0.55/0.65, seed 0,
-    cut from seeds 0-2; 1800 s, 120 steps) through the port's
+    """benchmarks/policy_tuning.py's fast grid (bias 0.55 of 0.55/0.65,
+    seed 0 of 0-2; 1800 s, 120 steps) through the port's
     tune_gradient on the card: objective <= grid objective in every row;
     2 x steps + 1 relax launches a trace (one forward and one reverse an
     Adam step, and the final loss)."""
@@ -3290,6 +3338,8 @@ def phase_tune(torch) -> dict:
     adam_ms = _host_ms(lambda: tune.fit(spec, steps=TUNE_STEPS), 1,
                        torch) / TUNE_STEPS
     n_full = len(TUNE_FULL["biases"]) * TUNE_FULL["seeds"]
+    traces_cut = (len(TUNE_GRID_BIASES) * (TUNE_SEEDS + TUNE_SEEDS_CUT)
+                  - len(TUNE_BIASES) * TUNE_SEEDS)
     scale = TUNE_FULL["horizon_s"] / TUNE_HORIZON_S
     evals = sum(r["sim_evals"] for r in rows) / len(rows)
     projected = n_full * (scale * (t_grid + evals * t_sim)
@@ -3305,8 +3355,9 @@ def phase_tune(torch) -> dict:
            "spork_predict_launches": predict,
            "depth_cut": {
                "seeds_cut": TUNE_SEEDS_CUT,
-               "traces_cut": TUNE_SEEDS_CUT * len(TUNE_BIASES),
-               "freed_s": TUNE_SEEDS_CUT * len(TUNE_BIASES)
+               "biases_cut": len(TUNE_GRID_BIASES) - len(TUNE_BIASES),
+               "traces_cut": traces_cut,
+               "freed_s": traces_cut
                * sum(r["wall_grad_s"] for r in rows) / len(rows),
                "reckoning": "traces cut x the mean wall_grad_s of the "
                             "traces run"},
@@ -3462,9 +3513,10 @@ def _decode_timing(call, launches: int, torch,
 
 def phase_serve_hybrid(torch) -> dict:
     """SporkRouter("recurrentgemma-2b") on the card, then ServeEngine over
-    recurrentgemma-2b at full width in bf16 (8 slots of 2048 positions:
-    the ring holds the whole window; 8 requests of 128 + 64 tokens):
-    decode_attn at D = 256 on every attention layer of every step."""
+    recurrentgemma-2b at full width in bf16, HYBRID_LAYERS of its 26
+    layers (8 slots of 2048 positions: the ring holds the whole window; 8
+    requests of 128 + 64 tokens): decode_attn at D = 256 on every
+    attention layer of every step."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ops
@@ -3472,7 +3524,7 @@ def phase_serve_hybrid(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     router = _serve_router(torch, HYBRID_ARCH)
-    cfg = get_config(HYBRID_ARCH, "full")
+    cfg = get_config(HYBRID_ARCH, "full").replace(n_layers=HYBRID_LAYERS)
     check(cfg.dtype == getattr(torch, SERVE_DTYPE),
           f"serve_hybrid: the full config is not {SERVE_DTYPE}")
     n_attn = sum(1 for i in range(cfg.n_layers)
@@ -3545,6 +3597,7 @@ def phase_serve_hybrid(torch) -> dict:
                                          HYBRID_MAX_LEN)
     out = {"phase": "serve_hybrid", "router": router,
            "engine": {"arch": HYBRID_ARCH, "variant": "full",
+                      "n_layers": cfg.n_layers,
                       "dtype": SERVE_DTYPE, "params": n_params,
                       "attention_layers": n_attn, "ring": ring,
                       "slots": SERVE_SLOTS, "max_len": HYBRID_MAX_LEN,
@@ -4932,27 +4985,35 @@ def _dist_prefill(model, mesh, params: dict, gen, torch) -> dict:
     """The tensor-parallel `make_sharded_prefill_step` on the one-rank
     mesh (``params``: the model's own weights as DTensors placed by
     param_shardings) against `make_prefill_step` on the model's own
-    weights, on DIST_SERVE_ROWS x DIST_PREFILL_LEN tokens from ``gen``:
+    weights, on DIST_SERVE_ROWS x DIST_PREFILL_LEN tokens from ``gen``
+    (an encoder-decoder's src_len frames standard normal from it too):
     the last logits bitwise, else within serve_vs_cpu's bound
     (VS_CPU_RTOL x their largest |value|; the line says which); the step
     never reads the model's parameters and launches no decode_attn."""
     from repro_torch.kernels.decode_attn import ops
     from repro_torch.train.loop import (make_prefill_step,
                                         make_sharded_prefill_step)
-    tokens = torch.randint(0, model.cfg.vocab_size,
-                           (DIST_SERVE_ROWS, DIST_PREFILL_LEN), generator=gen,
-                           device=CARD, dtype=torch.int32)
+    cfg = model.cfg
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (DIST_SERVE_ROWS, DIST_PREFILL_LEN),
+        generator=gen, device=CARD, dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.randn(
+            (DIST_SERVE_ROWS, cfg.src_len, cfg.d_model), generator=gen,
+            device=CARD).to(cfg.dtype)
     step = make_sharded_prefill_step(model, mesh)
     before = ops.decode_attention.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = step(params, {"tokens": tokens}).to_local()
+    got = step(params, batch).to_local()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.decode_attention.launches - before
-    want = make_prefill_step(model)({"tokens": tokens})
-    gap = _logit_gap(got, want, model.cfg.vocab_size)
+    want = make_prefill_step(model)(batch)
+    gap = _logit_gap(got, want, cfg.vocab_size)
     line = {"rows": DIST_SERVE_ROWS, "seq": DIST_PREFILL_LEN,
+            "frames": (list(batch["frontend"].shape)
+                       if "frontend" in batch else None),
             "logits_shape": list(got.shape), "logit_gap_rel": gap,
             "equality": "bitwise" if torch.equal(got, want)
             else "serve_vs_cpu bound",
@@ -5130,8 +5191,8 @@ def phase_distributed(torch) -> dict:
     placements census; hierarchical_psum, ring_all_gather and
     pipeline_forward on the one-rank mesh against the identity and the
     sequential stage, bitwise; the tensor-parallel serve steps and, for
-    qwen3-0.6b and DIST_MOE's models, the tensor-parallel prefill step
-    (`_dist_prefill`). One card: no multi-card number."""
+    qwen3-0.6b, DIST_MOE's and DIST_FAMILIES' models, the tensor-parallel
+    prefill step (`_dist_prefill`). One card: no multi-card number."""
     import shutil
     import torch.distributed as dist
     from repro_torch.distributed import sharding
@@ -5206,7 +5267,7 @@ def phase_distributed(torch) -> dict:
         serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch,
                                           prefill=True)
         serve_families = _distributed_tp_serve(mesh, DIST_FAMILIES, True,
-                                               torch)
+                                               torch, prefill=True)
         out = {"phase": "distributed", "arch": TRAIN_ARCH, "dtype": "float32",
                "n_layers": TRAIN_VS_CPU_LAYERS, "mesh": list(DIST_MESH),
                "mesh_dim_names": ["data", "model"], "backend": "nccl",
@@ -5518,7 +5579,9 @@ def _dryrun_tag(arch: str, layers, shape: str = DRYRUN_SHAPE) -> str:
 def _dryrun_child(arch: str, layers, out_dir: str,
                   shape: str = DRYRUN_SHAPE):
     """The dry-run CLI writing one cell's record into ``out_dir``, in a
-    child with no card visible."""
+    child with no card visible and at the lowest CPU priority; its
+    standard output and error go to ``<tag>.out`` and ``<tag>.err``
+    there."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
@@ -5526,8 +5589,52 @@ def _dryrun_child(arch: str, layers, out_dir: str,
            "--shape", shape, "--mesh", "single", "--out", out_dir]
     if layers:
         cmd += ["--layers", str(layers)]
-    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    logs = Path(out_dir) / _dryrun_tag(arch, layers, shape)
+    with open(f"{logs}.out", "w") as out, open(f"{logs}.err", "w") as err:
+        child = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                 stderr=err)
+    # lowered from here, not in the child before exec: this process has
+    # threads, and a fork that runs Python before exec may deadlock
+    os.setpriority(os.PRIO_PROCESS, child.pid, 19)
+    return child
+
+
+def start_dryrun_records() -> dict:
+    """Starts the dryrun phase's record children (every DRYRUN_CELLS and
+    DRYRUN_PREFILL_CELLS cell, all at once, at the lowest CPU priority),
+    so that they trace on the host's idle cores while the card runs the
+    phases before `dryrun`; a thread a child takes its wall. An exit
+    handler stops any child still running and removes the records."""
+    import atexit
+    import tempfile
+    import threading
+    out_dir = tempfile.TemporaryDirectory()
+    jobs = [(arch, layers, DRYRUN_SHAPE) for arch, layers, *_ in DRYRUN_CELLS]
+    jobs += [(arch, layers, DRYRUN_PREFILL_SHAPE)
+             for arch, layers, _ in DRYRUN_PREFILL_CELLS]
+    walls, children, watchers = {}, {}, {}
+
+    def watch(tag, child, t0):
+        child.wait()
+        walls[tag] = time.perf_counter() - t0
+
+    def stop():
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        out_dir.cleanup()
+
+    atexit.register(stop)
+    for arch, layers, shape in jobs:
+        tag = _dryrun_tag(arch, layers, shape)
+        t0 = time.perf_counter()
+        children[tag] = _dryrun_child(arch, layers, out_dir.name, shape)
+        watchers[tag] = threading.Thread(target=watch, daemon=True,
+                                         args=(tag, children[tag], t0))
+        watchers[tag].start()
+    return {"dir": out_dir, "children": children, "watchers": watchers,
+            "walls": walls, "stop": stop}
 
 
 def _dryrun_prepare(arch: str, layers, mesh, torch) -> dict:
@@ -5737,17 +5844,16 @@ def _dryrun_checks(out: dict) -> None:
 
 
 def _dryrun_prefill(arch: str, layers, rec: dict, mesh, torch) -> dict:
-    """One DRYRUN_PREFILL_CELLS cell on the card, once the CPU children
-    have ended: rank 0's tensor-parallel `make_sharded_prefill_step`
-    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake
-    group), the record's arguments made real (`_card_tree`: the
-    parameters x 0.02, 2 rows of 32768 seeded tokens, internvl2's patches
-    standard normal), one warm-up, one step under FlopCounterMode with
-    the peak taken over it (arguments resident), then DRYRUN_REPS steps
-    timed by CUDA events; decode_attn's launches over all of them. The
-    fake collectives move nothing, so the values are not the model's
-    (the distributed phase holds the step's numerics). Frees the cell's
-    tensors."""
+    """One DRYRUN_PREFILL_CELLS cell on the card, once the CPU children have
+    ended: rank 0's tensor-parallel `make_sharded_prefill_step`
+    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake group), the
+    record's arguments made real (`_card_tree`: the parameters x 0.02, 2 rows
+    of 32768 seeded tokens, internvl2's patches and whisper's frames standard
+    normal), one warm-up, one step under FlopCounterMode with the peak taken
+    over it (arguments resident), then DRYRUN_REPS steps timed by CUDA events;
+    decode_attn's launches over all of them. The fake collectives move nothing,
+    so the values are not the model's (the distributed phase holds the step's
+    numerics). Frees the cell's tensors."""
     import statistics
 
     from torch.utils.flop_counter import FlopCounterMode
@@ -5846,16 +5952,19 @@ def _dryrun_prefill_checks(out: dict) -> None:
           f"{tag}: logits {out['logits_shape']}")
 
 
-def phase_dryrun(torch) -> dict:
+def phase_dryrun(started: dict, torch) -> dict:
     """(a) `python -m repro_torch.launch.dryrun` writes rank 0's record of
     each DRYRUN_CELLS cell (qwen3-0.6b, dbrx-132b, mamba2-2.7b,
     recurrentgemma-2b and whisper-base decode_32k at full depth,
     deepseek-v3-671b's cut to 1 dense + 4 MLA/MoE layers) on the (16, 16)
-    mesh, in children with no card visible, while the card runs
-    the untimed part of (b); argument bytes are `launch.specs`' sum,
-    computed here. (b) The same rank's tensor-parallel step on the card:
-    `make_sharded_serve_step` over a fake process group of 256 ranks in
-    this process (the distributed phase has destroyed its NCCL group), on
+    mesh, in children with no card visible (``started``, from
+    `start_dryrun_records` after the build: they trace while the card
+    runs the earlier phases, and this phase waits for any still
+    running after the untimed part of (b)); argument bytes are
+    `launch.specs`' sum, computed here. (b) The same rank's tensor-parallel
+    step on the card: `make_sharded_serve_step` over a fake process group of
+    256 ranks in this process (the distributed phase has destroyed its NCCL
+    group), on
     a cuda `DeviceMesh` of the production shape, with the record's
     arguments made real on the card (full width in bf16, rank 0's shards
     of the parameters and of the 32768-position cache: 8 rows, every row
@@ -5883,7 +5992,6 @@ def phase_dryrun(torch) -> dict:
     cells, with no decode_attn launch. The line keeps qwen3-0.6b's decode
     keys at its top level, the other decode cells under their keys and
     the prefill cells under "prefill"."""
-    import tempfile
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding
@@ -5892,14 +6000,8 @@ def phase_dryrun(torch) -> dict:
     from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
                                          make_production_mesh)
     from repro_torch.serve import router
-    out_dir = tempfile.TemporaryDirectory()
-    t0 = time.perf_counter()
-    jobs = [(arch, layers, DRYRUN_SHAPE) for arch, layers, *_ in DRYRUN_CELLS]
-    jobs += [(arch, layers, DRYRUN_PREFILL_SHAPE)
-             for arch, layers, _ in DRYRUN_PREFILL_CELLS]
-    children = [_dryrun_child(arch, layers, out_dir.name, shape)
-                for arch, layers, shape in jobs]
-    lines, prefill_lines, child_s, child_out = [], [], {}, {}
+    out_dir, children = started["dir"], started["children"]
+    lines, prefill_lines, child_out = [], [], {}
     try:
         dryrun_mod._fake_group(256)
         mesh = sharding.device_mesh(make_production_mesh(), "cuda")
@@ -5908,17 +6010,19 @@ def phase_dryrun(torch) -> dict:
                  for arch, layers, *_ in DRYRUN_CELLS]
         # the CPU children end before anything is timed: the steps are
         # host-bound, and a loaded host would slow them
-        records = {}
-        for (arch, layers, shape), child in zip(jobs, children):
-            tag = _dryrun_tag(arch, layers, shape)
-            stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
-            child_s[tag] = time.perf_counter() - t0
-            child_out[tag] = stdout.strip().splitlines()[-1:]
+        records, t0 = {}, time.perf_counter()
+        for tag, child in children.items():
+            child.wait(timeout=DRYRUN_TIMEOUT_S)
+            started["watchers"][tag].join()
+            logs = Path(out_dir.name) / tag
+            child_out[tag] = Path(f"{logs}.out").read_text().strip(
+                ).splitlines()[-1:]
             check(child.returncode == 0,
                   f"dryrun {tag}: the CLI exited {child.returncode}: "
-                  f"{stderr[-2000:]}")
+                  f"{Path(f'{logs}.err').read_text()[-2000:]}")
             records[tag] = json.loads((Path(out_dir.name) / (tag + ".json")
                                        ).read_text())
+        children_wait_s = time.perf_counter() - t0
         for cell, (arch, layers, max_gather, lse, _) in zip(cells,
                                                             DRYRUN_CELLS):
             lines.append(_dryrun_finish(
@@ -5938,11 +6042,8 @@ def phase_dryrun(torch) -> dict:
         sharding.set_fsdp(False)
         if dist.is_initialized():
             dist.destroy_process_group()
-        for child in children:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
-        out_dir.cleanup()
+        started["stop"]()
+    child_s = started["walls"]
     for line, (arch, layers, *_) in zip(lines, DRYRUN_CELLS):
         line["child_wall_s"] = child_s[_dryrun_tag(arch, layers)]
         line["child_stdout"] = child_out[_dryrun_tag(arch, layers)]
@@ -5963,6 +6064,7 @@ def phase_dryrun(torch) -> dict:
                        in zip(DRYRUN_PREFILL_CELLS, prefill_lines)},
            "prefill_cells_s": prefill_s,
            "children_s": max(child_s.values()),
+           "children_wait_s": children_wait_s,
            "decode_attn_launches_all": sum(line["decode_attn_launches"]
                                            for line in lines),
            "router": {"token_s_accel": served.token_s_accel,
@@ -6014,7 +6116,7 @@ def _fig4_cells():
 
 def phase_fig4(torch) -> dict:
     """Fig. 4 (SporkE, SporkC, SporkE-ideal, MArk-ideal at a 60 s FPGA
-    spin-up, biases 0.5-0.75, 10 seeds, 7200 s) through sweep on the
+    spin-up, biases 0.5-0.75, 10 seeds, FIG4_HORIZON_S) through sweep on the
     card: spork_predict launches equal to the plan's allocator ticks; the
     figure's rows (means over seeds)."""
     import numpy as np
@@ -7024,6 +7126,7 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     phase_build()
+    dryrun_records = start_dryrun_records()
     kernel = phase_kernel(torch)
     minplus = phase_minplus_kernel(torch)
     main_run = phase_main(torch)
@@ -7059,7 +7162,7 @@ def main() -> int:
     phase_distributed_vs_cpu(dist_run, resume["cpu"]["distributed"], torch)
     phase_train_resume_vs_cpu(resume, torch)
     del dist_run, resume
-    dryrun = phase_dryrun(torch)
+    dryrun = phase_dryrun(dryrun_records, torch)
     relax = phase_relax_kernel(torch)
     tune_run = phase_tune(torch)
     phase_tune_vs_cpu(tune_run)

@@ -57,31 +57,51 @@ and the cache never do:
 Norms, rope, activations and the residual run on the gathered activations
 of the rank's rows, redundantly over 'model'.
 
-Tensor-parallel prefill (the dense, VLM and MoE families) is sequence
-parallel with tensor-parallel sub-blocks, as in Megatron-LM (Korthikanti
-et al., 2022), under the reference's layout constraints: the residual
-stream between sub-blocks holds the rank's block of the sequence's
-positions, padded at its end to a multiple of 'model' (`seq_local`). A
-prefill holds far more positions than a weight has rows, so there the
-weights stay and the activations move twice a sub-block:
+Tensor-parallel prefill (every family) is sequence parallel with
+tensor-parallel sub-blocks, as in Megatron-LM (Korthikanti et al.,
+2022), under the reference's layout constraints: the residual stream
+between sub-blocks holds the rank's block of the sequence's positions,
+padded at its end to a multiple of 'model' (`seq_local`). A prefill
+holds far more positions than a weight has rows, so there the weights
+stay and the activations move twice a sub-block:
 
-  * into an attention, MLP or MoE sub-block the normed activations of
-    the rank's positions are all-gathered along the sequence
-    (`seq_gather`); out of it the partial sums of its row product are
-    summed over 'model' onto the rank's positions by one reduce-scatter
-    (`seq_scatter`);
+  * into an attention, MLP, MoE, SSD or RG-LRU sub-block the normed
+    activations of the rank's positions are all-gathered along the
+    sequence (`seq_gather`); out of it the partial sums of its row
+    product are summed over 'model' onto the rank's positions by one
+    reduce-scatter (`seq_scatter`);
   * the column products take the rank's block of the columns (its q
     heads of ``wq``, its ff columns of ``w_gate``/``w_up``/``w_in``,
-    its heads of MLA's ``w_uq``/``w_ukv``: `column_block`), and the row
-    products the rank's rows of ``wo`` and ``w_down`` (`row_block`: one
-    all-to-all brings a column-split weight's rows, 1/n of it);
+    its heads of MLA's ``w_uq``/``w_ukv``, its channels of the RG-LRU's
+    ``w_x``/``w_gate``/``w_r``/``w_i``: `column_block`), and the row
+    products the rank's rows of ``wo``, ``w_down``, ``out_proj`` and
+    ``w_out`` (`row_block`: one all-to-all brings a column-split
+    weight's rows, 1/n of it);
   * where the KV heads do not divide 'model' the rank still needs the
     whole KV heads its q heads read (the reference's repeat-KV rule):
     their columns of ``wk``/``wv`` come by one all-to-all from the
-    ranks that hold them (`columns_of`);
-  * a norm's scale, the router and MLA's ``w_dq``/``w_dkv`` (whose
-    latents every head reads) are gathered whole (`whole`; `matmul`
-    gathers a split weight whole in prefill), never their outputs;
+    ranks that hold them (`columns_of`), as the SSD's ``in_proj``
+    columns of the rank's heads do (z, xs and dt, with B and C whole,
+    four spans in one all-to-all);
+  * where the q heads do not divide 'model' (recurrentgemma's 10,
+    whisper's 8, on 16 ranks) an attention keeps the rank's positions,
+    as the reference's layout falls back to: every head from the whole
+    ``wq``/``wk``/``wv``, the K/V of the rank's positions all-gathered
+    along the sequence and cut to its real positions (`seq_whole`), the
+    queries at their global positions, and the whole ``wo``, with no
+    reduce-scatter;
+  * an encoder's frames run under a context of their own length
+    (`with_seq_len`), on the rank's frames; its output is gathered once
+    and cut to the real frames, the memory that every cross-attention
+    reads whole;
+  * the SSD's gated norm over the whole ``d_inner`` all-reduces each
+    position's sum of squares of the rank's heads' channels; the
+    RG-LRU's gates read every channel of the convolved input, which is
+    all-gathered over the channels;
+  * a norm's scale, the router, MLA's ``w_dq``/``w_dkv`` (whose latents
+    every head reads) and the SSD's convolution are gathered whole
+    (`whole`, `entries`; `matmul` gathers a split weight whole in
+    prefill), never their outputs;
   * the embedding is a masked lookup of the rank's vocab rows at every
     position, a VLM's patches prepended, reduce-scattered onto the
     rank's positions; the final norm and the unembedding run on the last
@@ -93,8 +113,10 @@ weights stay and the activations move twice a sub-block:
     reduce-scattered onto the rank's positions together, then weighted
     and summed in the one-process order.
 
-Pads sit after every real position, so causal attention never lets a
-real position see one, and the MoE never routes them.
+Pads sit after every real position, so causal attention, the causal
+convolutions and the scans never let a real position see one, K/V are
+cut to the real positions before any attention, and the MoE never routes
+them.
 
 The sites consult the `TensorParallel` context that `active` installs
 (`repro_torch.train.loop.make_sharded_serve_step` does, around the
@@ -110,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 from dataclasses import dataclass
 
 import torch
@@ -305,15 +328,10 @@ class StateShard:
         return t.narrow(dim, self.offset, self.count)
 
     def columns(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """This shard's columns of ``x @ w``: the product itself where
-        ``w`` is a 'model' shard of its columns (the rank's, checked by
-        `take`), else cut from the whole product."""
-        y = x @ w
-        ctx = _CURRENT.get()
-        if ctx is None or ctx.model_shard(w) is None:
-            return y.narrow(-1, self.offset, self.count)
-        self.take(w)
-        return y
+        """This shard's columns of ``x @ w``: ``x`` times ``w`` where it is
+        a 'model' shard of its columns (the rank's, checked by `take`),
+        else times this shard's columns cut from the whole ``w``."""
+        return x @ self.take(w)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """``x``, this shard's entries along ``dim``, all-gathered over
@@ -345,10 +363,21 @@ class TensorParallel:
         self.states = states or {}
         # prefill's rule (`sequence_parallel`): the sequence's length, its
         # length padded to a multiple of 'model', the rank's positions
+        self._set_seq_len(seq_len)
+
+    def _set_seq_len(self, seq_len: int | None) -> None:
         self.seq_len = seq_len
         if seq_len is not None:
             self.seq_block = -(-seq_len // self.size)
             self.seq_padded = self.seq_block * self.size
+
+    def with_seq_len(self, seq_len: int) -> "TensorParallel":
+        """This context over another sequence of ``seq_len`` positions (an
+        encoder's frames): the same mesh and shards, the prefill rule on
+        the new sequence's positions."""
+        ctx = copy.copy(self)
+        ctx._set_seq_len(seq_len)
+        return ctx
 
     @classmethod
     def of_cache(cls, mesh, shards: dict[int, int], cache: dict
@@ -404,6 +433,17 @@ class TensorParallel:
         dim = self.model_shard(w)
         return w if dim is None else self.gather(w, dim)
 
+    def entries(self, t: torch.Tensor, lo: int, n: int,
+                dim: int = -1) -> torch.Tensor:
+        """Entries [lo, lo + n) of ``t`` along ``dim``: ``t`` itself where
+        it is a 'model' shard that holds exactly them, else cut from the
+        whole ``t`` (gathered where it is a shard of other entries)."""
+        dim %= t.dim()
+        if self.model_shard(t) == dim and t.shape[dim] == n \
+                and self.rank * n == lo:
+            return t
+        return self.whole(t).narrow(dim, lo, n)
+
     def column_block(self, w: torch.Tensor, unit: int = 1) -> torch.Tensor:
         """This rank's block of ``w``'s columns in whole units of ``unit``
         (a head's columns): ``w`` itself where it is a 'model' shard of
@@ -438,39 +478,65 @@ class TensorParallel:
 
     def columns_of(self, w: torch.Tensor, ranges) -> torch.Tensor:
         """Columns [lo, hi) of a 2-D ``w``, (lo, hi) this rank's entry of
-        ``ranges`` (one a 'model' rank, the same list on every rank): cut
-        from the whole ``w``, or, where ``w`` is a 'model' shard of its
-        columns, brought by one all-to-all over 'model' from the ranks
-        that hold them (each sends every rank the part of its columns that
-        rank asks for); the identity where every rank asks for its own."""
-        lo, hi = ranges[self.rank]
+        ``ranges`` (one a 'model' rank, the same list on every rank), or
+        where the entry is a list of such spans (ascending, disjoint) their
+        columns one after another: cut from the whole ``w``, or, where
+        ``w`` is a 'model' shard of its columns, brought by one all-to-all
+        over 'model' from the ranks that hold them (each sends every rank
+        the part of its columns that rank asks for); the identity where
+        every rank asks for its own."""
+        def merged(entry):                  # adjacent spans joined
+            out = []
+            for lo, hi in [entry] if isinstance(entry[0], int) else entry:
+                if out and out[-1][1] == lo:
+                    out[-1] = (out[-1][0], hi)
+                else:
+                    out.append((lo, hi))
+            return out
+
+        wants = [merged(e) for e in ranges]
+        spans = wants[self.rank]
+        if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+            raise ValueError(f"tensor parallel: column spans {spans} are "
+                             f"not ascending and disjoint")
         dim = self.model_shard(w)
         if dim is None:
-            return w[:, lo:hi]
+            return torch.cat([w[:, lo:hi] for lo, hi in spans], 1) \
+                if len(spans) > 1 else w[:, spans[0][0]:spans[0][1]]
         if dim != 1:
             raise ValueError(f"tensor parallel: {tuple(w.shape)} split on "
                              f"dim {dim}, not its columns")
         c = w.shape[1]
         held = [(r * c, (r + 1) * c) for r in range(self.size)]
-        if list(ranges) == held:
+        if all(want == [h] for want, h in zip(wants, held)):
             return w
 
         def part(a, b):
             return max(a[0], b[0]), min(a[1], b[1])
 
         mine = held[self.rank]
-        sends = [part(mine, want) for want in ranges]
-        send = [max(b - a, 0) for a, b in sends]
-        recv = [max(b - a, 0) for a, b in (part(h, (lo, hi)) for h in held)]
+        # to each rank the part of each of its spans that this rank holds;
+        # from each rank the part of each of this rank's spans it holds: the
+        # spans ascend, so both orders are ascending columns
+        sends = [[part(mine, s) for s in want] for want in wants]
+        send = [sum(max(b - a, 0) for a, b in parts) for parts in sends]
+        recv = [sum(max(b - a, 0) for a, b in (part(h, s) for s in spans))
+                for h in held]
         wt = w.T
-        x = torch.cat([wt[a - mine[0]:b - mine[0]]
-                       for (a, b), k in zip(sends, send) if k])
+        pieces = [wt[a - mine[0]:b - mine[0]] for parts in sends
+                  for a, b in parts if b > a]
+        x = torch.cat(pieces) if pieces else wt[:0]
         return _all_to_all(x, recv, send, self.groups[0]).T
 
     def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's positions (dim 1) all-gathered over 'model': every
         position of the padded sequence."""
         return _gather(x, 1, self.groups)
+
+    def seq_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's positions (dim 1) all-gathered over 'model' and cut
+        to the sequence's real positions: the pads at its end dropped."""
+        return self.seq_gather(x)[:, :self.seq_len]
 
     def _padded(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (B, L <= the padded length, ...) zero-padded along dim

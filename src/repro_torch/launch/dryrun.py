@@ -36,23 +36,22 @@ with the reference's keys where their meaning carries over:
       rank 0's local bytes of the step's outputs.
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
-      full parameters included where the step gathers into them; the
-      tensor-parallel decode step of every family, and the
-      tensor-parallel prefill step of the dense, VLM and MoE families,
-      compute on the argument shards and hold no full parameter: a moe
-      layer's dispatch buffers are those of the rank's experts).
+      full parameters included where the step gathers into them, as
+      the train step does; the tensor-parallel decode and prefill steps
+      of every family compute on the argument shards and hold no full
+      parameter: a moe layer's dispatch buffers are those of the rank's
+      experts).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)
       MemTracker's peak, and the bytes counted as for ``hlo_bytes``,
       over the model call alone (the step's ``model_call``:
-      `decode_step`, the tensor-parallel prefill's `last_logits`, the
-      gathering prefill's `forward`, or the train step's `loss`, whose
-      gradients the step takes after it), with the model (the rank's
-      parameter shards in the tensor-parallel steps) and the call's
-      inputs (the rank's rows, or its cache shard) resident: the work
-      one card runs for the rank,
-      without what the sharded step does around the call. Both are
+      `decode_step`, the prefill's `last_logits`, or the train step's
+      `loss`, whose gradients the step takes after it), with the model
+      (the rank's parameter shards in the tensor-parallel steps) and the
+      call's inputs (the rank's rows, or its cache shard) resident: the
+      work one card runs for the rank, without what the sharded step
+      does around the call. Both are
       taken within the step's one run: the model's method is wrapped for
       the cell. A decode or prefill cell's model-call FLOPs are its
       ``hlo_flops``: those steps compute no FLOPs outside the call.

@@ -23,7 +23,12 @@ over the rank's shard of the cache or of the encoder memory (its KV
 heads, or its positions, combined across ranks by log-sum-exp); inside
 the sharded prefill step the block gathers the rank's positions over
 the sequence, attends on the rank's q heads and the whole KV heads they
-read, and reduce-scatters its partial output product onto the positions.
+read, and reduce-scatters its partial output product onto the positions
+(the heads rule, where 'model' divides the q heads); where it does not
+(recurrentgemma's 10 heads, whisper's 8, on 16 ranks) the rank keeps its
+own query positions, attends with every head over the K/V of every real
+position, gathered along the sequence, and multiplies by the whole
+``wo`` (the context rule, the reference's fallback layout).
 """
 
 from __future__ import annotations
@@ -78,15 +83,17 @@ def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
     """Returns q (B,S,Hq,D), k,v (B,Skv,Hkv,D), K/V projected from ``xkv``
     (B, Skv, d) when it is given (an encoder memory) and from ``x``
     otherwise; qk-norm before rope, and no rope when ``positions`` is
-    None. In a prefill step (`tensor_parallel.sequence_parallel`) q is
-    the rank's block of the q heads and k, v the whole KV heads they
-    read, repeated to one a q head where the rank's q heads do not
-    group evenly onto them (the reference's repeat-KV rule)."""
+    None. In a prefill step (`tensor_parallel.sequence_parallel`) whose
+    'model' axis divides the q heads, q is the rank's block of the q
+    heads and k, v the whole KV heads they read, repeated to one a q
+    head where the rank's q heads do not group evenly onto them (the
+    reference's repeat-KV rule); where it does not divide them, every
+    head from the whole weights (`tensor_parallel.matmul`)."""
     b, s, _ = x.shape
     xkv = x if xkv is None else xkv
     skv = xkv.shape[1]
     ctx = tp.sequence_parallel()
-    if ctx is None:
+    if ctx is None or n_heads % ctx.size:
         q = tp.matmul(x, p.wq).reshape(b, s, n_heads, d_head)
         k = tp.matmul(xkv, p.wk).reshape(b, skv, n_kv_heads, d_head)
         v = tp.matmul(xkv, p.wv).reshape(b, skv, n_kv_heads, d_head)
@@ -111,12 +118,15 @@ def _project_qkv(p, x, n_heads, n_kv_heads, d_head, positions, rope_theta,
     return q, k, v
 
 
-def sdpa_chunked(q, k, v, *, causal=True, window=0, q_block=512):
+def sdpa_chunked(q, k, v, *, causal=True, window=0, q_block=512,
+                 kv_positions=None, q_positions=None):
     """Scaled dot-product attention, tiled over query blocks.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). Hq % Hkv == 0.
     Masks: causal (q_pos >= kv_pos) when ``causal`` and, when ``window``
-    is not 0, the sliding window (q_pos - kv_pos < window). Scores,
+    is not 0, the sliding window (q_pos - kv_pos < window), with the
+    positions ``q_positions`` (B, Sq) or (Sq,) and ``kv_positions``
+    (Skv,), 0.. Sq - 1 and 0.. Skv - 1 where they are None. Scores,
     softmax and the product with v in float32; the output in q's type.
     """
     b, sq, hq, d = q.shape
@@ -125,14 +135,18 @@ def sdpa_chunked(q, k, v, *, causal=True, window=0, q_block=512):
     scale = d ** -0.5
     kt = k.float().permute(0, 2, 3, 1)                    # (B, Hkv, D, Skv)
     vt = v.float().permute(0, 2, 1, 3)                    # (B, Hkv, Skv, Dv)
-    kp = torch.arange(skv, device=q.device)
+    kp = (torch.arange(skv, device=q.device) if kv_positions is None
+          else torch.as_tensor(kv_positions, device=q.device))
+    qpos = (torch.arange(sq, device=q.device) if q_positions is None
+            else torch.as_tensor(q_positions, device=q.device))
+    qpos = qpos.reshape(-1, 1, 1, sq, 1)                  # (B or 1, ..., Sq, 1)
     outs = []
     for s0 in range(0, sq, q_block):
         s1 = min(s0 + q_block, sq)
         qblk = q[:, s0:s1].reshape(b, s1 - s0, hkv, g, d).permute(
             0, 2, 3, 1, 4)                                # (B, Hkv, G, q, D)
         scores = (qblk.float() * scale) @ kt[:, :, None]
-        qp = torch.arange(s0, s1, device=q.device)[:, None]
+        qp = qpos[..., s0:s1, :]
         if causal:
             scores = torch.where(qp >= kp, scores, NEG)
         if window:
@@ -150,32 +164,47 @@ def attention_block(p, x, cfg, memory=None, layer_window=0, causal=None):
     the memory and no rope. ``causal`` None means ``cfg.causal`` for
     self-attention and no mask for cross-attention.
 
-    In a prefill step ``x`` is the rank's positions (self-attention
-    only): all-gathered over the sequence, attended on the rank's q heads
-    (`_project_qkv`) with rope on the global positions, the output
-    multiplied by the rank's rows of ``wo`` and the partial sums
-    reduce-scattered back onto the rank's positions."""
+    In a prefill step ``x`` is the rank's positions and ``memory``, where
+    it is given, every real frame. Where 'model' divides the q heads
+    (the heads rule) ``x`` is all-gathered over the sequence, attended on
+    the rank's q heads (`_project_qkv`) with rope on the global
+    positions, the output multiplied by the rank's rows of ``wo`` and
+    the partial sums reduce-scattered back onto the rank's positions.
+    Where it does not (the context rule) the rank's positions are
+    projected through the whole weights, their K/V all-gathered along
+    the sequence, every head's queries attend at their global positions
+    (so the causal mask and the window hold) and the output is
+    multiplied by the whole ``wo``. Either way K/V hold the real
+    positions alone: the pads at the sequence's end are cut, so a
+    non-causal attention never sees one."""
     ctx = tp.sequence_parallel()
-    if ctx is not None:
-        if memory is not None:
-            raise NotImplementedError("tensor-parallel prefill: "
-                                      "cross-attention")
+    heads = ctx is not None and cfg.n_heads % ctx.size == 0
+    context = ctx is not None and not heads
+    if heads:
         x = ctx.seq_gather(x)
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device)
+    if context:
+        pos = pos + ctx.rank * ctx.seq_block              # global positions
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                            None if memory is not None else pos,
                            cfg.rope_theta, cfg.qk_norm, xkv=memory)
     if causal is None:
         causal = cfg.causal and memory is None
-    if ctx is not None and not causal and ctx.seq_padded > ctx.seq_len:
-        raise NotImplementedError("tensor-parallel prefill: a non-causal "
-                                  "attention would see the pads")
+    if ctx is not None and memory is None:
+        if context:
+            k, v = ctx.seq_whole(torch.cat([k, v], -1)).split(
+                [k.shape[-1], v.shape[-1]], -1)
+        else:
+            k, v = k[:, :ctx.seq_len], v[:, :ctx.seq_len]
     out = sdpa_chunked(q, k, v, causal=causal, window=layer_window,
-                       q_block=cfg.q_block).reshape(b, s, -1)
+                       q_block=cfg.q_block,
+                       q_positions=pos if context else None).reshape(b, s, -1)
     if ctx is None:
         return out @ p.wo
-    return ctx.seq_scatter(out @ ctx.row_block(p.wo))
+    if heads:
+        return ctx.seq_scatter(out @ ctx.row_block(p.wo))
+    return out @ ctx.whole(p.wo)
 
 
 def _write_slot(cache: torch.Tensor, slot: torch.Tensor, write: torch.Tensor,

@@ -47,19 +47,27 @@ def init_rms(d: int, dtype: torch.dtype, device=None) -> torch.nn.Parameter:
                               requires_grad=False)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             width: int | None = None) -> torch.Tensor:
     """RMS norm over the last dim, gain ``1 + scale``. Where ``scale`` is
     a 'model' shard (a stacked norm scale the fan-out rule splits): at
     decode the rank scales its slice of the normalised ``x`` and the
     slices are all-gathered, the scale never moving; in prefill, whose
-    ``x`` is the rank's positions, the scale (a few KB) is gathered."""
+    ``x`` is the rank's positions, the scale (a few KB) is gathered.
+    Where ``width`` is given, ``x`` is this rank's block of a last dim of
+    ``width`` entries whose other blocks lie on the other 'model' ranks,
+    and ``scale`` is the block's own entries: the sums of squares are
+    all-reduced over 'model' and divided by ``width``."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps)
     ctx = tp.current()
-    if ctx is None or ctx.model_shard(scale) is None:
+    if width is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = ctx.all_reduce(x.square().sum(dim=-1, keepdim=True),
+                             "sum") / width
+    out = x * torch.rsqrt(var + eps)
+    if width is not None or ctx is None or ctx.model_shard(scale) is None:
         return (out * (1.0 + scale.float())).to(dt)
     if ctx.seq_len is not None:
         return (out * (1.0 + ctx.whole(scale).float())).to(dt)

@@ -337,10 +337,22 @@ class Model(torch.nn.Module):
             x = x + mlp(block.mlp, rms_norm(x, block.ln2), cfg.mlp_type)
         return x
 
-    def _encode(self, frontend: torch.Tensor) -> torch.Tensor:
-        """The encoder over the frame embeddings (B, src_len, d): non-causal
-        self-attention with rope on the frame positions, no final norm."""
-        return self._attn_mlp(self.encoder, frontend, causal=False)
+    def _encode(self, frontend) -> torch.Tensor:
+        """The encoder's output (B, src_len, d) over the stubbed frontend's
+        frames: non-causal self-attention with rope on the frame
+        positions, no final norm. In a tensor-parallel prefill step
+        (`tensor_parallel.sequence_parallel`) the rank's frames are
+        encoded under a context of the frames' own length, and their
+        output is all-gathered once and cut to the real frames."""
+        frontend = self._frontend(frontend)
+        ctx = tp.sequence_parallel()
+        if ctx is None:
+            return self._attn_mlp(self.encoder, frontend, causal=False)
+        frames = ctx.with_seq_len(frontend.shape[1])
+        with tp.active(frames):
+            memory = self._attn_mlp(self.encoder, frames.seq_local(frontend),
+                                    causal=False)
+        return frames.seq_whole(memory)
 
     # ------------------------------------------------------- full sequence
     def _hidden(self, tokens, frontend=None):
@@ -368,7 +380,7 @@ class Model(torch.nn.Module):
                 x = x + m
                 aux = aux + aux_l
         elif cfg.family == "encdec":
-            memory = self._encode(self._frontend(frontend))
+            memory = self._encode(frontend)
             for block in self.decoder:
                 x = x + attn.attention_block(block.self_attn,
                                              rms_norm(x, block.ln1), cfg)
@@ -521,7 +533,7 @@ class Model(torch.nn.Module):
         ``length``."""
         cfg = self.cfg
         if cfg.family == "encdec":
-            memory = self._encode(self._frontend(batch["frontend"]))
+            memory = self._encode(batch["frontend"])
             for i, block in enumerate(self.decoder):
                 k, v = attn.project_memory_kv(block.cross_attn, memory, cfg)
                 cache["mem_k"][i].copy_(k)

@@ -22,7 +22,11 @@ The recurrence is channel-wise, so in a tensor-parallel step
 the rank's channels of its state: the rank's columns of ``w_x``,
 ``w_gate``, ``w_r`` and ``w_i``, its ``conv_w``, ``conv_b`` and ``lam``
 shards; the convolved input that ``w_r`` and ``w_i`` read, and the y
-that ``w_out`` reads, are all-gathered.
+that ``w_out`` reads, are all-gathered. In a prefill step the block runs
+on the sequence gathered over 'model' and on the rank's channels alike,
+the convolved input gathered over the channels for the gates, then the
+scan on the rank's channels and the rank's rows of ``w_out``, the
+partial sums reduce-scattered onto the rank's positions.
 """
 
 from __future__ import annotations
@@ -115,13 +119,30 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Training/prefill. x: (B, S, d)."""
-    gate = F.gelu((x @ p.w_gate).float(), approximate="tanh")
-    xw = _conv(x @ p.w_x, p.conv_w, p.conv_b)
-    a, b_in = _gates(p, xw)
-    h = _linear_scan(a, b_in)
-    y = (h * gate).to(x.dtype)
-    return y @ p.w_out
+    """Training/prefill. x: (B, S, d). In a prefill step
+    (`tensor_parallel.sequence_parallel`) ``x`` is the rank's positions:
+    all-gathered over the sequence, the recurrence run on the rank's
+    block of the channels (`tensor_parallel.StateShard`: its columns of
+    ``w_gate``, ``w_x``, ``w_r`` and ``w_i``, its ``conv_w``, ``conv_b``
+    and ``lam``), the convolved input all-gathered over the channels for
+    the gates, and the rank's rows of ``w_out`` reduce-scattered back
+    onto the rank's positions. The pads at the sequence's end never
+    reach a real position: the convolution and the scan are causal."""
+    ctx = tp.sequence_parallel()
+    width = cfg.lru_width or cfg.d_model
+    if ctx is None:
+        chans = tp.StateShard(0, width, ())
+    else:
+        x = ctx.seq_gather(x)
+        chans = tp.StateShard(*ctx.block(width), ctx.groups)
+    gate = F.gelu(chans.columns(x, p.w_gate).float(), approximate="tanh")
+    xw = _conv(chans.columns(x, p.w_x), chans.take(p.conv_w),
+               chans.take(p.conv_b))
+    a, b_in = _gates(p, chans.gather(xw), chans)
+    y = (_linear_scan(a, b_in) * gate).to(x.dtype)
+    if ctx is None:
+        return y @ p.w_out
+    return ctx.seq_scatter(y @ ctx.row_block(p.w_out))
 
 
 def rglru_decode_step(p, x: torch.Tensor, conv_state: torch.Tensor,

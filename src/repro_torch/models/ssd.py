@@ -22,7 +22,15 @@ the decode step runs on the rank's shards: the input projection's
 columns (its output gathered), the convolution on the rank's channels
 of ``conv`` (its output gathered, since the rank's heads read channels
 and B/C that other ranks convolve), the state update on the rank's
-heads of ``ssm``, and the output projection's columns.
+heads of ``ssm``, and the output projection's columns. In a prefill step
+the block runs on the sequence gathered over 'model' and on the rank's
+heads: their columns of ``in_proj`` (z, the channels of xs, and dt) with
+B and C whole (one group: every head reads them), brought by one
+all-to-all; the convolution on those channels; the scan on the rank's
+heads; the gated norm over the whole ``d_inner`` from each position's
+sum of squares all-reduced over 'model'; the rank's rows of
+``out_proj``, the partial sums reduce-scattered onto the rank's
+positions.
 """
 
 from __future__ import annotations
@@ -155,18 +163,17 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y_diag + y_off).reshape(b, s, h, p), state
 
 
-def ssd_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The mamba2 block for training and the full-sequence forward.
-    x: (B, S, d). The sequence is zero-padded to a multiple of
-    ``cfg.ssd_chunk`` for the scan and cut back after it."""
-    b, s, _ = x.shape
-    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    z, xbc, dt = _split_proj(p, x, cfg)
-    xbc = _causal_conv(xbc, p.conv_w, p.conv_b)
-    xs, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p.dt_bias[None, None, :])
-    A = -torch.exp(p.a_log)
-    xh = xs.reshape(b, s, h, hp)
+def _scan_heads(xs, B, C, dt, a_log, dt_bias, d_skip, cfg, dtype):
+    """y (B, S, C) in ``dtype`` of the heads whose channels are xs (B, S,
+    C = heads x headdim), their dt (B, S, heads) before softplus and
+    their (heads,) vectors, from the convolved B, C (B, S, N). The
+    sequence is zero-padded to a multiple of ``cfg.ssd_chunk`` for the
+    scan and cut back after it."""
+    b, s, c = xs.shape
+    hp = cfg.ssm_headdim
+    dt = F.softplus(dt.float() + dt_bias[None, None, :])
+    A = -torch.exp(a_log)
+    xh = xs.reshape(b, s, c // hp, hp)
     pad = (-s) % cfg.ssd_chunk
     if pad:
         xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
@@ -174,10 +181,57 @@ def ssd_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
     y, _ = ssd_scan(xh.float(), dt, A, B.float(), C.float(), cfg.ssd_chunk)
-    y = y[:, :s] + p.d_skip[None, None, :, None] * xh[:, :s].float()
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = y[:, :s] + d_skip[None, None, :, None] * xh[:, :s].float()
+    return y.reshape(b, s, c).to(dtype)
+
+
+def ssd_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The mamba2 block for training and the full-sequence forward.
+    x: (B, S, d). In a prefill step (`tensor_parallel.sequence_parallel`)
+    ``x`` is the rank's positions (`_ssd_prefill`)."""
+    ctx = tp.sequence_parallel()
+    if ctx is not None:
+        return _ssd_prefill(ctx, p, x, cfg)
+    di, n = cfg.d_inner, cfg.ssm_state
+    z, xbc, dt = _split_proj(p, x, cfg)
+    xbc = _causal_conv(xbc, p.conv_w, p.conv_b)
+    xs, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
+    y = _scan_heads(xs, B, C, dt, p.a_log, p.dt_bias, p.d_skip, cfg, x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p.out_norm)
     return y @ p.out_proj
+
+
+def _ssd_prefill(ctx, p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """`ssd_block` in a prefill step, on ``x`` the rank's positions (B,
+    local, d): the sequence all-gathered over 'model', then the rank's
+    block of the heads (channels [c0, c0 + c) of ``d_inner``). The pads
+    at the sequence's end never reach a real position: the convolution
+    and the scan are causal. The gated norm's variance sums the ranks'
+    partial sums of squares (B, S, 1) float32, so its summation order is
+    not one process's."""
+    x = ctx.seq_gather(x)
+    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    h0, hl = ctx.block(h)
+    c0, c = h0 * hp, hl * hp
+    dt0 = 2 * di + 2 * n
+
+    def spans(r):                   # z, xs, B and C, dt of rank r's heads
+        return [(r * c, (r + 1) * c), (di + r * c, di + (r + 1) * c),
+                (2 * di, dt0), (dt0 + r * hl, dt0 + (r + 1) * hl)]
+
+    proj = x @ ctx.columns_of(p.in_proj, [spans(r) for r in range(ctx.size)])
+    z, xbc, dt = proj.split([c, c + 2 * n, hl], -1)
+    conv_w, conv_b = ctx.whole(p.conv_w), ctx.whole(p.conv_b)
+    xbc = _causal_conv(xbc, torch.cat([conv_w[:, c0:c0 + c], conv_w[:, di:]],
+                                      1),
+                       torch.cat([conv_b[c0:c0 + c], conv_b[di:]]))
+    xs, B, C = xbc.split([c, n, n], -1)
+    y = _scan_heads(xs, B, C, dt, ctx.entries(p.a_log, h0, hl),
+                    ctx.entries(p.dt_bias, h0, hl),
+                    ctx.entries(p.d_skip, h0, hl), cfg, x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype),
+                 ctx.entries(p.out_norm, c0, c), width=di)
+    return ctx.seq_scatter(y @ ctx.row_block(p.out_proj))
 
 
 def ssd_decode_step(p, x: torch.Tensor, conv_state: torch.Tensor,

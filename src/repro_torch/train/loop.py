@@ -19,31 +19,31 @@ shardings of `repro_torch.launch.specs` (the production dry run's).
 
 In every sharded step the batch's rows are split over the data axes,
 pod-major (a batch entry may be a plain global tensor, the same on every
-rank, or a DTensor). The serve step of every family is tensor parallel,
-as XLA partitions the reference's: `Model.decode_step` runs on the
-rank's own shards of the parameters (standing in for the model's own)
-and of every cache leaf, with the products, the norms, the embedding,
-the unembedding, the decode attention, the recurrent layers and the
-experts' outputs exchanging activations over 'model'
-(`repro_torch.distributed.tensor_parallel`); no parameter and no cache
-or state row moves. The prefill step of the dense, VLM and MoE families
-(`TP_PREFILL`) is tensor parallel too, under the reference's layout
-constraints: `Model.last_logits` runs on the rank's own shards of the
-parameters with the residual stream on the rank's positions of the
-sequence, each attention, MLP or MoE sub-block gathering its input over
-the sequence and reduce-scattering its output back, the weights staying
-where they are but for the few that every position needs whole
-(`tensor_parallel`'s prefill rule). The train step, and the prefill
-step of the SSM, hybrid and encoder-decoder families, gather each
-parameter DTensor to a full tensor and write it into the model's own
-parameter, and the model's unchanged `Model.loss` or `Model.forward`
-runs on plain tensors, the 'model' ranks computing redundantly: those
-shard storage, not compute (tensor-parallel compute for them is later
-work). Each sharded step's ``reads_model_params`` says which of the two
-it is: True where it gathers into the model's own parameters, False
-where it never reads them (every serve step, the tensor-parallel
-prefill; the dry run counts the model's parameters among a rank's bytes
-only when True), and ``model_call`` names the model's method it runs.
+rank, or a DTensor). The serve and prefill steps of every family are
+tensor parallel, as XLA partitions the reference's. The serve step's
+`Model.decode_step` runs on the rank's own shards of the parameters
+(standing in for the model's own) and of every cache leaf, with the
+products, the norms, the embedding, the unembedding, the decode
+attention, the recurrent layers and the experts' outputs exchanging
+activations over 'model' (`repro_torch.distributed.tensor_parallel`); no
+parameter and no cache or state row moves. The prefill step's
+`Model.last_logits` runs on the rank's own shards of the parameters
+under the reference's layout constraints, with the residual stream on
+the rank's positions of the sequence (an encoder's on the rank's
+frames), each attention, MLP, MoE, SSD or RG-LRU sub-block gathering its
+input over the sequence and reduce-scattering its output back (or, where
+'model' does not divide the q heads, attending from the rank's positions
+over the gathered K/V), the weights staying where they are but for the
+few that every position needs whole (`tensor_parallel`'s prefill rule).
+The train step gathers each parameter DTensor to a full tensor and
+writes it into the model's own parameter, and the model's unchanged
+`Model.loss` runs on plain tensors, the 'model' ranks computing
+redundantly: it shards storage, not compute (tensor-parallel training is
+later work). Each sharded step's ``reads_model_params`` says which of
+the two it is: True where it gathers into the model's own parameters,
+False where it never reads them (every serve and prefill step; the dry
+run counts the model's parameters among a rank's bytes only when True),
+and ``model_call`` names the model's method it runs.
 """
 
 from __future__ import annotations
@@ -62,10 +62,6 @@ from repro_torch.models.model import Model
 from repro_torch.train.optim import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_schedule)
 
-
-#: The families whose sharded prefill step is tensor parallel; the others
-#: gather every parameter into the model's own.
-TP_PREFILL = ("dense", "vlm", "moe")
 
 
 class TrainState(NamedTuple):
@@ -455,18 +451,19 @@ def make_sharded_prefill_step(model: Model, mesh):
     DTensor or a plain global tensor. The model runs on this rank's rows
     (every row where the data axes do not divide them).
 
-    A `TP_PREFILL` family's step is tensor parallel: each parameter's
-    local shard stands in for the model's own (`_parameters_replaced`, so
-    the model's parameters are never read and may live on the meta
-    device), and `Model.last_logits` runs under a prefill context
+    The step is tensor parallel: each parameter's local shard stands in
+    for the model's own (`_parameters_replaced`, so the model's
+    parameters are never read and may live on the meta device), and
+    `Model.last_logits` runs under a prefill context
     (`tensor_parallel.TensorParallel` with the sequence's length, the
     VLM's patches included): the residual stream on the rank's positions
-    of the sequence, padded at its end to a multiple of 'model'; each
-    sub-block on the gathered sequence, the rank's heads or ff columns
-    or experts, and reduce-scattered back; the final norm and the head
-    on the last real position alone. The other families' step gathers
-    every parameter into the model's own and runs its unchanged
-    `forward`."""
+    of the sequence, padded at its end to a multiple of 'model' (an
+    encoder's on the rank's frames, under a context of their own); each
+    sub-block on the gathered sequence, the rank's heads, ff columns,
+    experts or recurrent channels, and reduce-scattered back (an
+    attention whose q heads 'model' does not divide on the rank's
+    positions, over the gathered K/V); the final norm and the head on
+    the last real position alone."""
     idx, n_data, _ = _data_rank(mesh)
 
     def local_rows(batch: dict):
@@ -475,22 +472,6 @@ def make_sharded_prefill_step(model: Model, mesh):
         return n_rows, whole, {
             k: _local_rows(v, mesh, idx, n_rows // n_data, whole)
             for k, v in batch.items()}
-
-    if model.cfg.family not in TP_PREFILL:
-        params = dict(model.named_parameters())
-
-        @torch.no_grad()
-        def gathering_step(placed: dict, batch: dict):
-            n_rows, whole, local = local_rows(batch)
-            _load_params(params, placed)
-            logits, _ = model.forward(local["tokens"],
-                                      frontend=local.get("frontend"))
-            return _placed_rows(logits[:, -1].contiguous(), mesh, n_rows,
-                                whole)
-
-        gathering_step.reads_model_params = True
-        gathering_step.model_call = "forward"
-        return gathering_step
 
     @torch.no_grad()
     def prefill_step(placed: dict, batch: dict):

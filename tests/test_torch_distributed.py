@@ -798,6 +798,18 @@ def test_tensor_parallel_family_serve_step_equals_reference_and_one_process(
         arch=arch), FAMILY_LOGITS_TOL)
 
 
+# parameters of the widened prefill cases whose placement shows that the
+# split rules fire: the projections over 'model' (the KV heads' columns
+# of qwen3's and internvl2's wk on two ranks of 4), the SSM's and the
+# RG-LRU's as FAMILY_PARAMS
+PREFILL_PARAMS = {
+    "qwen3-0.6b": {"layers.0.attn.wo": ["R", "S(1)"],
+                   "layers.0.attn.wk": ["R", "S(1)"]},
+    "internvl2-76b": {"layers.0.attn.wo": ["R", "S(1)"],
+                      "layers.0.attn.wk": ["R", "S(1)"]},
+    "dbrx-132b": {"moe_layers.0.attn.wo": ["R", "S(1)"]},
+    "deepseek-v3-671b": {"moe_layers.0.attn.wo": ["R", "S(1)"]},
+    **FAMILY_PARAMS}
 # the prefill cases' logits: the smokes' at SERVE_TOL; the widened
 # models' at FAMILY_LOGITS_TOL (TOL32), as the widened serve steps': their
 # logits reach 70-100
@@ -831,14 +843,18 @@ def _prefill_wants(serve_weights, arch, wide, rows, length):
 @pytest.mark.parametrize("case", workers.PREFILL_CASES, ids=PREFILL_IDS)
 def test_tensor_parallel_prefill_step_equals_reference_and_one_process(
         serve_weights, sharded_serve4, sharded_serve8, case, shape, rows):
-    """The tensor-parallel prefill of the dense, VLM and MoE families
+    """The tensor-parallel prefill of every family
     (`torch_dist_workers.PREFILL_CASES`: qwen3 and internvl2, with its
     patches, at smoke width and widened so that a KV head's columns lie
     on two of 4 ranks; dbrx's and deepseek's MLA smokes widened by
-    MOE_WIDE) on 4 gloo ranks as (data 2, model 2) and on 8 as (data 2,
-    model 4), 4 rows over 'data' and 3 rows whole, at prompt lengths
-    that 'model' does not divide (the sequence padded at its end): the
-    last logits equal the reference's jitted `make_prefill_step` and the
+    MOE_WIDE; mamba2, recurrentgemma and whisper, with its frames, at
+    smoke width and widened by FAMILY_WIDE, whose 2 heads take the heads
+    rule on 2 'model' ranks and the context rule on 4) on 4 gloo ranks
+    as (data 2, model 2) and on 8 as (data 2, model 4), 4 rows over
+    'data' and 3 rows whole, at prompt lengths that 'model' does not
+    divide (the sequence padded at its end; 71 tokens span several SSD
+    chunks and hybrid windows; 27 frames pad the encoder's): the last
+    logits equal the reference's jitted `make_prefill_step` and the
     one-process port step on the same weights and batch, the smokes'
     within 1e-5 and the widened models' within TOL32. The step never
     reads the model's own parameters."""
@@ -848,12 +864,10 @@ def test_tensor_parallel_prefill_step_equals_reference_and_one_process(
     assert got["reads_model_params"] is False
     if wide:
         placed = got["param_placements"]
-        lead = "moe_layers.0" if arch in workers.MOE_WIDE else "layers.0"
-        assert placed[lead + ".attn.wo"] == ["R", "S(1)"]
-        if arch not in workers.MOE_WIDE:
-            assert placed["layers.0.attn.wk"] == ["R", "S(1)"]
+        for name, want in PREFILL_PARAMS.get(arch, {}).items():
+            assert placed[name] == want, name
     tol = FAMILY_LOGITS_TOL if wide else SERVE_TOL
-    for length in workers.PREFILL_LENGTHS:
+    for length in workers.prefill_lengths(arch):
         logits = got["logits"][rows, length]
         for want in _prefill_wants(serve_weights, arch, wide, rows, length):
             assert logits.shape == want.shape
@@ -916,7 +930,7 @@ def test_tensor_parallel_serve_step_gathers_no_parameter_or_cache_row():
     three, then the logits, float32 rows of the rank's 2 rows; the 32
     lengths over 'data'), each smaller than the full tensor of every
     matrix that 'model' splits and than the rank's rows of a cache leaf
-    (what the gathering step moved), and of no parameter's full size;
+    (what gathering them would move), and of no parameter's full size;
     the only other collective is the all-reduce (the embedding's sum and
     the log-sum-exp combine)."""
     script = CENSUS_SCRIPT.format(rows=32, max_len=64)
@@ -971,8 +985,9 @@ flops = FlopCounterMode(display=False)
 if {prefill!r}:
     batch = {{"tokens": torch.zeros((rows, max_len), dtype=torch.int32,
                                     device="meta")}}
-    if cfg.family == "vlm":
-        batch["frontend"] = torch.zeros((rows, cfg.n_patches, cfg.d_model),
+    frames = {{"vlm": cfg.n_patches, "encdec": cfg.src_len}}.get(cfg.family)
+    if frames:
+        batch["frontend"] = torch.zeros((rows, frames, cfg.d_model),
                                         device="meta")
     step = make_sharded_prefill_step(model, mesh)
     with counter, flops:
@@ -995,6 +1010,24 @@ def rank_rows(name, t):
     dim = sharding.cache_batch_dim(name, t.dim())
     return t.numel() * t.element_size() * t.to_local().shape[dim] // t.shape[dim]
 
+scan = None
+if {prefill!r} and cfg.family == "ssm":
+    # the one-process ssd_scan's FLOPs on a data rank's rows over the
+    # rank's block of the heads and over every head
+    from repro_torch.models.ssd import ssd_scan
+    scan = []
+    for heads in (cfg.ssm_heads // 16, cfg.ssm_heads):
+        b, hp, n = rows // 16, cfg.ssm_headdim, cfg.ssm_state
+        s = -(-max_len // cfg.ssd_chunk) * cfg.ssd_chunk
+        count = FlopCounterMode(display=False)
+        with count:
+            ssd_scan(torch.zeros((b, s, heads, hp), device="meta"),
+                     torch.zeros((b, s, heads), device="meta"),
+                     torch.zeros((heads,), device="meta"),
+                     torch.zeros((b, s, n), device="meta"),
+                     torch.zeros((b, s, n), device="meta"), cfg.ssd_chunk)
+        scan.append(count.get_total_flops())
+
 split = {{n: p for n, p in params.items()
          if any(pl.is_shard() for pl in p.placements) and p.dim() >= 2}}
 experts = params.get("moe_layers.0.moe.experts.w_down")
@@ -1013,6 +1046,7 @@ print(json.dumps({{
                         p.to_local().numel() * p.element_size()]
                     for n, p in params.items()}},
     "cache_rows": {{n: rank_rows(n, t) for n, t in leaves}},
+    "scan_flops": scan,
     "experts_local": None if experts is None
                      else list(experts.to_local().shape)}}))
 torch.distributed.destroy_process_group()
@@ -1049,7 +1083,7 @@ def test_tensor_parallel_moe_serve_step_gathers_no_parameter_or_cache_row(
     2 MoE layers; deepseek 1 dense + 1 MLA/MoE), on meta tensors, 32
     rows of an 8192-position cache (2 rows a data rank). No all-gather is
     as large as any matrix that 'model' splits or as the rank's rows of
-    any cache leaf (what the gathering step moved), and none is any
+    any cache leaf (what gathering them would move), and none is any
     matrix parameter's full size (deepseek's router logits, 256 bf16 a
     row, are as large as its kv_norm scale); the rank holds E / 16
     experts; the
@@ -1149,7 +1183,7 @@ def test_tensor_parallel_family_serve_step_gathers_no_parameter_or_cache_row(
     rows x the vocabulary, float32) is smaller than every split weight
     matrix (both dims 128 or more; the (4, C) convolution filters are
     not matrices) and than the rank's rows of every cache and state
-    leaf, which is what the gathering step moved; none is any matrix's
+    leaf, which is what gathering them would move; none is any matrix's
     full size; the all-reduces are exactly the embedding's sum and each
     sequence-sharded attention's log-sum-exp combine. The step never
     reads the model's parameters."""
@@ -1173,19 +1207,23 @@ def test_tensor_parallel_family_serve_step_gathers_no_parameter_or_cache_row(
 
 # the prefill census's models: the full configs cut in depth as the dry
 # run's --layers cuts them (qwen3, internvl2 and dbrx 2 layers; deepseek 5,
-# 1 dense + 4 MLA/MoE), meta tensors, bf16, 32 rows of 32768 tokens (2 a
-# data rank; internvl2's 256 patches before them)
+# 1 dense + 4 MLA/MoE), and as FAMILY_CENSUS (mamba2 2 of 64 layers;
+# recurrentgemma 5 of 26, one super-block with its attention layer and
+# the recurrent tail; whisper 2 + 2 of 6 + 6), meta tensors, bf16, 32
+# rows of 32768 tokens (2 a data rank; internvl2's 256 patches before
+# them, whisper's encoder over its 1536 frames)
 PREFILL_CENSUS = {"qwen3-0.6b": dict(n_layers=2),
                   "internvl2-76b": dict(n_layers=2),
                   "dbrx-132b": dict(n_layers=2),
-                  "deepseek-v3-671b": dict(n_layers=5, n_dense_layers=1)}
+                  "deepseek-v3-671b": dict(n_layers=5, n_dense_layers=1),
+                  **FAMILY_CENSUS}
 PREFILL_CENSUS_LEN = 32768
 
 
 @pytest.fixture(scope="module")
 def prefill_census():
     """FULL_CENSUS_SCRIPT's prefill record of each PREFILL_CENSUS cell,
-    the four subprocesses at once."""
+    the subprocesses at once."""
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(PREFILL_CENSUS)) as pool:
         got = pool.map(lambda arch: _full_census(
@@ -1213,7 +1251,6 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
     seq = length + (cfg.n_patches if cfg.family == "vlm" else 0)
     assert seq % n == 0                        # no pads at these lengths
     t, loc = rows * seq, seq // n
-    act = rows * seq * d * bf16                # a gathered (rows, S, d)
     out = {"all-gather": [], "reduce-scatter": [], "all-reduce": [],
            "all-to-all": []}
     moves = {}
@@ -1240,9 +1277,9 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
         flops[0] += 2 * rows * heads // n * seq * seq * (dqk + dv)
         flops[1] += 2 * rows * heads * seq * seq * (dqk + dv) / n
 
-    def sub_block(norm):
-        out["all-gather"].append(act)
-        out["reduce-scatter"].append(rows * loc * d * bf16)
+    def sub_block(norm, length=seq):
+        out["all-gather"].append(rows * length * d * bf16)
+        out["reduce-scatter"].append(rows * length // n * d * bf16)
         whole(norm)
 
     def gqa(pre):
@@ -1275,10 +1312,59 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
         attention(h, dn + dr, dv)
         rows_of(pre + "attn.wo", h * dv)
 
-    def ffn(pre, ff):
+    def ffn(pre, ff, tokens=t):
         for _ in range(2 if cfg.mlp_type == "swiglu" else 1):
-            mm(t, d, ff)
-        rows_of(pre + "w_down", ff)
+            mm(tokens, d, ff)
+        mm(tokens, ff, d)
+        if pre + "w_down" in split:
+            out["all-to-all"].append(ff // n * d * bf16)
+            moves[pre + "w_down"] = "rows"
+
+    def by_context(pre, attn, norm, length, kv_len, memory=False):
+        """An attention whose q heads 'model' does not divide: the rank's
+        positions through the whole wq, wk, wv and wo; K/V of the rank's
+        positions gathered along the sequence, or of the whole memory on
+        every rank."""
+        whole(pre + norm)
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        for w in ("wq", "wk", "wv", "wo"):
+            whole(f"{pre}{attn}.{w}")
+        m = rows * length // n                 # the rank's positions
+        mm(m * n, d, hq * dh)
+        if memory:
+            mm(rows * kv_len, d, 2 * hkv * dh, whole=True)
+        else:
+            mm(m * n, d, 2 * hkv * dh)
+            out["all-gather"].append(rows * kv_len * 2 * hkv * dh * bf16)
+        flops[0] += 2 * rows * hq * (length // n) * kv_len * 2 * dh
+        flops[1] += 2 * rows * hq * length * kv_len * 2 * dh / n
+        mm(m * n, hq * dh, d)
+
+    def ssd(pre):
+        sub_block(pre + "ln")
+        di, ns, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_headdim
+        cols = 2 * (h // n) * hp + 2 * ns + h // n   # z, xs, B and C, dt
+        flops[0] += 2 * t * d * cols
+        flops[1] += 2 * t * d * (2 * di + 2 * ns + h) / n
+        out["all-to-all"].append(cols * d * bf16)
+        moves[pre + "ssd.in_proj"] = "columns"
+        whole(pre + "ssd.conv_w")
+        whole(pre + "ssd.conv_b")
+        flops[0] += got["scan_flops"][0]
+        flops[1] += got["scan_flops"][1] / n
+        out["all-reduce"].append(rows * seq * f32)   # the norm's squares
+        rows_of(pre + "ssd.out_proj", di)
+
+    def rglru(pre):
+        sub_block(pre + "ln1")
+        w = cfg.lru_width
+        mm(t, d, w)                            # w_gate
+        mm(t, d, w)                            # w_x
+        out["all-gather"].append(rows * seq * w * bf16)   # its channels
+        mm(t, w, w)                            # w_r
+        mm(t, w, w)                            # w_i
+        rows_of(pre + "rglru.w_out", w)
 
     def moe(pre):
         sub_block(pre + "ln2")
@@ -1313,6 +1399,38 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
             pre = f"moe_layers.{i}."
             mla(pre) if cfg.use_mla else gqa(pre)
             moe(pre)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            ssd(f"layers.{i}.")
+    elif cfg.family == "hybrid":
+        assert cfg.n_heads % n                 # the context rule
+        pattern = cfg.block_pattern
+        names = [f"super.{i}.b{j}_{kind}." for i in range(
+            cfg.n_layers // len(pattern)) for j, kind in enumerate(pattern)]
+        names += [f"tail.0.b{j}_{kind}." for j, kind in enumerate(
+            pattern[:cfg.n_layers % len(pattern)])]
+        for pre in names:
+            if pre.endswith("attn."):
+                by_context(pre, "attn", "ln1", seq, seq)
+            else:
+                rglru(pre)
+            sub_block(pre + "ln2")
+            ffn(pre + "mlp.", cfg.d_ff)
+    elif cfg.family == "encdec":
+        assert cfg.n_heads % n and cfg.src_len % n == 0
+        src = cfg.src_len
+        for i in range(cfg.n_encoder_layers):
+            pre = f"encoder.{i}."
+            by_context(pre, "attn", "ln1", src, src)
+            sub_block(pre + "ln2", src)
+            ffn(pre + "mlp.", cfg.d_ff, rows * src)
+        out["all-gather"].append(rows * src * d * bf16)   # the memory
+        for i in range(cfg.n_layers):
+            pre = f"decoder.{i}."
+            by_context(pre, "self_attn", "ln1", seq, seq)
+            by_context(pre, "cross_attn", "ln_x", seq, src, memory=True)
+            sub_block(pre + "ln2")
+            ffn(pre + "mlp.", cfg.d_ff)
     else:
         for i in range(cfg.n_layers):
             dense(f"layers.{i}.")
@@ -1325,29 +1443,46 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
     return {k: sorted(v) for k, v in out.items()}, moves, flops
 
 
+# the FLOPs a rank runs over the one-process model's / 16, where more
+# than 1.5 %: the products every rank runs whole (deepseek's w_dq, w_dkv
+# and router, 11 %; mamba2's B and C, their columns of in_proj and their
+# chunk scores, 24 %)
+PREFILL_OVER = {"deepseek-v3-671b": 0.12, "mamba2-2.7b": 0.25}
+
+
 @pytest.mark.parametrize("arch", list(PREFILL_CENSUS))
 def test_tensor_parallel_prefill_step_gathers_no_weight_but_the_small_ones(
         prefill_census, arch):
     """The census of the tensor-parallel prefill on a fake (16, 16) group
     of 256 ranks (no data moves): each full config at full width cut in
     depth (PREFILL_CENSUS) on meta tensors, 2 rows of 32768 positions a
-    data rank (internvl2's 256 patches before them). The collectives are
-    exactly `_prefill_expected`'s: one sequence all-gather and one
-    reduce-scatter a sub-block (attention, MLP or MoE), the embedding's
-    reduce-scatter, the last position's all-reduce and the logits'
-    all-gather; the only whole parameters gathered are the split norm
-    scales, deepseek's router and MLA's ``w_dq``/``w_dkv``; the only
-    other weight pieces moved are the rank's KV heads' columns of
-    ``wk``/``wv`` and the rank's rows of each row product (``wo``,
-    ``w_down``, the shared expert's), 1/16 of each, by all-to-all; no
-    expert weight moves (the rank holds E / 16 experts); no all-gather
-    but the logits is larger than a sequence's activations. The FLOPs
-    are exactly the rank's: over the one-process products and attention
-    / 16 by the products every rank runs whole, the whole KV head a
-    rank's q heads read (8 KV heads on 16 ranks: qwen3 1.4 %, internvl2
-    1.2 %, dbrx 0.95 % over) and deepseek's ``w_dq``/``w_dkv`` and
-    router (11 % over). The step never reads the model's
-    parameters."""
+    data rank (internvl2's 256 patches before them; whisper's encoder
+    over 1536 frames). The collectives are exactly `_prefill_expected`'s:
+    one sequence all-gather and one reduce-scatter a sub-block
+    (attention, MLP, MoE, SSD or RG-LRU), the embedding's reduce-scatter,
+    the last position's all-reduce and the logits' all-gather; an
+    attention whose 10 (recurrentgemma) or 8 (whisper) q heads 16 does
+    not divide instead gathers its K/V along the sequence (the context
+    rule; whisper's memory once); the SSD's norm all-reduces each
+    position's sum of squares, and the RG-LRU gathers its convolved
+    input's channels. The only whole parameters gathered are the split
+    norm scales, deepseek's router, MLA's ``w_dq``/``w_dkv``, the SSD's
+    ``conv_w``/``conv_b`` and, under the context rule, ``wq``, ``wk``,
+    ``wv`` and ``wo``; the only other weight pieces moved are the rank's
+    KV heads' columns of ``wk``/``wv``, the rank's heads' columns of the
+    SSD's ``in_proj`` (z, xs and dt, with B and C whole) and the rank's
+    rows of each row product (``wo``, ``w_down``, the shared expert's,
+    ``out_proj``, ``w_out``), 1/16 of each, by all-to-all; no expert
+    weight moves (the rank holds E / 16 experts); no all-gather but the
+    logits is larger than a sequence's activations (whisper's: its K and
+    V). The FLOPs are exactly the rank's: over the one-process products
+    and attention / 16 by the products every rank runs whole, the whole
+    KV head a rank's q heads read (8 KV heads on 16 ranks: qwen3 1.4 %,
+    internvl2 1.2 %, dbrx 0.95 % over), deepseek's ``w_dq``/``w_dkv``
+    and router (11 % over), mamba2's B and C and their chunk scores (24
+    % over; the scan's FLOPs counted on the one-process `ssd_scan` at the
+    rank's and at every head) and whisper's memory K/V (0.9 %). The step
+    never reads the model's parameters."""
     got = prefill_census[arch]
     cfg = get_config(arch, "full").replace(**PREFILL_CENSUS[arch])
     want, moves, (flops, naive) = _prefill_expected(cfg, got, 2,
@@ -1357,8 +1492,11 @@ def test_tensor_parallel_prefill_step_gathers_no_weight_but_the_small_ones(
               for k in want}
     assert {kind for kind, _ in got["collectives"]} <= set(want)
     assert census == want
-    allowed = ("ln1", "ln2", "q_norm", "k_norm", "kv_norm", "router",
-               "w_dq", "w_dkv", "wk", "wv", "wo", "w_down")
+    allowed = {"ln1", "ln2", "ln", "ln_x", "q_norm", "k_norm", "kv_norm",
+               "router", "w_dq", "w_dkv", "wk", "wv", "wo", "w_down",
+               "in_proj", "conv_w", "conv_b", "out_proj", "w_out"}
+    if cfg.family in ("hybrid", "encdec"):     # the context rule
+        allowed.add("wq")
     assert all(name.rsplit(".", 1)[-1] in allowed for name in moves)
     assert not any("experts" in name for name in moves)
     if cfg.family == "moe":
@@ -1368,8 +1506,10 @@ def test_tensor_parallel_prefill_step_gathers_no_weight_but_the_small_ones(
         assert not expert & {b for _, b in got["collectives"]}
     act = 2 * (PREFILL_CENSUS_LEN + (cfg.n_patches if cfg.family == "vlm"
                                      else 0)) * cfg.d_model * 2
+    if cfg.family == "encdec":                 # K and V of every position
+        act = 2 * PREFILL_CENSUS_LEN * 2 * cfg.n_kv_heads * cfg.d_head * 2
     logits = 2 * cfg.padded_vocab * 4
     assert max(b for b in census["all-gather"] if b != logits) <= act
     assert got["flops"] == flops
     over = flops / naive - 1
-    assert 0 <= over < (0.12 if cfg.use_mla else 0.015), over
+    assert 0 <= over < PREFILL_OVER.get(arch, 0.015), over

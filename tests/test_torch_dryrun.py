@@ -178,8 +178,8 @@ def test_qwen3_prefill_record_at_full_depth_holds_no_full_logits(records):
     fixed part: the embedding's reduce-scatter, the last position's
     all-reduce and the logits' all-gather, and the last position's
     unembedding), and the temporaries are one layer's peak, the 2-layer
-    record's and below 4 GiB (a rank of the gathering step held 65536 x
-    152064 float32 logits, 40 GB). The step never reads the model's
+    record's and below 4 GiB (the forward's logits of every position
+    would be 65536 x 152064 float32, 40 GB). The step never reads the model's
     parameters, so the arguments are the rank's shards alone
     (`launch.specs`' sum)."""
     two = records[0][("qwen3-0.6b", "prefill_32k", "single")]
@@ -212,11 +212,39 @@ def test_qwen3_prefill_record_at_full_depth_holds_no_full_logits(records):
     assert full["temp_size_in_bytes"] == two["temp_size_in_bytes"] < 2 ** 32
 
 
+H100_BYTES = 85899345920                   # 80 GiB, one card's memory
+
+
+def test_recurrentgemma_prefill_record_at_full_depth_fits_one_card(records):
+    """recurrentgemma-2b's prefill_32k at full depth (26 layers) through
+    the CLI: the tensor-parallel step runs every RG-LRU layer's scan on
+    the rank's 160 of 2560 channels and every local attention from the
+    rank's 2048 positions (10 q heads do not divide 16), so rank 0's
+    temporaries lie below one H100's 80 GiB (the step that gathered
+    every parameter and ran the whole forward held 107123441156 B). The
+    arguments are the rank's shards alone (`launch.specs`' sum); that
+    the step reads none of the model's parameters, the prefill census
+    in test_torch_distributed.py holds at full width."""
+    arch, shape = "recurrentgemma-2b", "prefill_32k"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(records[1])],
+        capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rec = json.loads((records[1] / f"{arch}__{shape}__single.json"
+                      ).read_text())
+    assert rec["ok"] and rec["n_layers_override"] is None
+    _, args = specs.cell_lowerable(arch, shape, _mesh("single"))
+    sharding.clear_mesh()
+    assert rec["argument_size_in_bytes"] == specs.argument_bytes(args)
+    assert rec["temp_size_in_bytes"] < H100_BYTES
+
+
 def test_decode_records_show_the_cache_gather(records):
     """qwen3-0.6b's cache puts the sequence over 'model' (8 KV heads on
     16). The tensor-parallel step attends over the rank's 2048 positions
-    and gathers no cache row (the gathering step moved L x 8 x 32768 x 8
-    x 128 bf16 for each of k and v): its all-gathers (activations and
+    and gathers no cache row (gathering the cache would move L x 8 x
+    32768 x 8 x 128 bf16 for each of k and v): its all-gathers (activations and
     logits) stay below 32 MiB and its temporaries below 256 MiB, and the
     rank holds its arguments and little else."""
     rec = records[0][("qwen3-0.6b", "decode_32k", "single")]
@@ -237,8 +265,8 @@ FAMILY_CELLS = [c for c in CELLS if c[0] in ("mamba2-2.7b",
                          ids=["-".join(c[:2]) for c in FAMILY_CELLS])
 def test_family_decode_records_gather_activations_only(records, cell):
     """The SSM, hybrid and encoder-decoder decode steps are tensor
-    parallel: each record's all-gathers a step stay below 64 MiB (the
-    gathering step moved every parameter and state row over 'model':
+    parallel: each record's all-gathers a step stay below 64 MiB
+    (gathering every parameter and state row over 'model' would move
     3.5-6.8 GB a step at full depth on this mesh), and the step reads
     none of the model's own parameters, so the rank holds its arguments
     and its activations: temporaries below 256 MiB."""

@@ -154,6 +154,38 @@ def _sdpa_case(causal, window, q_block):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("causal,window,q_block", [(True, 0, 2),
+                                                   (True, 4, 4),
+                                                   (False, 3, 8)])
+def test_sdpa_chunked_positions(causal, window, q_block):
+    """``q_positions`` (B, Sq), a row's queries at global positions of
+    their own (as the tensor-parallel prefill's context rule passes
+    them), and ``kv_positions`` (Skv,) set the causal and window masks
+    as the reference's keywords do; a ragged last query block."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 11, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 11, 2, 16)).astype(np.float32)
+    q_pos = np.array([[3, 4, 5, 6, 7], [7, 8, 9, 10, 11]], dtype=np.int32)
+    kv_pos = np.arange(1, 12, dtype=np.int32)
+    want = ref_attn.sdpa_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_block=q_block, q_positions=jnp.asarray(q_pos),
+        kv_positions=jnp.asarray(kv_pos))
+    got = attn.sdpa_chunked(_t(q), _t(k), _t(v), causal=causal,
+                            window=window, q_block=q_block,
+                            q_positions=torch.from_numpy(q_pos),
+                            kv_positions=torch.from_numpy(kv_pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # the default positions are 0.. Sq - 1 and 0.. Skv - 1
+    plain = attn.sdpa_chunked(_t(q), _t(k), _t(v), causal=causal,
+                              window=window, q_block=q_block)
+    assert torch.equal(plain, attn.sdpa_chunked(
+        _t(q), _t(k), _t(v), causal=causal, window=window, q_block=q_block,
+        q_positions=torch.arange(5), kv_positions=torch.arange(11)))
+
+
 @pytest.mark.parametrize("ring", [False, True])
 def test_decode_attention_step_from_carried_weights(ring):
     """One decode step against a partly filled cache: output and the

@@ -219,19 +219,39 @@ WIDE = {**MOE_WIDE, **FAMILY_WIDE}
 # heads of 64 columns) too, so that on 4 ranks each KV head's columns lie
 # on two ranks, which the all-to-all brings together for the two q heads
 # that read it; dbrx's and deepseek's as MOE_WIDE (experts, router, every
-# MLA projection and norm). The prompts' lengths (internvl2's 8 patches
-# before them) are ones that 'model' does not divide: 6 and 14 on 4
-# ranks, 7 and 15 on 2 and 4, so the sequence is padded at its end.
+# MLA projection and norm); mamba2's, recurrentgemma's and whisper's as
+# FAMILY_WIDE (in_proj split across the boundaries of z, xBC and dt; the
+# RG-LRU's channels; every projection), where recurrentgemma's and
+# whisper's 2 heads take the heads rule on 2 'model' ranks and the
+# context rule (the rank's own query positions) on 4. The prompts'
+# lengths (internvl2's 8 patches before them) are ones that 'model' does
+# not divide: 6 and 14 on 4 ranks, 7 and 15 on 2 and 4, so the sequence
+# is padded at its end; the SSM, hybrid and encoder-decoder families
+# also take 71 tokens, which span 3 of the smoke's 32-position SSD chunks
+# and 4 of the hybrid's 16-position windows, and whisper's encoder 27 or
+# 32 frames (PREFILL_FRAMES: 27 on 2 and 4 ranks pads the frames).
 PREFILL_WIDE = {
     "qwen3-0.6b": dict(d_model=128, n_heads=4, n_kv_heads=2, d_head=64,
                        d_ff=256),
     "internvl2-76b": dict(d_model=128, n_heads=4, n_kv_heads=2, d_head=64,
                           d_ff=256),
-    **MOE_WIDE}
+    **MOE_WIDE, **FAMILY_WIDE}
 PREFILL_CASES = (("qwen3-0.6b", False), ("qwen3-0.6b", True),
                  ("internvl2-76b", False), ("internvl2-76b", True),
-                 ("dbrx-132b", True), ("deepseek-v3-671b", True))
+                 ("dbrx-132b", True), ("deepseek-v3-671b", True),
+                 ("mamba2-2.7b", False), ("mamba2-2.7b", True),
+                 ("recurrentgemma-2b", False), ("recurrentgemma-2b", True),
+                 ("whisper-base", False), ("whisper-base", True))
 PREFILL_LENGTHS = (6, 7)
+# the SSM, hybrid and encoder-decoder families' lengths
+PREFILL_FAMILY_LENGTHS = (6, 71)
+# whisper's frames by prompt length
+PREFILL_FRAMES = {6: 27, 71: 32}
+
+
+def prefill_lengths(arch: str) -> tuple[int, ...]:
+    """The prompt lengths of a PREFILL_CASES arch."""
+    return PREFILL_FAMILY_LENGTHS if arch in FAMILY_WIDE else PREFILL_LENGTHS
 
 
 def serve_config(wide: bool = False, arch: str | None = None):
@@ -371,14 +391,17 @@ def prefill_weights(out_dir: str, arch: str, wide: bool) -> str:
 
 def prefill_batch(cfg, rows: int, length: int) -> dict:
     """(rows, length) int32 tokens and, for a VLM, (rows, n_patches,
-    d_model) float32 patches, from numpy seeded by SERVE, rows and
-    length."""
+    d_model) float32 patches, for an encoder-decoder (rows,
+    PREFILL_FRAMES[length], d_model) float32 frames, from numpy seeded by
+    SERVE, rows and length."""
     rng = np.random.default_rng(SERVE["seed"] + 1000 * rows + length)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (rows, length)).astype(np.int32))}
-    if cfg.family == "vlm":
+    frames = {"vlm": cfg.n_patches,
+              "encdec": PREFILL_FRAMES.get(length)}.get(cfg.family)
+    if frames:
         batch["frontend"] = torch.from_numpy(rng.standard_normal(
-            (rows, cfg.n_patches, cfg.d_model)).astype(np.float32))
+            (rows, frames, cfg.d_model)).astype(np.float32))
     return batch
 
 
@@ -406,7 +429,7 @@ def prefill_runs(mesh, out_dir: str) -> dict:
         logits = {(rows, length): step(params, prefill_batch(
             model.cfg, rows, length)).full_tensor()
             for rows in (SERVE["batch"], SERVE["odd_batch"])
-            for length in PREFILL_LENGTHS}
+            for length in prefill_lengths(arch)}
         out[arch, wide] = {
             "logits": logits, "reads_model_params": step.reads_model_params,
             "param_placements": {n: [str(pl) for pl in t.placements]
