@@ -280,13 +280,19 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                (AdamW's m / sqrt(v) magnifies a rounding where m cancels)
   distributed  a one-rank NCCL process group (FileStore) and a (1, 1)
                (data, model) DeviceMesh on cuda; qwen3-0.6b at full width
-               in float32, 4 of 28 layers, 2 steps of
-               make_sharded_train_step (DTensor parameters and ZeRO
-               moments placed by param_shardings) against make_train_step
+               in float32, 4 of 28 layers, 2 steps of the
+               tensor-parallel make_sharded_train_step (DTensor
+               parameters and ZeRO moments placed by param_shardings; the
+               loss forward and backward on the rank's shards, the
+               model's parameters never read) against make_train_step
                on the same weights and batches, both under
                torch.use_deterministic_algorithms: losses, parameters and
                moments bitwise, else within train_vs_cpu's bounds (the
-               line's "equality" says which); the placements census and
+               line's "equality" says which); the same for internvl2-76b
+               at full width in float32, 1 of 80 layers (1908432896
+               parameters), its 256 seeded patches, with its FSDP storage
+               and its model on the meta device ("train_vlm"; the plain
+               run's state waits on the host); the placements census and
                FALLBACK_LOG's entries; hierarchical_psum and
                ring_all_gather against the identity and pipeline_forward
                against the one stage, bitwise; no decode_attn launch in
@@ -369,9 +375,15 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                rows of 32768 tokens, internvl2's 256 patches before
                them, whisper's 1536 frames beside them, bf16) held to
                its record as the decode cells are,
-               with no decode_attn launch. No *_vs_cpu twin: the dry run
-               touches no device, and serve_vs_cpu and distributed hold
-               the decode and prefill steps' numerics
+               with no decode_attn launch. Then the --shape train_4k
+               record of qwen3-0.6b at --layers 4 (its child started with
+               the others) and, after the prefill cells, rank 0's
+               tensor-parallel make_sharded_train_step on the card (16
+               rows of 4096 tokens, bf16, zero moments), held to its
+               record likewise, the peak over the model call (loss), the
+               model's parameters never read. No *_vs_cpu twin: the dry
+               run touches no device, and serve_vs_cpu and distributed
+               hold the decode, prefill and train steps' numerics
   relax_kernel the relax kernels (forward and reverse of the gradient
                tuner's relaxation) against the plain loop and autograd on
                the card at K in {1, 60, 180, 720, 2161} intervals x five
@@ -828,6 +840,14 @@ TRAIN_VS_CPU_SHARE = 1e-3
 # the sharded steps on a one-rank gloo mesh on the CPU
 DIST_MESH = (1, 1)
 DIST_STEPS = 2
+# The qwen3 steps take the tensor-parallel train step (the dense and VLM
+# families'); so does DIST_VLM's internvl2-76b at full width in float32,
+# cut to one of 80 layers, its 256 patches before train_vs_cpu's tokens,
+# with its FSDP storage, the model on the meta device: DIST_STEPS steps
+# against make_train_step on the same seeded weights and batches, held
+# as the qwen3 steps are (a state is ~30 GB: the plain run's trees wait
+# on the host while the sharded one runs)
+DIST_VLM = ("internvl2-76b", 1)
 # and the tensor-parallel make_sharded_serve_step on that mesh against
 # Model.decode_step, with the K/V heads and then the K/V sequence over
 # 'model': DIST_SERVE_STEPS tokens on DIST_SERVE_ROWS rows of a
@@ -928,6 +948,17 @@ DRYRUN_PREFILL_CELLS = (("qwen3-0.6b", 4, "qwen3"),
                         ("recurrentgemma-2b", None, "recurrentgemma"),
                         ("whisper-base", None, "whisper"))
 DRYRUN_PREFILL_SHAPE = "prefill_32k"
+# and rank 0's train_4k cells likewise (the record's child started with
+# the others), each run on the card after the prefill cells: the
+# tensor-parallel make_sharded_train_step (16 rows of 4096 tokens, bf16,
+# the moments in the ZeRO layout) held to its record as the prefill
+# cells are, the peak taken over the model call (`loss`, as the record's
+# compute_peak_bytes) and the step's model never read. qwen3-0.6b is cut
+# to 4 of 28 layers for the wall (every layer alike; the full-depth
+# record's FLOPs and peak are in PERF.md)
+DRYRUN_TRAIN_CELLS = (("qwen3-0.6b", 4, "qwen3"),)
+DRYRUN_TRAIN_SHAPE = "train_4k"
+DRYRUN_TRAIN_ROWS = 16           # 256 rows over 16 data ranks
 DRYRUN_PREFILL_ROWS = 2          # 32 rows over 16 data ranks
 DRYRUN_PREFILL_LEN = 32768
 DRYRUN_ROWS = 8                  # 128 rows over 16 data ranks
@@ -4847,7 +4878,97 @@ def _sharded_run(model, mesh, batches) -> dict:
         state, met = step(state, batch)
         losses.append(float(met["loss"]))
         walls.append(time.perf_counter() - t0)
-    return {"state": state, "losses": losses, "walls": walls}
+    return {"state": state, "losses": losses, "walls": walls,
+            "reads_model_params": step.reads_model_params}
+
+
+def _distributed_vlm_train(mesh, torch) -> dict:
+    """DIST_VLM's internvl2-76b at full width in float32, cut in depth, its
+    256 patches (seeded by the TokenPipeline) before train_vs_cpu's
+    tokens: DIST_STEPS steps of the tensor-parallel
+    make_sharded_train_step on the one-rank NCCL mesh with its FSDP
+    storage (`cfg.fsdp_train`) and its model on the meta device, against
+    make_train_step on the same seeded weights and batches, both
+    deterministic: bitwise, else train_vs_cpu's bounds. Each state holds
+    ~30 GB, so the plain run's parameters and moments wait on the host
+    while the sharded run holds the card, and come back for the
+    comparison."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.loop import (init_sharded_train_state,
+                                        init_train_state,
+                                        make_sharded_train_step,
+                                        make_train_step)
+    arch, layers = DIST_VLM
+    t0 = time.perf_counter()
+    cfg = get_config(arch, "full").replace(dtype=torch.float32,
+                                           n_layers=layers)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_VS_CPU_SEQ, TRAIN_VS_CPU_BATCH,
+                         seed=0, frontend_shape=(cfg.n_patches, cfg.d_model),
+                         device=CARD)
+    batches = [pipe.batch_at(i) for i in range(DIST_STEPS)]
+    kw = dict(base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+              total_steps=TRAIN_VS_CPU_STEPS)
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = Model(cfg, CARD).init(SERVE_SEED)
+        n_params = sum(p.numel() for p in model.parameters())
+        state = init_train_state(model, seed=None)
+        step = make_train_step(model, **kw)
+        plain_losses = []
+        for batch in batches:
+            state, met = step(state, batch)
+            plain_losses.append(float(met["loss"]))
+        plain = _state_trees(state, "cpu")
+        del state, step, model, met
+        torch.cuda.empty_cache()
+        sharding.set_fsdp(cfg.fsdp_train)
+        seeded = Model(cfg, CARD).init(SERVE_SEED)
+        state = init_sharded_train_state(seeded, mesh, seed=None)
+        del seeded
+        placements = {n: [str(pl) for pl in t.placements]
+                      for n, t in state.params.items()}
+        step = make_sharded_train_step(Model(cfg, "meta"), mesh, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            walls.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        got = _state_trees(state, CARD)
+        del state, met
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sharding.set_fsdp(False)
+    plain = {tree: {n: t.to(CARD) for n, t in leaves.items()}
+             for tree, leaves in plain.items()}
+    bitwise = losses == plain_losses and all(
+        torch.equal(got[tree][n], plain[tree][n])
+        for tree in got for n in got[tree])
+    worst, bad = _train_state_gap(got, plain, _dist_lr_sum())
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    del got, plain
+    torch.cuda.empty_cache()
+    return {"arch": arch, "dtype": "float32", "n_layers": layers,
+            "n_layers_published": get_config(arch).n_layers,
+            "n_params": n_params, "patches": cfg.n_patches,
+            "batch": TRAIN_VS_CPU_BATCH, "seq": TRAIN_VS_CPU_SEQ,
+            "fsdp": cfg.fsdp_train, "model_device": "meta",
+            "reads_model_params": step.reads_model_params,
+            "placements": {n: placements[n] for n in
+                           ("embed", "layers.0.attn.wq",
+                            "layers.0.mlp.w_down", "layers.0.ln1")},
+            "losses": losses, "plain_losses": plain_losses,
+            "equality": "bitwise" if bitwise else "train_vs_cpu bounds",
+            "loss_gap_rel": loss_gap, "worst": worst,
+            "leaves_out_of_bounds": bad, "sharded_step_walls_s": walls,
+            "sharded_peak_bytes": peak, "wall_s": time.perf_counter() - t0,
+            "ok": bool(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL
+                                   and not bad))}
 
 
 def _census(state, log) -> dict:
@@ -5184,11 +5305,14 @@ def phase_distributed(torch) -> dict:
     """The distributed layer on the card: a one-rank NCCL process group
     and a DIST_MESH DeviceMesh on cuda; qwen3-0.6b at full width in
     float32, cut to TRAIN_VS_CPU_LAYERS layers, DIST_STEPS steps of
-    make_sharded_train_step against make_train_step on the same weights
-    and TokenPipeline batches (train_vs_cpu's batch and schedule), both
-    deterministic: the losses, the gathered parameters and the moments
-    bitwise, else within train_vs_cpu's bounds (the line says which); the
-    placements census; hierarchical_psum, ring_all_gather and
+    make_sharded_train_step (the tensor-parallel train step) against
+    make_train_step on the same weights and TokenPipeline batches
+    (train_vs_cpu's batch and schedule), both deterministic: the losses,
+    the gathered parameters and the moments bitwise, else within
+    train_vs_cpu's bounds (the line says which); the same for DIST_VLM's
+    internvl2-76b with its FSDP storage and its model on the meta device
+    (`_distributed_vlm_train`); the placements census; hierarchical_psum,
+    ring_all_gather and
     pipeline_forward on the one-rank mesh against the identity and the
     sequential stage, bitwise; the tensor-parallel serve steps and, for
     qwen3-0.6b, DIST_MOE's and DIST_FAMILIES' models, the tensor-parallel
@@ -5263,6 +5387,7 @@ def phase_distributed(torch) -> dict:
             "pipeline_forward_sequential": torch.equal(
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
+        train_vlm = _distributed_vlm_train(mesh, torch)
         serve = _distributed_serve(mesh, init, cfg, torch)
         serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch,
                                           prefill=True)
@@ -5280,6 +5405,9 @@ def phase_distributed(torch) -> dict:
                "equality": "bitwise" if bitwise else "train_vs_cpu bounds",
                "loss_gap_rel": loss_gap, "worst": worst,
                "leaves_out_of_bounds": bad, "census": census,
+               "train_step": ("gathering" if run["reads_model_params"]
+                              else "tensor parallel"),
+               "train_vlm": train_vlm,
                "collectives": collectives,
                "decode_attn_launches": launches, "serve": serve,
                "serve_moe": serve_moe, "serve_families": serve_families,
@@ -5288,6 +5416,13 @@ def phase_distributed(torch) -> dict:
         check(bitwise or (loss_gap <= TRAIN_VS_CPU_RTOL and not bad),
               f"distributed: sharded != plain: losses {run['losses']} "
               f"against {plain_losses}, out of bounds {bad}")
+        check(not run["reads_model_params"],
+              "distributed: qwen3's train step gathers the parameters")
+        check(train_vlm["ok"] and not train_vlm["reads_model_params"],
+              f"distributed: {DIST_VLM[0]}'s tensor-parallel steps != plain: "
+              f"losses {train_vlm['losses']} against "
+              f"{train_vlm['plain_losses']}, out of bounds "
+              f"{train_vlm['leaves_out_of_bounds']}")
         check(all(collectives.values()),
               f"distributed: a collective on one rank: {collectives}")
         check(launches == 0, f"distributed: {launches} decode_attn launches")
@@ -5600,8 +5735,9 @@ def _dryrun_child(arch: str, layers, out_dir: str,
 
 
 def start_dryrun_records() -> dict:
-    """Starts the dryrun phase's record children (every DRYRUN_CELLS and
-    DRYRUN_PREFILL_CELLS cell, all at once, at the lowest CPU priority),
+    """Starts the dryrun phase's record children (every DRYRUN_CELLS,
+    DRYRUN_PREFILL_CELLS and DRYRUN_TRAIN_CELLS cell, all at once, at the
+    lowest CPU priority),
     so that they trace on the host's idle cores while the card runs the
     phases before `dryrun`; a thread a child takes its wall. An exit
     handler stops any child still running and removes the records."""
@@ -5612,6 +5748,8 @@ def start_dryrun_records() -> dict:
     jobs = [(arch, layers, DRYRUN_SHAPE) for arch, layers, *_ in DRYRUN_CELLS]
     jobs += [(arch, layers, DRYRUN_PREFILL_SHAPE)
              for arch, layers, _ in DRYRUN_PREFILL_CELLS]
+    jobs += [(arch, layers, DRYRUN_TRAIN_SHAPE)
+             for arch, layers, _ in DRYRUN_TRAIN_CELLS]
     walls, children, watchers = {}, {}, {}
 
     def watch(tag, child, t0):
@@ -5843,79 +5981,67 @@ def _dryrun_checks(out: dict) -> None:
           f"dryrun {arch}: the record all-gathers {gathered} B a step")
 
 
-def _dryrun_prefill(arch: str, layers, rec: dict, mesh, torch) -> dict:
-    """One DRYRUN_PREFILL_CELLS cell on the card, once the CPU children have
-    ended: rank 0's tensor-parallel `make_sharded_prefill_step`
-    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake group), the
-    record's arguments made real (`_card_tree`: the parameters x 0.02, 2 rows
-    of 32768 seeded tokens, internvl2's patches and whisper's frames standard
-    normal), one warm-up, one step under FlopCounterMode with the peak taken
-    over it (arguments resident), then DRYRUN_REPS steps timed by CUDA events;
-    decode_attn's launches over all of them. The fake collectives move nothing,
-    so the values are not the model's (the distributed phase holds the step's
-    numerics). Frees the cell's tensors."""
-    import statistics
-
+def _dryrun_steps(step, args: tuple, peak, torch) -> tuple:
+    """A dry-run cell's step on the card: one warm-up of ``step(*args)``,
+    one under FlopCounterMode with the card's peak allocation reset before
+    it and ``peak()`` read after it, then DRYRUN_REPS steps from the same
+    arguments timed by CUDA events: the counted step's output, and its
+    FLOPs, the peak, the times in ms and decode_attn's launches over all
+    of them."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels.decode_attn import ops
-    from repro_torch.launch import specs
-    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
-                                         make_production_mesh)
-    t0 = time.perf_counter()
-    base = torch.cuda.memory_allocated()
-    model, step, (params, batch) = specs.build_cell(
-        arch, DRYRUN_PREFILL_SHAPE, mesh, layers)
-    cfg = model.cfg
-    g = torch.Generator(device=CARD)
-    g.manual_seed(DRYRUN_SEED)
-    params = _card_tree(params, mesh, g, 0.02, torch)
-    batch = _card_tree(batch, mesh, g, 1.0, torch)
-    batch["tokens"].to_local().random_(0, cfg.vocab_size, generator=g)
     first = ops.decode_attention.launches
-    step(params, batch)                              # warm-up
+    step(*args)                                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counter = FlopCounterMode(display=False)
     with counter:
-        logits = step(params, batch)
+        out = step(*args)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
+    got = peak()
     times = []
     for _ in range(DRYRUN_REPS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         start.record()
-        step(params, batch)
+        step(*args)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    launches = ops.decode_attention.launches - first
-    logits_shape = list(logits.to_local().shape)
-    del model, step, params, batch, logits
-    torch.cuda.empty_cache()
-    _, args = specs.cell_lowerable(arch, DRYRUN_PREFILL_SHAPE,
-                                   make_production_mesh(), layers)
+    return out, (int(counter.get_total_flops()), got, times,
+                 ops.decode_attention.launches - first)
+
+
+def _dryrun_line(arch: str, shape: str, layers, rec: dict, measured: tuple,
+                 t0: float) -> dict:
+    """The keys that a prefill or train cell's line shares: its record and
+    collectives, the arguments' bytes by `launch.specs`, and the card's
+    FLOPs, peak, step times and launches (`_dryrun_steps`' ``measured``)
+    beside the record's bounds."""
+    import statistics
+
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_production_mesh)
+    flops, peak, times, launches = measured
+    _, args = specs.cell_lowerable(arch, shape, make_production_mesh(),
+                                   layers)
     ms = statistics.median(times)
     step_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
                      rec["hlo_bytes"] / HBM_BW) * 1e3
     call_bound = max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
                      rec["compute_bytes"] / HBM_BW) * 1e3
-    return {"arch": arch, "shape": DRYRUN_PREFILL_SHAPE,
+    return {"arch": arch, "shape": shape,
             "record": {k: rec[k] for k in rec if k != "collectives"},
             "collectives": rec["collectives"],
             "argument_bytes_here": specs.argument_bytes(args),
-            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
-            "rows": DRYRUN_PREFILL_ROWS,
-            "seq": DRYRUN_PREFILL_LEN + (cfg.n_patches
-                                         if cfg.family == "vlm" else 0),
-            "logits_shape": logits_shape,
             "step_ms": ms, "step_ms_all": times,
             "card_peak_bytes": peak,
             "peak_gap_bytes": peak - rec["compute_peak_bytes"],
             "peak_tolerance": DRYRUN_PEAK_RTOL * rec["compute_peak_bytes"]
             + DRYRUN_PEAK_SLACK,
-            "card_flops": int(counter.get_total_flops()),
+            "card_flops": flops,
             "step_bound_ms": step_bound, "step_bound_share": step_bound / ms,
             "call_bound_ms": call_bound, "call_bound_share": call_bound / ms,
             "call_bound_by": ("bytes" if rec["compute_bytes"] / HBM_BW
@@ -5925,8 +6051,8 @@ def _dryrun_prefill(arch: str, layers, rec: dict, mesh, torch) -> dict:
             "cell_wall_s": time.perf_counter() - t0}
 
 
-def _dryrun_prefill_checks(out: dict) -> None:
-    """A prefill cell's line against its record."""
+def _dryrun_line_checks(out: dict) -> None:
+    """A prefill or train cell's line against its record."""
     arch, rec = out["arch"], out["record"]
     tag = f"dryrun {arch} {out['shape']}"
     check(rec["ok"] is True, f"{tag}: the record is not ok")
@@ -5946,10 +6072,126 @@ def _dryrun_prefill_checks(out: dict) -> None:
     check(out["call_bound_share"] <= DRYRUN_MAX_SHARE,
           f"{tag}: bound share {out['call_bound_share']} over "
           f"{DRYRUN_MAX_SHARE}")
+
+
+def _dryrun_prefill(arch: str, layers, rec: dict, mesh, torch) -> dict:
+    """One DRYRUN_PREFILL_CELLS cell on the card, once the CPU children have
+    ended: rank 0's tensor-parallel `make_sharded_prefill_step`
+    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake group), the
+    record's arguments made real (`_card_tree`: the parameters x 0.02, 2 rows
+    of 32768 seeded tokens, internvl2's patches and whisper's frames standard
+    normal), measured by `_dryrun_steps` with the peak taken over the
+    counted step (arguments resident). The fake collectives move nothing,
+    so the values are not the model's (the distributed phase holds the step's
+    numerics). Frees the cell's tensors."""
+    from repro_torch.launch import specs
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    model, step, (params, batch) = specs.build_cell(
+        arch, DRYRUN_PREFILL_SHAPE, mesh, layers)
+    cfg = model.cfg
+    g = torch.Generator(device=CARD)
+    g.manual_seed(DRYRUN_SEED)
+    params = _card_tree(params, mesh, g, 0.02, torch)
+    batch = _card_tree(batch, mesh, g, 1.0, torch)
+    batch["tokens"].to_local().random_(0, cfg.vocab_size, generator=g)
+    logits, measured = _dryrun_steps(
+        step, (params, batch),
+        lambda: torch.cuda.max_memory_allocated() - base, torch)
+    logits_shape = list(logits.to_local().shape)
+    del model, step, params, batch, logits
+    torch.cuda.empty_cache()
+    return {**_dryrun_line(arch, DRYRUN_PREFILL_SHAPE, layers, rec,
+                           measured, t0),
+            "n_layers": cfg.n_layers, "n_dense_layers": cfg.n_dense_layers,
+            "rows": DRYRUN_PREFILL_ROWS,
+            "seq": DRYRUN_PREFILL_LEN + (cfg.n_patches
+                                         if cfg.family == "vlm" else 0),
+            "logits_shape": logits_shape}
+
+
+def _dryrun_prefill_checks(out: dict) -> None:
+    """A prefill cell's line against its record."""
+    _dryrun_line_checks(out)
     check(out["logits_shape"] == [DRYRUN_PREFILL_ROWS,
-                                  rec["output_size_in_bytes"]
+                                  out["record"]["output_size_in_bytes"]
                                   // (4 * DRYRUN_PREFILL_ROWS)],
-          f"{tag}: logits {out['logits_shape']}")
+          f"dryrun {out['arch']} {out['shape']}: logits "
+          f"{out['logits_shape']}")
+
+
+def _call_peak(model, name: str, window: dict, torch):
+    """``model``'s method ``name`` wrapped so that each call writes into
+    ``window`` its ``peak``: the card's peak allocation over the call less
+    what was allocated before it, plus the model's parameters (the rank's
+    shards while the step replaces them) and the call's tensor arguments,
+    as the dry run's compute_peak_bytes counts them resident."""
+    from torch.utils._pytree import tree_leaves
+    inner = getattr(model, name)
+
+    def call(*args, **kwargs):
+        resident = sum(t.numel() * t.element_size() for t in [
+            *model.parameters(), *(t for t in tree_leaves((args, kwargs))
+                                   if isinstance(t, torch.Tensor))])
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        window["peak"] = torch.cuda.max_memory_allocated() - before + resident
+        return out
+
+    setattr(model, name, call)
+
+
+def _dryrun_train(arch: str, layers, rec: dict, mesh, torch) -> dict:
+    """One DRYRUN_TRAIN_CELLS cell on the card after the prefill cells:
+    rank 0's tensor-parallel `make_sharded_train_step`
+    (`launch.specs.build_cell` on the cuda DeviceMesh over the fake
+    group), the record's arguments made real (`_card_tree`: the
+    parameters x 0.02, the moments zero, DRYRUN_TRAIN_ROWS rows of seeded
+    tokens), measured by `_dryrun_steps` with the peak over the counted
+    step's model call (`_call_peak`), every step from the same state.
+    The fake collectives move nothing, so the values are not the
+    model's (the distributed phase holds the step's numerics). Frees the
+    cell's tensors."""
+    from repro_torch.launch import specs
+    t0 = time.perf_counter()
+    model, step, (state, batch) = specs.build_cell(
+        arch, DRYRUN_TRAIN_SHAPE, mesh, layers)
+    cfg = model.cfg
+    g = torch.Generator(device=CARD)
+    g.manual_seed(DRYRUN_SEED)
+    opt = state.opt
+    state = state._replace(
+        params=_card_tree(state.params, mesh, g, 0.02, torch),
+        opt=opt._replace(step=torch.zeros((), dtype=opt.step.dtype,
+                                          device=CARD),
+                         mu=_card_tree(opt.mu, mesh, g, 0.0, torch),
+                         nu=_card_tree(opt.nu, mesh, g, 0.0, torch)))
+    batch = _card_tree(batch, mesh, g, 1.0, torch)
+    batch["tokens"].to_local().random_(0, cfg.vocab_size, generator=g)
+    window: dict = {}
+    _call_peak(model, step.model_call, window, torch)
+    out, measured = _dryrun_steps(step, (state, batch),
+                                  lambda: window["peak"], torch)
+    reads = step.reads_model_params
+    del model, step, state, batch, out
+    torch.cuda.empty_cache()
+    return {**_dryrun_line(arch, DRYRUN_TRAIN_SHAPE, layers, rec, measured,
+                           t0),
+            "n_layers": cfg.n_layers, "rows": DRYRUN_TRAIN_ROWS,
+            "seq": specs.SHAPES[DRYRUN_TRAIN_SHAPE]["seq_len"],
+            "reads_model_params": reads}
+
+
+def _dryrun_train_checks(out: dict) -> None:
+    """A train cell's line against its record."""
+    _dryrun_line_checks(out)
+    check(out["record"]["reads_model_params"] is False
+          and out["reads_model_params"] is False,
+          f"dryrun {out['arch']} {out['shape']}: the train step reads the "
+          f"model's parameters")
 
 
 def phase_dryrun(started: dict, torch) -> dict:
@@ -5989,9 +6231,14 @@ def phase_dryrun(started: dict, torch) -> dict:
     the others, and once the decode cells are done and freed its
     tensor-parallel `make_sharded_prefill_step` runs on the card
     (`_dryrun_prefill`), held to the record as (b) holds the decode
-    cells, with no decode_attn launch. The line keeps qwen3-0.6b's decode
-    keys at its top level, the other decode cells under their keys and
-    the prefill cells under "prefill"."""
+    cells, with no decode_attn launch. (e) Each DRYRUN_TRAIN_CELLS
+    cell's record likewise, and after the prefill cells its
+    tensor-parallel `make_sharded_train_step` on the card
+    (`_dryrun_train`): FLOPs exact, the model call's peak, the bound
+    share, no decode_attn launch and the model's parameters never read.
+    The line keeps qwen3-0.6b's decode keys at its top level, the other
+    decode cells under their keys, the prefill cells under "prefill" and
+    the train cells under "train"."""
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding
@@ -6035,6 +6282,11 @@ def phase_dryrun(started: dict, torch) -> dict:
                 arch, layers, records[_dryrun_tag(
                     arch, layers, DRYRUN_PREFILL_SHAPE)], mesh, torch))
         prefill_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        train_lines = [_dryrun_train(arch, layers, records[_dryrun_tag(
+            arch, layers, DRYRUN_TRAIN_SHAPE)], mesh, torch)
+            for arch, layers, _ in DRYRUN_TRAIN_CELLS]
+        train_s = time.perf_counter() - t1
         served = router.service_model(DRYRUN_ARCH, dryrun_dir=out_dir.name)
         roofline = router.roofline_token_latency(DRYRUN_ARCH, out_dir.name)
     finally:
@@ -6051,6 +6303,10 @@ def phase_dryrun(started: dict, torch) -> dict:
         tag = _dryrun_tag(arch, layers, DRYRUN_PREFILL_SHAPE)
         line["child_wall_s"] = child_s[tag]
         line["child_stdout"] = child_out[tag]
+    for line, (arch, layers, _) in zip(train_lines, DRYRUN_TRAIN_CELLS):
+        tag = _dryrun_tag(arch, layers, DRYRUN_TRAIN_SHAPE)
+        line["child_wall_s"] = child_s[tag]
+        line["child_stdout"] = child_out[tag]
     top = lines[0]
     rec = top["record"]
     out = {"phase": "dryrun", "shape": DRYRUN_SHAPE, "mesh": "single",
@@ -6063,6 +6319,9 @@ def phase_dryrun(started: dict, torch) -> dict:
            "prefill": {key: line for (*_, key), line
                        in zip(DRYRUN_PREFILL_CELLS, prefill_lines)},
            "prefill_cells_s": prefill_s,
+           "train": {key: line for (*_, key), line
+                     in zip(DRYRUN_TRAIN_CELLS, train_lines)},
+           "train_cells_s": train_s,
            "children_s": max(child_s.values()),
            "children_wait_s": children_wait_s,
            "decode_attn_launches_all": sum(line["decode_attn_launches"]
@@ -6082,12 +6341,18 @@ def phase_dryrun(started: dict, torch) -> dict:
                      "rank's shards); decode_attn: as serve_* phases, with "
                      "the log-sum-exp output where the step asks for it; "
                      "prefill: the same around the tensor-parallel "
-                     "make_sharded_prefill_step, after the decode cells"}
+                     "make_sharded_prefill_step, after the decode cells; "
+                     "train: the same around the tensor-parallel "
+                     "make_sharded_train_step after the prefill cells, "
+                     "every timed step from the same state, the peak over "
+                     "the model call (loss)"}
     emit(out)
     for line in lines:
         _dryrun_checks(line)
     for line in prefill_lines:
         _dryrun_prefill_checks(line)
+    for line in train_lines:
+        _dryrun_train_checks(line)
     check(roofline is not None and served.token_s_accel == roofline ==
           max(rec["hlo_flops"] / PEAK_FLOPS_BF16,
               rec["hlo_bytes"] / HBM_BW) / 128,

@@ -1,4 +1,6 @@
-"""Tensor-parallel decode: the sharded serve step of every family computes
+"""Tensor-parallel decode, prefill and training.
+
+Decode: the sharded serve step of every family computes
 on the rank's own shards of the parameters and of every cache leaf, as
 XLA partitions the reference's decode under the fan-out layout of
 `repro.distributed.sharding` (parameters Shard(last) over 'model', the
@@ -118,14 +120,36 @@ convolutions and the scans never let a real position see one, K/V are
 cut to the real positions before any attention, and the MoE never routes
 them.
 
+Tensor-parallel training (the dense and VLM families so far) runs
+`Model.loss` forward under the prefill rule and backward through it: the
+final norm on the rank's positions, the normed states of every real
+position all-gathered, the head on the rank's vocabulary rows and a
+vocab-parallel cross-entropy (`repro_torch.models.layers.cross_entropy`),
+never gathering the logits or the embedding. Each collective is an
+autograd function whose backward is its exact adjoint: an all-gather's
+a sum reduce-scatter along the same dim and groups, a reduce-scatter's an
+all-gather, a sum all-reduce's a sum all-reduce, an all-to-all's the
+all-to-all with the blocks' sizes swapped; a "max" all-reduce only
+shifts a log-sum-exp and is detached. The loss convention: the global
+loss is the sum over every rank of the rank's term, its data rows' mean
+loss divided by (data ranks x 'model' ranks), and each rank's backward
+is seeded with its term. A term that every 'model' rank computes alike
+(the cross-entropy, whole on each after its all-reduces) then counts n
+times 1/n; a term of the rank's own positions sums over the ranks to the
+whole sequence. So a 'model' shard of a parameter gets its whole
+gradient from the adjoints, and a parameter that the layout replicates
+over an axis gets its gradient by summing the ranks' over that axis
+(`repro_torch.train.loop.sharded_gradients`).
+
 The sites consult the `TensorParallel` context that `active` installs
 (`repro_torch.train.loop.make_sharded_serve_step` does, around the
-model's `decode_step`, and `make_sharded_prefill_step` around its
-`last_logits`, with the sequence's length: `sequence_parallel`); with
-none installed each computes what the one-process model computes. The
-collectives are the `_c10d_functional` ops, so they run alike on NCCL,
-on gloo and on the dry run's fake process group over meta tensors, whose
-census counts them (`repro_torch.launch.dryrun`).
+model's `decode_step`, `make_sharded_prefill_step` around its
+`last_logits`, and `sharded_gradients` around its `loss`, both with the
+sequence's length: `sequence_parallel`); with none installed each
+computes what the one-process model computes. The collectives, the
+backward's too, are the `_c10d_functional` ops, so they run alike on
+NCCL, on gloo and on the dry run's fake process group over meta tensors,
+whose census counts them (`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -148,31 +172,17 @@ _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "tensor_parallel", default=None)
 
 
-def _gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
-    """``x`` concatenated along ``dim`` over the ranks of ``groups`` (the
-    process groups of the mesh dims that split it, major first)."""
+def _gather_one(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` concatenated along ``dim`` over the ranks of ``group``."""
     import torch.distributed as dist
     c10d = torch.ops._c10d_functional
-    dim = dim % x.dim()
-    for group in reversed(groups):          # the minor axis first
-        n = dist.get_world_size(group)
-        out = c10d.wait_tensor(c10d.all_gather_into_tensor(
-            x.contiguous(), n, group.group_name))
-        x = out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
-    return x
+    n = dist.get_world_size(group)
+    out = c10d.wait_tensor(c10d.all_gather_into_tensor(
+        x.contiguous(), n, group.group_name))
+    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
 
 
-def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
-    """``x`` reduced (``op`` "sum" or "max") over the ranks of
-    ``groups``; a new tensor."""
-    c10d = torch.ops._c10d_functional
-    for group in groups:
-        x = c10d.wait_tensor(c10d.all_reduce(x.contiguous(), op,
-                                             group.group_name))
-    return x
-
-
-def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _reduce_scatter_one(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """``x`` summed over the ranks of ``group`` and split along ``dim``
     into their equal blocks: this rank's block."""
     import torch.distributed as dist
@@ -183,14 +193,109 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return y.movedim(0, dim)
 
 
+def _all_reduce_one(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_reduce(x.contiguous(), op,
+                                            group.group_name))
+
+
+def _all_to_all_one(x: torch.Tensor, recv: list[int], send: list[int],
+                    group) -> torch.Tensor:
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_to_all_single(
+        x.contiguous(), recv, send, group.group_name))
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along a dim; its adjoint the sum reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_one(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_one(g, ctx.dim, ctx.group), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Sum reduce-scatter along a dim; its adjoint the all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter_one(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_one(g, ctx.dim, ctx.group), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum all-reduce; its own adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_one(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_one(g, "sum", ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all of row blocks; its adjoint the all-to-all with the
+    blocks' sizes swapped."""
+
+    @staticmethod
+    def forward(ctx, x, recv, send, group):
+        ctx.recv, ctx.send, ctx.group = recv, send, group
+        return _all_to_all_one(x, recv, send, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all_one(g, ctx.send, ctx.recv, ctx.group), None,
+                None, None)
+
+
+def all_gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """``x`` concatenated along ``dim`` over the ranks of ``groups`` (the
+    process groups of the mesh dims that split it, major first); its
+    gradient is reduce-scattered back (`_AllGather`)."""
+    dim = dim % x.dim()
+    for group in reversed(groups):          # the minor axis first
+        x = _AllGather.apply(x, dim, group)
+    return x
+
+
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``x`` reduced (``op`` "sum" or "max") over the ranks of
+    ``groups``; a new tensor. A "max" only ever stabilises (a
+    log-sum-exp's shift): it is detached and carries no gradient."""
+    if op == "max":
+        x = x.detach()
+        for group in groups:
+            x = _all_reduce_one(x, op, group)
+        return x
+    for group in groups:
+        x = _AllReduceSum.apply(x, group)
+    return x
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` and split along ``dim``
+    into their equal blocks: this rank's block."""
+    return _ReduceScatter.apply(x, dim % x.dim(), group)
+
+
 def _all_to_all(x: torch.Tensor, recv: list[int], send: list[int],
                 group) -> torch.Tensor:
     """``x``'s rows sent in blocks of ``send`` rows to the ranks of
     ``group`` in order, and the blocks of ``recv`` rows received from
     them, in order."""
-    c10d = torch.ops._c10d_functional
-    return c10d.wait_tensor(c10d.all_to_all_single(
-        x.contiguous(), recv, send, group.group_name))
+    return _AllToAll.apply(x, recv, send, group)
 
 
 def combine(out: torch.Tensor, lse: torch.Tensor, reduce) -> torch.Tensor:
@@ -285,7 +390,7 @@ class KVShard:
         over the heads' groups."""
         if self.seq_groups:
             out = self.merge(out, lse)
-        return _gather(out, 1, self.head_groups)
+        return all_gather(out, 1, self.head_groups)
 
 
 @dataclass(frozen=True)
@@ -336,7 +441,7 @@ class StateShard:
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """``x``, this shard's entries along ``dim``, all-gathered over
         the groups that split the state: the whole dim."""
-        return _gather(x, dim, self.groups)
+        return all_gather(x, dim, self.groups)
 
 
 class TensorParallel:
@@ -413,7 +518,7 @@ class TensorParallel:
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """``x`` all-gathered over 'model' along ``dim``."""
-        return _gather(x, dim, self.groups)
+        return all_gather(x, dim, self.groups)
 
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         return _all_reduce(x, op, self.groups)
@@ -531,7 +636,7 @@ class TensorParallel:
     def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's positions (dim 1) all-gathered over 'model': every
         position of the padded sequence."""
-        return _gather(x, 1, self.groups)
+        return all_gather(x, 1, self.groups)
 
     def seq_whole(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's positions (dim 1) all-gathered over 'model' and cut

@@ -36,11 +36,12 @@ with the reference's keys where their meaning carries over:
       rank 0's local bytes of the step's outputs.
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
-      full parameters included where the step gathers into them, as
-      the train step does; the tensor-parallel decode and prefill steps
-      of every family compute on the argument shards and hold no full
-      parameter: a moe layer's dispatch buffers are those of the rank's
-      experts).
+      full parameters included where the step gathers into them, as the
+      train step of the moe, ssm, hybrid and encdec families does; the
+      tensor-parallel steps (decode and prefill of every family, train of
+      the dense and VLM families) compute on the argument shards and hold
+      no full parameter: a moe layer's dispatch buffers are those of the
+      rank's experts).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)
@@ -58,6 +59,11 @@ with the reference's keys where their meaning carries over:
   decode_attention_calls, rank_rows (port-only)
       the step's `decode_attention` calls, and the batch rows rank 0
       computes (every row where the data axes do not divide them).
+  reads_model_params (port-only)
+      the step's own flag: True where it gathers every parameter into
+      the model's own (the train step of the moe, ssm, hybrid and encdec
+      families), whose bytes then count among the temporaries; False
+      where it computes on the argument shards (every other step).
   hlo_flops
       rank 0's FLOPs: `FlopCounterMode`'s total (matmul-class ops only)
       plus each `decode_attention` call's FLOPs from
@@ -306,6 +312,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
             hlo_bytes=counter.bytes + attn["bytes"],
             decode_attention_calls=attn["calls"],
             rank_rows=b // n_data if b % n_data == 0 else b,
+            reads_model_params=step.reads_model_params,
             collectives=collective_census(counter.collectives))
         if save_hlo:
             Path(save_hlo).write_text("\n".join(counter.log) + "\n")

@@ -11,7 +11,10 @@ inside the sharded serve step they compute on the rank's shards of the
 weights, and inside the sharded prefill step on the rank's positions of
 the sequence (the MLP on the gathered sequence's rank's ff columns, its
 row product reduce-scattered onto the positions; the embedding
-reduce-scattered onto them); elsewhere exactly as written."""
+reduce-scattered onto them), which the sharded train step of the dense
+and VLM families runs too, with `unembed` left on the rank's vocabulary
+rows and a vocab-parallel `cross_entropy`; elsewhere exactly as
+written."""
 
 from __future__ import annotations
 
@@ -222,29 +225,54 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     return out if prefix is None else torch.cat([prefix, out], dim=1)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor,
-            valid_vocab: int) -> torch.Tensor:
+def unembed(table: torch.Tensor, x: torch.Tensor, valid_vocab: int,
+            gather: bool = True) -> torch.Tensor:
     """Tied output head; padded vocab ids masked to -1e30. On a vocab
     shard: the logits of the rank's rows, masked, all-gathered over
-    'model'."""
+    'model' (with ``gather`` False left on the rank: its block of the
+    vocabulary, as `cross_entropy(..., vocab_parallel=True)` reads
+    them)."""
     ctx = _vocab_shard(table)
     logits = (x @ table.T).float()
     v = table.shape[0]
     lo = 0 if ctx is None else ctx.rank * v
     if valid_vocab < lo + v:
         logits[..., max(valid_vocab - lo, 0):] = -1e30
-    return logits if ctx is None else ctx.gather(logits, -1)
+    return logits if ctx is None or not gather else ctx.gather(logits, -1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
-                  z_weight: float = 1e-4) -> torch.Tensor:
+                  z_weight: float = 1e-4,
+                  vocab_parallel: bool = False) -> torch.Tensor:
     """Mean token cross-entropy (float32) plus the z-loss ``z_weight *
     logz^2`` against logit drift; with ``mask`` (float, the labels'
-    shape), the masked mean over at least one token."""
+    shape), the masked mean over at least one token.
+
+    With ``vocab_parallel`` the logits are this 'model' rank's block of
+    the vocabulary in the installed tensor-parallel step (`unembed(...,
+    gather=False)` on a vocab shard): logz and the gold logit are reduced
+    over 'model' from the local maximum (all-reduced with "max" and
+    detached: a shift, it carries no gradient), and the local sum of
+    exp beside the gold logit where the rank holds the label (one
+    all-reduce with "sum"), so every 'model' rank holds the whole loss
+    and no logit moves."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if not vocab_parallel:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        ctx = tp.current()
+        v = logits.shape[-1]
+        m = ctx.all_reduce(logits.amax(dim=-1), "max")
+        local = labels.long() - ctx.rank * v
+        hit = (local >= 0) & (local < v)
+        own = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+        part = ctx.all_reduce(torch.stack(
+            [torch.exp(logits - m[..., None]).sum(dim=-1),
+             torch.where(hit, own, 0.0)], dim=-1), "sum")
+        logz = m + torch.log(part[..., 0])
+        gold = part[..., 1]
     loss = logz - gold + z_weight * logz.square()
     if mask is not None:
         loss = loss * mask

@@ -440,12 +440,35 @@ class Model(torch.nn.Module):
         ``batch["frontend"]`` for encdec and vlm: (total, metrics), where
         total = ce + aux (+ ``cfg.mtp_weight`` x the MTP loss for the moe
         family with ``cfg.mtp``) and metrics holds ``ce``, ``aux`` and
-        ``mtp`` (float32 scalars)."""
+        ``mtp`` (float32 scalars).
+
+        In a tensor-parallel train step (`tensor_parallel.sequence_parallel`,
+        which `repro_torch.train.loop.make_sharded_train_step` installs for
+        the dense and VLM families) the backbone keeps the rank's
+        positions (`_hidden`, the prefill rule), the final norm runs on
+        them, the normed states of every real position are all-gathered
+        along the sequence (the VLM's patches then dropped), and the head
+        and the cross-entropy are vocab parallel: logits of the rank's
+        vocabulary rows alone (`unembed(..., gather=False)`,
+        `cross_entropy(..., vocab_parallel=True)`), so ``ce`` is the
+        rows' whole loss on every 'model' rank."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         frontend = batch.get("frontend")
         h, aux = self._hidden(tokens[:, :-1], frontend)
-        ce = cross_entropy(self._logits(h, frontend), tokens[:, 1:])
+        ctx = tp.sequence_parallel()
+        if ctx is None:
+            ce = cross_entropy(self._logits(h, frontend), tokens[:, 1:])
+        else:
+            # the rank's positions normed, then every real position
+            # gathered; logits of the rank's vocabulary rows alone
+            x = ctx.seq_whole(rms_norm(h, self.final_norm))
+            if cfg.family == "vlm":
+                x = x[:, frontend.shape[1]:]
+            ce = cross_entropy(
+                unembed(self.embed, x, cfg.vocab_size, gather=False),
+                tokens[:, 1:],
+                vocab_parallel=ctx.model_shard(self.embed) is not None)
         total = ce + aux
         metrics = {"ce": ce, "aux": aux}
         if cfg.family == "moe" and cfg.mtp:

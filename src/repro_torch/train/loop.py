@@ -35,15 +35,21 @@ input over the sequence and reduce-scattering its output back (or, where
 'model' does not divide the q heads, attending from the rank's positions
 over the gathered K/V), the weights staying where they are but for the
 few that every position needs whole (`tensor_parallel`'s prefill rule).
-The train step gathers each parameter DTensor to a full tensor and
-writes it into the model's own parameter, and the model's unchanged
-`Model.loss` runs on plain tensors, the 'model' ranks computing
-redundantly: it shards storage, not compute (tensor-parallel training is
-later work). Each sharded step's ``reads_model_params`` says which of
-the two it is: True where it gathers into the model's own parameters,
-False where it never reads them (every serve and prefill step; the dry
-run counts the model's parameters among a rank's bytes only when True),
-and ``model_call`` names the model's method it runs.
+The train step of the dense and VLM families (`TENSOR_PARALLEL_TRAIN`)
+runs `Model.loss` forward and backward under that same rule on the
+rank's own shards (gathered over the data axes first where FSDP storage
+splits them there), with a vocab-parallel head and cross-entropy; every
+collective's backward is its adjoint, and each gradient leaves as the
+rank's shard of the ZeRO layout (`sharded_gradients`). The train step of
+the other families still gathers each parameter DTensor to a full
+tensor, writes it into the model's own parameter, and runs the unchanged
+`Model.loss` on plain tensors, the 'model' ranks computing redundantly.
+Each sharded step's ``reads_model_params`` says which of the two it is:
+True where it gathers into the model's own parameters, False where it
+never reads them (every serve and prefill step, and the dense and VLM
+train steps; the dry run counts the model's parameters among a rank's
+bytes only when True), and ``model_call`` names the model's method it
+runs.
 """
 
 from __future__ import annotations
@@ -142,7 +148,8 @@ def init_sharded_train_state(model: Model, mesh, seed: int | None = 0
     then held as DTensors placed by ``param_shardings(model, mesh)``, and
     the AdamW moments as float32 zeros placed by its ``zero=True``
     layout. The model's own parameters (gradients on) become the
-    buffers each step gathers into."""
+    buffers each step gathers into, where the step gathers (the families
+    not in `TENSOR_PARALLEL_TRAIN`)."""
     from torch.distributed.tensor import distribute_tensor
     if seed is not None:
         model.init(seed)
@@ -215,6 +222,105 @@ def _load_params(params: dict[str, torch.Tensor], placed: dict) -> None:
             p.copy_(placed[name].full_tensor())
 
 
+#: The families whose sharded train step is tensor parallel; the others
+#: gather every parameter into the model's own (`sharded_gradients`).
+TENSOR_PARALLEL_TRAIN = ("dense", "vlm")
+
+
+def _summed(g: torch.Tensor, placed, target) -> torch.Tensor:
+    """This rank's shard, in ``target``'s placements, of the gradient
+    whose rank term ``g`` is that of the local tensor of ``placed`` (a
+    parameter DTensor): summed over each mesh dim that replicates
+    ``placed`` (a `Partial` there), by the reduce-scatter (or, where
+    ``target`` replicates the dim too, the all-reduce) of one
+    redistribution; along a dim that splits ``placed`` the collectives'
+    adjoints have summed it already."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = placed.device_mesh
+    return DTensor.from_local(
+        g, mesh, [pl if pl.is_shard() else Partial()
+                  for pl in placed.placements],
+        shape=placed.shape, stride=placed.stride()
+    ).redistribute(mesh, target.placements).to_local()
+
+
+def sharded_gradients(model: Model, mesh, placed: dict, batch: dict,
+                      m_sh: dict):
+    """(loss, metrics, grads) of one step of `make_sharded_train_step`
+    before clipping: ``loss`` and ``metrics`` this rank's, the mean over
+    its rows of the batch (split over the data axes, pod-major), and
+    ``grads`` the gradient of the global batch's mean loss, each
+    parameter's as this rank's shard in ``m_sh``'s placements (the
+    optimizer layout, `param_shardings(..., zero=True)`), by name. ``placed`` holds the parameters' DTensors by name, ``batch``
+    the global batch (`make_sharded_train_step`'s); rows that the data
+    axes do not divide raise ValueError before any collective.
+
+    For `TENSOR_PARALLEL_TRAIN`'s families the step is tensor parallel:
+    each parameter's local shard (gathered over the data axes where FSDP
+    storage splits it there, by the differentiable all-gather) becomes a
+    leaf that stands in for the model's own parameter
+    (`_parameters_replaced`: the model's parameters are never read and
+    may live on the meta device), and `Model.loss` runs under the prefill
+    rule's context (`tensor_parallel.TensorParallel` with the sequence's
+    length, a VLM's patches included): the rank's positions, heads, ff
+    columns and vocabulary rows. The backward is seeded with the rank's
+    term of the global loss, its rows' mean over (data ranks x 'model'
+    ranks), and every collective's backward is its adjoint
+    (`tensor_parallel`'s loss convention); each gradient is then summed
+    over the mesh dims that replicate its parameter by one
+    redistribution to the optimizer layout (`_summed`), and no full
+    gradient is formed.
+
+    For the other families each parameter is gathered whole into the
+    model's own, the unchanged `Model.loss` runs on every 'model' rank
+    alike, and each gradient is all-reduced over the data axes, divided
+    by their size and cut to the optimizer layout's shard."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    idx, n_data, data_groups = _data_rank(mesh)
+    n_rows = next(iter(batch.values())).shape[0]
+    if n_rows % n_data:
+        raise ValueError(f"make_sharded_train_step: a batch of {n_rows} "
+                         f"rows on {n_data} data ranks")
+    local = {k: _local_rows(v, mesh, idx, n_rows // n_data, False)
+             for k, v in batch.items()}
+    if model.cfg.family in TENSOR_PARALLEL_TRAIN:
+        leaves: dict[str, torch.Tensor] = {}
+        params, shards = _local_params(placed, mesh, leaves)
+        seq = local["tokens"].shape[1] - 1
+        if model.cfg.family == "vlm":
+            seq += local["frontend"].shape[1]
+        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq)
+        with tp.active(ctx), _parameters_replaced(model, params):
+            loss, metrics = model.loss(local)
+        grads = torch.autograd.grad(loss / (n_data * ctx.size),
+                                    list(leaves.values()), allow_unused=True)
+        with torch.no_grad():
+            g_loc = {name: _summed(torch.zeros_like(leaf) if g is None else g,
+                                   placed[name], m_sh[name])
+                     for (name, leaf), g in zip(leaves.items(), grads)}
+    else:
+        params = dict(model.named_parameters())
+        _load_params(params, placed)
+        loss, metrics = model.loss(local)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        with torch.no_grad():
+            g_loc = {}
+            for (name, p), g in zip(params.items(), grads):
+                if g is None:
+                    g = torch.zeros_like(p)
+                else:
+                    for group in data_groups:
+                        dist.all_reduce(g, group=group)
+                    g = g / n_data
+                g_loc[name] = distribute_tensor(
+                    g, mesh, m_sh[name].placements,
+                    src_data_rank=None).to_local().clone()
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            g_loc)
+
+
 def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
                             warmup: int = 100, total_steps: int = 10_000,
                             clip_norm: float = 1.0):
@@ -228,40 +334,32 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
     'data'. The layouts are `param_shardings`' under the active
     `set_fsdp` mode.
 
-    One step: each parameter DTensor is gathered to a full tensor and
-    written into the model's own parameter; the model's unchanged
-    `Model.loss` runs on the rank's rows of the batch (split over the
-    data axes, pod-major); the gradients are summed over the data axes
-    and divided by their size; the global norm is taken over the
-    optimizer layout's shards (each shard's sum of squares divided by
-    the ranks that replicate it, summed over every rank), so it is the
+    One step: the gradients of `sharded_gradients`, in the ``zero=True``
+    layout's shards (tensor parallel for the dense and VLM families,
+    `TENSOR_PARALLEL_TRAIN`; for the others gathered into the model's
+    own parameters, the 'model' ranks computing redundantly); the global
+    norm over those shards (each shard's sum of squares divided by the
+    ranks that replicate it, summed over every rank), so it is the
     one-process clip's norm up to the order of the sums; then AdamW
     (`adamw_update`, the one-process arithmetic) updates each rank's
     shard of the ``zero=True`` layout, and the new parameters are
     redistributed to the parameters' layout.
 
-    The 'model' ranks hold the parameters sharded but compute
-    redundantly: this twin shards storage, as the reference's explicit
-    step does, and leaves tensor-parallel compute for later. The model
-    runs on plain tensors, not DTensors: DTensor has no sharding rule for
-    the port's custom autograd functions or its kernels' wrappers. No
-    gradient accumulation or compression here."""
+    The model runs on plain tensors, not DTensors: DTensor has no
+    sharding rule for the port's custom autograd functions or its
+    kernels' wrappers. ``reads_model_params`` is False for the tensor
+    parallel families (the model's parameters may live on the meta
+    device) and True for the others. No gradient accumulation or
+    compression here."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor import DTensor
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
     p_sh = param_shardings(model, mesh)
     m_sh = param_shardings(model, mesh, zero=True)
     sizes = mesh.mesh.shape
     repl = {n: math.prod(s for s, pl in zip(sizes, sh.placements)
                          if pl.is_replicate()) for n, sh in m_sh.items()}
-    idx, n_data, data_groups = _data_rank(mesh)
-    params = dict(model.named_parameters())
-
-    def shard(full: torch.Tensor, name: str) -> torch.Tensor:
-        """This rank's shard of a full tensor in the optimizer layout (a
-        copy, never a view of ``full``)."""
-        return distribute_tensor(full, mesh, m_sh[name].placements,
-                                 src_data_rank=None).to_local().clone()
+    _, n_data, data_groups = _data_rank(mesh)
 
     def data_mean(t: torch.Tensor) -> torch.Tensor:
         for g in data_groups:
@@ -269,29 +367,18 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
         return t / n_data
 
     def train_step(state: TrainState, batch: dict):
-        n_rows = next(iter(batch.values())).shape[0]
-        if n_rows % n_data:
-            raise ValueError(f"make_sharded_train_step: a batch of {n_rows} "
-                             f"rows on {n_data} data ranks")
-        _load_params(params, state.params)
-        local = {k: _local_rows(v, mesh, idx, n_rows // n_data, False)
-                 for k, v in batch.items()}
-        loss, metrics = model.loss(local)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
+        loss, metrics, g_loc = sharded_gradients(model, mesh, state.params,
+                                                 batch, m_sh)
         with torch.no_grad():
-            g_loc = {}
-            for (name, p), g in zip(params.items(), grads):
-                g = torch.zeros_like(p) if g is None else data_mean(g)
-                g_loc[name] = shard(g, name)
             sq = torch.stack([g.float().square().sum() / repl[name]
                               for name, g in g_loc.items()]).sum()
             dist.all_reduce(sq)
             g_loc, gnorm = clip_by_global_norm(g_loc, clip_norm,
                                                norm=torch.sqrt(sq))
             lr = lr_fn(state.opt.step)
-            p_loc = {name: shard(p.detach(), name)
-                     for name, p in params.items()}
+            p_loc = {name: t.redistribute(mesh, m_sh[name].placements
+                                          ).to_local().clone()
+                     for name, t in state.params.items()}
             opt_loc = AdamWState(
                 step=state.opt.step,
                 mu={n: t.to_local() for n, t in state.opt.mu.items()},
@@ -307,12 +394,13 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
             opt = AdamWState(step=opt_loc.step,
                              mu={n: placed(t, n) for n, t in opt_loc.mu.items()},
                              nu={n: placed(t, n) for n, t in opt_loc.nu.items()})
-            out = {"loss": data_mean(loss.detach().clone()), "grad_norm": gnorm,
-                   "lr": lr, **{k: data_mean(v.detach().clone())
+            out = {"loss": data_mean(loss.clone()), "grad_norm": gnorm,
+                   "lr": lr, **{k: data_mean(v.clone())
                                for k, v in metrics.items()}}
         return TrainState(params=new_params, opt=opt, ef=None), out
 
-    train_step.reads_model_params = True
+    tensor_parallel = model.cfg.family in TENSOR_PARALLEL_TRAIN
+    train_step.reads_model_params = not tensor_parallel
     train_step.model_call = "loss"
     return train_step
 
@@ -400,23 +488,32 @@ def make_sharded_serve_step(model: Model, mesh):
     return serve_step
 
 
-def _local_params(placed: dict, mesh) -> tuple[dict, dict]:
+def _local_params(placed: dict, mesh, leaves: dict | None = None
+                  ) -> tuple[dict, dict]:
     """This rank's shard of each parameter DTensor of ``placed`` (by
     name), gathered over the data axes first where FSDP storage splits
     it there, and the dim 'model' splits of each that is a 'model' shard
     (by tensor identity: `tensor_parallel.TensorParallel`'s
-    ``shards``)."""
-    from torch.distributed.tensor import Replicate
+    ``shards``). Given ``leaves`` (a dict), each local shard is first
+    made a leaf that requires its gradient and stored there by name, so
+    that the gather's adjoint (`tensor_parallel.all_gather`) brings each
+    leaf its gradient summed over the data axes."""
     names = mesh.mesh_dim_names
     on_data = [name in ("pod", "data") for name in names]
     m_dim = names.index("model") if "model" in names else None
     params, shards = {}, {}
     for name, t in placed.items():
-        if any(d and pl.is_shard() for d, pl in zip(on_data, t.placements)):
-            t = t.redistribute(mesh, [Replicate() if d else pl for d, pl
-                                      in zip(on_data, t.placements)])
+        local = t.to_local()
+        if leaves is not None:
+            local = leaves[name] = local.detach().requires_grad_(True)
+        for dim in sorted({pl.dim for d, pl in zip(on_data, t.placements)
+                           if d and pl.is_shard()}):
+            local = tp.all_gather(local, dim, [
+                mesh.get_group(i) for i, (d, pl)
+                in enumerate(zip(on_data, t.placements))
+                if d and pl.is_shard(dim)])
+        params[name] = local
         pl = None if m_dim is None else t.placements[m_dim]
-        params[name] = local = t.to_local()
         if pl is not None and pl.is_shard():
             shards[id(local)] = pl.dim
     return params, shards

@@ -456,6 +456,17 @@ def serve_weights(tmp_path_factory):
                                         "cpu"),
                    workers.prefill_weights(str(out), arch, wide))
         refs["prefill", arch, wide] = (rm, params)
+    for arch, wide in workers.TRAIN_CASES:
+        cfg = ref_config(arch, "smoke").replace(dtype=jnp.float32)
+        if wide:
+            cfg = cfg.replace(**workers.PREFILL_WIDE[arch])
+        rm = ref_build(cfg)
+        params = rm.init(jax.random.PRNGKey(workers.TRAIN["seed"]))
+        torch.save(interop.model_params(jax.tree.map(np.asarray, params),
+                                        workers.prefill_config(arch, wide),
+                                        "cpu"),
+                   workers.train_weights(str(out), arch, wide))
+        refs["train", arch, wide] = (rm, params)
     return refs, out
 
 
@@ -965,14 +976,17 @@ from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import Model
-from repro_torch.train.loop import (make_sharded_prefill_step,
-                                    make_sharded_serve_step)
+from repro_torch.train.loop import (init_sharded_train_state,
+                                    make_sharded_prefill_step,
+                                    make_sharded_serve_step,
+                                    make_sharded_train_step)
 dryrun._fake_group(256)
 mesh = sharding.device_mesh(make_production_mesh(), "cpu")
 sharding.set_mesh(mesh)
 cfg = get_config({arch!r}, "full").replace(**{cut!r})
 model = Model(cfg, "meta")
 rows, max_len = {rows}, {max_len}
+sharding.set_fsdp({train!r} and cfg.fsdp_train)
 
 def placed(t, sh):
     return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
@@ -982,7 +996,19 @@ params = {{n: placed(p.detach(), p_sh[n])
           for n, p in model.named_parameters()}}
 counter = dryrun.OpCounter()
 flops = FlopCounterMode(display=False)
-if {prefill!r}:
+if {train!r}:
+    state = init_sharded_train_state(model, mesh, seed=None)
+    params = state.params
+    batch = {{"tokens": torch.zeros((rows, max_len + 1), dtype=torch.int32,
+                                    device="meta")}}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.zeros((rows, cfg.n_patches, cfg.d_model),
+                                        device="meta")
+    step = make_sharded_train_step(model, mesh)
+    with counter, flops:
+        step(state, batch)
+    leaves = []
+elif {prefill!r}:
     batch = {{"tokens": torch.zeros((rows, max_len), dtype=torch.int32,
                                     device="meta")}}
     frames = {{"vlm": cfg.n_patches, "encdec": cfg.src_len}}.get(cfg.family)
@@ -1054,13 +1080,16 @@ torch.distributed.destroy_process_group()
 
 
 def _full_census(arch: str, cut: dict, rows: int, max_len: int,
-                 prefill: bool = False) -> dict:
+                 prefill: bool = False, train: bool = False) -> dict:
     """FULL_CENSUS_SCRIPT's record of ``arch``'s full config cut by
     ``cut``, in a subprocess: its tensor-parallel serve step over a cache
-    of ``rows`` x ``max_len``, or with ``prefill`` its prefill step over
-    ``rows`` x ``max_len`` tokens."""
+    of ``rows`` x ``max_len``, with ``prefill`` its prefill step over
+    ``rows`` x ``max_len`` tokens, or with ``train`` its train step over
+    ``rows`` x (``max_len`` + 1) tokens (FSDP storage where the config
+    asks)."""
     script = FULL_CENSUS_SCRIPT.format(arch=arch, cut=cut, rows=rows,
-                                       max_len=max_len, prefill=prefill)
+                                       max_len=max_len, prefill=prefill,
+                                       train=train)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
@@ -1513,3 +1542,198 @@ def test_tensor_parallel_prefill_step_gathers_no_weight_but_the_small_ones(
     assert got["flops"] == flops
     over = flops / naive - 1
     assert 0 <= over < PREFILL_OVER.get(arch, 0.015), over
+
+
+# ----------------------------------- (h) the tensor-parallel train step
+
+# the train census's models: the full dense and VLM configs cut in depth
+# (meta tensors, bf16, internvl2 with its FSDP storage), 32 rows of 4096
+# positions (2 a data rank; internvl2's 256 patches before them)
+TRAIN_CENSUS = {"qwen3-0.6b": dict(n_layers=2),
+                "internvl2-76b": dict(n_layers=2)}
+TRAIN_CENSUS_LEN = 4096
+# the norm scales that the prefill rule gathers whole where they are split
+SMALL = ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
+
+
+@pytest.fixture(scope="module")
+def train_census():
+    """FULL_CENSUS_SCRIPT's train record of each TRAIN_CENSUS cell, the
+    subprocesses at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(TRAIN_CENSUS)) as pool:
+        got = pool.map(lambda arch: _full_census(
+            arch, TRAIN_CENSUS[arch], 32, TRAIN_CENSUS_LEN, train=True),
+            TRAIN_CENSUS)
+        return dict(zip(TRAIN_CENSUS, got))
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_CENSUS))
+def test_tensor_parallel_train_step_gathers_no_weight_but_the_small_ones(
+        train_census, arch):
+    """The census of the tensor-parallel train step on a fake (16, 16)
+    group of 256 ranks (no data moves), qwen3-0.6b and internvl2-76b (its
+    FSDP storage) at full width and 2 layers on meta tensors, 2 rows of
+    4096 positions a data rank. The sequence moves as in prefill and back:
+    each sub-block's all-gather of its input and reduce-scatter of its
+    output, the embedding's reduce-scatter and the head's gather of the
+    normed states, and in the backward each of their adjoints (4 x layers
+    + 2 of each, the activations of the rows' every position and of the
+    rank's). The only parameters gathered whole are the split norm scales
+    (the prefill rule's small ones, and their gradients reduce-scattered
+    back); a split matrix is never gathered whole, only its 'model'
+    shard (internvl2's FSDP storage, over 'data', and the update's
+    redistribution back from the optimizer layout); its gradient leaves
+    as one reduce-scatter over 'data' of the rank's 'model' shard. The
+    step never reads the model's parameters."""
+    got = train_census[arch]
+    cfg = get_config(arch, "full").replace(**TRAIN_CENSUS[arch])
+    assert got["reads_model_params"] is False
+    seq = TRAIN_CENSUS_LEN + (cfg.n_patches if cfg.family == "vlm" else 0)
+    act = 2 * seq * cfg.d_model * 2
+    moved = {kind: [b for k, b in got["collectives"] if k == kind]
+             for kind in ("all-gather", "reduce-scatter", "all-reduce",
+                          "all-to-all", "collective-permute")}
+    assert moved["all-gather"].count(act) == 4 * cfg.n_layers + 2
+    assert moved["reduce-scatter"].count(act // 16) == 4 * cfg.n_layers + 2
+    assert not moved["collective-permute"]
+    full = {name: b[0] for name, b in got["param_bytes"].items()}
+    gathered = set(moved["all-gather"])
+    whole = {name for name in got["model_split"] if full[name] in gathered}
+    assert whole, "no norm scale gathered"
+    assert all(name.rsplit(".", 1)[-1] in SMALL for name in whole), whole
+    assert not gathered & set(got["split_matrices"])
+    scattered = set(moved["reduce-scatter"])
+    for name in got["model_split"]:
+        if name.rsplit(".", 1)[-1] not in SMALL:    # 1/16 of its shard
+            assert full[name] // 256 in scattered, name
+
+TRAIN_IDS = [f"{arch}-{'wide' if wide else 'smoke'}-{length}"
+             for arch, wide, length in workers.TRAIN_RUNS]
+
+
+@pytest.fixture(scope="module")
+def train_wants(serve_weights):
+    """By TRAIN_RUNS run (arch, widened, token length), from the same
+    weights and batches: the reference's ("reference": its jitted
+    `make_train_step`'s metrics and state after TRAIN's steps, and the
+    first batch's gradients before clipping, recovered from the first
+    step's first moment: mu = (1 - b1) x the clipped gradient, from
+    zeros, and the clip's scale min(1, 1 / grad_norm)) and the port's
+    one-process `make_train_step`'s ("one process", the first batch's
+    gradients by `torch.autograd.grad` of `Model.loss`)."""
+    from repro.train.optim import adamw_init as ref_adamw_init
+    t = workers.TRAIN
+    kw = dict(base_lr=t["base_lr"], warmup=t["warmup"],
+              total_steps=t["total_steps"])
+    f32 = dict(dtype=torch.float32)
+    out = {}
+    for arch, wide, length in workers.TRAIN_RUNS:
+        rm, params = serve_weights[0]["train", arch, wide]
+        rstep = jax.jit(ref_loop.make_train_step(rm, **kw))
+        cfg = workers.prefill_config(arch, wide)
+        batches = workers.tp_train_batches(cfg, length)
+        rstate = ref_loop.TrainState(params=params,
+                                     opt=ref_adamw_init(params), ef=None)
+        model = Model(cfg, "cpu")
+        state = interop.train_state(jax.tree.map(np.asarray, rstate),
+                                    model)
+        total, _ = model.loss(batches[0])
+        one = {"grads": dict(zip(state.params, torch.autograd.grad(
+            total, list(state.params.values())))), "metrics": []}
+        ref = {"metrics": []}
+        step = loop.make_train_step(model, **kw)
+        for i, batch in enumerate(batches):
+            rstate, rmet = rstep(rstate, {k: jnp.asarray(v.numpy())
+                                          for k, v in batch.items()})
+            state, met = step(state, batch)
+            ref["metrics"].append({k: float(v) for k, v in rmet.items()})
+            one["metrics"].append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                clip = min(1.0, 1.0 / ref["metrics"][0]["grad_norm"])
+                ref["grads"] = {n: g / ((1 - 0.9) * clip)
+                                for n, g in interop.model_params(
+                    jax.tree.map(np.asarray, rstate.opt.mu), cfg, "cpu",
+                    **f32).items()}
+        rs = jax.tree.map(np.asarray, rstate)
+        ref.update(params=interop.model_params(rs.params, cfg, "cpu"),
+                   mu=interop.model_params(rs.opt.mu, cfg, "cpu", **f32),
+                   nu=interop.model_params(rs.opt.nu, cfg, "cpu", **f32))
+        one.update(params={n: p.detach() for n, p in state.params.items()},
+                   mu=state.opt.mu, nu=state.opt.nu)
+        out[arch, wide, length] = {"reference": ref, "one process": one}
+    return out
+
+
+@pytest.mark.parametrize("run", workers.TRAIN_RUNS, ids=TRAIN_IDS)
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_tensor_parallel_train_step_equals_reference_and_one_process(
+        train_wants, sharded_serve4, sharded_serve8, shape, run):
+    """The tensor-parallel `make_sharded_train_step` (granite and qwen3
+    smokes, qwen3 and internvl2 widened by PREFILL_WIDE, internvl2 with
+    its FSDP storage and 8 patches; float32) on 4 gloo ranks as (data 2,
+    model 2) and on 8 as (data 2, model 4), 4 rows of 72 tokens (71
+    positions: 'model' leaves pads) and, widened, of 65 too (64 positions,
+    72 with the patches: no pad), against the reference's
+    jitted `make_train_step` and the port's one-process step on the same
+    weights and batches: every leaf's gradient of the first batch before
+    clipping (`sharded_gradients`, reassembled from the optimizer
+    layout's shards) within GRAD_TOL of the leaf's largest magnitude;
+    each of TRAIN's steps' loss, ce and grad_norm within 1e-5 relative;
+    the parameters and moments after them within the 8-rank test's
+    bounds. The step never reads the model's parameters; the FSDP
+    storage splits the widened projections' fan-in over 'data'."""
+    arch, wide, length = run
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8
+           )["train"][run]
+    assert got["reads_model_params"] is False
+    placed = got["param_placements"]
+    assert placed["embed"] == (["S(1)", "S(0)"] if arch == "internvl2-76b"
+                               else ["R", "S(0)"])
+    if wide:
+        assert placed["layers.0.attn.wq"] == (
+            ["S(0)", "S(1)"] if arch == "internvl2-76b" else ["R", "S(1)"])
+    t = workers.TRAIN
+    lr_fn = optim.cosine_schedule(t["base_lr"], t["warmup"],
+                                  t["total_steps"])
+    lr_sum = sum(float(lr_fn(s)) for s in range(t["steps"]))
+    for which, want in train_wants[arch, wide, length].items():
+        assert sorted(got["grads"]) == sorted(want["grads"])
+        for name, g in want["grads"].items():
+            scale = max(float(g.abs().max()), 1e-12)
+            np.testing.assert_allclose(got["grads"][name].numpy(), g.numpy(),
+                                       rtol=0, atol=GRAD_TOL * scale,
+                                       err_msg=f"{which} {name}")
+        assert len(got["metrics"]) == len(want["metrics"]) == t["steps"]
+        for i, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
+            for k in ("loss", "ce", "grad_norm"):
+                np.testing.assert_allclose(gm[k], wm[k], rtol=LOSS_RTOL,
+                                           err_msg=f"{which} {k} step {i}")
+        for name, w in want["params"].items():
+            w = w.numpy()
+            _agree(got["params"][name].numpy(), w, 1e-6 + 1e-6 * np.abs(w),
+                   0.02 * lr_sum, 1e-3, f"{which} {name}")
+        for tree in ("mu", "nu"):
+            for name, w in want[tree].items():
+                scale = max(float(w.abs().max()), 1e-12)
+                _agree(got[tree][name].numpy(), w.numpy(), GRAD_TOL * scale,
+                       GRAD_TOL * scale, 1e-3, f"{which} {tree}.{name}")
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4)], ids=["2x2", "2x4"])
+def test_tensor_parallel_train_step_runs_on_a_meta_model(
+        sharded_serve4, sharded_serve8, shape):
+    """A step of PREFILL_WIDE's qwen3 whose model lives on the meta device
+    (the step reads only the state's shards) equals, bit for bit, the
+    same step of the model on the CPU: metrics, parameters and moments.
+    The moe and ssm families keep the gathering step (dbrx and mamba2
+    smokes: ``reads_model_params`` True)."""
+    got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)["train"]
+    (meta_met, meta), (cpu_met, cpu) = got["meta"]
+    assert meta_met == cpu_met
+    for tree in ("params", "mu", "nu"):
+        assert sorted(meta[tree]) == sorted(cpu[tree])
+        for name, want in cpu[tree].items():
+            assert torch.equal(meta[tree][name], want), (tree, name)
+    assert got["reads_model_params", "dbrx-132b"] is True
+    assert got["reads_model_params", "mamba2-2.7b"] is True

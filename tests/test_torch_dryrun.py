@@ -62,7 +62,7 @@ KEYS = {"ok", "arch", "shape", "mesh", "devices", "n_layers_override",
         "temp_size_in_bytes", "device_bytes_total", "compute_peak_bytes",
         "compute_bytes", "hlo_flops", "hlo_bytes",
         "collectives", "trace_s", "total_s", "decode_attention_calls",
-        "rank_rows"}
+        "rank_rows", "reads_model_params"}
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 
@@ -144,29 +144,126 @@ def test_qwen3_decode_flops_are_the_closed_form(records):
     assert rec["hlo_flops"] == want // 16
 
 
-def test_train_collectives_follow_the_layouts(records):
-    """One all-gather per sharded mesh dim of each parameter (gathered for
-    the model), one per mesh dim the ZeRO layout shards and the
-    parameter layout does not (the update redistributed back); one
-    all-reduce per gradient over 'data', one for the global norm and one
-    for each of loss, ce and aux."""
-    rec = records[0][("qwen3-0.6b", "train_4k", "single")]
-    cfg = specs._reduce_layers(get_config("qwen3-0.6b", "full"), LAYERS)
-    mesh = _mesh("single")
+def _train_census(cfg, mesh, rows: int, seq: int, n: int = 16) -> dict:
+    """Rank 0's collectives in qwen3-0.6b's tensor-parallel train step
+    (``rows`` rows of ``seq`` positions, 'model' of ``n``, bf16), by type
+    as (count, output bytes): the prefill rule's forward and its adjoint
+    backward, the vocab-parallel cross-entropy, and each gradient taken
+    to the optimizer layout and each update back."""
+    bf16, f32 = 2, 4
+    d, dh = cfg.d_model, cfg.d_head
+    out = {k: [] for k in ("all-gather", "reduce-scatter", "all-reduce",
+                           "all-to-all")}
+    act, loc = rows * seq * d * bf16, rows * seq // n * d * bf16
     model = Model(cfg, "meta")
+    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
     p_sh = sharding.param_shardings(model, mesh)
     z_sh = sharding.param_shardings(model, mesh, zero=True)
     sharding.FALLBACK_LOG.clear()
-    gathers = sum(pl.is_shard() for sh in p_sh.values()
-                  for pl in sh.placements)
-    gathers += sum(z.is_shard() and not p.is_shard()
-                   for n in p_sh for z, p in zip(z_sh[n].placements,
-                                                 p_sh[n].placements))
+
+    def local(name, placements):
+        split = math.prod(mesh.shape[ax] for ax, pl
+                          in zip(mesh.axis_names, placements) if pl.is_shard())
+        return math.prod(shapes[name]) * bf16 // split
+
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        # the sub-blocks' sequence gathers and their reduce-scatters, each
+        # with its adjoint in the backward; the split norm scales gathered
+        # whole and their gradients reduce-scattered back
+        out["all-gather"] += [act] * 4
+        out["reduce-scatter"] += [loc] * 4
+        for norm in ("ln1", "ln2", "attn.q_norm", "attn.k_norm"):
+            out["all-gather"].append(local(pre + norm, []))
+            out["reduce-scatter"].append(local(pre + norm,
+                                               p_sh[pre + norm].placements))
+        # the KV heads' columns of wk, wv and the rows of wo and w_down,
+        # forward and backward alike
+        kv = max(cfg.n_kv_heads // n, 1) * dh * d * bf16
+        rows_wo = cfg.n_heads * dh // n * d * bf16
+        rows_down = cfg.d_ff // n * d * bf16
+        out["all-to-all"] += [kv, kv, rows_wo, rows_down] * 2
+    # the embedding's reduce-scatter and the head's gather, with adjoints
+    out["all-gather"] += [act, act]
+    out["reduce-scatter"] += [loc, loc]
+    # the cross-entropy: the max, the sums and their adjoint
+    out["all-reduce"] += [rows * seq * f32, 2 * rows * seq * f32,
+                          2 * rows * seq * f32]
+    for name in shapes:
+        p, z = p_sh[name].placements, z_sh[name].placements
+        grad = [pl if pl.is_shard() else "partial" for pl in p]
+        for ax, (g, zz) in enumerate(zip(grad, z)):
+            if g == "partial":              # summed over the axis
+                out["reduce-scatter" if zz.is_shard() else "all-reduce"
+                    ].append(None)
+            if zz.is_shard() and not p[ax].is_shard():   # the update back
+                out["all-gather"].append(local(name, p))
+    out["all-reduce"] += [f32] * 4          # the norm, loss, ce and aux
+    return out
+
+
+def test_train_collectives_follow_the_layouts(records):
+    """qwen3-0.6b's tensor-parallel train step at 2 layers, rank 0 of
+    (16, 16) with 16 rows of 4096 positions: every collective of
+    `_train_census` by type and count, and, for the activations' and the
+    weights' pieces, the bytes: per layer four sequence all-gathers of
+    the rows' every position (two forward, two the backward's adjoints
+    of the reduce-scatters) and four reduce-scatters onto the rank's
+    positions, the split norm scales gathered whole (their gradients
+    reduce-scattered back), the all-to-alls of the KV heads' columns and
+    of wo's and w_down's rows, forward and backward; the embedding's and
+    the head's pair; the cross-entropy's three all-reduces (a max, the
+    sums of exp and of the gold logits, their adjoint); each gradient
+    summed over 'data' (and over 'model' where it is replicated there)
+    by one redistribution to the ZeRO layout, a reduce-scatter where that
+    splits a dim, else an all-reduce; each update all-gathered back over
+    'data'; the norm and the three metrics. No gradient is all-reduced
+    whole and no parameter is gathered whole but the norm scales. The
+    step reads none of the model's parameters."""
+    rec = records[0][("qwen3-0.6b", "train_4k", "single")]
+    assert rec["reads_model_params"] is False
+    cfg = specs._reduce_layers(get_config("qwen3-0.6b", "full"), LAYERS)
+    want = _train_census(cfg, _mesh("single"), 16,
+                         SHAPES["train_4k"]["seq_len"])
     census = rec["collectives"]
-    assert census["all-gather"]["count"] == gathers
-    assert census["all-reduce"]["count"] == len(p_sh) + 1 + 3
-    for kind in ("reduce-scatter", "all-to-all", "collective-permute"):
-        assert census[kind] == {"count": 0, "bytes": 0}
+    for kind, sizes in want.items():
+        assert census[kind]["count"] == len(sizes), kind
+    for kind in ("all-gather", "all-to-all"):
+        assert census[kind]["bytes"] == sum(want[kind]), kind
+    known = sum(b for b in want["reduce-scatter"] if b is not None)
+    grads = census["reduce-scatter"]["bytes"] - known
+    matrices = sum(math.prod(p.shape) * 2 for p in Model(cfg, "meta")
+                   .parameters() if p.dim() == 2) // 256
+    assert matrices <= grads < matrices + 2 ** 16
+    assert census["collective-permute"] == {"count": 0, "bytes": 0}
+    assert census["all-reduce"]["bytes"] < 2 ** 21
+
+
+def test_qwen3_train_flops_are_the_closed_form(records):
+    """qwen3-0.6b's 2-layer train_4k record: FLOPs exactly three times the
+    forward's products (the backward's two products a forward one) on
+    the rank's shard of the work, 16 rows of 4096 positions: its q head
+    of wq and rows of wo, its 192 ff columns, its 9504 vocabulary rows,
+    the attention of its q head over every position (the chunked
+    attention scores the causal mask's every entry) and the whole KV
+    head it reads (8 KV heads on 16 ranks: 128 columns of wk and wv, not
+    64). That is the one-process step's / 16 plus the KV heads: 1.9 %
+    over at 2 layers, 5.5 % at 28, where the layers outweigh the head."""
+    rec = records[0][("qwen3-0.6b", "train_4k", "single")]
+    cfg = get_config("qwen3-0.6b", "full")
+    d, hq, hkv, dh, ff, v = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.d_head, cfg.d_ff, cfg.padded_vocab)
+    n, rows, s = 16, 256 // 16, SHAPES["train_4k"]["seq_len"]
+    t = rows * s
+    layer = (2 * t * d * hq * dh // n + 2 * 2 * t * d * max(hkv // n, 1) * dh
+             + 4 * rows * s * s * (hq // n) * dh + 2 * t * hq * dh // n * d
+             + 3 * 2 * t * d * ff // n)
+    want = 3 * (LAYERS * layer + 2 * t * d * v // n)
+    assert rec["hlo_flops"] == want
+    naive = 3 * (LAYERS * (2 * t * d * (2 * hq * dh + 2 * hkv * dh + 3 * ff)
+                           + 4 * rows * s * s * hq * dh)
+                 + 2 * t * d * v) // n
+    assert 1.019 < want / naive < 1.02
 
 
 def test_qwen3_prefill_record_at_full_depth_holds_no_full_logits(records):

@@ -483,6 +483,120 @@ def ep_moe_run(mesh, weights: str, arch: str) -> dict:
             "local_experts": p.experts.w_down.shape[0]}
 
 
+# the tensor-parallel train step's cases, (arch, widened): the dense
+# granite and qwen3 smokes (only the embedding and the MLP's w_gate / w_up
+# split over 'model', every other leaf replicated there), qwen3 widened
+# by PREFILL_WIDE (its 2 KV heads take the repeat-KV rule on 4 'model'
+# ranks) and the internvl2 smoke with its FSDP storage (`cfg.fsdp_train`:
+# the fan-in over 'data'; at smoke width only the embedding's, widened by
+# PREFILL_WIDE every projection's too) and its 8 patches. Each runs 72
+# tokens (71 positions, 79 with the patches, which 'model' does not
+# divide); the widened ones also 65 (64 and 72, which it divides)
+TRAIN_CASES = (("granite-3-2b", False), ("qwen3-0.6b", False),
+               ("qwen3-0.6b", True), ("internvl2-76b", False),
+               ("internvl2-76b", True))
+TRAIN_RUNS = tuple((arch, wide, length) for arch, wide in TRAIN_CASES
+                   for length in ((72, 65) if wide else (72,)))
+TRAIN_ROWS = 4
+
+
+def train_weights(out_dir: str, arch: str, wide: bool) -> str:
+    """The file of a TRAIN_CASES case's weights (the reference's, carried
+    across by the test) in ``out_dir``."""
+    return os.path.join(out_dir, f"weights_train_{arch}_{int(wide)}.pt")
+
+
+def tp_train_batches(cfg, length: int) -> list[dict]:
+    """TRAIN["steps"] global batches of TRAIN_ROWS x ``length`` int32
+    tokens and, for a VLM, (TRAIN_ROWS, n_patches, d_model) float32
+    patches, from numpy seeded by TRAIN and ``length``."""
+    rng = np.random.default_rng(TRAIN["seed"] + length)
+    out = []
+    for _ in range(TRAIN["steps"]):
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TRAIN_ROWS, length)).astype(np.int32))}
+        if cfg.family == "vlm":
+            batch["frontend"] = torch.from_numpy(rng.standard_normal(
+                (TRAIN_ROWS, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        out.append(batch)
+    return out
+
+
+def _full_state(state) -> dict:
+    return {tree: {n: t.full_tensor() for n, t in src.items()}
+            for tree, src in (("params", state.params), ("mu", state.opt.mu),
+                              ("nu", state.opt.nu))}
+
+
+def tp_train_runs(mesh, out_dir: str) -> dict:
+    """Each TRAIN_RUNS run's `make_sharded_train_step` on ``mesh`` (FSDP
+    storage where the config asks, `cfg.fsdp_train`), by (arch, wide,
+    length): the first batch's gradients before clipping
+    (`sharded_gradients`, reassembled from the optimizer layout's
+    shards), then TRAIN's steps at TRAIN's schedule: each step's metrics
+    and the parameters and moments after them, gathered; the step's
+    ``reads_model_params`` and its parameters' placements. Then
+    ("meta",): one step of PREFILL_WIDE's qwen3 whose model lives on the
+    meta device, beside the same step of the model on the CPU; and
+    ("reads_model_params", arch): the flag of one moe and one ssm smoke's
+    step, which keep gathering."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.loop import (init_sharded_train_state,
+                                        make_sharded_train_step,
+                                        sharded_gradients)
+    kw = dict(base_lr=TRAIN["base_lr"], warmup=TRAIN["warmup"],
+              total_steps=TRAIN["total_steps"])
+    out = {}
+    for arch, wide, length in TRAIN_RUNS:
+        cfg = prefill_config(arch, wide)
+        sharding.set_fsdp(cfg.fsdp_train)
+        model = Model(cfg, "cpu")
+        model.load_state_dict(torch.load(train_weights(out_dir, arch, wide)))
+        state = init_sharded_train_state(model, mesh, seed=None)
+        step = make_sharded_train_step(model, mesh, **kw)
+        batches = tp_train_batches(cfg, length)
+        m_sh = sharding.param_shardings(model, mesh, zero=True)
+        _, _, grads = sharded_gradients(model, mesh, state.params, batches[0],
+                                        m_sh)
+        res = {"grads": {n: DTensor.from_local(
+            g, mesh, m_sh[n].placements, shape=state.params[n].shape,
+            stride=state.params[n].stride()).full_tensor()
+            for n, g in grads.items()},
+            "reads_model_params": step.reads_model_params,
+            "param_placements": {n: [str(pl) for pl in t.placements]
+                                 for n, t in state.params.items()},
+            "metrics": []}
+        for batch in batches:
+            state, met = step(state, batch)
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+        res.update(_full_state(state))
+        out[arch, wide, length] = res
+        sharding.set_fsdp(False)
+    cfg = prefill_config("qwen3-0.6b", True)
+    batch = tp_train_batches(cfg, 72)[0]
+    runs = []
+    for device in ("meta", "cpu"):
+        model = Model(cfg, "cpu")
+        model.load_state_dict(torch.load(train_weights(out_dir, "qwen3-0.6b",
+                                                       True)))
+        state = init_sharded_train_state(model, mesh, seed=None)
+        if device == "meta":
+            model = Model(cfg, "meta")
+        step = make_sharded_train_step(model, mesh, **kw)
+        state, met = step(state, batch)
+        runs.append(({k: float(v) for k, v in met.items()},
+                     _full_state(state)))
+    out["meta"] = runs
+    for arch in ("dbrx-132b", "mamba2-2.7b"):
+        model = Model(serve_config(arch=arch), "meta")
+        out["reads_model_params", arch] = make_sharded_train_step(
+            model, mesh).reads_model_params
+    return out
+
+
 def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
                          shape: tuple):
     """The sharded prefill and serve steps on a (data, model) mesh of
@@ -511,6 +625,7 @@ def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
         if arch in MOE_WIDE:
             out["ep_moe", arch] = ep_moe_run(mesh, weights, arch)
     out["prefill"] = prefill_runs(mesh, out_dir)
+    out["train"] = tp_train_runs(mesh, out_dir)
     if tuple(shape) == (2, 2):
         out["smoke"] = _serve_runs(mesh, small, False, True)
         out["fsdp"] = _serve_runs(mesh, wide, True, False, fsdp=True,
