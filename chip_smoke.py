@@ -318,7 +318,20 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                whisper-base (bf16, those models; whisper's encoder over
                1536 seeded frames) on 4 rows of 100 seeded tokens
                against make_prefill_step: the last logits bitwise, else
-               within serve_vs_cpu's bound, no decode_attn launch; no
+               within serve_vs_cpu's bound, no decode_attn launch; then
+               the moe family's tensor-parallel train step's gradients
+               ("train_moe"): dbrx-132b at full width in bf16, 1 of 40
+               layers (3875653632 parameters), FSDP storage, the model
+               on the meta device, its sharded_gradients (the loss
+               forward and backward on the one-rank NCCL mesh, expert
+               parallel) against the plain step's autograd gradients of
+               Model.loss on the same seeded weights and batch, both
+               deterministic: the loss and every gradient bitwise, else
+               the loss within serve_vs_cpu's bound and each gradient
+               within 4 x 2^-8 of its largest (decode_attn's bf16
+               bound), no decode_attn launch (a whole step's AdamW state,
+               float32 moments held twice across the update, does not
+               fit one card: the update is the dense paths'); no
                multi-card number (one card)
   train_resume python -m repro_torch.launch.train --variant full, float32,
                2 of 28 layers, 4 steps saving every 2 (batch 2, seq 32),
@@ -376,8 +389,10 @@ Phases, each printed as one JSON line; any failed check exits non-zero:
                them, whisper's 1536 frames beside them, bf16) held to
                its record as the decode cells are,
                with no decode_attn launch. Then the --shape train_4k
-               record of qwen3-0.6b at --layers 4 (its child started with
-               the others) and, after the prefill cells, rank 0's
+               records of qwen3-0.6b at --layers 4, dbrx-132b at 4 and
+               deepseek-v3-671b at 2 (1 dense + 1 MLA/MoE and the MTP
+               depth; FSDP storage) (their children started with the
+               others) and, after the prefill cells, each one's rank 0
                tensor-parallel make_sharded_train_step on the card (16
                rows of 4096 tokens, bf16, zero moments), held to its
                record likewise, the peak over the model call (loss), the
@@ -848,6 +863,21 @@ DIST_STEPS = 2
 # as the qwen3 steps are (a state is ~30 GB: the plain run's trees wait
 # on the host while the sharded one runs)
 DIST_VLM = ("internvl2-76b", 1)
+# and the moe family's tensor-parallel train step (DIST_MOE_TRAIN:
+# dbrx-132b at full width in bf16, cut to 1 of 40 layers, FSDP storage,
+# the model on the meta device): its gradients (`sharded_gradients`,
+# the loss forward and backward) against the plain step's autograd
+# gradients of Model.loss on the same seeded weights and train_vs_cpu's
+# first batch, both deterministic: bitwise, else the loss within
+# VS_CPU_RTOL relative and each gradient within DIST_MOE_GRAD_TOL of
+# its largest magnitude. Not a whole step: one layer's 16 experts hold
+# 3.17e9 parameters, whose float32 AdamW moments (25 GB) the update
+# holds twice beside the parameters, gradients and the clip's copy, over
+# one card; the gradients alone peak at 35.2 GB (float32: 70.5 GB;
+# reckoned on meta tensors by MemTracker), and the update's arithmetic is
+# the dense paths' (DIST_VLM's, the qwen3 steps')
+DIST_MOE_TRAIN = ("dbrx-132b", 1)
+DIST_MOE_GRAD_TOL = 4 * 2 ** -8          # decode_attn_kernel's bf16 bound
 # and the tensor-parallel make_sharded_serve_step on that mesh against
 # Model.decode_step, with the K/V heads and then the K/V sequence over
 # 'model': DIST_SERVE_STEPS tokens on DIST_SERVE_ROWS rows of a
@@ -955,8 +985,14 @@ DRYRUN_PREFILL_SHAPE = "prefill_32k"
 # cells are, the peak taken over the model call (`loss`, as the record's
 # compute_peak_bytes) and the step's model never read. qwen3-0.6b is cut
 # to 4 of 28 layers for the wall (every layer alike; the full-depth
-# record's FLOPs and peak are in PERF.md)
-DRYRUN_TRAIN_CELLS = (("qwen3-0.6b", 4, "qwen3"),)
+# record's FLOPs and peak are in PERF.md); dbrx-132b to 4 of 40 and
+# deepseek-v3-671b to 1 dense + 1 MLA/MoE layer and its MTP depth
+# (--layers 2) for one card, as their prefill cells (their records'
+# device bytes 52857624220 and 67337258064 B; at full depth
+# 459403237852 and 1462283374560 B, PERF.md)
+DRYRUN_TRAIN_CELLS = (("qwen3-0.6b", 4, "qwen3"),
+                      ("dbrx-132b", 4, "dbrx"),
+                      ("deepseek-v3-671b", 2, "deepseek"))
 DRYRUN_TRAIN_SHAPE = "train_4k"
 DRYRUN_TRAIN_ROWS = 16           # 256 rows over 16 data ranks
 DRYRUN_PREFILL_ROWS = 2          # 32 rows over 16 data ranks
@@ -4971,6 +5007,111 @@ def _distributed_vlm_train(mesh, torch) -> dict:
                                    and not bad))}
 
 
+def _distributed_moe_train(mesh, torch) -> dict:
+    """DIST_MOE_TRAIN's dbrx-132b at full width in bf16, cut in depth,
+    train_vs_cpu's first batch: the moe family's tensor-parallel train
+    step's gradients (`sharded_gradients`, the loss forward and backward
+    on the one-rank NCCL mesh: the expert-parallel block, the global
+    auxiliary loss, the vocab-parallel head) with its FSDP storage and its
+    model on the meta device, against the plain step's gradients (autograd
+    of Model.loss) on the same seeded weights, both deterministic:
+    bitwise, else the loss within VS_CPU_RTOL and each leaf's gradient
+    within DIST_MOE_GRAD_TOL of its largest magnitude. The plain
+    gradients wait on the host while the sharded ones are taken; the
+    parameters' DTensors share the model's storage (no copy on a (1, 1)
+    mesh)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.decode_attn import ops
+    from repro_torch.models import Model
+    from repro_torch.train.loop import (make_sharded_train_step,
+                                        sharded_gradients)
+    arch, layers = DIST_MOE_TRAIN
+    t0 = time.perf_counter()
+    cfg = get_config(arch, "full").replace(dtype=torch.bfloat16,
+                                           n_layers=layers)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_VS_CPU_SEQ, TRAIN_VS_CPU_BATCH,
+                         seed=0, device=CARD)
+    batch = pipe.batch_at(0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = Model(cfg, CARD).init(SERVE_SEED)
+        names = [n for n, _ in model.named_parameters()]
+        n_params = sum(p.numel() for p in model.parameters())
+        for p in model.parameters():
+            p.requires_grad_(True)
+        total, _ = model.loss(batch)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        plain_loss = float(total.detach())
+        plain = {n: g.cpu() for n, g in zip(names, grads)}
+        del total, grads
+        torch.cuda.empty_cache()
+        sharding.set_fsdp(cfg.fsdp_train)
+        meta = Model(cfg, "meta")
+        p_sh = sharding.param_shardings(meta, mesh)
+        m_sh = sharding.param_shardings(meta, mesh, zero=True)
+        with torch.no_grad():
+            placed = {n: distribute_tensor(p.detach(), mesh,
+                                           p_sh[n].placements,
+                                           src_data_rank=None)
+                      for n, p in model.named_parameters()}
+        placements = {n: [str(pl) for pl in t.placements]
+                      for n, t in placed.items()}
+        ops.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss, metrics, got = sharded_gradients(meta, mesh, placed, batch,
+                                               m_sh)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        launches = ops.decode_attention.launches
+        reads = make_sharded_train_step(meta, mesh).reads_model_params
+        loss = float(loss)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        del placed, model
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sharding.set_fsdp(False)
+    bitwise, worst = loss == plain_loss, {}
+    for n in names:
+        want = plain.pop(n).to(CARD)
+        bitwise = bitwise and torch.equal(got[n], want)
+        scale = float(want.abs().max().float())
+        gap = float((got[n].float() - want.float()).abs().max())
+        worst[n] = gap / max(scale, 1e-30)
+        del want
+    del got
+    torch.cuda.empty_cache()
+    loss_gap = abs(loss - plain_loss) / abs(plain_loss)
+    bad = sorted(n for n, w in worst.items() if w > DIST_MOE_GRAD_TOL)
+    top = max(worst, key=worst.get)
+    return {"arch": arch, "dtype": "bfloat16", "n_layers": layers,
+            "n_layers_published": get_config(arch).n_layers,
+            "n_params": n_params, "batch": TRAIN_VS_CPU_BATCH,
+            "seq": TRAIN_VS_CPU_SEQ, "fsdp": cfg.fsdp_train,
+            "model_device": "meta", "reads_model_params": reads,
+            "placements": {n: placements[n] for n in
+                           ("embed", "moe_layers.0.attn.wq",
+                            "moe_layers.0.moe.router",
+                            "moe_layers.0.moe.experts.w_gate")},
+            "loss": loss, "plain_loss": plain_loss, "metrics": metrics,
+            "equality": "bitwise" if bitwise else "bf16 bounds",
+            "loss_gap_rel": loss_gap, "worst_grad_gap_rel": worst[top],
+            "worst_grad": top, "grads_out_of_bounds": bad,
+            "decode_attn_launches": launches,
+            "sharded_gradients_s": sharded_s, "sharded_peak_bytes": peak,
+            "whole_step": "not run: a full dbrx layer's AdamW state does "
+                          "not fit one card (DIST_MOE_TRAIN)",
+            "wall_s": time.perf_counter() - t0,
+            "ok": bool(bitwise or (loss_gap <= VS_CPU_RTOL and not bad
+                                   and launches == 0))}
+
+
 def _census(state, log) -> dict:
     """Shard / Replicate placements over every mesh dim of the parameters
     and the moments, and the fallback log's entries."""
@@ -5311,7 +5452,9 @@ def phase_distributed(torch) -> dict:
     the gathered parameters and the moments bitwise, else within
     train_vs_cpu's bounds (the line says which); the same for DIST_VLM's
     internvl2-76b with its FSDP storage and its model on the meta device
-    (`_distributed_vlm_train`); the placements census; hierarchical_psum,
+    (`_distributed_vlm_train`); DIST_MOE_TRAIN's dbrx-132b's
+    tensor-parallel gradients against the plain step's
+    (`_distributed_moe_train`); the placements census; hierarchical_psum,
     ring_all_gather and
     pipeline_forward on the one-rank mesh against the identity and the
     sequential stage, bitwise; the tensor-parallel serve steps and, for
@@ -5388,6 +5531,7 @@ def phase_distributed(torch) -> dict:
                 pipeline_forward(mesh, stage, {"w": w}, micro, axis="data"),
                 stage({"w": w[0]}, micro))}
         train_vlm = _distributed_vlm_train(mesh, torch)
+        train_moe = _distributed_moe_train(mesh, torch)
         serve = _distributed_serve(mesh, init, cfg, torch)
         serve_moe = _distributed_tp_serve(mesh, DIST_MOE, False, torch,
                                           prefill=True)
@@ -5407,7 +5551,7 @@ def phase_distributed(torch) -> dict:
                "leaves_out_of_bounds": bad, "census": census,
                "train_step": ("gathering" if run["reads_model_params"]
                               else "tensor parallel"),
-               "train_vlm": train_vlm,
+               "train_vlm": train_vlm, "train_moe": train_moe,
                "collectives": collectives,
                "decode_attn_launches": launches, "serve": serve,
                "serve_moe": serve_moe, "serve_families": serve_families,
@@ -5423,6 +5567,12 @@ def phase_distributed(torch) -> dict:
               f"losses {train_vlm['losses']} against "
               f"{train_vlm['plain_losses']}, out of bounds "
               f"{train_vlm['leaves_out_of_bounds']}")
+        check(train_moe["ok"] and not train_moe["reads_model_params"],
+              f"distributed: {DIST_MOE_TRAIN[0]}'s tensor-parallel "
+              f"gradients != plain: loss {train_moe['loss']} against "
+              f"{train_moe['plain_loss']}, out of bounds "
+              f"{train_moe['grads_out_of_bounds']}, "
+              f"{train_moe['decode_attn_launches']} decode_attn launches")
         check(all(collectives.values()),
               f"distributed: a collective on one rank: {collectives}")
         check(launches == 0, f"distributed: {launches} decode_attn launches")

@@ -120,7 +120,15 @@ convolutions and the scans never let a real position see one, K/V are
 cut to the real positions before any attention, and the MoE never routes
 them.
 
-Tensor-parallel training (the dense and VLM families so far) runs
+Where a step splits the batch's rows over the data axes, a MoE layer
+routes the rank's tokens on the global batch's row grid, as the
+reference's jitted step routes the whole batch: the rows are the
+largest divisor of every data rank's tokens together that is at most
+32, each data rank holds whole rows of it (its rows of the batch are
+contiguous, pod-major), and the capacity comes from their length. A
+grid row that would straddle two data ranks raises ValueError.
+
+Tensor-parallel training (the dense, VLM and moe families so far) runs
 `Model.loss` forward under the prefill rule and backward through it: the
 final norm on the rank's positions, the normed states of every real
 position all-gathered, the head on the rank's vocabulary rows and a
@@ -140,6 +148,30 @@ whole sequence. So a 'model' shard of a parameter gets its whole
 gradient from the adjoints, and a parameter that the layout replicates
 over an axis gets its gradient by summing the ranks' over that axis
 (`repro_torch.train.loop.sharded_gradients`).
+
+In the moe family's train step the expert-parallel block runs backward
+through its sequence all-gather, the router's whole gather (its
+gradient reduce-scattered back where 'model' splits its columns) and the
+reduce-scatter of the choices' outputs with the shared expert's partial
+product; each of the rank's experts gets gradient only from the choices
+it took, and where the experts are whole (every choice 'model' rank
+0's) the other ranks' experts get zeros. The auxiliary loss is the
+global batch's: the router probabilities' column means and the choices'
+counts are summed over the data axes before it is formed (the means by
+the differentiable sum, the counts by a plain one), so it is equal on
+all data x 'model' ranks and, by the convention, counts once; the sum's
+adjoint brings each data rank's router its share. MLA runs backward on
+the rank's heads of ``w_uq``/``w_ukv`` and rows of ``wo``, its
+``w_dq``/``w_dkv`` and norms whole (their gradients reduce-scattered
+back). DeepSeek-V3's multi-token-prediction depth gathers the trunk's
+real positions once, cut to all but the last, and runs under a context
+of that length (`with_seq_len`): its norm on the rank's positions, the
+embedding of the next tokens reduce-scattered onto them, ``proj``
+gathered whole (14336 x 7168 bf16, 205 MB at full width, where
+gathering the positions' merged input instead would move 1.9 GB a
+rank at 16 rows of 4096), the block under the prefill rule and a
+vocab-parallel head, so its loss is whole and equal on every 'model'
+rank, counted once like the cross-entropy.
 
 The sites consult the `TensorParallel` context that `active` installs
 (`repro_torch.train.loop.make_sharded_serve_step` does, around the
@@ -452,12 +484,19 @@ class TensorParallel:
     attention cache by name (``kv``, `KV_CACHES`) and the `StateShard` of
     each recurrent state leaf by name (``states``, `STATE_DIMS`); in a
     prefill step ``seq_len``, the sequence's length, which selects the
-    prefill rule (`sequence_parallel`)."""
+    prefill rule (`sequence_parallel`). Where the step splits the batch's
+    rows over the data axes, ``data`` is (this rank's index along them,
+    pod-major; their size; their process groups), so that a MoE layer
+    routes on the global batch's row grid (``data_rank``, ``data_size``,
+    ``data_groups``; one data rank where ``data`` is None); ``train``
+    makes its auxiliary loss the global batch's, summed over them."""
 
     def __init__(self, mesh, shards: dict[int, int],
                  kv: dict[str, KVShard],
                  states: dict[str, StateShard] | None = None,
-                 seq_len: int | None = None):
+                 seq_len: int | None = None,
+                 data: tuple[int, int, list] | None = None,
+                 train: bool = False):
         names = mesh.mesh_dim_names
         on_model = "model" in names
         self.groups = (mesh.get_group("model"),) if on_model else ()
@@ -466,6 +505,8 @@ class TensorParallel:
         self.shards = shards
         self.kv = kv
         self.states = states or {}
+        self.data_rank, self.data_size, self.data_groups = data or (0, 1, [])
+        self.train = train
         # prefill's rule (`sequence_parallel`): the sequence's length, its
         # length padded to a multiple of 'model', the rank's positions
         self._set_seq_len(seq_len)
@@ -485,7 +526,8 @@ class TensorParallel:
         return ctx
 
     @classmethod
-    def of_cache(cls, mesh, shards: dict[int, int], cache: dict
+    def of_cache(cls, mesh, shards: dict[int, int], cache: dict,
+                 data: tuple[int, int, list] | None = None
                  ) -> "TensorParallel":
         """The context of a step over ``cache`` (the decode cache's
         DTensors by name): a `KVShard` for each attention cache in it and
@@ -494,7 +536,7 @@ class TensorParallel:
               for k, v in cache.items() if k in KV_CACHES}
         states = {k: StateShard.of(cache[k], dim)
                   for k, dim in STATE_DIMS.items() if k in cache}
-        return cls(mesh, shards, kv, states)
+        return cls(mesh, shards, kv, states, data=data)
 
     def model_shard(self, w: torch.Tensor) -> int | None:
         """The dim of ``w`` split over 'model', or None (a whole
@@ -522,6 +564,10 @@ class TensorParallel:
 
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
         return _all_reduce(x, op, self.groups)
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axes (its adjoint the same sum)."""
+        return _all_reduce(x, "sum", self.data_groups)
 
     # ------------------------------------------- prefill (sequence parallel)
     def block(self, total: int) -> tuple[int, int]:

@@ -37,11 +37,11 @@ with the reference's keys where their meaning carries over:
   temp_size_in_bytes
       MemTracker's peak over the step, less the arguments (the model's
       full parameters included where the step gathers into them, as the
-      train step of the moe, ssm, hybrid and encdec families does; the
+      train step of the ssm, hybrid and encdec families does; the
       tensor-parallel steps (decode and prefill of every family, train of
-      the dense and VLM families) compute on the argument shards and hold
-      no full parameter: a moe layer's dispatch buffers are those of the
-      rank's experts).
+      the dense, VLM and moe families) compute on the argument shards and
+      hold no full parameter: a moe layer's dispatch buffers are those of
+      the rank's experts over its rows of the global batch's grid).
   device_bytes_total
       arguments + temp, as the reference's.
   compute_peak_bytes, compute_bytes (port-only)
@@ -61,7 +61,7 @@ with the reference's keys where their meaning carries over:
       computes (every row where the data axes do not divide them).
   reads_model_params (port-only)
       the step's own flag: True where it gathers every parameter into
-      the model's own (the train step of the moe, ssm, hybrid and encdec
+      the model's own (the train step of the ssm, hybrid and encdec
       families), whose bytes then count among the temporaries; False
       where it computes on the argument shards (every other step).
   hlo_flops

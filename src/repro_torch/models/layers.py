@@ -11,8 +11,8 @@ inside the sharded serve step they compute on the rank's shards of the
 weights, and inside the sharded prefill step on the rank's positions of
 the sequence (the MLP on the gathered sequence's rank's ff columns, its
 row product reduce-scattered onto the positions; the embedding
-reduce-scattered onto them), which the sharded train step of the dense
-and VLM families runs too, with `unembed` left on the rank's vocabulary
+reduce-scattered onto them), which the sharded train step of the dense,
+VLM and moe families runs too, with `unembed` left on the rank's vocabulary
 rows and a vocab-parallel `cross_entropy`; elsewhere exactly as
 written."""
 

@@ -444,14 +444,16 @@ class Model(torch.nn.Module):
 
         In a tensor-parallel train step (`tensor_parallel.sequence_parallel`,
         which `repro_torch.train.loop.make_sharded_train_step` installs for
-        the dense and VLM families) the backbone keeps the rank's
+        the dense, VLM and moe families) the backbone keeps the rank's
         positions (`_hidden`, the prefill rule), the final norm runs on
         them, the normed states of every real position are all-gathered
         along the sequence (the VLM's patches then dropped), and the head
         and the cross-entropy are vocab parallel: logits of the rank's
         vocabulary rows alone (`unembed(..., gather=False)`,
         `cross_entropy(..., vocab_parallel=True)`), so ``ce`` is the
-        rows' whole loss on every 'model' rank."""
+        rows' whole loss on every 'model' rank; ``aux`` is the global
+        batch's (`repro_torch.models.moe`) and the MTP loss is whole too
+        (`_mtp_loss`)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         frontend = batch.get("frontend")
@@ -480,13 +482,41 @@ class Model(torch.nn.Module):
     def _mtp_loss(self, h, tokens):
         """DeepSeek-V3's multi-token prediction: one extra depth predicting
         token t+2 from the shared trunk's hidden state at t and the
-        embedding of token t+1 (no final norm on its output)."""
+        embedding of token t+1 (no final norm on its output).
+
+        In a tensor-parallel train step ``h`` is the rank's positions, and
+        position t's input needs the trunk at t, which another rank may
+        hold: the trunk's real positions are gathered once and cut to all
+        but the last, and the depth runs under a context of that length
+        (`TensorParallel.with_seq_len`): the norm on the rank's positions,
+        the next tokens' embedding reduce-scattered onto them, ``proj``
+        gathered whole where 'model' splits it (`tensor_parallel.matmul`:
+        205 MB in bf16 at full width, against 1.9 GB for the merged input
+        of every position at 16 rows of 4096), the block under the prefill
+        rule, and the head and cross-entropy vocab parallel, so the loss is
+        whole and equal on every 'model' rank."""
         cfg = self.cfg
-        nxt = embed(self.embed, tokens[:, 1:-1])
-        merged = torch.cat([rms_norm(h[:, :-1], self.mtp.ln), nxt], dim=-1)
-        x2 = self._attn_mlp(self.mtp.block, merged @ self.mtp.proj)
-        return cross_entropy(unembed(self.embed, x2, cfg.vocab_size),
-                             tokens[:, 2:])
+        ctx = tp.sequence_parallel()
+        if ctx is None:
+            nxt = embed(self.embed, tokens[:, 1:-1])
+            merged = torch.cat([rms_norm(h[:, :-1], self.mtp.ln), nxt],
+                               dim=-1)
+            x2 = self._attn_mlp(self.mtp.block, merged @ self.mtp.proj)
+            return cross_entropy(unembed(self.embed, x2, cfg.vocab_size),
+                                 tokens[:, 2:])
+        depth = ctx.with_seq_len(ctx.seq_len - 1)
+        trunk = ctx.seq_whole(h)[:, :depth.seq_len]
+        with tp.active(depth):
+            nxt = embed(self.embed, tokens[:, 1:-1])
+            merged = torch.cat([rms_norm(depth.seq_local(trunk), self.mtp.ln),
+                                nxt], dim=-1)
+            x2 = self._attn_mlp(self.mtp.block,
+                                tp.matmul(merged, self.mtp.proj))
+            return cross_entropy(
+                unembed(self.embed, depth.seq_whole(x2), cfg.vocab_size,
+                        gather=False),
+                tokens[:, 2:],
+                vocab_parallel=depth.model_shard(self.embed) is not None)
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch_size: int, max_len: int,

@@ -2,8 +2,10 @@
 dispatch (port of `repro.models.moe`).
 
 Tokens are viewed as (rows, t_local), rows = the largest divisor of the
-token count that is <= 32, and all routing (sort, slotting, gather,
-combine) happens within a row, in the reference's order: a stable
+token count that is <= 32 (in a step that splits the batch over the data
+axes, of the global batch's token count: each data rank routes its whole
+rows of that grid, `routing_grid`), and all routing (sort, slotting,
+gather, combine) happens within a row, in the reference's order: a stable
 descending sort of each token's router probabilities picks its top k
 (ties to the lower expert id, as `jax.lax.top_k` takes them), a stable
 argsort of the row's flat expert ids gives each choice its slot within
@@ -31,6 +33,12 @@ the drops of one process), runs its own experts, and reduce-scatters the
 choices' outputs, with the shared expert's partial product as one more
 slot, onto its positions; there it weights and sums them in the
 one-process order.
+
+In the train step (the prefill rule run forward and backward) the
+auxiliary loss is the global batch's: the router probabilities' means and
+the choices' counts are summed over the data axes before it is formed,
+the means by the differentiable sum. The serve and prefill steps, which
+drop it, pay for no such sum.
 """
 
 from __future__ import annotations
@@ -129,18 +137,38 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def routing_grid(t: int, n_data: int = 1, rows_hint: int = 32
+                 ) -> tuple[int, int]:
+    """(a data rank's routing rows, tokens a row) for ``t`` tokens on each
+    of ``n_data`` data ranks: the global grid of ``n_data * t`` tokens
+    (`_n_rows`), whose rows the data ranks hold in equal whole blocks.
+    ValueError where a row would straddle two data ranks."""
+    total = n_data * t
+    r = _n_rows(total, rows_hint)
+    if r % n_data:
+        raise ValueError(f"moe_block: {total} tokens route as {r} rows of "
+                         f"{total // r}, which {n_data} data ranks do not "
+                         f"divide")
+    return r // n_data, total // r
+
+
 def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     """x: (B, S, d) -> (out (B, S, d), aux_loss float32 scalar). Expert
     parallel in a tensor-parallel step, and in a prefill step on the
-    rank's positions (see the module docstring)."""
+    rank's positions; where the step splits the batch's rows over the
+    data axes, routed on the global batch's row grid, and in the train
+    step with the global batch's auxiliary loss (see the module
+    docstring)."""
     seq = tp.sequence_parallel()
+    ctx = tp.current()
+    n_data = 1 if ctx is None else ctx.data_size
+    b, d = x.shape[0], x.shape[-1]
+    s = x.shape[1] if seq is None else seq.seq_len
+    r, tl = routing_grid(b * s, n_data, rows_hint)
     if seq is not None:
-        x = seq.seq_gather(x)[:, :seq.seq_len]
-    b, s, d = x.shape
-    t = b * s
+        x = seq.seq_gather(x)[:, :s]
+    t = n_data * b * s                                  # the global tokens
     e, k = cfg.n_experts, cfg.top_k
-    r = _n_rows(t, rows_hint)
-    tl = t // r
     xr = x.reshape(r, tl, d)
 
     # router matmul in the model dtype; softmax, top-k and the
@@ -153,11 +181,16 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     n = tl * k
     flat_e = top_i.reshape(r, n)
 
-    # load-balancing auxiliary (switch-style): E * sum_e f_e * p_e
+    # load-balancing auxiliary (switch-style): E * sum_e f_e * p_e, over
+    # the global batch in the train step (the data ranks' sums summed)
     me = probs.mean(dim=(0, 1))
     counts = torch.zeros((r, e), dtype=torch.int64, device=x.device)
     counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
-    ce = counts.sum(0).float() / float(t * k)
+    chosen = counts.sum(0)
+    if ctx is not None and ctx.train and n_data > 1:
+        me = ctx.data_sum(me) / n_data
+        chosen = ctx.data_sum(chosen)
+    ce = chosen.float() / float(t * k)
     aux = cfg.router_aux_weight * e * (me * ce).sum()
 
     # per-row capacity, rounded to a lane-friendly multiple
@@ -176,7 +209,6 @@ def moe_block(p, x: torch.Tensor, cfg, rows_hint: int = 32):
     # the rank's experts [lo, lo + el) (all E outside expert parallelism)
     # and the kept choices they take; in a prefill step whose experts are
     # whole every choice is 'model' rank 0's
-    ctx = tp.current()
     block = ctx and ctx.local_block(p.experts.w_down, 0)
     lo, el = block or (0, e)
     mine = keep & (flat_e >= lo) & (flat_e < lo + el)

@@ -35,21 +35,27 @@ input over the sequence and reduce-scattering its output back (or, where
 'model' does not divide the q heads, attending from the rank's positions
 over the gathered K/V), the weights staying where they are but for the
 few that every position needs whole (`tensor_parallel`'s prefill rule).
-The train step of the dense and VLM families (`TENSOR_PARALLEL_TRAIN`)
-runs `Model.loss` forward and backward under that same rule on the
-rank's own shards (gathered over the data axes first where FSDP storage
-splits them there), with a vocab-parallel head and cross-entropy; every
-collective's backward is its adjoint, and each gradient leaves as the
-rank's shard of the ZeRO layout (`sharded_gradients`). The train step of
-the other families still gathers each parameter DTensor to a full
-tensor, writes it into the model's own parameter, and runs the unchanged
-`Model.loss` on plain tensors, the 'model' ranks computing redundantly.
-Each sharded step's ``reads_model_params`` says which of the two it is:
-True where it gathers into the model's own parameters, False where it
-never reads them (every serve and prefill step, and the dense and VLM
-train steps; the dry run counts the model's parameters among a rank's
-bytes only when True), and ``model_call`` names the model's method it
-runs.
+The train step of the dense, VLM and moe families
+(`TENSOR_PARALLEL_TRAIN`) runs `Model.loss` forward and backward under
+that same rule on the rank's own shards (gathered over the data axes
+first where FSDP storage splits them there), with a vocab-parallel head
+and cross-entropy (the moe family's experts expert parallel, its
+auxiliary loss the global batch's, DeepSeek-V3's multi-token-prediction
+depth on the rank's positions too); every collective's backward is its
+adjoint, and each gradient leaves as the rank's shard of the ZeRO layout
+(`sharded_gradients`). The train step of the ssm, hybrid and encdec
+families still gathers each parameter DTensor to a full tensor, writes
+it into the model's own parameter, and runs the unchanged `Model.loss`
+on plain tensors, the 'model' ranks computing redundantly. Each sharded
+step's ``reads_model_params`` says which of the two it is: True where it
+gathers into the model's own parameters, False where it never reads
+them (every serve and prefill step, and the dense, VLM and moe train
+steps; the dry run counts the model's parameters among a rank's bytes
+only when True), and ``model_call`` names the model's method it runs.
+
+Where the data axes split the batch's rows, a moe layer routes on the
+global batch's row grid in every sharded step, as the reference's
+jitted step routes the whole batch (`repro_torch.models.moe`).
 """
 
 from __future__ import annotations
@@ -224,7 +230,16 @@ def _load_params(params: dict[str, torch.Tensor], placed: dict) -> None:
 
 #: The families whose sharded train step is tensor parallel; the others
 #: gather every parameter into the model's own (`sharded_gradients`).
-TENSOR_PARALLEL_TRAIN = ("dense", "vlm")
+TENSOR_PARALLEL_TRAIN = ("dense", "vlm", "moe")
+
+
+def _check_routing(model: Model, tokens: int, n_data: int) -> None:
+    """ValueError, before any collective, where a moe model's global row
+    grid over ``tokens`` tokens on each of ``n_data`` data ranks would
+    put a routing row across two of them (`moe.routing_grid`)."""
+    if model.cfg.family == "moe":
+        from repro_torch.models.moe import routing_grid
+        routing_grid(tokens, n_data)
 
 
 def _summed(g: torch.Tensor, placed, target) -> torch.Tensor:
@@ -253,7 +268,9 @@ def sharded_gradients(model: Model, mesh, placed: dict, batch: dict,
     parameter's as this rank's shard in ``m_sh``'s placements (the
     optimizer layout, `param_shardings(..., zero=True)`), by name. ``placed`` holds the parameters' DTensors by name, ``batch``
     the global batch (`make_sharded_train_step`'s); rows that the data
-    axes do not divide raise ValueError before any collective.
+    axes do not divide raise ValueError before any collective, and so
+    does a moe model's batch whose global routing grid the data ranks do
+    not divide (`moe.routing_grid`).
 
     For `TENSOR_PARALLEL_TRAIN`'s families the step is tensor parallel:
     each parameter's local shard (gathered over the data axes where FSDP
@@ -262,8 +279,10 @@ def sharded_gradients(model: Model, mesh, placed: dict, batch: dict,
     (`_parameters_replaced`: the model's parameters are never read and
     may live on the meta device), and `Model.loss` runs under the prefill
     rule's context (`tensor_parallel.TensorParallel` with the sequence's
-    length, a VLM's patches included): the rank's positions, heads, ff
-    columns and vocabulary rows. The backward is seeded with the rank's
+    length, a VLM's patches included, and the data axes, so that a MoE
+    layer routes on the global batch's grid and forms the global batch's
+    auxiliary loss): the rank's positions, heads, ff columns, experts
+    and vocabulary rows. The backward is seeded with the rank's
     term of the global loss, its rows' mean over (data ranks x 'model'
     ranks), and every collective's backward is its adjoint
     (`tensor_parallel`'s loss convention); each gradient is then summed
@@ -271,8 +290,8 @@ def sharded_gradients(model: Model, mesh, placed: dict, batch: dict,
     redistribution to the optimizer layout (`_summed`), and no full
     gradient is formed.
 
-    For the other families each parameter is gathered whole into the
-    model's own, the unchanged `Model.loss` runs on every 'model' rank
+    For the other families (ssm, hybrid and encdec, by ``cfg.family``)
+    each parameter is gathered whole into the model's own, the unchanged `Model.loss` runs on every 'model' rank
     alike, and each gradient is all-reduced over the data axes, divided
     by their size and cut to the optimizer layout's shard."""
     import torch.distributed as dist
@@ -285,12 +304,14 @@ def sharded_gradients(model: Model, mesh, placed: dict, batch: dict,
     local = {k: _local_rows(v, mesh, idx, n_rows // n_data, False)
              for k, v in batch.items()}
     if model.cfg.family in TENSOR_PARALLEL_TRAIN:
-        leaves: dict[str, torch.Tensor] = {}
-        params, shards = _local_params(placed, mesh, leaves)
         seq = local["tokens"].shape[1] - 1
         if model.cfg.family == "vlm":
             seq += local["frontend"].shape[1]
-        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq)
+        _check_routing(model, n_rows // n_data * seq, n_data)
+        leaves: dict[str, torch.Tensor] = {}
+        params, shards = _local_params(placed, mesh, leaves)
+        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq,
+                                data=(idx, n_data, data_groups), train=True)
         with tp.active(ctx), _parameters_replaced(model, params):
             loss, metrics = model.loss(local)
         grads = torch.autograd.grad(loss / (n_data * ctx.size),
@@ -335,8 +356,8 @@ def make_sharded_train_step(model: Model, mesh, base_lr: float = 3e-4,
     `set_fsdp` mode.
 
     One step: the gradients of `sharded_gradients`, in the ``zero=True``
-    layout's shards (tensor parallel for the dense and VLM families,
-    `TENSOR_PARALLEL_TRAIN`; for the others gathered into the model's
+    layout's shards (tensor parallel for the dense, VLM and moe
+    families, `TENSOR_PARALLEL_TRAIN`; for the others gathered into the model's
     own parameters, the 'model' ranks computing redundantly); the global
     norm over those shards (each shard's sum of squares divided by the
     ranks that replicate it, summed over every rank), so it is the
@@ -448,8 +469,11 @@ def make_sharded_serve_step(model: Model, mesh):
     heads of ``w_ukv`` and its positions of ``ckv``/``kpe``; the SSM and
     RG-LRU layers on the rank's heads and channels of their state; the
     hybrid's ring and the encoder-decoder's self-attention cache and
-    memory on their shards."""
-    idx, n_data, _ = _data_rank(mesh)
+    memory on their shards. Where the data axes split the rows, a moe
+    layer routes on the global batch's row grid, as the reference's
+    jitted step does (ValueError, before any collective, where a grid row
+    would straddle two data ranks)."""
+    idx, n_data, data_groups = _data_rank(mesh)
 
     @torch.no_grad()
     def serve_step(placed: dict, cache: dict, tokens):
@@ -468,6 +492,8 @@ def make_sharded_serve_step(model: Model, mesh):
         n_rows = tokens.shape[0]
         whole = n_rows % n_data != 0
         rows = n_rows // n_data
+        split = None if whole else (idx, n_data, data_groups)
+        _check_routing(model, rows, 1 if whole else n_data)
         tok = _local_rows(tokens, mesh, idx, rows, whole)
         params, shards = _local_params(placed, mesh)
         length = cache["length"].to_local()
@@ -475,7 +501,7 @@ def make_sharded_serve_step(model: Model, mesh):
         local = {k: ({n: leaf.to_local() for n, leaf in v.items()}
                      if isinstance(v, dict) else v.to_local())
                  for k, v in cache.items() if k != "length"}
-        ctx = tp.TensorParallel.of_cache(mesh, shards, cache)
+        ctx = tp.TensorParallel.of_cache(mesh, shards, cache, data=split)
         with tp.active(ctx), _parameters_replaced(model, params):
             logits = model.decode_step(tok, {"length": mine, **local})
         if not whole:
@@ -560,8 +586,11 @@ def make_sharded_prefill_step(model: Model, mesh):
     experts or recurrent channels, and reduce-scattered back (an
     attention whose q heads 'model' does not divide on the rank's
     positions, over the gathered K/V); the final norm and the head on
-    the last real position alone."""
-    idx, n_data, _ = _data_rank(mesh)
+    the last real position alone. Where the data axes split the rows, a
+    moe layer routes on the global batch's row grid, as the reference's
+    jitted step does (ValueError, before any collective, where a grid row
+    would straddle two data ranks)."""
+    idx, n_data, data_groups = _data_rank(mesh)
 
     def local_rows(batch: dict):
         n_rows = batch["tokens"].shape[0]
@@ -577,8 +606,10 @@ def make_sharded_prefill_step(model: Model, mesh):
         seq = tokens.shape[1]
         if model.cfg.family == "vlm":
             seq += frontend.shape[1]
+        split = None if whole else (idx, n_data, data_groups)
+        _check_routing(model, tokens.shape[0] * seq, 1 if whole else n_data)
         params, shards = _local_params(placed, mesh)
-        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq)
+        ctx = tp.TensorParallel(mesh, shards, {}, seq_len=seq, data=split)
         with tp.active(ctx), _parameters_replaced(model, params):
             logits = model.last_logits(tokens, frontend=frontend)
         return _placed_rows(logits, mesh, n_rows, whole)

@@ -19,7 +19,6 @@ by `interop.model_params`.
 """
 
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -44,6 +43,7 @@ from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.distributed import pipeline, sharding
 from repro_torch.models import Model
+from repro_torch.models.moe import routing_grid
 from repro_torch.train import loop, optim
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -967,136 +967,8 @@ def test_tensor_parallel_serve_step_gathers_no_parameter_or_cache_row():
     assert not set(want) & set(got["full_params"].values())
 
 
-FULL_CENSUS_SCRIPT = """
-import json, torch
-from torch.distributed.tensor import distribute_tensor
-from torch.utils.flop_counter import FlopCounterMode
-from repro_torch.configs import get_config
-from repro_torch.distributed import sharding
-from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import Model
-from repro_torch.train.loop import (init_sharded_train_state,
-                                    make_sharded_prefill_step,
-                                    make_sharded_serve_step,
-                                    make_sharded_train_step)
-dryrun._fake_group(256)
-mesh = sharding.device_mesh(make_production_mesh(), "cpu")
-sharding.set_mesh(mesh)
-cfg = get_config({arch!r}, "full").replace(**{cut!r})
-model = Model(cfg, "meta")
-rows, max_len = {rows}, {max_len}
-sharding.set_fsdp({train!r} and cfg.fsdp_train)
-
-def placed(t, sh):
-    return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
-
-p_sh = sharding.param_shardings(model, mesh)
-params = {{n: placed(p.detach(), p_sh[n])
-          for n, p in model.named_parameters()}}
-counter = dryrun.OpCounter()
-flops = FlopCounterMode(display=False)
-if {train!r}:
-    state = init_sharded_train_state(model, mesh, seed=None)
-    params = state.params
-    batch = {{"tokens": torch.zeros((rows, max_len + 1), dtype=torch.int32,
-                                    device="meta")}}
-    if cfg.family == "vlm":
-        batch["frontend"] = torch.zeros((rows, cfg.n_patches, cfg.d_model),
-                                        device="meta")
-    step = make_sharded_train_step(model, mesh)
-    with counter, flops:
-        step(state, batch)
-    leaves = []
-elif {prefill!r}:
-    batch = {{"tokens": torch.zeros((rows, max_len), dtype=torch.int32,
-                                    device="meta")}}
-    frames = {{"vlm": cfg.n_patches, "encdec": cfg.src_len}}.get(cfg.family)
-    if frames:
-        batch["frontend"] = torch.zeros((rows, frames, cfg.d_model),
-                                        device="meta")
-    step = make_sharded_prefill_step(model, mesh)
-    with counter, flops:
-        step(params, batch)
-    leaves = []
-else:
-    cache = model.init_cache(rows, max_len, device="meta")
-    c_sh = sharding.cache_shardings(cache, mesh)
-    cache = {{k: ({{n: placed(t, c_sh[k][n]) for n, t in v.items()}}
-                 if isinstance(v, dict) else placed(v, c_sh[k]))
-             for k, v in cache.items()}}
-    tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
-    step = make_sharded_serve_step(model, mesh)
-    with counter, flops:
-        step(params, cache, tokens)
-    leaves = [(n, t) for k, v in cache.items() if k != "length"
-              for n, t in (v.items() if isinstance(v, dict) else [(k, v)])]
-
-def rank_rows(name, t):
-    dim = sharding.cache_batch_dim(name, t.dim())
-    return t.numel() * t.element_size() * t.to_local().shape[dim] // t.shape[dim]
-
-scan = None
-if {prefill!r} and cfg.family == "ssm":
-    # the one-process ssd_scan's FLOPs on a data rank's rows over the
-    # rank's block of the heads and over every head
-    from repro_torch.models.ssd import ssd_scan
-    scan = []
-    for heads in (cfg.ssm_heads // 16, cfg.ssm_heads):
-        b, hp, n = rows // 16, cfg.ssm_headdim, cfg.ssm_state
-        s = -(-max_len // cfg.ssd_chunk) * cfg.ssd_chunk
-        count = FlopCounterMode(display=False)
-        with count:
-            ssd_scan(torch.zeros((b, s, heads, hp), device="meta"),
-                     torch.zeros((b, s, heads), device="meta"),
-                     torch.zeros((heads,), device="meta"),
-                     torch.zeros((b, s, n), device="meta"),
-                     torch.zeros((b, s, n), device="meta"), cfg.ssd_chunk)
-        scan.append(count.get_total_flops())
-
-split = {{n: p for n, p in params.items()
-         if any(pl.is_shard() for pl in p.placements) and p.dim() >= 2}}
-experts = params.get("moe_layers.0.moe.experts.w_down")
-print(json.dumps({{
-    "collectives": counter.collectives,
-    "flops": flops.get_total_flops(),
-    "reads_model_params": step.reads_model_params,
-    "split_params": [p.numel() * p.element_size() for p in split.values()],
-    "split_matrices": [p.numel() * p.element_size() for p in split.values()
-                       if min(p.shape[-2:]) >= 128],
-    "matrices": [p.numel() * p.element_size() for p in params.values()
-                 if p.dim() >= 2],
-    "model_split": [n for n, p in params.items()
-                    if p.placements[-1].is_shard()],
-    "param_bytes": {{n: [p.numel() * p.element_size(),
-                        p.to_local().numel() * p.element_size()]
-                    for n, p in params.items()}},
-    "cache_rows": {{n: rank_rows(n, t) for n, t in leaves}},
-    "scan_flops": scan,
-    "experts_local": None if experts is None
-                     else list(experts.to_local().shape)}}))
-torch.distributed.destroy_process_group()
-"""
-
-
-def _full_census(arch: str, cut: dict, rows: int, max_len: int,
-                 prefill: bool = False, train: bool = False) -> dict:
-    """FULL_CENSUS_SCRIPT's record of ``arch``'s full config cut by
-    ``cut``, in a subprocess: its tensor-parallel serve step over a cache
-    of ``rows`` x ``max_len``, with ``prefill`` its prefill step over
-    ``rows`` x ``max_len`` tokens, or with ``train`` its train step over
-    ``rows`` x (``max_len`` + 1) tokens (FSDP storage where the config
-    asks)."""
-    script = FULL_CENSUS_SCRIPT.format(arch=arch, cut=cut, rows=rows,
-                                       max_len=max_len, prefill=prefill,
-                                       train=train)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), *filter(None, [env.get("PYTHONPATH")])])
-    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
-                          text=True, cwd=ROOT, env=env, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+# FULL_CENSUS_SCRIPT's record in a subprocess (`torch_dist_workers`)
+_full_census = workers.full_census
 
 
 # the census's models: the full configs cut in depth (meta tensors, bf16)
@@ -1402,10 +1274,12 @@ def _prefill_expected(cfg, got: dict, rows: int, length: int, n: int = 16):
         if pre + "moe.router" in split:        # gathered after its cast
             out["all-gather"][-1] = d * e * bf16
         mm(t, d, e, whole=True)
-        r = math.gcd(t, 32)
-        while t % r:
-            r -= 1
-        choices = t // r * k
+        # the rank's rows of the global grid: 16 data ranks' 2 x 32768
+        # tokens route as 32 rows of 32768, 2 a rank (its own grid would
+        # be 32 rows of 2048: the same slots, 32 x 640 = 2 x 10240 for
+        # dbrx, 32 x 80 = 2 x 1280 for deepseek)
+        r, length = routing_grid(t, 16)
+        choices = length * k
         cap = max(int(choices / e * cfg.capacity_factor), 4)
         cap = (cap + 7) // 8 * 8
         for _ in range(3 if cfg.mlp_type == "swiglu" else 2):
@@ -1726,8 +1600,9 @@ def test_tensor_parallel_train_step_runs_on_a_meta_model(
     """A step of PREFILL_WIDE's qwen3 whose model lives on the meta device
     (the step reads only the state's shards) equals, bit for bit, the
     same step of the model on the CPU: metrics, parameters and moments.
-    The moe and ssm families keep the gathering step (dbrx and mamba2
-    smokes: ``reads_model_params`` True)."""
+    The moe family's step is tensor parallel too (the dbrx smoke:
+    ``reads_model_params`` False); the ssm family keeps the gathering
+    step (the mamba2 smoke: True)."""
     got = (sharded_serve4 if shape == (2, 2) else sharded_serve8)["train"]
     (meta_met, meta), (cpu_met, cpu) = got["meta"]
     assert meta_met == cpu_met
@@ -1735,5 +1610,5 @@ def test_tensor_parallel_train_step_runs_on_a_meta_model(
         assert sorted(meta[tree]) == sorted(cpu[tree])
         for name, want in cpu[tree].items():
             assert torch.equal(meta[tree][name], want), (tree, name)
-    assert got["reads_model_params", "dbrx-132b"] is True
+    assert got["reads_model_params", "dbrx-132b"] is False
     assert got["reads_model_params", "mamba2-2.7b"] is True

@@ -1,9 +1,16 @@
-"""Rank bodies of tests/test_torch_distributed.py, spawned as gloo process
-groups on the CPU. They import only torch, numpy and `repro_torch`, so a
-rank does not load JAX; each writes what it computed under the output
-directory, and the test compares it in the parent process."""
+"""Rank bodies of tests/test_torch_distributed.py and
+tests/test_torch_moe_train.py, spawned as gloo process groups on the CPU,
+and the census of a full config's sharded step that both run in a
+subprocess (`full_census`). They import only torch, numpy and
+`repro_torch`, so a rank does not load JAX; each writes what it computed
+under the output directory, and the test compares it in the parent
+process."""
 
+import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -538,8 +545,8 @@ def tp_train_runs(mesh, out_dir: str) -> dict:
     ``reads_model_params`` and its parameters' placements. Then
     ("meta",): one step of PREFILL_WIDE's qwen3 whose model lives on the
     meta device, beside the same step of the model on the CPU; and
-    ("reads_model_params", arch): the flag of one moe and one ssm smoke's
-    step, which keep gathering."""
+    ("reads_model_params", arch): the flag of one moe smoke's step
+    (tensor parallel) and one ssm smoke's (which keeps gathering)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding
@@ -595,6 +602,368 @@ def tp_train_runs(mesh, out_dir: str) -> dict:
         out["reads_model_params", arch] = make_sharded_train_step(
             model, mesh).reads_model_params
     return out
+
+
+# the moe family's tensor-parallel train step's cases, (arch, variant,
+# token length, capacity factor or None for the config's): the dbrx and
+# deepseek smokes ("smoke": their 4 experts over 'model') and widened by
+# MOE_WIDE ("wide": dbrx's 2 KV heads; deepseek's 128 experts with the
+# router's columns split, MLA, 1 dense layer and the MTP head), each with
+# its FSDP storage (`cfg.fsdp_train`), at 72 tokens (71 positions, which
+# 'model' does not divide); the dbrx smoke also at 129 tokens with a
+# capacity factor of 0.5, so that the global grid's rows (16 tokens) drop
+# choices, and with 6 experts ("odd", MOE_ODD), which 4 'model' ranks do
+# not divide, so that there the experts stay whole and every choice is
+# 'model' rank 0's
+MOE_TRAIN_RUNS = (("dbrx-132b", "smoke", 72, None),
+                  ("dbrx-132b", "smoke", 129, 0.5),
+                  ("dbrx-132b", "wide", 72, None),
+                  ("dbrx-132b", "odd", 72, None),
+                  ("deepseek-v3-671b", "smoke", 72, None),
+                  ("deepseek-v3-671b", "wide", 72, None))
+MOE_ODD = dict(n_experts=6)
+# the routing fault's case: the dbrx smoke, float32, capacity factor 0.5,
+# 4 rows of 128 tokens, whose global grid has rows of 16 tokens (a data
+# rank's own, of 8, would drop fewer choices)
+MOE_FAULT = dict(arch="dbrx-132b", capacity_factor=0.5, rows=4, length=128)
+# the data splits of the unit case of `moe_block` alone
+MOE_SPLITS = (2, 4)
+
+
+def moe_variant(arch: str, variant: str) -> dict:
+    """A moe case's widths over the smoke's (MOE_TRAIN_RUNS' variant)."""
+    return {"smoke": {}, "wide": MOE_WIDE[arch], "odd": MOE_ODD}[variant]
+
+
+def moe_train_config(arch: str, variant: str, factor: float | None = None):
+    """A moe case's config: ``arch`` at smoke width, float32, its
+    variant's widths, the capacity factor ``factor`` where it is
+    given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, "smoke").replace(dtype=torch.float32,
+                                            **moe_variant(arch, variant))
+    return cfg if factor is None else cfg.replace(capacity_factor=factor)
+
+
+def moe_weights(out_dir: str, arch: str, variant: str) -> str:
+    """The file of a moe case's weights (the reference's, carried across
+    by the test) in ``out_dir``."""
+    return os.path.join(out_dir, f"weights_moe_{arch}_{variant}.pt")
+
+
+def moe_train_batches(cfg, length: int) -> list[dict]:
+    """TRAIN["steps"] global batches of TRAIN_ROWS x ``length`` int32
+    tokens for a moe case, from numpy seeded by TRAIN, 1000 and
+    ``length``: along the one-process run no router's top-k gap falls
+    below 1e-6 (tests/test_torch_moe_train.py asserts it), where the
+    float32 rounding of another summation order could flip a choice (at
+    TRAIN's own seed the dbrx smoke's second batch of 72 tokens holds a
+    gap of 4.5e-8)."""
+    rng = np.random.default_rng(TRAIN["seed"] + 1000 + length)
+    return [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_ROWS, length)).astype(np.int32))}
+        for _ in range(TRAIN["steps"])]
+
+
+def moe_input(cfg) -> torch.Tensor:
+    """MOE_FAULT's (rows, length, d_model) float32 MoE input, from numpy
+    seeded by TRAIN."""
+    rng = np.random.default_rng(TRAIN["seed"] + 11)
+    return torch.from_numpy(rng.standard_normal(
+        (MOE_FAULT["rows"], MOE_FAULT["length"], cfg.d_model)
+    ).astype(np.float32))
+
+
+def _moe_unit(mesh, weights: str) -> dict:
+    """`moe_block` of MOE_FAULT's first MoE layer on `moe_input`, its rows
+    split over the data axes of ``mesh``, expert parallel under a
+    tensor-parallel context of the train step (the data axes, the global
+    auxiliary loss): the output gathered over the data axes and the
+    auxiliary loss."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import Model
+    from repro_torch.models.moe import moe_block
+    from repro_torch.train.loop import _data_rank
+    cfg = moe_train_config(MOE_FAULT["arch"], "smoke",
+                           MOE_FAULT["capacity_factor"])
+    model = Model(cfg, "cpu")
+    model.load_state_dict(torch.load(weights))
+    block, prefix = model.moe_layers[0].moe, "moe_layers.0.moe."
+    p_sh = sharding.param_shardings(model, mesh)
+    m_dim = mesh.mesh_dim_names.index("model")
+    shards, groups = {}, {}
+    for name, t in block.named_parameters():
+        pl = p_sh[prefix + name].placements
+        local = distribute_tensor(t.detach().clone(), mesh, pl,
+                                  src_data_rank=None).to_local()
+        if pl[m_dim].is_shard():
+            shards[id(local)] = pl[m_dim].dim
+        owner, _, leaf = name.rpartition(".")
+        groups.setdefault(owner, {})[leaf] = local
+    p = SimpleNamespace(**groups.pop(""), **{
+        owner: SimpleNamespace(**leaves) for owner, leaves in groups.items()})
+    idx, n_data, data_groups = _data_rank(mesh)
+    x = moe_input(cfg)
+    rows = x.shape[0] // n_data
+    ctx = tp.TensorParallel(mesh, shards, {}, data=(idx, n_data, data_groups),
+                            train=True)
+    with tp.active(ctx):
+        out, aux = moe_block(p, x[idx * rows:(idx + 1) * rows], cfg)
+        out = tp.all_gather(out, 0, data_groups)
+    return {"out": out, "aux": aux}
+
+
+def moe_train_runs(mesh, out_dir: str) -> dict:
+    """Each MOE_TRAIN_RUNS run's `make_sharded_train_step` on ``mesh``
+    (FSDP storage, `cfg.fsdp_train`), by run: the first batch's gradients
+    before clipping (`sharded_gradients`, reassembled), then TRAIN's
+    steps: each step's metrics and the parameters and moments after
+    them, gathered, the step's ``reads_model_params`` and its parameters'
+    placements; then ("meta", arch): one step of each smoke whose model
+    lives on the meta device beside the same step of the model on the
+    CPU, with each step's ``reads_model_params``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.loop import (init_sharded_train_state,
+                                        make_sharded_train_step,
+                                        sharded_gradients)
+    kw = dict(base_lr=TRAIN["base_lr"], warmup=TRAIN["warmup"],
+              total_steps=TRAIN["total_steps"])
+    out = {}
+
+    def model_of(arch, variant, factor):
+        cfg = moe_train_config(arch, variant, factor)
+        model = Model(cfg, "cpu")
+        model.load_state_dict(torch.load(moe_weights(out_dir, arch, variant)))
+        return model, cfg
+
+    for arch, variant, length, factor in MOE_TRAIN_RUNS:
+        model, cfg = model_of(arch, variant, factor)
+        sharding.set_fsdp(cfg.fsdp_train)
+        state = init_sharded_train_state(model, mesh, seed=None)
+        step = make_sharded_train_step(model, mesh, **kw)
+        batches = moe_train_batches(cfg, length)
+        m_sh = sharding.param_shardings(model, mesh, zero=True)
+        _, _, grads = sharded_gradients(model, mesh, state.params, batches[0],
+                                        m_sh)
+        res = {"grads": {n: DTensor.from_local(
+            g, mesh, m_sh[n].placements, shape=state.params[n].shape,
+            stride=state.params[n].stride()).full_tensor()
+            for n, g in grads.items()},
+            "reads_model_params": step.reads_model_params,
+            "param_placements": {n: [str(pl) for pl in t.placements]
+                                 for n, t in state.params.items()},
+            "metrics": []}
+        for batch in batches:
+            state, met = step(state, batch)
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+        res.update(_full_state(state))
+        out[arch, variant, length, factor] = res
+        sharding.set_fsdp(False)
+    for arch in MOE_WIDE:
+        runs = []
+        for device in ("meta", "cpu"):
+            model, cfg = model_of(arch, "smoke", None)
+            sharding.set_fsdp(cfg.fsdp_train)
+            state = init_sharded_train_state(model, mesh, seed=None)
+            if device == "meta":
+                model = Model(cfg, "meta")
+            step = make_sharded_train_step(model, mesh, **kw)
+            state, met = step(state, moe_train_batches(cfg, 72)[0])
+            runs.append(({k: float(v) for k, v in met.items()},
+                         _full_state(state), step.reads_model_params))
+            sharding.set_fsdp(False)
+        out["meta", arch] = runs
+    return out
+
+
+def moe_train_worker(rank: int, world: int, init: str, out_dir: str,
+                     shape: tuple):
+    """The moe family's tensor-parallel train step on a (data, model) mesh
+    of ``shape`` (`moe_train_runs`) and, on (2, 2), the routing fault's
+    case: MOE_FAULT's sharded prefill step ("prefill": the last logits of
+    its 4 rows of 128 tokens, split over 'data') and `moe_block` alone
+    under a data split of 2 (this mesh) and of 4 (a (4, 1) mesh of the
+    same ranks) ("unit", split). Rank 0 writes the results to
+    moe_train{world}.pt; the weights are `moe_weights`'."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import Model
+    from repro_torch.train.loop import make_sharded_prefill_step
+    _init(rank, world, init)
+    mesh = sharding.device_mesh(sharding.MeshSpec(("data", "model"), shape),
+                                "cpu")
+    sharding.set_mesh(mesh)
+    out = {"train": moe_train_runs(mesh, out_dir)}
+    if tuple(shape) == (2, 2):
+        arch = MOE_FAULT["arch"]
+        weights = moe_weights(out_dir, arch, "smoke")
+        model = Model(moe_train_config(arch, "smoke",
+                                       MOE_FAULT["capacity_factor"]), "cpu")
+        model.load_state_dict(torch.load(weights))
+        p_sh = sharding.param_shardings(model, mesh)
+        params = {n: distribute_tensor(p.detach().clone(), mesh,
+                                       p_sh[n].placements, src_data_rank=None)
+                  for n, p in model.named_parameters()}
+        batch = prefill_batch(model.cfg, MOE_FAULT["rows"],
+                              MOE_FAULT["length"])
+        out["prefill"] = make_sharded_prefill_step(model, mesh)(
+            params, batch).full_tensor()
+        out["unit", 2] = _moe_unit(mesh, weights)
+        sharding.clear_mesh()
+        split = sharding.device_mesh(sharding.MeshSpec(("data", "model"),
+                                                       (4, 1)), "cpu")
+        sharding.set_mesh(split)
+        out["unit", 4] = _moe_unit(split, weights)
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, f"moe_train{world}.pt"))
+    sharding.clear_mesh()
+    dist.destroy_process_group()
+
+
+# rank 0's tensor-parallel step of a full config cut in depth on meta
+# tensors over a fake (16, 16) group of 256 ranks (no data moves): its
+# collectives (`launch.dryrun.OpCounter`), FLOPs and the parameters'
+# layout, printed as JSON (`full_census`)
+FULL_CENSUS_SCRIPT = """
+import json, torch
+from torch.distributed.tensor import distribute_tensor
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import Model
+from repro_torch.train.loop import (init_sharded_train_state,
+                                    make_sharded_prefill_step,
+                                    make_sharded_serve_step,
+                                    make_sharded_train_step)
+dryrun._fake_group(256)
+mesh = sharding.device_mesh(make_production_mesh(), "cpu")
+sharding.set_mesh(mesh)
+cfg = get_config({arch!r}, "full").replace(**{cut!r})
+model = Model(cfg, "meta")
+rows, max_len = {rows}, {max_len}
+sharding.set_fsdp({train!r} and cfg.fsdp_train)
+
+def placed(t, sh):
+    return distribute_tensor(t, mesh, sh.placements, src_data_rank=None)
+
+p_sh = sharding.param_shardings(model, mesh)
+params = {{n: placed(p.detach(), p_sh[n])
+          for n, p in model.named_parameters()}}
+counter = dryrun.OpCounter()
+flops = FlopCounterMode(display=False)
+if {train!r}:
+    state = init_sharded_train_state(model, mesh, seed=None)
+    params = state.params
+    batch = {{"tokens": torch.zeros((rows, max_len + 1), dtype=torch.int32,
+                                    device="meta")}}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.zeros((rows, cfg.n_patches, cfg.d_model),
+                                        device="meta")
+    step = make_sharded_train_step(model, mesh)
+    with counter, flops:
+        step(state, batch)
+    leaves = []
+elif {prefill!r}:
+    batch = {{"tokens": torch.zeros((rows, max_len), dtype=torch.int32,
+                                    device="meta")}}
+    frames = {{"vlm": cfg.n_patches, "encdec": cfg.src_len}}.get(cfg.family)
+    if frames:
+        batch["frontend"] = torch.zeros((rows, frames, cfg.d_model),
+                                        device="meta")
+    step = make_sharded_prefill_step(model, mesh)
+    with counter, flops:
+        step(params, batch)
+    leaves = []
+else:
+    cache = model.init_cache(rows, max_len, device="meta")
+    c_sh = sharding.cache_shardings(cache, mesh)
+    cache = {{k: ({{n: placed(t, c_sh[k][n]) for n, t in v.items()}}
+                 if isinstance(v, dict) else placed(v, c_sh[k]))
+             for k, v in cache.items()}}
+    tokens = torch.zeros((rows, 1), dtype=torch.int32, device="meta")
+    step = make_sharded_serve_step(model, mesh)
+    with counter, flops:
+        step(params, cache, tokens)
+    leaves = [(n, t) for k, v in cache.items() if k != "length"
+              for n, t in (v.items() if isinstance(v, dict) else [(k, v)])]
+
+def rank_rows(name, t):
+    dim = sharding.cache_batch_dim(name, t.dim())
+    return t.numel() * t.element_size() * t.to_local().shape[dim] // t.shape[dim]
+
+scan = None
+if {prefill!r} and cfg.family == "ssm":
+    # the one-process ssd_scan's FLOPs on a data rank's rows over the
+    # rank's block of the heads and over every head
+    from repro_torch.models.ssd import ssd_scan
+    scan = []
+    for heads in (cfg.ssm_heads // 16, cfg.ssm_heads):
+        b, hp, n = rows // 16, cfg.ssm_headdim, cfg.ssm_state
+        s = -(-max_len // cfg.ssd_chunk) * cfg.ssd_chunk
+        count = FlopCounterMode(display=False)
+        with count:
+            ssd_scan(torch.zeros((b, s, heads, hp), device="meta"),
+                     torch.zeros((b, s, heads), device="meta"),
+                     torch.zeros((heads,), device="meta"),
+                     torch.zeros((b, s, n), device="meta"),
+                     torch.zeros((b, s, n), device="meta"), cfg.ssd_chunk)
+        scan.append(count.get_total_flops())
+
+split = {{n: p for n, p in params.items()
+         if any(pl.is_shard() for pl in p.placements) and p.dim() >= 2}}
+experts = params.get("moe_layers.0.moe.experts.w_down")
+print(json.dumps({{
+    "collectives": counter.collectives,
+    "flops": flops.get_total_flops(),
+    "reads_model_params": step.reads_model_params,
+    "split_params": [p.numel() * p.element_size() for p in split.values()],
+    "split_matrices": [p.numel() * p.element_size() for p in split.values()
+                       if min(p.shape[-2:]) >= 128],
+    "matrices": [p.numel() * p.element_size() for p in params.values()
+                 if p.dim() >= 2],
+    "model_split": [n for n, p in params.items()
+                    if p.placements[-1].is_shard()],
+    "param_bytes": {{n: [p.numel() * p.element_size(),
+                        p.to_local().numel() * p.element_size()]
+                    for n, p in params.items()}},
+    "cache_rows": {{n: rank_rows(n, t) for n, t in leaves}},
+    "scan_flops": scan,
+    "experts_local": None if experts is None
+                     else list(experts.to_local().shape)}}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def full_census(arch: str, cut: dict, rows: int, max_len: int,
+                 prefill: bool = False, train: bool = False) -> dict:
+    """FULL_CENSUS_SCRIPT's record of ``arch``'s full config cut by
+    ``cut``, in a subprocess: its tensor-parallel serve step over a cache
+    of ``rows`` x ``max_len``, with ``prefill`` its prefill step over
+    ``rows`` x ``max_len`` tokens, or with ``train`` its train step over
+    ``rows`` x (``max_len`` + 1) tokens (FSDP storage where the config
+    asks)."""
+    script = FULL_CENSUS_SCRIPT.format(arch=arch, cut=cut, rows=rows,
+                                       max_len=max_len, prefill=prefill,
+                                       train=train)
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root / "src"), *filter(None, [env.get("PYTHONPATH")])])
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, cwd=root, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def sharded_serve_worker(rank: int, world: int, init: str, out_dir: str,
